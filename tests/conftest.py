@@ -4,6 +4,13 @@ import pytest
 from repro.core import CSRGraph, pagerank_system, power_law_graph
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card (the test skips itself without one)",
+    )
+
+
 def pytest_addoption(parser):
     parser.addoption(
         "--repro-seed", action="store", type=int, default=0,
