@@ -27,15 +27,38 @@ Phases, each printed on its own lines (any failure exits non-zero):
    (K2), in float32 on the card; then it serves 4 drifted right-hand sides
    through ``warm_start`` + ``solve``.  Each must converge, the first with
    fewer edge pushes than the cold solve.
-6. Numbers: rounds, ops, wall times, launch counts of the main path
-   (phases 4 and 5, counters zeroed just before and read just after; K2
-   runs only in the invariant check, off the solve loop, so its main-path
-   count is 0 and its check launch is reported apart), and
-   each kernel's CUDA-event time at the main path's shapes beside its bound
-   (the larger of bytes over 3.35 TB/s and flops over 67 TFLOP/s f32, counted
-   for this run's inputs), its plain version's time and a one-call library
-   yardstick (torch.sparse.mm on a sparse_bsr tensor for K2, index_add_ for
-   K3, none for K1).
+6. Engine kernels: the K-PID engine's layout at N, k=4 (the sizing rule
+   of ``engine:bsr``: 512-slot buckets), built through ``SolverSession``
+   (its wall time printed); K2 over the engine's visit table (the port of
+   bsr_gather_spmm_pallas) and K3 over the engine's edge table against
+   their plain versions on random fluid: relative L1 <= 1e-5, bit-identical
+   relaunch.
+7. Engine main path, N, k=4, policy slope_ema: cold ``engine:bsr`` and
+   ``engine:chunk`` solves must converge within |x - x_segment_sum|_1 <=
+   1e-5 (2·target_error below N = 2e5: two converged schedules may differ
+   by that much) and the invariant of phase 5, with K2 launched once per
+   ``engine:bsr`` round and K3 once per ``engine:chunk`` round; one
+   ``engine:bsr`` solve with a forced MovePlan(0 -> 3, 2 buckets) after its
+   first chunk, under the same gates; one warm request (the drift of phase
+   5) on the cold ``engine:bsr`` session, which must converge with fewer
+   edge pushes than the cold solve.
+8. Replay: power_law_graph(1600, seed=7) ordered by out-degree, k=8,
+   40 buckets per PID (8 headroom), dynamic with eta=0.9, target 1e-8, on
+   both engine backends: converged, max |x - x_dense| < 1e-5 against a
+   dense numpy solve, a non-empty move log, the same log on both.
+9. Numbers: rounds, ops, wall times, launch counts of the main path
+   (phases 4 and 5, and phase 7, counters zeroed just before each solve
+   and read just after; K2 runs in phase 5 only in the invariant check,
+   off the solve loop, so its count there is 0 and its check launch is
+   reported apart), and each kernel's CUDA-event time at the main path's
+   shapes beside its bound (the larger of bytes over 3.35 TB/s and flops
+   over 67 TFLOP/s f32, counted for this run's inputs), its plain
+   version's time and a one-call library yardstick (torch.sparse.mm on a
+   sparse_bsr tensor for K2, index_add_ for K3, none for K1).  The engine's
+   K2 and K3 get rows of their own (``bsr_gather_spmm``: the engine:bsr
+   rounds of phase 7; ``engine_edge_sum``: the engine:chunk rounds); the
+   ``edge_sum`` row counts K3 over the node-space edge list (phases 4-5
+   and the engine's warm seed).
 
 The line before the last is the card's name and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -55,9 +78,14 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 BS = 128
 REL_L1 = 1e-5
-# the kernels the solve loop and warm starts launch; K2 (bsr_spmm) is the
-# module's public op, off the loop, and is checked and timed on its own
+# the kernels the frontier solve loop and warm starts launch; K2 (bsr_spmm)
+# is the module's public op, off that loop, and is checked and timed on its
+# own
 ON_PATH = ("frontier_round_bsr", "edge_sum")
+# the kernels of the engine path: K2 (engine:bsr rounds) and K3
+# (engine:chunk rounds, warm starts)
+ENGINE_PATH = ("bsr_spmm", "edge_sum")
+ENGINE_OPTS = {"k": 4, "policy": "slope_ema"}
 
 
 def fail(msg: str) -> None:
@@ -68,6 +96,13 @@ def rel_l1(a, b) -> float:
     a = a.double()
     b = b.double()
     return float((a - b).abs().sum() / max(float(b.abs().sum()), 1e-300))
+
+
+def invariant(b, f_nodes, h_nodes, src, dst, wgt):
+    """|B - (I-P)H - F|_1 in float64 on the host, and its bound."""
+    ph = np.bincount(dst, weights=h_nodes[src] * wgt, minlength=b.size)
+    viol = float(np.abs(b - h_nodes + ph - f_nodes).sum())
+    return viol, 1e-4 * float(np.abs(b).sum() + np.abs(h_nodes).sum())
 
 
 def nvidia_smi() -> str:
@@ -141,6 +176,9 @@ def main() -> int:
         frontier_round_bsr_plain)
     from repro_torch.kernels.edge_sum import (
         csc_edges, edge_sum, edge_sum_plain)
+    from repro_torch.balance import MovePlan
+    from repro_torch.core import pagerank_system, power_law_graph
+    from repro_torch.kernels.diffusion import engine_tile_push
 
     dev = torch.device(args.device)
     on_card = dev.type == "cuda"
@@ -352,9 +390,7 @@ def main() -> int:
     reset_launches()
     f_nodes, h_nodes = session._driver.fluid()
     b = problem.b
-    ph = np.bincount(dst, weights=h_nodes[src] * wgt, minlength=g.n)
-    viol = float(np.abs(b - h_nodes + ph - f_nodes).sum())
-    scale = float(np.abs(b).sum() + np.abs(h_nodes).sum())
+    viol, bound = invariant(b, f_nodes, h_nodes, src, dst, wgt)
     h_dev = torch.zeros(n_pad, dtype=torch.float32, device=dev)
     h_dev[: g.n] = torch.as_tensor(h_nodes, dtype=torch.float32, device=dev)
     ph_dev = bsr_spmm(m, h_dev)[: g.n]
@@ -365,8 +401,8 @@ def main() -> int:
     print(f"cold: converged {cold.converged} rounds {cold.n_rounds} ops "
           f"{cold.n_ops} wall {cold.wall_time_s:.3f} s; invariant "
           f"|B-(I-P)H-F|_1 = {viol:.3e} (float64 host), {viol_dev:.3e} "
-          f"(float32 card via bsr_spmm), bound {1e-4 * scale:.3e}")
-    if not cold.converged or viol > 1e-4 * scale or viol_dev > 1e-4 * scale:
+          f"(float32 card via bsr_spmm), bound {bound:.3e}")
+    if not cold.converged or viol > bound or viol_dev > bound:
         fail("cold session solve / invariant")
     check_launches = LAUNCHES["bsr_spmm"]
     if on_card and check_launches != 1:
@@ -394,13 +430,210 @@ def main() -> int:
         if missing:
             fail(f"kernels never launched on the main path: {missing}")
 
-    # ---- 6. numbers --------------------------------------------------------
-    print("== phase 6: numbers")
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # ---- 6. engine kernels at the engine's shapes --------------------------
+    print("== phase 6: engine kernels")
+    t0 = time.perf_counter()
+    s_bsr = repro_torch.SolverSession(problem, "engine:bsr",
+                                      device=args.device, **ENGINE_OPTS)
+    sync()
+    build_bsr_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s_chk = repro_torch.SolverSession(problem, "engine:chunk",
+                                      device=args.device, **ENGINE_OPTS)
+    sync()
+    build_chk_s = time.perf_counter() - t0
+    eng, visits = s_bsr._driver.engine, s_bsr._driver.ex.table
+    ecfg, ea = eng.cfg, eng.a
+    k_e, r_e, s_e = ecfg.k, ea.n_rows, ea.bucket_size
+    pool_tiles = eng.pool.shape[0]
+    print(f"engine:bsr layout: k={k_e} R={r_e} rows (B_loc="
+          f"{ecfg.buckets_per_dev}, headroom {ecfg.headroom}) S={s_e} "
+          f"T={pool_tiles // r_e}; tile pool {pool_tiles} tiles "
+          f"({pool_tiles * s_e * s_e * 4 / 1e9:.3f} GB), visits (real "
+          f"tiles) {visits.n_visits} = sum t_counts "
+          f"{int(ea.t_counts.sum())}; build wall {build_bsr_s:.3f} s")
+    edges_e = s_chk._driver.ex.table
+    ca = s_chk._driver.engine.a
+    print(f"engine:chunk layout: R={ca.n_rows} S={ca.bucket_size} "
+          f"E={ca.edge_cap}: {ca.n_rows * ca.edge_cap} edge slots, "
+          f"{edges_e.n_edges} real edges (links {g.n_edges}); build wall "
+          f"{build_chk_s:.3f} s")
+    if visits.n_visits != int(ea.t_counts.sum()) or (
+            edges_e.n_edges != g.n_edges):
+        fail("the engine tables do not hold exactly the real tiles/edges")
+    sent_e = torch.as_tensor(
+        rng.standard_normal((r_e, s_e)) / g.n * (ea.w != 0),
+        dtype=torch.float32, device=dev)
+    x3_e = sent_e[:, :, None].contiguous()
+
+    def k2_engine_plain(chunk: int = 1024):
+        """K2's plain twin over visit chunks (the whole table would gather
+        a copy of every visited tile at once)."""
+        out = torch.zeros((k_e * r_e, s_e, 1), dtype=torch.float32,
+                          device=dev)
+        v = visits.n_visits
+        for lo in range(0, v, chunk):
+            hi = min(lo + chunk, v)
+            ptr = visits.row_ptr.clamp(lo, hi) - lo
+            out += bsr_spmm_plain(eng.pool, visits.visit_block[lo:hi],
+                                  visits.visit_col[lo:hi], ptr, x3_e)
+        return out[..., 0]
+
+    a2 = engine_tile_push(eng.pool, visits, sent_e)
+    a2b = engine_tile_push(eng.pool, visits, sent_e)
+    p2 = k2_engine_plain()
+    e2, same2 = rel_l1(a2, p2), torch.equal(a2, a2b)
+    print(f"K2 engine visit table: {visits.n_visits} visits into "
+          f"{k_e * r_e} output rows, rel L1 {e2:.3e}, bit-identical "
+          f"relaunch {same2}")
+    if not (e2 <= REL_L1 and same2):
+        fail("K2 over the engine visit table")
+    # the engine:chunk layout has its own sizing (buckets_per_dev)
+    xe = torch.as_tensor(
+        (rng.standard_normal((ca.n_rows, ca.bucket_size)) / g.n
+         * (ca.w != 0)).reshape(-1), dtype=torch.float32, device=dev)
+    a3, a3b = edge_sum(xe, edges_e), edge_sum(xe, edges_e)
+    p3 = edge_sum_plain(xe, edges_e.indptr, edges_e.src, edges_e.wgt)
+    e3, same3 = rel_l1(a3, p3), torch.equal(a3, a3b)
+    print(f"K3 engine edge table: {edges_e.n_edges} edges into "
+          f"{edges_e.n} outputs, rel L1 {e3:.3e}, bit-identical relaunch "
+          f"{same3}")
+    if not (e3 <= REL_L1 and same3):
+        fail("K3 over the engine edge table")
+    timing_inputs["k2e"] = float((a2 - p2).abs().max())
+    timing_inputs["k3e"] = float((a3 - p3).abs().max())
+    del a2, a2b, p2, a3, a3b, p3
+
+    # ---- 7. engine main path -----------------------------------------------
+    print("== phase 7: engine main path")
+    engine_launches = {k: 0 for k in LAUNCHES}
+
+    def bank():
+        for k, v in LAUNCHES.items():
+            engine_launches[k] += v
+
+    def engine_gates(name, session, rep, kernel, b_vec):
+        f_e, h_e = session._driver.fluid()
+        viol, bound = invariant(b_vec, f_e, h_e, src, dst, wgt)
+        print(f"{name}: converged {rep.converged} residual "
+              f"{rep.residual:.6e} rounds {rep.n_rounds} chunks "
+              f"{rep.extras['chunks']} ops {rep.n_ops} moves "
+              f"{len(rep.move_log)} wall {rep.wall_time_s:.3f} s; "
+              f"{kernel} launches {LAUNCHES[kernel]}; invariant "
+              f"{viol:.3e} (bound {bound:.3e})")
+        if not rep.converged or viol > bound:
+            fail(f"{name}: not converged or invariant broken")
+        if on_card and LAUNCHES[kernel] != rep.n_rounds:
+            fail(f"{name}: {kernel} launched {LAUNCHES[kernel]} times in "
+                 f"{rep.n_rounds} rounds")
+
+    reset_launches()
+    rep_bsr = s_bsr.solve()
+    engine_gates("engine:bsr cold", s_bsr, rep_bsr, "bsr_spmm", problem.b)
+    bank()
+    reset_launches()
+    rep_chk = s_chk.solve()
+    engine_gates("engine:chunk cold", s_chk, rep_chk, "edge_sum", problem.b)
+    # K3 over the engine's edge table: the engine:chunk rounds only (the
+    # warm request's K3 launch runs over the node-space edge list)
+    k3_engine_launches = LAUNCHES["edge_sum"]
+    bank()
+    # two converged schedules each sit within target_error of the answer
+    # in L1 (|x - x*|_1 <= |F|_1/eps), so they may differ by twice that:
+    # below 1e-5 from N = 2e5 on (9.5e-7 at N = 2**21)
+    dx_bound = max(1e-5, 2.0 * problem.target_error)
+    for name, rep_e in (("engine:bsr", rep_bsr), ("engine:chunk", rep_chk)):
+        dx = float(np.abs(rep_e.x - rep_ss.x).sum())
+        print(f"{name}: |x - x_segment_sum|_1 {dx:.3e} (bound "
+              f"{dx_bound:.1e}); move log {rep_e.move_log[:6]}")
+        if dx > dx_bound:
+            fail(f"{name} cross-path check")
+    del s_chk
+    reset_launches()
+    s_fm = repro_torch.SolverSession(problem, "engine:bsr",
+                                     device=args.device, **ENGINE_OPTS)
+    list(s_fm.run(max_rounds=1))  # the first chunk
+    first_rounds = s_fm.n_rounds
+    moved = s_fm._driver.ex.apply(MovePlan(src=0, dst=3, units=2,
+                                           kind="bucket"))
+    sizes = s_fm._driver.ex.sizes().tolist()
+    print(f"forced move after the first chunk ({first_rounds} rounds): "
+          f"{moved} buckets 0 -> 3, real buckets per PID now {sizes}")
+    if moved != 2:
+        fail(f"the forced move moved {moved} buckets")
+    rep_fm = s_fm.solve()
+    engine_gates("engine:bsr forced move", s_fm, rep_fm, "bsr_spmm",
+                 problem.b)
+    dx = float(np.abs(rep_fm.x - rep_ss.x).sum())
+    print(f"engine:bsr forced move: |x - x_segment_sum|_1 {dx:.3e}")
+    if dx > dx_bound:
+        fail("engine:bsr forced move cross-path check")
+    bank()
+    del s_fm
+    if on_card:
+        torch.cuda.empty_cache()
+    reset_launches()
+    b_new = np.abs(problem.b * (1.0 + 0.05 * rng.standard_normal(g.n)))
+    resid0 = s_bsr.warm_start(b_new)
+    warm_e = s_bsr.solve()
+    k3_warm_launches = LAUNCHES["edge_sum"]
+    print(f"engine:bsr warm request: |F'|_1 {resid0:.6e}; K3 launches "
+          f"(P.H) {k3_warm_launches}")
+    if on_card and k3_warm_launches != 1:
+        fail(f"the engine warm seed launched K3 {k3_warm_launches} times")
+    engine_gates("engine:bsr warm", s_bsr, warm_e, "bsr_spmm", b_new)
+    if not warm_e.n_ops < rep_bsr.n_ops:
+        fail(f"engine warm request used {warm_e.n_ops} ops, cold "
+             f"{rep_bsr.n_ops}")
+    bank()
+    print(f"engine path launches (phase 7): {json.dumps(engine_launches)}")
+    if on_card:
+        missing = [k for k in ENGINE_PATH if engine_launches[k] == 0]
+        if missing:
+            fail(f"kernels never launched on the engine path: {missing}")
+
+    # ---- 8. replay: moves fire ---------------------------------------------
+    print("== phase 8: replay")
+    g_r = power_law_graph(1600, seed=7)
+    g_r = g_r.reorder(np.argsort(-g_r.out_degree(), kind="stable"))
+    p_r, b_r = pagerank_system(g_r)
+    x_dense = np.linalg.solve(np.eye(g_r.n) - p_r.to_dense(), b_r)
+    prob_r = repro_torch.Problem.pagerank(g_r, target_error=1e-8)
+    logs = {}
+    for method in ("engine:chunk", "engine:bsr"):
+        rep_r = repro_torch.solve(prob_r, method=method, device=args.device,
+                                  k=8, dynamic=True, buckets_per_dev=40,
+                                  headroom=8, eta=0.9)
+        err = float(np.abs(rep_r.x - x_dense).max())
+        logs[method] = rep_r.move_log
+        print(f"replay {method}: converged {rep_r.converged} rounds "
+              f"{rep_r.n_rounds} ops {rep_r.n_ops} max |x - x_dense| "
+              f"{err:.3e} moves {rep_r.move_log}")
+        if not (rep_r.converged and err < 1e-5 and rep_r.move_log):
+            fail(f"replay {method}")
+    if logs["engine:chunk"] != logs["engine:bsr"]:
+        fail("the two engine backends made different moves")
+
+    # ---- 9. numbers --------------------------------------------------------
+    print("== phase 9: numbers")
     print(f"main path: N={g.n} links={g.n_edges} pallas rounds "
           f"{rep.n_rounds} ops {rep.n_ops} solve wall {rep.wall_time_s:.3f} s"
           f"; segment_sum rounds {rep_ss.n_rounds} ops {rep_ss.n_ops} wall "
           f"{rep_ss.wall_time_s:.3f} s; cold session {cold.wall_time_s:.3f} "
           f"s; warm requests ops {warm_ops}")
+    print(f"engine path (k={k_e}): layout builds {build_bsr_s:.3f} s (bsr) "
+          f"{build_chk_s:.3f} s (chunk); engine:bsr cold rounds "
+          f"{rep_bsr.n_rounds} chunks {rep_bsr.extras['chunks']} ops "
+          f"{rep_bsr.n_ops} wall {rep_bsr.wall_time_s:.3f} s; engine:chunk "
+          f"cold rounds {rep_chk.n_rounds} chunks {rep_chk.extras['chunks']} "
+          f"ops {rep_chk.n_ops} wall {rep_chk.wall_time_s:.3f} s; forced "
+          f"move rounds {rep_fm.n_rounds} wall {rep_fm.wall_time_s:.3f} s; "
+          f"warm rounds {warm_e.n_rounds} ops {warm_e.n_ops} wall "
+          f"{warm_e.wall_time_s:.3f} s")
     rows = []
     ins, err = timing_inputs["k1"]
     blocks, block_col, row_ptr, col_active, f3, wt = ins
@@ -462,7 +695,7 @@ def main() -> int:
         "name": "edge_sum", "route": "cuda",
         "source": "src/repro_torch/csrc/edge_sum.cu",
         "replaces": "src/repro/core/diteration.py:221",
-        "launches": main_launches["edge_sum"],
+        "launches": main_launches["edge_sum"] + k3_warm_launches,
         "max_abs_err": err,
         "ms": timer(lambda: edge_sum(x, edges), 50),
         "plain_ms": timer(lambda: edge_sum_plain(
@@ -470,6 +703,59 @@ def main() -> int:
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": timer(lambda: torch.zeros_like(x).index_add_(
             0, dst_t, x[src_t] * edges.wgt), 20),
+    })
+    # K2 at the engine's shapes: one launch pushes every PID's sent fluid
+    # through the real tiles (bsr_gather_spmm's port)
+    v = visits.n_visits
+    k2e_bytes = (v * s_e * s_e * 4 + v * 8 + visits.row_ptr.numel() * 8
+                 + x3_e.numel() * 4 + k_e * r_e * s_e * 4)
+    b_ms, b_by = bound_ms(k2e_bytes, 2.0 * v * s_e * s_e)
+    lib_ms = None
+    if on_card:
+        a_bsr = torch.sparse_bsr_tensor(
+            visits.row_ptr, visits.visit_col.long(),
+            eng.pool[visits.visit_block.long()],
+            size=(k_e * r_e * s_e, r_e * s_e))
+        x2 = x3_e.reshape(r_e * s_e, 1)
+        lib_ms = timer(lambda: torch.sparse.mm(a_bsr, x2), 10)
+        lib_err = float((torch.sparse.mm(a_bsr, x2).reshape(k_e * r_e, s_e)
+                         - engine_tile_push(eng.pool, visits, sent_e))
+                        .abs().max())
+        print(f"torch.sparse.mm (sparse_bsr) vs K2 at the engine's shapes: "
+              f"max abs diff {lib_err:.3e}")
+        del a_bsr
+    rows.append({
+        "name": "bsr_gather_spmm", "route": "cuda",
+        "source": "src/repro_torch/csrc/diffusion.cu",
+        "replaces": "src/repro/kernels/diffusion/kernel.py:182",
+        "launches": engine_launches["bsr_spmm"],
+        "max_abs_err": timing_inputs["k2e"],
+        "ms": timer(lambda: engine_tile_push(eng.pool, visits, sent_e), 20),
+        "plain_ms": timer(k2_engine_plain, 3),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "visits": v,
+    })
+    # K3 at the engine's shapes: the engine:chunk per-edge push
+    n_e, n_out = edges_e.n_edges, edges_e.n
+    k3e_bytes = (edges_e.indptr.numel() * 8 + n_e * 8 + xe.numel() * 4
+                 + n_out * 4)
+    b_ms, b_by = bound_ms(k3e_bytes, 2.0 * n_e)
+    dst_e = torch.repeat_interleave(
+        torch.arange(n_out, device=dev), torch.diff(edges_e.indptr))
+    src_e = edges_e.src.long()
+    rows.append({
+        "name": "engine_edge_sum", "route": "cuda",
+        "source": "src/repro_torch/csrc/edge_sum.cu",
+        "replaces": "src/repro/core/distributed.py:514",
+        "launches": k3_engine_launches,
+        "max_abs_err": timing_inputs["k3e"],
+        "ms": timer(lambda: edge_sum(xe, edges_e), 50),
+        "plain_ms": timer(lambda: edge_sum_plain(
+            xe, edges_e.indptr, edges_e.src, edges_e.wgt), 20),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": timer(lambda: torch.zeros(
+            n_out, dtype=torch.float32, device=dev).index_add_(
+                0, dst_e, xe[src_e] * edges_e.wgt), 20),
     })
     for r in rows:
         print(f"{r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms "

@@ -9,11 +9,14 @@ The same public surface as ``repro.api`` for the tiers ported so far:
 ...                            device="cpu")
 >>> session = repro_torch.SolverSession(problem, "frontier:pallas")
 >>> session.solve(); session.warm_start(b2); session.solve()
+>>> report = repro_torch.solve(problem, method="engine:bsr", k=4,
+...                            policy="slope_ema")   # K PIDs, bucket moves
 
 The backend registry (``list_backends()``) maps the reference's string
 keys to solver tiers with capability records; everything returns the
 unified :class:`SolveReport`.  ``frontier:pallas`` keeps its name, but
-the kernel behind it is a CUDA C++ kernel for Hopper.
+the kernel behind it is a CUDA C++ kernel for Hopper; the engine's K
+PIDs run as a leading axis on one device.
 """
 from ..graph import GraphStore
 

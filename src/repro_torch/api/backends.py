@@ -5,11 +5,14 @@ its tier's native config and returns the unified :class:`SolveReport`
 with the cross-backend field semantics (edge-push ``n_ops``,
 ``cost_iterations = n_ops/L``, per-round ``trace``, ``move_log``).
 
-The port registers the reference's keys for the single-process tiers:
-``sequential`` (numpy), ``frontier:segment_sum`` (per-edge rounds over
-K3) and ``frontier:pallas`` (fused BSR rounds over K1, native on the
-card where the reference's is native on the TPU).  No backend takes a
-multi-RHS batch yet: ``solve_batch`` comes with the serving slice.
+The port registers the reference's keys with the reference's
+capabilities: ``sequential`` (numpy), ``frontier:segment_sum`` (per-edge
+rounds over K3), ``frontier:pallas`` (fused BSR rounds over K1, native on
+the card where the reference's is native on the TPU), and the K-PID
+engine's ``engine:chunk`` (per-edge push over K3) and ``engine:bsr``
+(tile push over K2).  ``simulator`` comes with its slice; no backend
+takes a multi-RHS batch yet: ``solve_batch`` comes with the serving
+slice.
 """
 from __future__ import annotations
 
@@ -108,3 +111,26 @@ def _solve_frontier_segment_sum(problem, options):
 )
 def _solve_frontier_pallas(problem, options):
     return _session_solve(problem, options, "frontier:pallas")
+
+
+@register_backend(
+    "engine:chunk",
+    BackendCapabilities(
+        supports_dynamic_partition=True, supports_warm_start=True,
+        configurable_k=True, auto_priority=5,
+    ),
+)
+def _solve_engine_chunk(problem, options):
+    return _session_solve(problem, options, "engine:chunk")
+
+
+@register_backend(
+    "engine:bsr",
+    BackendCapabilities(
+        supports_dynamic_partition=True, supports_warm_start=True,
+        configurable_k=True, min_auto_n=1 << 17, auto_priority=30,
+        tune_key="bsr_gather_spmm",
+    ),
+)
+def _solve_engine_bsr(problem, options):
+    return _session_solve(problem, options, "engine:bsr")

@@ -13,10 +13,13 @@ keys for the tiers this port has so far:
 ``frontier:pallas``       frontier-batched over the fused BSR round (K1).
                           The name is the reference's; the kernel behind
                           it is CUDA C++ (``csrc/diffusion.cu``).
+``engine:chunk``          K-PID engine, per-edge push (K3), bucket moves
+``engine:bsr``            K-PID engine, BSR tile push (K2), bucket moves
 ========================  =================================================
 
-``engine:chunk``, ``engine:bsr`` and ``simulator`` come with later
-slices.  Auto-dispatch reads the platform from ``options.device``
+``simulator`` comes with a later slice.  The engine runs its K PIDs on
+one device, so unlike the reference auto-dispatch never excludes it
+for lack of devices.  Auto-dispatch reads the platform from ``options.device``
 (``"cuda"`` / ``"cpu"``) where the reference reads
 ``jax.default_backend()``.
 """
@@ -163,10 +166,9 @@ def _auto_select(problem: Problem, options: SolverOptions) -> str:
             best, best_key = be, key
     if best is None:
         raise ValueError(
-            "no registered backend honors this request (k>1, dynamic "
-            "partition and multi-RHS batches need the engine, simulator "
-            f"and serving tiers, not yet in this port); registered: "
-            f"{sorted(_REGISTRY)}")
+            "no registered backend honors this request (multi-RHS "
+            "batches need the serving tier, not yet in this port); "
+            f"registered: {sorted(_REGISTRY)}")
     return best.name
 
 

@@ -13,13 +13,18 @@ between *solves*:
 
 Drivers adapt one warm-startable backend each behind a tiny protocol
 (``seed`` / ``advance`` / ``x`` / ``residual`` / ``ops`` / ``rounds`` /
-``fluid`` / ``threshold`` / ``set_threshold``) that the reference's
-drivers share, so :mod:`repro_torch.interop` can carry a reference
-session's state across.  The reference keeps its round loop on the
-device (``lax.while_loop``); the port runs a Python loop with the same
-round sequence and reads one scalar per round for the ``res > tol``
-test.  State lives on ``options.device`` in float32, as the reference's
-does with x64 off; the op counters are int64.
+``exhausted`` / ``fluid`` / ``threshold`` / ``set_threshold``) that the
+reference's drivers share, so :mod:`repro_torch.interop` can carry a
+reference session's state across.  The reference keeps its round loop
+on the device (``lax.while_loop``); the port runs a Python loop with the
+same round sequence and reads one scalar per round for the ``res > tol``
+test (the engine: one per inner round for the any-PID fire flag).
+State lives on ``options.device`` in float32, as the reference's does
+with x64 off; the op counters are int64.
+
+The frontier drivers advance by rounds; the engine driver
+(``engine:chunk`` / ``engine:bsr``) advances one chunk per grain, with
+the balance control plane between chunks.
 
 ``update_graph``, ``checkpoint``/``restore``, ``rescale`` and
 ``solve_batch`` come with later slices.
@@ -33,10 +38,17 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..balance.executors import BucketMoveExecutor
+from ..balance.policies import make_rebalancer
+from ..core.distributed import (
+    DistributedEngine,
+    EngineConfig,
+    build_engine_arrays,
+)
 from ..kernels.diffusion import frontier_round_bsr
 from ..kernels.edge_sum import csc_edges, edge_sum
 from ..kernels.tune import resolved_config
-from .options import SolverOptions
+from .options import SolverOptions, engine_dtype
 from .problem import Problem
 from .report import RoundReport, SolveReport
 
@@ -127,6 +139,9 @@ class _SegmentSumDriver:
 
     def rounds(self) -> int:
         return self._state[4]
+
+    def exhausted(self) -> bool:
+        return False
 
     def move_log(self) -> List[Tuple[int, int, int, int]]:
         return []
@@ -254,6 +269,9 @@ class _BsrFrontierDriver:
     def rounds(self) -> int:
         return self._state[5]
 
+    def exhausted(self) -> bool:
+        return False
+
     def move_log(self) -> List[Tuple[int, int, int, int]]:
         return []
 
@@ -273,9 +291,203 @@ class _BsrFrontierDriver:
         self._state = (f, res, h, _f32(t[0], self.device), ops, rounds)
 
 
+# --------------------------------------------------------------------------- #
+# engine driver (the K-PID engine, chunk-granular)
+# --------------------------------------------------------------------------- #
+def _bsr_buckets_per_dev(n: int, k: int, options: SolverOptions) -> int:
+    """BSR tiles are dense [S, S] blocks: cap the bucket size (≤ 512)
+    so the tile pool stays [R, T, 512, 512] instead of ballooning to
+    [R, T, N/K, N/K] on big problems.  Auto-sizing only ever *raises*
+    the bucket count the caller configured."""
+    max_s = 512
+    real_needed = -(-n // (k * max_s))  # ceil
+    return max(options.buckets_per_dev, real_needed + options.headroom)
+
+
+class _EngineDriver:
+    """engine:chunk / engine:bsr — the K-PID engine, one chunk per
+    advance, with the balance control plane between chunks."""
+
+    def __init__(self, problem: Problem, options: SolverOptions,
+                 diffusion_backend: str):
+        if problem.weights is not None or problem.weight_mode != "inv_out":
+            raise ValueError(
+                "engine backends run the default inv_out selection "
+                "weights; custom Problem.weights cannot be honored"
+            )
+        k = options.k or 1
+        buckets_per_dev = (_bsr_buckets_per_dev(problem.n, k, options)
+                           if diffusion_backend == "bsr"
+                           else options.buckets_per_dev)
+        self.cfg = EngineConfig(
+            k=k,
+            target_error=problem.target_error,
+            eps=problem.eps,
+            buckets_per_dev=buckets_per_dev,
+            headroom=options.headroom,
+            max_inner=options.max_inner,
+            gamma=options.gamma,
+            dynamic=options.dynamic,
+            policy=options.policy,
+            signal=options.signal,
+            eta=options.eta,
+            z=options.z,
+            chunk_rounds=options.chunk_rounds,
+            max_chunks=options.max_chunks,
+            dtype=engine_dtype(options.dtype),
+            diffusion_backend=diffusion_backend,
+            device=options.device,
+        )
+        # the store's cached engine-layout view
+        self.arrays = build_engine_arrays(problem.graph, problem.b,
+                                          self.cfg)
+        self.engine = DistributedEngine(self.arrays, self.cfg)
+        self.problem = problem
+        self.verbose = options.verbose
+        self.l = max(problem.n_edges, 1)
+        self._warm = None  # device maps of warm_seed, built at first use
+
+    def seed(self, f_nodes: np.ndarray,
+             h_nodes: Optional[np.ndarray] = None) -> None:
+        # fresh policy state per solve phase: a warm start is a new
+        # convergence trajectory, stale EMA slopes would misfire
+        self._fresh_rebalancer()
+        self.ex = BucketMoveExecutor(
+            self.engine, self.engine.init_state(f_nodes, h_nodes))
+        self._resid = float(np.abs(np.asarray(f_nodes)).sum())
+        self._chunks = 0
+        self._moves: List[Tuple[int, int, int, int]] = []
+        self._prev_ops = np.zeros(self.cfg.k, dtype=np.int64)
+
+    def _fresh_rebalancer(self) -> None:
+        if self.engine.rebalancer is not None:
+            self.engine.rebalancer = make_rebalancer(
+                self.cfg.policy or "slope_ema", k=self.cfg.k,
+                target_error=self.cfg.target_error, eta=self.cfg.eta,
+                z=self.cfg.z, unit="bucket",
+            )
+
+    def _warm_maps(self) -> dict:
+        """Node ↔ home-slot maps and the node-space edges (K3), built
+        once per driver: the layout never changes, only the bucket →
+        row map, which is read per call."""
+        if self._warm is None:
+            a, dev = self.arrays, self.engine.device
+            nos = a.node_of_slot  # [R, S], home-row indexed
+            valid = nos >= 0
+            flat_slot = (np.arange(a.n_rows)[:, None] * a.bucket_size
+                         + np.arange(a.bucket_size)[None, :])[valid]
+            self._warm = {
+                "edges": _edges_of(self.problem, dev),
+                "flat_slot": torch.as_tensor(flat_slot, device=dev),
+                "node_ids": torch.as_tensor(nos[valid].astype(np.int64),
+                                            device=dev),
+                "w_home": torch.as_tensor(a.w, device=dev).to(
+                    self.cfg.dtype),
+            }
+        return self._warm
+
+    def warm_seed(self, b_new: np.ndarray) -> float:
+        """Device-resident warm start over the bucket layout.
+
+        H never leaves the device: the ``[R, S]`` state is permuted to
+        the home layout, flattened to node space, run through ``P·H``
+        (K3 over the node-space edge list) and the re-seeded
+        ``F' = B' − H + P·H`` scattered back.  Only ``b_new`` is uploaded
+        and the scalar |F'|_1 read back.  Counters reset; the rebalancer
+        restarts fresh (new convergence trajectory).
+        """
+        a, cfg, ex = self.arrays, self.cfg, self.ex
+        maps = self._warm_maps()
+        dev, dt = self.engine.device, cfg.dtype
+        r_rows, s_slots = a.n_rows, a.bucket_size
+        cur = self.engine.cur_of_home(ex.row_of_bucket)
+        inv = torch.empty_like(cur)  # inv[current row] = its home row
+        inv[cur] = torch.arange(r_rows, device=dev)
+        st = ex.state
+        h_home = st.h[cur]
+        h_node = torch.zeros(a.n, dtype=dt, device=dev)
+        h_node[maps["node_ids"]] = h_home.reshape(-1)[maps["flat_slot"]]
+        b_dev = torch.as_tensor(np.asarray(b_new), device=dev).to(dt)
+        f_node = b_dev - h_node + edge_sum(h_node, maps["edges"])
+        f_home = torch.zeros(r_rows * s_slots, dtype=dt, device=dev)
+        f_home[maps["flat_slot"]] = f_node[maps["node_ids"]]
+        f_home = f_home.view(r_rows, s_slots)
+        fw_cur = (f_home.abs() * maps["w_home"])[inv]
+        st.f = f_home[inv]
+        st.outbox = torch.zeros_like(st.outbox)
+        st.t = fw_cur.view(cfg.k, -1).amax(dim=1) * 2.0 + 1e-30
+        st.ops = torch.zeros_like(st.ops)
+        st.rounds = 0
+        self._fresh_rebalancer()
+        self._resid = float(f_node.abs().sum())
+        self._chunks = 0
+        self._moves = []
+        self._prev_ops = np.zeros(cfg.k, dtype=np.int64)
+        return self._resid
+
+    def advance(self, tol: float, round_limit: int) -> None:
+        """One chunk + one control-plane pass (engine grain)."""
+        eng, ex = self.engine, self.ex
+        ex.state, stats = eng.run_chunk(ex.state, *ex.chunk_operands())
+        r = stats["r"].cpu().numpy()
+        s_ = stats["s"].cpu().numpy()
+        self._resid = float(stats["residual"]) + float(s_.sum())
+        self._chunks += 1
+        if self.verbose:
+            print(f"chunk {self._chunks}: residual={self._resid:.3e} "
+                  f"rounds={ex.state.rounds} moves={len(self._moves)}")
+        if self._resid <= tol:
+            return
+        self._prev_ops = eng.apply_control_plane(
+            ex, r, s_, self._chunks, self._prev_ops, self._moves)
+
+    def x(self) -> np.ndarray:
+        return self.engine.extract_solution(self.ex.state,
+                                            self.ex.row_of_bucket)
+
+    def residual(self) -> float:
+        return self._resid
+
+    def ops(self) -> int:
+        return int(self.ex.state.ops.sum())
+
+    def rounds(self) -> int:
+        return self.ex.state.rounds
+
+    def chunks(self) -> int:
+        return self._chunks
+
+    def exhausted(self) -> bool:
+        return self._chunks >= self.cfg.max_chunks
+
+    def move_log(self) -> List[Tuple[int, int, int, int]]:
+        return list(self._moves)
+
+    # ---- node-space state (the protocol interop seeds through) ------------
+    def fluid(self) -> Tuple[np.ndarray, np.ndarray]:
+        return (self.engine.gather_nodes(self.ex.state.f,
+                                         self.ex.row_of_bucket),
+                self.engine.gather_nodes(self.ex.state.h,
+                                         self.ex.row_of_bucket))
+
+    def threshold(self) -> np.ndarray:
+        return self.ex.state.t.double().cpu().numpy()
+
+    def set_threshold(self, t: np.ndarray) -> None:
+        t = np.asarray(t, dtype=np.float64).reshape(-1)
+        if t.shape != (self.cfg.k,):
+            return  # saved at a different width: keep the re-derived
+            # thresholds (any schedule is a valid D-iteration)
+        self.ex.state.t = torch.as_tensor(
+            t, device=self.engine.device).to(self.cfg.dtype)
+
+
 _DRIVERS = {
     "frontier:segment_sum": _SegmentSumDriver,
     "frontier:pallas": _BsrFrontierDriver,
+    "engine:chunk": lambda p, o: _EngineDriver(p, o, "segment_sum"),
+    "engine:bsr": lambda p, o: _EngineDriver(p, o, "bsr"),
 }
 
 
@@ -286,11 +498,11 @@ class SolverSession:
     """A long-lived solver owning the (H, F) fluid state of one Problem.
 
     ``method`` must be a warm-startable registry backend
-    (``frontier:segment_sum``, ``frontier:pallas`` — see
-    ``repro_torch.api.list_backends()``).  The session seeds ``F = B,
-    H = 0`` on construction; ``warm_start`` re-seeds F for a new RHS
-    while keeping H, resetting the per-phase op/round counters so
-    reports measure the *current* solve.
+    (``frontier:segment_sum``, ``frontier:pallas``, ``engine:chunk``,
+    ``engine:bsr`` — see ``repro_torch.api.list_backends()``).  The
+    session seeds ``F = B, H = 0`` on construction; ``warm_start``
+    re-seeds F for a new RHS while keeping H, resetting the per-phase
+    op/round counters so reports measure the *current* solve.
     """
 
     def __init__(self, problem: Problem,
@@ -303,7 +515,8 @@ class SolverSession:
             raise ValueError(
                 f"backend {method!r} is one-shot; SolverSession needs a "
                 "warm-startable backend "
-                "(frontier:segment_sum | frontier:pallas)"
+                "(frontier:segment_sum | frontier:pallas | engine:chunk "
+                "| engine:bsr)"
             )
         opts = (SolverOptions(**kw) if options is None
                 else dataclasses.replace(options, **kw))
@@ -368,19 +581,23 @@ class SolverSession:
     def run(self, until: Optional[float] = None,
             max_rounds: Optional[int] = None) -> Iterator[RoundReport]:
         """Drain F toward ``until`` (a target_error), streaming one
-        :class:`RoundReport` per ``options.trace_every`` frontier rounds.
-        The final yielded report is the converged (or budget-exhausted)
-        state."""
+        :class:`RoundReport` per trace grain (``options.trace_every``
+        frontier rounds / one engine chunk).  The final yielded report is
+        the converged (or budget-exhausted) state."""
         self._check_fresh()
         tol = self._tol(until)
         cap = max_rounds if max_rounds is not None else (
             self.options.max_rounds)
         d = self._driver
         while True:
-            if d.residual() <= tol or d.rounds() >= cap:
+            if d.residual() <= tol or d.rounds() >= cap or d.exhausted():
                 yield RoundReport(d.rounds(), d.residual(), d.ops())
                 return
-            d.advance(tol, min(d.rounds() + self.options.trace_every, cap))
+            if isinstance(d, _EngineDriver):
+                d.advance(tol, cap)
+            else:
+                d.advance(tol, min(d.rounds() + self.options.trace_every,
+                                   cap))
             yield RoundReport(d.rounds(), d.residual(), d.ops())
 
     def solve(self, until: Optional[float] = None,
@@ -389,6 +606,9 @@ class SolverSession:
         t0 = time.perf_counter()
         trace = list(self.run(until=until, max_rounds=max_rounds))
         d = self._driver
+        extras = {"session": True, "device": str(self.options.device)}
+        if isinstance(d, _EngineDriver):
+            extras["chunks"] = d.chunks()
         return SolveReport(
             x=d.x(),
             residual=d.residual(),
@@ -400,7 +620,7 @@ class SolverSession:
             trace=trace,
             move_log=d.move_log(),
             wall_time_s=time.perf_counter() - t0,
-            extras={"session": True, "device": str(self.options.device)},
+            extras=extras,
         )
 
     # ---- warm start (§2.2 residual identity) ------------------------------
@@ -412,7 +632,7 @@ class SolverSession:
         whenever B' is near the RHS H was built for, and the follow-up
         ``run``/``solve`` charges correspondingly few edge pushes.
         Phase counters (ops, rounds, trace) reset to zero after banking
-        into the lifetime totals.  Both drivers re-seed on the device:
+        into the lifetime totals.  Every driver re-seeds on the device:
         only ``b_new`` is uploaded and the scalar |F'|_1 read back.
         """
         self._check_fresh()

@@ -1,11 +1,16 @@
 """The paper's contribution, as far as the port has come.
 
 Layers:
-  graph        — CSR container + generators (paper §3 data), numpy
+  graph        — CSR container + generators (paper §3 data), numpy;
+                 the engine's bucket-major layout
   diteration   — reference solvers (sequential paper-exact, frontier torch)
+  partition    — the §2.5.2 dynamic partition controller
+  distributed  — the K-PID engine (bucket-granular dynamic partition)
 """
 from .graph import (
+    BucketedGraph,
     CSRGraph,
+    bucketize,
     host_block_graph,
     pagerank_system,
     power_law_graph,

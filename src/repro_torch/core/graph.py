@@ -11,6 +11,8 @@ out-neighbors and the corresponding column weights.
 :class:`CSRGraph` is the compressed out-adjacency (indptr / indices /
 weights) every solver consumes; :class:`repro_torch.graph.GraphStore`
 derives the frontier kernel's BSR tile pool from it.
+:class:`BucketedGraph` is the engine's bucket-major fixed-shape layout
+(static shapes, bucket-granular dynamic repartition).
 
 Generators reproduce the paper's synthetic data (§3.1: power-law 1/k^alpha for
 in- and out-degree, alpha = 1.5), a web-graph stand-in matched to Table 4
@@ -26,6 +28,8 @@ import numpy as np
 
 __all__ = [
     "CSRGraph",
+    "BucketedGraph",
+    "bucketize",
     "power_law_graph",
     "webgraph_like",
     "host_block_graph",
@@ -122,6 +126,69 @@ class CSRGraph:
             weights=w.astype(np.float64),
             n=n,
         )
+
+
+# ------------------------------------------------------------------------------
+# Bucket-major fixed-shape layout (the engine)
+# ------------------------------------------------------------------------------
+@dataclasses.dataclass
+class BucketedGraph:
+    """Bucket-major edge-list layout with static shapes.
+
+    Nodes are packed into ``n_buckets`` buckets of ``bucket_size`` slots
+    (padded with inert slots).  Each bucket carries a fixed-capacity edge
+    buffer; edge ``e`` of bucket ``b`` reads fluid from local slot
+    ``src_slot[b, e]`` and pushes to *global flattened slot* ``dst[b, e]``
+    with weight ``wgt[b, e]``.  Padding edges have ``wgt == 0`` and point at
+    slot 0 (harmless: zero contribution).
+
+    The *bucket* is the unit of dynamic repartition: the slope controller
+    moves whole buckets between PIDs, so every array here can stay
+    statically shaped while ownership changes (DESIGN.md §3).
+    """
+
+    node_of_slot: np.ndarray  # [n_buckets, bucket_size] int32 global node id or -1
+    slot_of_node: np.ndarray  # [N] int32 flattened slot id of each node
+    src_slot: np.ndarray  # [n_buckets, edge_cap] int32 (local slot in bucket)
+    dst: np.ndarray  # [n_buckets, edge_cap] int32 (global flattened slot)
+    wgt: np.ndarray  # [n_buckets, edge_cap] float32
+    out_deg: np.ndarray  # [n_buckets, bucket_size] int32 true out-degree
+    n: int
+    n_edges: int
+
+    @property
+    def n_buckets(self) -> int:
+        return int(self.node_of_slot.shape[0])
+
+    @property
+    def bucket_size(self) -> int:
+        return int(self.node_of_slot.shape[1])
+
+    @property
+    def edge_cap(self) -> int:
+        return int(self.dst.shape[1])
+
+    @property
+    def n_slots(self) -> int:
+        return self.n_buckets * self.bucket_size
+
+
+def bucketize(
+    g: CSRGraph,
+    n_buckets: int,
+    order: Optional[np.ndarray] = None,
+) -> BucketedGraph:
+    """Pack ``g`` into ``n_buckets`` equal buckets (node order preserved).
+
+    ``order`` optionally permutes nodes before packing.  Edge buffers are
+    sized to the max per-bucket edge count (padded elsewhere) — per-bucket
+    skew is exactly what the dynamic controller then balances at runtime.
+    Built by :func:`repro_torch.graph.views.build_bucketed`;
+    ``GraphStore.bucketed(n_buckets)`` caches its result.
+    """
+    from ..graph.views import build_bucketed
+
+    return build_bucketed(g, n_buckets, order=order)
 
 
 # ------------------------------------------------------------------------------

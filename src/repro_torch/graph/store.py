@@ -7,11 +7,13 @@ cached **views**:
 ====================  ====================================================
 ``csr()``             out-adjacency :class:`repro_torch.core.graph.CSRGraph`
 ``bsr(bs)``           frontier BSR tile pool + block-row occupancy map
+``bucketed(nb)``      engine slotted layout (:class:`BucketedGraph`)
+``engine_layout(…)``  engine arrays minus f0, optionally BSR-tiled
 ====================  ====================================================
 
-This slice ports the read side of ``repro.graph.GraphStore``:
-``apply_delta`` (and with it ``version`` ever moving past 0), the
-bucketed view and the engine layout come with later slices.
+The port has the read side of ``repro.graph.GraphStore``, with the same
+view caching keys; ``apply_delta`` (and with it ``version`` ever moving
+past 0) comes with the graph-delta slice.
 """
 from __future__ import annotations
 
@@ -23,6 +25,14 @@ from . import views as _views
 from .delta import edge_keys
 
 __all__ = ["GraphStore"]
+
+
+def _order_token(order: Optional[np.ndarray]):
+    # exact bytes, not hash(bytes): a cache-key collision would hand out a
+    # view built for a different node order — silently wrong solutions
+    if order is None:
+        return None
+    return np.asarray(order).tobytes()
 
 
 class GraphStore:
@@ -118,6 +128,34 @@ class GraphStore:
         if view is None:
             view = _views.build_bsr(self._indptr, self._indices,
                                     self._weights, self.n, int(bs))
+            self._views[key] = view
+        return view
+
+    def bucketed(self, n_buckets: int, order: Optional[np.ndarray] = None):
+        key = ("bucket", int(n_buckets), _order_token(order))
+        view = self._views.get(key)
+        if view is None:
+            view = _views.build_bucketed(self.csr(), int(n_buckets),
+                                         order=order)
+            self._views[key] = view
+        return view
+
+    def engine_layout(
+        self,
+        k: int,
+        buckets_per_dev: int,
+        headroom: int,
+        tiled: bool = False,
+        dtype=np.float32,
+        order: Optional[np.ndarray] = None,
+    ) -> "_views.EngineLayout":
+        key = ("engine", int(k), int(buckets_per_dev), int(headroom),
+               bool(tiled), np.dtype(dtype).str, _order_token(order))
+        view = self._views.get(key)
+        if view is None:
+            view = _views.build_engine_layout(
+                self, int(k), int(buckets_per_dev), int(headroom),
+                bool(tiled), np.dtype(dtype), order=order)
             self._views[key] = view
         return view
 

@@ -13,17 +13,25 @@ thing from the same state.
   threshold of its ``threshold()``, through the driver protocol
   (``seed``, ``set_threshold``) both packages share.  The session's
   phase counters restart at zero.
+* :func:`engine_from_arrays` builds the port's K-PID engine over a
+  reference ``EngineArrays``' fields, optionally carrying a reference
+  ``EngineState`` across (``f``, ``h``, ``t`` and the bucket → row map),
+  so both packages run one layout from one state.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Mapping, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .api import Problem, SolverSession
+from .balance.executors import BucketMoveExecutor
+from .core.distributed import DistributedEngine, EngineArrays, EngineConfig
 from .core.graph import CSRGraph
+from .graph.views import tile_groups
 
-__all__ = ["problem_from_arrays", "seed_session"]
+__all__ = ["problem_from_arrays", "seed_session", "engine_from_arrays"]
 
 
 def problem_from_arrays(indptr, indices, edge_weights, n: int, b, eps: float,
@@ -49,3 +57,57 @@ def seed_session(session: SolverSession, f: np.ndarray, h: np.ndarray,
     session._driver.seed(np.asarray(f, dtype=np.float64),
                          np.asarray(h, dtype=np.float64))
     session._driver.set_threshold(np.asarray(t, dtype=np.float64))
+
+
+_ARRAY_FIELDS = ("f0", "w", "src_slot", "dst_bucket", "dst_slot", "wgt",
+                 "pos_of_bucket", "node_of_slot")
+
+
+def engine_from_arrays(
+    fields: Mapping[str, np.ndarray],
+    cfg: EngineConfig,
+    state: Optional[Mapping[str, np.ndarray]] = None,
+) -> Tuple[DistributedEngine, BucketMoveExecutor]:
+    """The port's engine over a reference ``EngineArrays``' numpy fields
+    (``f0``, ``w``, ``src_slot``, ``dst_bucket``, ``dst_slot``, ``wgt``,
+    ``pos_of_bucket``, ``node_of_slot``, ``n``, ``n_edges`` and, for
+    ``diffusion_backend="bsr"``, ``tile_dst`` and ``slot_out_deg``; the
+    dense ``tiles`` are re-derived from the edges, never read).
+
+    Returns ``(engine, executor)``, the executor cold-started — or, with
+    ``state``, holding a reference ``EngineState``: ``f`` and ``h`` as
+    ``[R, S]`` in current row order, the per-PID ``t`` and the
+    ``row_of_bucket`` map (a reference ``BucketMoveExecutor``'s), plus
+    optional ``ops`` and ``rounds`` counters.
+    """
+    arrays = EngineArrays(
+        **{name: np.asarray(fields[name]) for name in _ARRAY_FIELDS},
+        n=int(fields["n"]), n_edges=int(fields["n_edges"]))
+    if cfg.diffusion_backend == "bsr":
+        tile_dst, t_counts, _ = tile_groups(arrays.dst_bucket, arrays.wgt)
+        if not np.array_equal(tile_dst, np.asarray(fields["tile_dst"])):
+            raise ValueError("tile_dst disagrees with the edges' grouping")
+        arrays.tile_dst = tile_dst
+        arrays.t_counts = t_counts
+        arrays.slot_out_deg = np.asarray(fields["slot_out_deg"])
+        arrays.tile_dtype = torch.empty((), dtype=cfg.dtype).numpy().dtype
+    engine = DistributedEngine(arrays, cfg)
+    ex = BucketMoveExecutor(engine, engine.init_state())
+    if state is None:
+        return engine, ex
+    rob = np.asarray(state["row_of_bucket"], dtype=np.int64)
+    # the executor's moving operands follow the map: row c holds what
+    # home row perm[c] held
+    perm = np.empty_like(rob)
+    perm[rob] = np.asarray(arrays.pos_of_bucket, dtype=np.int64)
+    ex.state, (ex.w, ex.slot_deg), ex.table = engine.repartition(
+        ex.state, perm, rob, (ex.w, ex.slot_deg))
+    ex.row_of_bucket = rob
+    put = lambda v: torch.as_tensor(np.asarray(v), device=engine.device)
+    ex.state.f = put(state["f"]).to(cfg.dtype).reshape(ex.state.f.shape)
+    ex.state.h = put(state["h"]).to(cfg.dtype).reshape(ex.state.h.shape)
+    ex.state.t = put(state["t"]).to(cfg.dtype).reshape(cfg.k)
+    if "ops" in state:
+        ex.state.ops = put(state["ops"]).to(torch.int64).reshape(cfg.k)
+    ex.state.rounds = int(state.get("rounds", 0))
+    return engine, ex

@@ -1,5 +1,8 @@
 from .ops import (  # noqa: F401
     BsrMatrix,
+    EngineVisits,
+    engine_tile_push,
+    engine_visit_table,
     bsr_spmm,
     frontier_round_bsr,
     prepare_bsr,

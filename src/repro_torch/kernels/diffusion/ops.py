@@ -4,9 +4,14 @@
 and :func:`frontier_round_bsr` run the CUDA kernels for tensors on the
 card and their plain torch versions for tensors on the CPU (the kernel
 wrappers decide by the tensor's device, never by catching a failure).
+
+The engine's tile push (:func:`engine_visit_table` +
+:func:`engine_tile_push`) is the port of ``bsr_gather_spmm_pallas``: the
+reference's destination-sorted visit table, fed to K2.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
@@ -15,7 +20,8 @@ import torch
 from .kernel import bsr_spmm_kernel, frontier_round_bsr_kernel
 from .ref import bsr_spmm_ref, csr_to_bsr
 
-__all__ = ["bsr_spmm", "frontier_round_bsr", "prepare_bsr", "BsrMatrix"]
+__all__ = ["bsr_spmm", "frontier_round_bsr", "prepare_bsr", "BsrMatrix",
+           "EngineVisits", "engine_visit_table", "engine_tile_push"]
 
 
 class BsrMatrix:
@@ -163,3 +169,71 @@ def frontier_round_bsr(
     if squeeze:
         return f_new[:, 0], sent[:, 0], res
     return f_new, sent, res
+
+
+# --------------------------------------------------------------------------- #
+# the engine's tile push (bsr_gather_spmm_pallas on K2)
+# --------------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class EngineVisits:
+    """K2's visit table over the engine's tile pool, for all K PIDs."""
+
+    visit_block: torch.Tensor  # [V] int32 tile of each visit (home layout)
+    visit_col: torch.Tensor  # [V] int32 current source row of each visit
+    row_ptr: torch.Tensor  # [K·R + 1] int64 over the destination-sorted visits
+
+    @property
+    def n_visits(self) -> int:
+        return int(self.visit_block.numel())
+
+
+def engine_visit_table(
+    tile_row: torch.Tensor,  # [V] int64 home row of each real tile
+    tile_slot: torch.Tensor,  # [V] int64 its slot t in that row
+    tile_dst: torch.Tensor,  # [V] int64 its stable destination bucket
+    cur_of_home: torch.Tensor,  # [R] int64 current row of each home row
+    row_of_bucket: torch.Tensor,  # [R] int64 current row of each bucket
+    k: int,
+    b_loc: int,
+    t_cap: int,
+) -> EngineVisits:
+    """Visits of every real tile, sorted by destination, for one K2 launch.
+
+    A tile of home row ``h`` (now at row ``c = cur_of_home[h]``, owned by
+    PID ``c // b_loc``) pushing into stable bucket ``d`` lands in output
+    row ``(c // b_loc)·R + row_of_bucket[d]``: each PID gets its own
+    full-length contribution, its "mine" slice and its outbox in one.
+    Within a destination, visits run in (current source row, tile slot)
+    order — the stable argsort of the reference's ``_tile_visit_order``
+    over a device's row-major tile groups — so the f32 sums keep the
+    reference's order.  The tile pool stays in its home layout
+    (``visit_block = h·T + t``): a bucket move rebuilds this table, never
+    the pool.  Only real tiles are visited: the reference's all-zero
+    padding tiles all point at bucket 0 and would pile onto one block.
+    """
+    r = int(row_of_bucket.numel())
+    cur = cur_of_home[tile_row]
+    first = torch.sort(cur * t_cap + tile_slot, stable=True).indices
+    dst = (cur[first] // b_loc) * r + row_of_bucket[tile_dst[first]]
+    dst, second = torch.sort(dst, stable=True)
+    order = first[second]
+    row_ptr = torch.searchsorted(
+        dst, torch.arange(k * r + 1, device=dst.device))
+    return EngineVisits(
+        visit_block=(tile_row[order] * t_cap
+                     + tile_slot[order]).to(torch.int32),
+        visit_col=cur[order].to(torch.int32),
+        row_ptr=row_ptr,
+    )
+
+
+def engine_tile_push(pool: torch.Tensor, visits: EngineVisits,
+                     sent: torch.Tensor) -> torch.Tensor:
+    """``out[p·R + row] = Σ tiles @ sent[src row]`` over PID ``p``'s tiles
+    pushing into the bucket at ``row`` (K2 on the card, its plain twin on
+    the CPU).  ``pool`` is ``[R·T, S, S]``, ``sent`` the current-row
+    fluid ``[R, S]``; returns ``[K·R, S]``, rows without visits exactly 0.
+    """
+    out = bsr_spmm_kernel(pool, visits.visit_block, visits.visit_col,
+                          visits.row_ptr, sent[:, :, None].contiguous())
+    return out[..., 0]

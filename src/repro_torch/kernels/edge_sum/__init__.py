@@ -3,4 +3,5 @@ from .kernel import (  # noqa: F401
     csc_edges,
     edge_sum,
     edge_sum_plain,
+    engine_edge_table,
 )

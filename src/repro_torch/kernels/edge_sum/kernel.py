@@ -7,22 +7,28 @@ package (XLA's ``segment_sum`` does the work there); on the card it gets
 a kernel of its own because ``index_add_`` scatters with atomics whose
 float sum order changes from run to run, and replay must be bit-exact.
 
-The edges are held in destination-sorted (CSC) order, built once on the
-host per driver (:func:`csc_edges`).  :func:`edge_sum` launches K3 for
-tensors on the card (one thread per destination, fixed sum order) and
-runs :func:`edge_sum_plain` for tensors on the CPU.
+The edges are held in destination-sorted (CSC) order: built once on the
+host per driver for the node-space product (:func:`csc_edges`), and on
+the tensors' own device for the engine's per-edge push
+(:func:`engine_edge_table`), whose sources and destinations are two
+different spaces (``x`` has ``n_src`` entries, the output ``n``).
+:func:`edge_sum` launches K3 for tensors on the card (one thread per
+destination, fixed sum order) and runs :func:`edge_sum_plain` for
+tensors on the CPU.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 from .._build import LAUNCHES, check, library, stream_handle
 
-__all__ = ["CscEdges", "csc_edges", "edge_sum", "edge_sum_plain"]
+__all__ = ["CscEdges", "csc_edges", "edge_sum", "edge_sum_plain",
+           "engine_edge_table"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,10 +39,15 @@ class CscEdges:
     src: torch.Tensor  # [L] int32 source of each edge
     wgt: torch.Tensor  # [L] float32 weight of each edge
     n: int
+    n_src: Optional[int] = None  # length of x (default: n)
 
     @property
     def n_edges(self) -> int:
         return int(self.src.numel())
+
+    @property
+    def x_len(self) -> int:
+        return self.n if self.n_src is None else self.n_src
 
 
 def csc_edges(src: np.ndarray, dst: np.ndarray, wgt: np.ndarray, n: int,
@@ -79,14 +90,14 @@ def _lib() -> ctypes.CDLL:
 
 
 def edge_sum(x: torch.Tensor, edges: CscEdges) -> torch.Tensor:
-    """K3 over ``edges`` for the node vector ``x [n]``; returns ``[n]``."""
+    """K3 over ``edges`` for ``x [edges.x_len]``; returns ``[edges.n]``."""
     if x.device.type == "cpu":
         return edge_sum_plain(x, edges.indptr, edges.src, edges.wgt)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     n = edges.n
     for name, t, dtype, shape in (
-            ("x", x, torch.float32, (n,)),
+            ("x", x, torch.float32, (edges.x_len,)),
             ("indptr", edges.indptr, torch.int64, (n + 1,)),
             ("src", edges.src, torch.int32, (edges.n_edges,)),
             ("wgt", edges.wgt, torch.float32, (edges.n_edges,))):
@@ -104,3 +115,49 @@ def edge_sum(x: torch.Tensor, edges: CscEdges) -> torch.Tensor:
     check(lib, err, "edge_sum")
     LAUNCHES["edge_sum"] += 1
     return out
+
+
+def engine_edge_table(
+    home_row: torch.Tensor,  # [L] int64 home row of each real edge
+    edge_pos: torch.Tensor,  # [L] int64 its position in that row's buffer
+    src_slot: torch.Tensor,  # [L] int64 in-bucket source slot
+    dst_bucket: torch.Tensor,  # [L] int64 stable destination bucket id
+    dst_slot: torch.Tensor,  # [L] int64 in-bucket destination slot
+    wgt: torch.Tensor,  # [L] edge weights (the compute dtype)
+    cur_of_home: torch.Tensor,  # [R] int64 current row of each home row
+    row_of_bucket: torch.Tensor,  # [R] int64 current row of each bucket
+    k: int,
+    b_loc: int,
+    s: int,
+    edge_cap: int,
+) -> CscEdges:
+    """The engine's per-edge push as a K3 edge list, on the tensors' device.
+
+    Every PID gets a full-length contribution vector: destination
+    ``p·R·S + row·S + slot`` collects what PID ``p`` (the owner of the
+    edge's current source row) pushes into the bucket currently at
+    ``row``.  Sources index the current-row fluid ``sent [R·S]``.  Within
+    one destination the edges run in (current source row, buffer
+    position) order — a stable sort by destination of the edges listed in
+    that order — which is the order of the reference's ``segment_sum``
+    over each device's ``[B_loc, E]`` buffers.  Only real edges are
+    listed: the reference's zero-weight padding edges all point at slot 0
+    of bucket 0 and would pile onto one thread here.
+    """
+    r = int(row_of_bucket.numel())
+    cur = cur_of_home[home_row]
+    first = torch.sort(cur * edge_cap + edge_pos, stable=True).indices
+    dst = ((cur[first] // b_loc) * (r * s)
+           + row_of_bucket[dst_bucket[first]] * s + dst_slot[first])
+    dst, second = torch.sort(dst, stable=True)
+    order = first[second]
+    n_out = k * r * s
+    indptr = torch.searchsorted(
+        dst, torch.arange(n_out + 1, device=dst.device))
+    return CscEdges(
+        indptr=indptr,
+        src=(cur[order] * s + src_slot[order]).to(torch.int32),
+        wgt=wgt[order].contiguous(),
+        n=n_out,
+        n_src=r * s,
+    )

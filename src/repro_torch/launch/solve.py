@@ -1,19 +1,23 @@
 """D-iteration solve driver — the CLI over ``repro_torch.solve``.
 
 The same flags as ``repro.launch.solve``, plus ``--device`` (default
-``cuda``: the solve runs on the card unless the CPU is asked for).
-Every run goes through the :mod:`repro_torch.api` front door: a
-:class:`Problem` + :class:`SolverOptions` + a registry ``--method``
-key (or ``auto``).  Flag combinations are validated: flags that need a
-tier this port does not have yet (``--k`` > 1, ``--dynamic``,
-``--policy``, the ``simulator`` and ``engine:*`` methods, and the
-simulator/engine flags ``--signal``, ``--partition``,
-``--buckets-per-dev`` and ``--verbose`` at any value but their default)
-are rejected, never ignored.
+``cuda``: the solve runs on the card unless the CPU is asked for) and
+``-m`` for ``--method``.  Every run goes through the
+:mod:`repro_torch.api` front door: a :class:`Problem` +
+:class:`SolverOptions` + a registry ``--method`` key (or ``auto``).
+Flag combinations are validated, never ignored: ``--k`` > 1,
+``--dynamic`` and ``--policy`` need an engine method (``engine:chunk``,
+``engine:bsr``; ``auto`` picks one for them); the engine's own flags
+``--signal``, ``--buckets-per-dev`` and ``--verbose`` at any value but
+their default are rejected unless the run is an engine run; the
+``simulator`` method (``--simulate``) and ``--partition`` wait for the
+simulator slice and are rejected.
 
   PYTHONPATH=src python -m repro_torch.launch.solve --n 20000
   PYTHONPATH=src python -m repro_torch.launch.solve --method frontier:pallas
   PYTHONPATH=src python -m repro_torch.launch.solve --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.solve --device cpu --k 4 \
+      --dynamic -m engine:bsr
   PYTHONPATH=src python -m repro_torch.launch.solve --graph-file web.txt
 
 ``--graph-file`` loads a SNAP-style edge-list text file (``src dst``
@@ -40,7 +44,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="--graph-file has a third weight column")
     ap.add_argument("--target-error", type=float, default=None,
                     help="stopping target (default 1/N, paper §3.1)")
-    ap.add_argument("--method", default="auto",
+    ap.add_argument("-m", "--method", default="auto",
                     help="registry key (see repro_torch.list_backends()) or "
                     "'auto'")
     ap.add_argument("--simulate", action="store_true",
@@ -59,16 +63,16 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["uniform", "cb"])
     ap.add_argument("--buckets-per-dev", type=int, default=8)
     ap.add_argument("--verbose", action="store_true",
-                    help="engine progress (no engine in this port yet)")
+                    help="engine progress, one line per chunk")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the solve (cuda | cpu)")
     return ap
 
 
-# flags only the simulator/engine tier reads, with their defaults: no
-# backend of this port consumes them, so any other value is rejected
-_ENGINE_FLAGS = {"signal": "residual", "partition": "uniform",
-                 "buckets_per_dev": 8, "verbose": False}
+# flags only the engine reads, with their defaults: any other value needs
+# an engine run
+_ENGINE_FLAGS = {"signal": "residual", "buckets_per_dev": 8,
+                 "verbose": False}
 
 
 def main(argv=None):
@@ -79,12 +83,21 @@ def main(argv=None):
                 f"--simulate conflicts with --method {args.method!r}"
             )
         args.method = "simulator"
+    if args.partition != "uniform":
+        raise SystemExit(
+            "inconsistent flags: --partition needs the simulator, which "
+            "this port does not have yet")
+    # auto picks an engine whenever k > 1 or the controller is on: only
+    # the engine backends honor them
+    engine_run = args.method.startswith("engine:") or (
+        args.method == "auto"
+        and ((args.k or 1) > 1 or args.dynamic or args.policy))
     for name, default in _ENGINE_FLAGS.items():
-        if getattr(args, name) != default:
+        if getattr(args, name) != default and not engine_run:
             flag = "--" + name.replace("_", "-")
             raise SystemExit(
-                f"inconsistent flags: {flag} needs the simulator/engine "
-                "tier, which this port does not have yet")
+                f"inconsistent flags: {flag} needs the engine "
+                "(--method engine:chunk | engine:bsr)")
 
     import repro_torch as repro
     from repro_torch.core import power_law_graph, webgraph_like
@@ -104,6 +117,9 @@ def main(argv=None):
         k=args.k,
         dynamic=args.dynamic,
         policy=args.policy,
+        signal=args.signal,
+        buckets_per_dev=args.buckets_per_dev,
+        verbose=args.verbose,
         device=args.device,
     )
     # validate the flag set up front so a rejected combination exits

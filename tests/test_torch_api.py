@@ -26,6 +26,7 @@ import torch
 torch.set_num_threads(1)
 
 METHODS = ("sequential", "frontier:segment_sum", "frontier:pallas")
+ENGINES = ("engine:bsr", "engine:chunk")
 
 API_SURFACE = [
     "BackendCapabilities",
@@ -92,18 +93,30 @@ def test_api_surface_and_registry():
     for name in API_SURFACE:
         assert getattr(repro_torch, name) is getattr(repro_torch.api, name)
     caps = repro_torch.list_backends()
-    assert tuple(caps) == tuple(sorted(METHODS))
+    assert tuple(caps) == tuple(sorted(METHODS + ENGINES))
     assert caps["frontier:pallas"].device_kinds == ("cuda",)
     assert caps["frontier:pallas"].tune_key == "frontier_round_bsr"
     assert caps["frontier:segment_sum"].supports_warm_start
     assert not caps["sequential"].supports_warm_start
-    assert not any(c.supports_batch or c.configurable_k
-                   for c in caps.values())
+    assert not any(c.supports_batch for c in caps.values())
+    assert [k for k, c in caps.items() if c.configurable_k] == list(ENGINES)
+    ref_caps = repro.list_backends()
     for key, c in caps.items():  # same keys, same roles as the reference
         assert (c.supports_warm_start
-                == repro.list_backends()[key].supports_warm_start)
+                == ref_caps[key].supports_warm_start)
     with pytest.raises(KeyError):
-        repro_torch.get_backend("engine:bsr")
+        repro_torch.get_backend("simulator")
+
+
+@pytest.mark.parametrize("method", ENGINES)
+def test_engine_backends_carry_the_reference_capabilities(method):
+    """Everything but the device kinds (cpu/cuda here, cpu/gpu/tpu
+    there) is the reference's: auto-dispatch ranks them the same way."""
+    got = dataclasses.asdict(repro_torch.list_backends()[method])
+    want = dataclasses.asdict(repro.list_backends()[method])
+    assert got.pop("device_kinds") == ("cpu", "cuda")
+    assert want.pop("device_kinds") == ("cpu", "gpu", "tpu")
+    assert got == want
 
 
 def test_auto_dispatch_reads_the_device():
@@ -118,6 +131,11 @@ def test_auto_dispatch_reads_the_device():
     assert _auto_select(problem, cuda) == "frontier:pallas"
 
 
+def batched_problem(g):
+    return repro_torch.Problem.pagerank(g, personalization=np.ones(
+        (g.n, 2)) / g.n)
+
+
 def test_validation_raises():
     g = webgraph_like(200, seed=5)
     problem = repro_torch.Problem.pagerank(g)
@@ -127,7 +145,7 @@ def test_validation_raises():
         repro_torch.solve(problem, method="frontier:segment_sum",
                           dynamic=True, device="cpu")
     with pytest.raises(ValueError, match="no registered backend"):
-        repro_torch.solve(problem, k=4, device="cpu")
+        repro_torch.solve(batched_problem(g), device="cpu")
     with pytest.raises(ValueError, match="one-shot"):
         repro_torch.SolverSession(problem, "sequential", device="cpu")
     with pytest.raises(ValueError, match="device must be"):
@@ -153,27 +171,59 @@ def test_cli_runs_on_the_cpu(capsys):
         main(["--n", "600", "--device", "cpu", "--simulate"])
 
 
+def test_cli_runs_the_engine_on_the_cpu(capsys):
+    from repro_torch.launch.solve import main
+
+    rep = main(["--n", "600", "--device", "cpu", "--k", "4", "--dynamic",
+                "-m", "engine:chunk", "--signal", "edge-ops",
+                "--buckets-per-dev", "6"])
+    assert rep.converged and rep.method == "engine:chunk"
+    assert "[engine:chunk] converged=True" in capsys.readouterr().out
+    rep = main(["--n", "600", "--device", "cpu", "--k", "2", "--verbose"])
+    assert rep.converged and rep.method == "engine:chunk"  # auto: k > 1
+    assert "chunk 1: residual=" in capsys.readouterr().out
+    with pytest.raises(SystemExit, match="inconsistent flags"):
+        main(["--n", "600", "--device", "cpu", "-m", "simulator"])
+    with pytest.raises(SystemExit, match="--partition needs the simulator"):
+        main(["--n", "600", "--device", "cpu", "--k", "4", "-m",
+              "engine:bsr", "--partition", "cb"])
+
+
 @pytest.mark.parametrize("flag", [
     ["--signal", "edge-ops"], ["--partition", "cb"],
     ["--buckets-per-dev", "4"], ["--verbose"],
 ])
 def test_cli_rejects_engine_flags(flag):
-    """The reference's simulator/engine flags stay on the CLI, but no
-    backend of the port reads them: a non-default value is rejected
-    before any solve, never ignored."""
+    """The engine's flags (and the simulator's --partition) stay on the
+    CLI; a frontier run does not read them, so a non-default value is
+    rejected before any solve, never ignored."""
     from repro_torch.launch.solve import main
 
     with pytest.raises(SystemExit, match=f"{flag[0]} needs the"):
-        main(["--n", "600", "--device", "cpu"] + flag)
+        main(["--n", "600", "--device", "cpu", "-m", "frontier:pallas"]
+             + flag)
 
 
-def test_options_carry_only_fields_a_backend_reads():
+def test_options_carry_only_fields_a_backend_reads(monkeypatch):
     fields = {f.name for f in dataclasses.fields(repro_torch.SolverOptions)}
-    assert fields == {"k", "dynamic", "policy", "gamma", "max_rounds",
-                      "max_ops", "bs", "buffer_depth", "occupancy_threshold",
-                      "interpret", "trace_every", "device"}
+    ref = {f.name for f in dataclasses.fields(repro.SolverOptions)}
+    simulator_only = {"partition", "mode", "max_steps", "record_every"}
+    assert fields == (ref - simulator_only) | {"device"}
+    for name in fields & ref:  # the reference's defaults
+        assert (getattr(repro_torch.SolverOptions(device="cpu"), name)
+                == getattr(repro.SolverOptions(), name)), name
     with pytest.raises(TypeError):
-        repro_torch.SolverOptions(device="cpu", signal="edge-ops")
+        repro_torch.SolverOptions(device="cpu", partition="cb")
+    with pytest.raises(ValueError, match="unknown signal"):
+        repro_torch.SolverOptions(device="cpu", signal="nope").validated()
+    with pytest.raises(ValueError, match="unknown engine dtype"):
+        repro_torch.SolverOptions(device="cpu", dtype="int8").validated()
+    assert repro_torch.SolverOptions(device="cpu",
+                                     dtype="float64").validated()
+    # as on a machine with a card: the kernels there are float32 only
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="float32 only"):
+        repro_torch.SolverOptions(dtype=torch.float64).validated()
 
 
 def test_cpu_solves_launch_no_kernel():
@@ -182,6 +232,9 @@ def test_cpu_solves_launch_no_kernel():
     problem = repro_torch.Problem.pagerank(g)
     for method in METHODS:
         repro_torch.solve(problem, method=method, device="cpu")
+    for method in ENGINES:
+        repro_torch.solve(problem, method=method, device="cpu", k=2,
+                          dynamic=True)
     session = repro_torch.SolverSession(problem, "frontier:pallas",
                                         device="cpu", interpret=True, bs=64)
     session.solve()

@@ -148,3 +148,72 @@ def test_solve_on_the_card_matches_the_cpu(cuda_device, method):
     kernel = ("frontier_round_bsr" if method == "frontier:pallas"
               else "edge_sum")
     assert LAUNCHES[kernel] - before[kernel] == card.n_rounds
+
+
+def _engine_pair(backend, device, n=4000, k=4):
+    from repro_torch.balance import BucketMoveExecutor
+    from repro_torch.core.distributed import (
+        DistributedEngine, EngineConfig, build_engine_arrays)
+
+    g = power_law_graph(n, seed=7)
+    g = g.reorder(np.argsort(-g.out_degree(), kind="stable"))
+    p, b = pagerank_system(g)
+    cfg = EngineConfig(k=k, target_error=1e-6, eps=0.15,
+                       buckets_per_dev=12, headroom=4,
+                       diffusion_backend=backend, device=str(device))
+    eng = DistributedEngine(build_engine_arrays(p, b, cfg), cfg)
+    return eng, BucketMoveExecutor(eng, eng.init_state())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moved", [False, True])
+def test_k2_over_engine_visit_table_matches_plain(cuda_device, moved):
+    """K2 fed the engine's visit table (bsr_gather_spmm's port) against
+    its plain twin on the same card inputs, before and after a move."""
+    from repro_torch.balance import MovePlan
+
+    eng, ex = _engine_pair("bsr", cuda_device)
+    if moved:
+        assert ex.apply(MovePlan(src=0, dst=3, units=2, kind="bucket")) == 2
+    a = eng.a
+    rng = np.random.default_rng(5)
+    sent = torch.from_numpy(rng.standard_normal(
+        (a.n_rows, a.bucket_size)).astype(np.float32)).to(cuda_device)
+    t = ex.table
+    before = LAUNCHES["bsr_spmm"]
+    got = td.engine_tile_push(eng.pool, t, sent)
+    again = td.engine_tile_push(eng.pool, t, sent)
+    torch.cuda.synchronize()
+    assert LAUNCHES["bsr_spmm"] == before + 2
+    assert torch.equal(got, again)
+    plain = td.bsr_spmm_plain(eng.pool, t.visit_block, t.visit_col,
+                              t.row_ptr, sent[:, :, None])[..., 0]
+    np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,kernel", [("bsr", "bsr_spmm"),
+                                            ("segment_sum", "edge_sum")])
+def test_engine_solve_on_the_card_matches_the_cpu(cuda_device, backend,
+                                                   kernel):
+    from repro_torch.balance import MovePlan
+
+    runs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        eng, ex = _engine_pair(backend, dev)
+        before = LAUNCHES[kernel]
+        tol = eng.cfg.target_error * eng.cfg.eps
+        for i in range(eng.cfg.max_chunks):
+            ex.state, stats = eng.run_chunk(ex.state, *ex.chunk_operands())
+            if i == 0:
+                assert ex.apply(MovePlan(src=0, dst=3, units=2,
+                                         kind="bucket")) == 2
+            if float(stats["residual"]) <= tol:
+                break
+        runs[dev.type] = (eng.extract_solution(ex.state, ex.row_of_bucket),
+                          ex.state.rounds, LAUNCHES[kernel] - before)
+    (x_card, rounds, launches), (x_cpu, _, cpu_launches) = (
+        runs["cuda"], runs["cpu"])
+    assert launches == rounds and cpu_launches == 0
+    assert np.abs(x_card - x_cpu).sum() <= 1e-6

@@ -151,3 +151,35 @@ def test_graph_store_multigraph_and_edge_file(tmp_path):
             tg.GraphStore.from_edge_file(str(path), weighted=weighted).csr())
     with pytest.raises(ValueError, match="ids >= n"):
         tg.GraphStore.from_edge_file(str(path), n=10)
+
+
+BUCKETINGS = [
+    ("power_law_graph", dict(n=700, seed=3), 8, False),
+    ("power_law_graph", dict(n=700, seed=3), 13, True),
+    ("webgraph_like", dict(n=900, seed=1), 50, False),
+    ("host_block_graph", dict(n=2048, seed=0), 7, True),
+]
+
+
+@pytest.mark.parametrize("name,kw,n_buckets,shuffle", BUCKETINGS)
+def test_bucketize_byte_identical(name, kw, n_buckets, shuffle):
+    """The port's vectorized bucketing against the reference's
+    per-slot loop, with and without a node order."""
+    g_ref = getattr(rc, name)(**kw)
+    g = getattr(tc, name)(**kw)
+    order = (np.random.default_rng(0).permutation(g.n) if shuffle
+             else None)
+    want = rc.bucketize(g_ref, n_buckets, order=order)
+    got = tc.bucketize(g, n_buckets, order=order)
+    for field in ("node_of_slot", "slot_of_node", "src_slot", "dst", "wgt",
+                  "out_deg"):
+        x, y = getattr(want, field), getattr(got, field)
+        assert x.dtype == y.dtype and np.array_equal(x, y), field
+    assert (got.n, got.n_edges, got.edge_cap) == (
+        want.n, want.n_edges, want.edge_cap)
+    store = tg.GraphStore.from_csr(g)
+    assert store.bucketed(n_buckets, order=order) is store.bucketed(
+        n_buckets, order=order)
+    layout = store.engine_layout(2, 6, 2, tiled=True)
+    assert store.engine_layout(2, 6, 2, tiled=True) is layout
+    assert store.engine_layout(2, 6, 2, tiled=False) is not layout

@@ -51,6 +51,9 @@ p = repro_torch.Problem.pagerank(webgraph_like(300, seed=1))
 for m in ("sequential", "frontier:segment_sum", "frontier:pallas"):
     rep = repro_torch.solve(p, method=m, device="cpu")
     assert rep.converged, m
+for m in ("engine:chunk", "engine:bsr"):
+    rep = repro_torch.solve(p, method=m, device="cpu", k=2, dynamic=True)
+    assert rep.converged, m
 assert not _build._LIBS, "a kernel library was loaded for a CPU solve"
 assert not any(k.split(".")[0] in ("jax", "repro", "triton")
                and sys.modules[k] is not None for k in sys.modules)

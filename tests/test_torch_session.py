@@ -89,3 +89,50 @@ def test_interop_carries_mid_solve_state(method):
     ref_rep = ref.solve()
     assert rep.converged and ref_rep.converged
     assert np.abs(rep.x - ref_rep.x).sum() <= 1e-6
+
+
+@pytest.mark.parametrize("method", ["engine:bsr", "engine:chunk"])
+def test_engine_warm_start_matches_reference(method):
+    """engine warm start at k=1 (the reference's in-process width): the
+    re-seeded |F'|_1 within 1e-6 relative of the reference's, then the
+    warm solve lands on the reference's answer with fewer edge pushes
+    than the cold one."""
+    g = webgraph_like(1500, seed=4)
+    ref_problem = repro.Problem.pagerank(g, target_error=1e-6)
+    problem = repro_torch.Problem.pagerank(g, target_error=1e-6)
+    ref = repro.SolverSession(ref_problem, method=method, k=1)
+    got = repro_torch.SolverSession(problem, method=method, k=1,
+                                    device="cpu")
+    cold, ref_cold = got.solve(), ref.solve()
+    assert cold.converged and ref_cold.converged
+    rng = np.random.default_rng(9)
+    b_new = np.abs(problem.b * (1.0 + 0.05 * rng.standard_normal(g.n)))
+    resid, ref_resid = got.warm_start(b_new), ref.warm_start(b_new)
+    assert resid == pytest.approx(ref_resid, rel=1e-6)
+    assert got.n_ops == 0 and got.n_rounds == 0
+    warm, ref_warm = got.solve(), ref.solve()
+    assert warm.converged and warm.n_ops < cold.n_ops
+    assert np.abs(warm.x - ref_warm.x).sum() <= 1e-6
+    assert got.lifetime_ops == cold.n_ops + warm.n_ops
+
+
+def test_engine_session_k4_dynamic_warm_start():
+    """k=4 with the controller on: a session solves, moves buckets, and a
+    warm request after the moves re-seeds from the moved layout."""
+    from repro.core import power_law_graph
+
+    g = power_law_graph(1600, seed=7)
+    g = g.reorder(np.argsort(-g.out_degree(), kind="stable"))
+    problem = repro_torch.Problem.pagerank(g, target_error=1e-8)
+    session = repro_torch.SolverSession(
+        problem, method="engine:bsr", device="cpu", k=4, dynamic=True,
+        buckets_per_dev=24, headroom=8, eta=0.9)
+    cold = session.solve()
+    assert cold.converged and cold.move_log
+    assert cold.extras["chunks"] == len(cold.trace) - 1
+    b_new = problem.b * 1.02
+    session.warm_start(b_new)
+    warm = session.solve()
+    assert warm.converged and warm.n_ops < cold.n_ops
+    dense = np.linalg.solve(np.eye(g.n) - problem.p.to_dense(), b_new)
+    assert np.abs(warm.x - dense).max() < 1e-5
