@@ -46,7 +46,29 @@ Phases, each printed on its own lines (any failure exits non-zero):
    40 buckets per PID (8 headroom), dynamic with eta=0.9, target 1e-8, on
    both engine backends: converged, max |x - x_dense| < 1e-5 against a
    dense numpy solve, a non-empty move log, the same log on both.
-9. Numbers: rounds, ops, wall times, launch counts of the main path
+9. FM serving: the ``fm`` config at full width (39 fields x 10^6 rows, a
+   39,000,000 x 10 float32 table drawn from a seeded generator on the
+   card) through ``launch.steps``: 8 ``serve_p99`` requests (B=512), one
+   ``serve_bulk`` batch (B=262,144) and one ``retrieval_cand`` query
+   against 10^6 candidates, each timed with its host batch made before.
+   Gates: finite logits; K4 (fm_interaction) launched once per forward
+   (and once per retrieval, for the user's own pair term); K4 against its
+   plain version on the serve_bulk gather, relative L1 <= 1e-5 and a
+   bit-identical relaunch; ``retrieval_score`` equal to ``forward_logits``
+   on the same 1,000 candidates within 1e-4.  Prints the wall per request
+   and the gather / K4 split.
+10. GIN forward: ``gin-tu`` at the ``ogb_products`` cell on a synthetic
+   ``power_law_graph`` (2,449,029 nodes, alpha chosen to stay under the
+   cell's 61,859,328 edges, padded to it with edge_mask-0 edges and to
+   2,449,056 nodes): two forwards over the destination-sorted batch.
+   Gates: K5 (segment_sum) launched 5 times per forward; the [N, 47]
+   output finite and within relative L1 <= 1e-5 of the same forward with
+   K5 replaced by its plain version; K5 against its plain version on one
+   layer's messages (relative L1 <= 1e-5, bit-identical relaunch) and,
+   exactly, on a small integer-valued case with sentinel ids and mask-0
+   rows.  Prints N, E, the real E, the host build times, the forward's
+   wall and its device memory peak.
+11. Numbers: rounds, ops, wall times, launch counts of the main path
    (phases 4 and 5, and phase 7, counters zeroed just before each solve
    and read just after; K2 runs in phase 5 only in the invariant check,
    off the solve loop, so its count there is 0 and its check launch is
@@ -58,7 +80,10 @@ Phases, each printed on its own lines (any failure exits non-zero):
    K2 and K3 get rows of their own (``bsr_gather_spmm``: the engine:bsr
    rounds of phase 7; ``engine_edge_sum``: the engine:chunk rounds); the
    ``edge_sum`` row counts K3 over the node-space edge list (phases 4-5
-   and the engine's warm seed).
+   and the engine's warm seed).  K4 and K5 get rows at the FM serve_bulk
+   and GIN layer shapes, their launches those of phases 9 and 10, the
+   library yardstick ``torch.segment_reduce`` for K5 (``index_add_``
+   beside it) and none for K4.
 
 The line before the last is the card's name and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -66,6 +91,7 @@ The line before the last is the card's name and power limit; the last line is
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -86,6 +112,11 @@ ON_PATH = ("frontier_round_bsr", "edge_sum")
 # (engine:chunk rounds, warm starts)
 ENGINE_PATH = ("bsr_spmm", "edge_sum")
 ENGINE_OPTS = {"k": 4, "policy": "slope_ema"}
+GIN_SHAPE = "ogb_products"
+# power_law_graph exponent of the GIN graph: its seed-0 graph at 2,449,029
+# nodes has 61,209,125 edges, under the cell's 61,859,328 (alpha 1.65
+# expects 64.1M edge stubs, over it)
+GIN_ALPHA = 1.655
 
 
 def fail(msg: str) -> None:
@@ -153,6 +184,11 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=2**21,
                     help="nodes of the host_block_graph (default 2**21)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--fm-vocab", type=int, default=1_000_000,
+                    help="FM rows per field (default 10**6, the fm config)")
+    ap.add_argument("--gin-nodes", type=int, default=None,
+                    help="nodes of the GIN graph (default: the ogb_products "
+                    "cell's 2,449,029, padded to the cell's N and E)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu for a rehearsal of the "
                     "control flow on the plain versions, which prints no "
@@ -179,6 +215,16 @@ def main() -> int:
     from repro_torch.balance import MovePlan
     from repro_torch.core import pagerank_system, power_law_graph
     from repro_torch.kernels.diffusion import engine_tile_push
+    from repro_torch.configs import fm as fm_config
+    from repro_torch.configs import gin_tu
+    from repro_torch.configs.gnn_common import SHAPE_DIMS
+    from repro_torch.data import (
+        criteo_like_batch, make_gnn_batch, pad_gnn_batch)
+    from repro_torch.kernels.fm import fm_interaction_kernel, fm_interaction_ref
+    from repro_torch.kernels.segment import (
+        segment_sum_ref, segment_sum_sorted)
+    from repro_torch.launch.steps import build_cell_step
+    from repro_torch.models import gnn, recsys
 
     dev = torch.device(args.device)
     on_card = dev.type == "cuda"
@@ -618,8 +664,234 @@ def main() -> int:
     if logs["engine:chunk"] != logs["engine:bsr"]:
         fail("the two engine backends made different moves")
 
-    # ---- 9. numbers --------------------------------------------------------
-    print("== phase 9: numbers")
+    # ---- 9. FM serving -----------------------------------------------------
+    print("== phase 9: FM serving")
+    spec = fm_config.spec()
+    fm_cfg = dataclasses.replace(spec.model_cfg,
+                                 vocab_per_field=args.fm_vocab)
+    nf, dim = fm_cfg.n_fields, fm_cfg.embed_dim
+    t0 = time.perf_counter()
+    fm_model = recsys.FM(fm_cfg, seed=args.seed, device=dev)
+    sync()
+    print(f"fm: table {fm_cfg.n_rows} x {dim} "
+          f"({fm_cfg.n_rows * dim * 4 / 1e9:.3f} GB f32) + lin_table, drawn "
+          f"on the device in {time.perf_counter() - t0:.3f} s")
+    steps = {name: build_cell_step(spec, spec.cells[name], fm_model)
+             for name in ("serve_p99", "serve_bulk", "retrieval_cand")}
+    t0 = time.perf_counter()
+    p99 = [criteo_like_batch(i, spec.cells["serve_p99"].meta["batch"], nf,
+                             args.fm_vocab, seed=args.seed) for i in range(8)]
+    bulk = criteo_like_batch(8, spec.cells["serve_bulk"].meta["batch"], nf,
+                             args.fm_vocab, seed=args.seed)
+    n_cand = spec.cells["retrieval_cand"].meta["n_candidates"]
+    query = {"user_ids": criteo_like_batch(9, 1, nf, args.fm_vocab,
+                                           seed=args.seed)["ids"][0, :nf - 1],
+             "cand_ids": (np.arange(n_cand) % args.fm_vocab).astype(np.int32)}
+    print(f"host batches (8 x {p99[0]['ids'].shape}, "
+          f"{bulk['ids'].shape}, {n_cand} candidates) made in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def request(name, batch, n_out):
+        before = LAUNCHES["fm_interaction"]
+        t0 = time.perf_counter()
+        out = steps[name](batch)
+        sync()
+        wall = time.perf_counter() - t0
+        k4 = LAUNCHES["fm_interaction"] - before
+        if out.shape != (n_out,) or not bool(out.isfinite().all()):
+            fail(f"{name}: logits not finite or of shape {tuple(out.shape)}")
+        if on_card and k4 != 1:
+            fail(f"{name}: K4 launched {k4} times in one forward")
+        return out, wall
+
+    reset_launches()
+    p99_walls = [request("serve_p99", b, b["ids"].shape[0])[1] for b in p99]
+    bulk_logits, bulk_wall = request("serve_bulk", bulk, bulk["ids"].shape[0])
+    scores, retr_wall = request("retrieval_cand", query, n_cand)
+    fm_launches = LAUNCHES["fm_interaction"]
+    print(f"serve_p99 walls (ms): "
+          f"{[round(w * 1e3, 3) for w in p99_walls]}; serve_bulk wall "
+          f"{bulk_wall * 1e3:.3f} ms; retrieval_cand wall "
+          f"{retr_wall * 1e3:.3f} ms; K4 launches {fm_launches}")
+    # checks, off the path: K4 against its plain version on the bulk gather
+    offs = torch.arange(nf, dtype=torch.int32, device=dev) * args.fm_vocab
+    bulk_ids = torch.as_tensor(bulk["ids"], device=dev)
+    bulk_rows = (bulk_ids + offs).reshape(-1)
+    v = fm_model.table.index_select(0, bulk_rows).reshape(-1, nf, dim)
+    y, y2, y_plain = (fm_interaction_kernel(v), fm_interaction_kernel(v),
+                      fm_interaction_ref(v))
+    e4, same4 = rel_l1(y, y_plain), torch.equal(y, y2)
+    print(f"K4 on the serve_bulk gather {tuple(v.shape)}: rel L1 {e4:.3e}, "
+          f"bit-identical relaunch {same4}")
+    if not (e4 <= REL_L1 and same4):
+        fail("K4 against its plain version")
+    n_check = 1000
+    full = np.concatenate(
+        [np.broadcast_to(query["user_ids"], (n_check, nf - 1)),
+         query["cand_ids"][:n_check, None]], axis=1)
+    d_id = float((steps["serve_p99"]({"ids": full})
+                  - scores[:n_check]).abs().max())
+    print(f"retrieval_score vs forward_logits on {n_check} candidates: "
+          f"max abs diff {d_id:.3e}")
+    if d_id > 1e-4:
+        fail("retrieval_score disagrees with forward_logits")
+    p99_rows = (torch.as_tensor(p99[0]["ids"], device=dev) + offs).reshape(-1)
+    v_p99 = fm_model.table.index_select(0, p99_rows).reshape(-1, nf, dim)
+    split = {
+        "gather_p99_ms": timer(lambda: fm_model.table.index_select(
+            0, p99_rows), 50),
+        "k4_p99_ms": timer(lambda: fm_interaction_kernel(v_p99), 50),
+        "gather_bulk_ms": timer(lambda: fm_model.table.index_select(
+            0, bulk_rows), 20),
+    }
+    # v read once, y written once; three flops per element and per column
+    b_ms, b_by = bound_ms(v.numel() * 4 + v.shape[0] * 4,
+                          3.0 * v.numel() + 3.0 * v.shape[0] * v.shape[2])
+    k4_row = {
+        "name": "fm_interaction", "route": "cuda",
+        "source": "src/repro_torch/csrc/fm.cu",
+        "replaces": "src/repro/kernels/fm/kernel.py:32",
+        "launches": fm_launches,
+        "max_abs_err": float((y - y_plain).abs().max()),
+        "ms": timer(lambda: fm_interaction_kernel(v), 50),
+        "plain_ms": timer(lambda: fm_interaction_ref(v), 20),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": list(v.shape), **split,
+    }
+    print(f"gather / K4 split (ms): serve_p99 {split['gather_p99_ms']:.4f} / "
+          f"{split['k4_p99_ms']:.4f}; serve_bulk "
+          f"{split['gather_bulk_ms']:.4f} / {k4_row['ms']:.4f}")
+    del fm_model, steps, v, v_p99, y, y2, y_plain, bulk_logits, scores
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- 10. GIN forward ---------------------------------------------------
+    print("== phase 10: GIN forward")
+    dims = SHAPE_DIMS[GIN_SHAPE]
+    gin_cfg = gin_tu.cfg_for(GIN_SHAPE)
+    n_nodes = args.gin_nodes or dims["n_real"]
+    t0 = time.perf_counter()
+    g_gin = power_law_graph(n_nodes, alpha=GIN_ALPHA, seed=args.seed)
+    graph_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gb = make_gnn_batch(g_gin, gin_cfg.d_feat, n_classes=gin_cfg.n_classes,
+                        seed=args.seed)
+    batch_s = time.perf_counter() - t0
+    if n_nodes == dims["n_real"]:
+        gin_n, gin_e = dims["n"], dims["e"]
+    else:  # the cells' padding rule: nodes % 32, edges % 512
+        gin_n, gin_e = -(-g_gin.n // 32) * 32, -(-g_gin.n_edges // 512) * 512
+    e_real = g_gin.n_edges
+    if e_real > gin_e:
+        fail(f"the GIN graph has {e_real} edges, over the cell's {gin_e}")
+    gb = pad_gnn_batch(gb, gin_n, gin_e)
+    del g_gin
+    t0 = time.perf_counter()
+    prepared = gnn.prepare_batch(gb, dev)
+    sync()
+    prep_s = time.perf_counter() - t0
+    del gb
+    gin = gnn.init_params(gin_cfg, seed=args.seed, device=dev)
+    print(f"gin-tu {GIN_SHAPE}: N={gin_n} ({n_nodes} real) E={gin_e} "
+          f"({e_real} real, alpha {GIN_ALPHA}) d_feat={gin_cfg.d_feat} "
+          f"d_hidden={gin_cfg.d_hidden} layers={gin_cfg.n_layers} classes="
+          f"{gin_cfg.n_classes}; host build graph {graph_s:.1f} s, batch "
+          f"{batch_s:.1f} s; upload + destination sort {prep_s:.1f} s")
+    held = torch.cuda.memory_allocated() / 1e9 if on_card else 0.0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    gin_walls = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        out = gnn.forward(gin, prepared)
+        sync()
+        gin_walls.append(time.perf_counter() - t0)
+        if on_card and LAUNCHES["segment_sum"] != gin_cfg.n_layers * (i + 1):
+            fail(f"K5 launched {LAUNCHES['segment_sum']} times in {i + 1} "
+                 "forwards")
+    gin_launches = LAUNCHES["segment_sum"]
+    peak = (torch.cuda.max_memory_allocated() / 1e9 - held if on_card
+            else 0.0)
+    if out.shape != (gin_n, gin_cfg.n_classes) or not bool(
+            out.isfinite().all()):
+        fail(f"GIN output not finite or of shape {tuple(out.shape)}")
+    print(f"forward walls {[round(w, 4) for w in gin_walls]} s; K5 launches "
+          f"{gin_launches}; device memory peak {peak:.3f} GB above the "
+          f"{held:.3f} GB held by earlier phases; "
+          f"|out|_1 / N {float(out.abs().sum()) / gin_n:.4e}")
+
+    def plain_agg(data, seg, n, weights=None, ptr=None):
+        return segment_sum_ref(data, seg, n, weights)
+
+    out_plain = gnn.forward(gin, prepared, segment_sum=plain_agg)
+    e_fwd = rel_l1(out, out_plain)
+    print(f"forward with K5 vs with its plain version: rel L1 {e_fwd:.3e}")
+    if e_fwd > REL_L1:
+        fail("GIN forward with K5 disagrees with the plain version")
+    del out, out_plain
+    src_s, seg_s, w_s, ptr_s = (prepared["agg_src"], prepared["agg_dst"],
+                                prepared["agg_w"], prepared["agg_ptr"])
+    h0 = gin.embed(prepared["x"], final_act=True)
+    msgs = h0.index_select(0, src_s)
+    a5, a5b = (segment_sum_sorted(msgs, seg_s, gin_n, weights=w_s, ptr=ptr_s)
+               for _ in range(2))
+    p5 = segment_sum_ref(msgs, seg_s, gin_n, w_s)
+    e5, same5 = rel_l1(a5, p5), torch.equal(a5, a5b)
+    print(f"K5 on layer 0's messages {tuple(msgs.shape)}: rel L1 {e5:.3e}, "
+          f"bit-identical relaunch {same5}")
+    if not (e5 <= REL_L1 and same5):
+        fail("K5 against its plain version")
+    # integer-valued rows and weights sum exactly in any order
+    seg_i = np.sort(rng.integers(0, 300, 10_000)).astype(np.int32)
+    seg_i[-100:] = 2**30
+    small = [torch.as_tensor(a, device=dev) for a in (
+        rng.integers(-8, 8, (10_000, 64)).astype(np.float32), seg_i,
+        rng.integers(0, 3, 10_000).astype(np.float32))]
+    exact = torch.equal(segment_sum_sorted(small[0], small[1], 300,
+                                           weights=small[2]),
+                        segment_sum_ref(small[0], small[1], 300, small[2]))
+    print(f"K5 with 2**30 sentinel ids and mask-0 rows (integer-valued): "
+          f"equal to the plain version {exact}")
+    if not exact:
+        fail("K5 on sentinel / mask-0 rows")
+    n_e, dh = msgs.shape
+    b_ms, b_by = bound_ms(msgs.numel() * 4 + n_e * 4 + ptr_s.numel() * 8
+                          + gin_n * dh * 4, 2.0 * msgs.numel())
+    lib_ms = idx_ms = None
+    if on_card:
+        lengths = torch.diff(ptr_s)
+        lo, hi = int(ptr_s[0]), int(ptr_s[-1])
+        lib_ms = timer(lambda: torch.segment_reduce(
+            msgs[lo:hi], "sum", lengths=lengths), 5)
+        seg_l = seg_s.long()
+        idx_ms = timer(lambda: torch.zeros_like(a5).index_add_(
+            0, seg_l, msgs * w_s[:, None]), 5)
+        del seg_l
+    k5_row = {
+        "name": "segment_sum", "route": "cuda",
+        "source": "src/repro_torch/csrc/segment_sum.cu",
+        "replaces": "src/repro/kernels/segment/kernel.py:50",
+        "launches": gin_launches,
+        "max_abs_err": float((a5 - p5).abs().max()),
+        "ms": timer(lambda: segment_sum_sorted(msgs, seg_s, gin_n,
+                                               weights=w_s, ptr=ptr_s), 10),
+        "plain_ms": timer(lambda: segment_sum_ref(msgs, seg_s, gin_n, w_s), 3),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "index_add_ms": idx_ms,
+        "gather_ms": timer(lambda: h0.index_select(0, src_s), 5),
+        "shape": [n_e, dh, gin_n],
+    }
+    gin_summary = (f"GIN (gin-tu {GIN_SHAPE}): N={gin_n} E={gin_e} "
+                   f"({e_real} real) forward walls "
+                   f"{[round(w, 4) for w in gin_walls]} s, peak {peak:.3f} GB "
+                   f"above the earlier phases' {held:.3f} GB")
+    del msgs, h0, a5, a5b, p5, prepared, gin, small
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- 11. numbers -------------------------------------------------------
+    print("== phase 11: numbers")
     print(f"main path: N={g.n} links={g.n_edges} pallas rounds "
           f"{rep.n_rounds} ops {rep.n_ops} solve wall {rep.wall_time_s:.3f} s"
           f"; segment_sum rounds {rep_ss.n_rounds} ops {rep_ss.n_ops} wall "
@@ -757,6 +1029,11 @@ def main() -> int:
             n_out, dtype=torch.float32, device=dev).index_add_(
                 0, dst_e, xe[src_e] * edges_e.wgt), 20),
     })
+    rows += [k4_row, k5_row]
+    print(f"FM (fm, vocab {args.fm_vocab}/field): serve_p99 walls (ms) "
+          f"{[round(w * 1e3, 3) for w in p99_walls]}, serve_bulk "
+          f"{bulk_wall * 1e3:.3f} ms, retrieval_cand {retr_wall * 1e3:.3f} ms")
+    print(gin_summary)
     for r in rows:
         print(f"{r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms "
               f"by {r['bound_by']}, plain {r['plain_ms']:.4f} ms, library "

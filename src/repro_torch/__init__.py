@@ -7,6 +7,10 @@ needs neither ``nvcc`` nor a card:
 
 >>> import repro_torch
 >>> report = repro_torch.solve(repro_torch.Problem.pagerank(g))
+
+The substrates ported so far live beside it: FM recsys serving and the
+GIN forward (:mod:`repro_torch.models`, with ``configs``, ``data`` and
+``launch.steps``).
 """
 _API_NAMES = (
     "BackendCapabilities",

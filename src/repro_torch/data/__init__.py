@@ -1,0 +1,5 @@
+from .pipeline import (  # noqa: F401
+    criteo_like_batch,
+    make_gnn_batch,
+    pad_gnn_batch,
+)

@@ -17,6 +17,9 @@ thing from the same state.
   reference ``EngineArrays``' fields, optionally carrying a reference
   ``EngineState`` across (``f``, ``h``, ``t`` and the bucket → row map),
   so both packages run one layout from one state.
+* :func:`fm_params_from_numpy` and :func:`gnn_params_from_numpy` build the
+  port's FM and GIN modules holding a reference parameter pytree
+  (``recsys.init_params`` / ``gnn.init_params``) given as numpy arrays.
 """
 from __future__ import annotations
 
@@ -30,8 +33,11 @@ from .balance.executors import BucketMoveExecutor
 from .core.distributed import DistributedEngine, EngineArrays, EngineConfig
 from .core.graph import CSRGraph
 from .graph.views import tile_groups
+from .models.gnn import GIN, GNNConfig, init_params
+from .models.recsys import FM, FMConfig
 
-__all__ = ["problem_from_arrays", "seed_session", "engine_from_arrays"]
+__all__ = ["problem_from_arrays", "seed_session", "engine_from_arrays",
+           "fm_params_from_numpy", "gnn_params_from_numpy"]
 
 
 def problem_from_arrays(indptr, indices, edge_weights, n: int, b, eps: float,
@@ -111,3 +117,45 @@ def engine_from_arrays(
         ex.state.ops = put(state["ops"]).to(torch.int64).reshape(cfg.k)
     ex.state.rounds = int(state.get("rounds", 0))
     return engine, ex
+
+
+def _fill(param: torch.nn.Parameter, value) -> None:
+    value = torch.tensor(np.asarray(value))
+    if tuple(value.shape) != tuple(param.shape):
+        raise ValueError(f"shape {tuple(value.shape)} where the port holds "
+                         f"{tuple(param.shape)}")
+    with torch.no_grad():
+        param.copy_(value.to(param.dtype))
+
+
+def fm_params_from_numpy(params: Mapping, cfg: FMConfig,
+                         device="cuda") -> FM:
+    """The port's FM holding the reference's ``table``, ``lin_table`` and
+    ``bias``."""
+    model = FM(cfg, device=device)
+    for name in ("table", "lin_table", "bias"):
+        _fill(getattr(model, name), params[name])
+    return model
+
+
+def _fill_mlp(mlp, p: Mapping) -> None:
+    if len(p["w"]) != len(mlp.w):
+        raise ValueError(f"{len(p['w'])} layers where the port holds "
+                         f"{len(mlp.w)}")
+    for dst, w in zip(mlp.w, p["w"]):
+        _fill(dst, w)
+    for dst, b in zip(mlp.b, p["b"]):
+        _fill(dst, b)
+
+
+def gnn_params_from_numpy(params: Mapping, cfg: GNNConfig,
+                          device="cuda") -> GIN:
+    """The port's GIN holding the reference's ``embed``, ``eps``, ``mlps``
+    and ``readout`` (each MLP a ``{"w": [...], "b": [...]}``)."""
+    model = init_params(cfg, device=device)
+    _fill_mlp(model.embed, params["embed"])
+    _fill(model.eps, params["eps"])
+    for mlp, p in zip(model.mlps, params["mlps"], strict=True):
+        _fill_mlp(mlp, p)
+    _fill_mlp(model.readout, params["readout"])
+    return model

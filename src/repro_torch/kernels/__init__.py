@@ -9,6 +9,11 @@ built at first use (:mod:`repro_torch.kernels._build`).
   round, K2 the BSR product (``csrc/diffusion.cu``).
 * ``edge_sum``  — K3, the deterministic per-destination edge reduction
   of the per-edge frontier round and of warm starts (``csrc/edge_sum.cu``).
+* ``fm``        — K4, the factorization-machine pairwise term of FM
+  serving (``csrc/fm.cu``).
+* ``segment``   — K5, the sorted (optionally weighted) segment sum behind
+  ``segment_sum_sorted`` / ``embedding_bag`` and GIN's aggregation
+  (``csrc/segment_sum.cu``).
 * ``tune``      — the read side of the tuned-config records.
 
 ``LAUNCHES`` counts each kernel's launches; ``reset_launches`` zeroes it.

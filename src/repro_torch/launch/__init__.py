@@ -1,1 +1,1 @@
-"""Launchers: the solve CLI."""
+"""Launchers: the solve CLI and the recsys serving steps."""

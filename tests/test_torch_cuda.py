@@ -10,6 +10,9 @@ it also runs on a machine that has only torch:
 Tolerances: float32 sums taken in another order than the twin's, on
 values of order 1: rtol 1e-5 with atol 1e-6 (1e-5 for the products, whose
 sums run over more terms); relaunches must be bit-identical (no atomics).
+K4 (fm_interaction) is held to 1e-5 of the magnitude of its cancelling
+terms, K5 (segment_sum) to rtol/atol 1e-5, and exactly on integer-valued
+inputs, whose sums do not depend on the order.
 """
 import numpy as np
 import pytest
@@ -217,3 +220,117 @@ def test_engine_solve_on_the_card_matches_the_cpu(cuda_device, backend,
         runs["cuda"], runs["cpu"])
     assert launches == rounds and cpu_launches == 0
     assert np.abs(x_card - x_cpu).sum() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,f,d", [(1, 2, 1), (7, 5, 4), (300, 39, 10),
+                                   (257, 13, 64), (33, 26, 128)])
+def test_fm_kernel_matches_plain(cuda_device, b, f, d):
+    from repro_torch.kernels.fm import fm_interaction, fm_interaction_ref
+
+    v = np.random.default_rng(b + f + d).standard_normal(
+        (b, f, d)).astype(np.float32)
+    v_d = torch.from_numpy(v).to(cuda_device)
+    before = LAUNCHES["fm_interaction"]
+    got = fm_interaction(v_d)
+    again = fm_interaction(v_d)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fm_interaction"] == before + 2
+    assert got.shape == (b,) and torch.equal(got, again)
+    # the sum-square trick cancels: hold each sample to 1e-5 of the
+    # magnitude of its terms (see test_torch_fm.py)
+    v64 = v.astype(np.float64)
+    scale = 0.5 * (v64.sum(1) ** 2 + (v64 * v64).sum(1)).sum(-1)
+    plain = fm_interaction_ref(torch.from_numpy(v)).numpy()
+    err = np.abs(got.cpu().numpy().astype(np.float64) - plain)
+    assert np.all(err <= 1e-5 * (1.0 + scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 10, 64, 128])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_segment_sum_kernel_matches_plain(cuda_device, d, weighted):
+    from repro_torch.kernels.segment import (
+        pad_sorted_edges, segment_sum_ref, segment_sum_sorted)
+
+    rng = np.random.default_rng(d)
+    e, n = 3001, 400
+    seg = np.sort(rng.integers(0, n // 2, e)).astype(np.int32)
+    seg[seg % 5 == 3] -= 1  # every fifth segment of the lower half is empty
+    seg = np.sort(seg)
+    data = rng.standard_normal((e, d)).astype(np.float32)
+    data_t, seg_t = pad_sorted_edges(torch.from_numpy(data),
+                                     torch.from_numpy(seg), 512)
+    w = (torch.from_numpy(rng.choice([0.0, 0.5, 2.0], data_t.shape[0])
+                          .astype(np.float32)) if weighted else None)
+    dev = lambda t: None if t is None else t.to(cuda_device)
+    before = LAUNCHES["segment_sum"]
+    got = segment_sum_sorted(dev(data_t), dev(seg_t), n, weights=dev(w))
+    again = segment_sum_sorted(dev(data_t), dev(seg_t), n, weights=dev(w))
+    torch.cuda.synchronize()
+    assert LAUNCHES["segment_sum"] == before + 2
+    assert got.shape == (n, d) and torch.equal(got, again)
+    assert bool((got[n // 2:] == 0).all())
+    assert bool((got[3: n // 2: 5] == 0).all())
+    plain = segment_sum_ref(data_t, seg_t, n, w)
+    np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_segment_sum_kernel_is_exact_on_integers(cuda_device):
+    """Integer-valued rows and weights sum exactly in any order: K5 must
+    equal its plain version bit for bit, sentinel and mask-0 rows
+    included."""
+    from repro_torch.kernels.segment import (
+        embedding_bag, embedding_bag_ref, segment_sum_ref, segment_sum_sorted)
+
+    rng = np.random.default_rng(1)
+    seg = np.sort(rng.integers(0, 300, 10_000)).astype(np.int32)
+    seg[-100:] = 2**30
+    data = rng.integers(-8, 8, (10_000, 64)).astype(np.float32)
+    w = rng.integers(0, 3, 10_000).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (data, seg, w)]
+    got = segment_sum_sorted(args[0].to(cuda_device), args[1].to(cuda_device),
+                             300, weights=args[2].to(cuda_device))
+    assert torch.equal(got.cpu(), segment_sum_ref(args[0], args[1], 300,
+                                                  args[2]))
+    table = torch.from_numpy(rng.integers(-4, 4, (50, 10)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, 50, (17, 9)).astype(np.int32))
+    bw = torch.from_numpy(rng.integers(0, 3, (17, 9)).astype(np.float32))
+    before = LAUNCHES["segment_sum"]
+    got = embedding_bag(table.to(cuda_device), ids.to(cuda_device),
+                        bw.to(cuda_device))
+    assert LAUNCHES["segment_sum"] == before + 1
+    assert torch.equal(got.cpu(), embedding_bag_ref(table, ids, bw))
+
+
+@pytest.mark.cuda
+def test_fm_and_gin_forward_on_the_card_match_the_cpu(cuda_device):
+    from repro_torch.data import criteo_like_batch, make_gnn_batch
+    from repro_torch.models import gnn, recsys
+
+    cfg = recsys.FMConfig(name="fm", n_fields=8, vocab_per_field=50,
+                          embed_dim=6)
+    card = recsys.FM(cfg, device=cuda_device)
+    cpu = recsys.FM(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    ids = criteo_like_batch(0, 300, 8, 50)["ids"]
+    before = LAUNCHES["fm_interaction"]
+    got = recsys.forward_logits(card, ids)
+    assert LAUNCHES["fm_interaction"] == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               recsys.forward_logits(cpu, ids).numpy(),
+                               rtol=1e-5, atol=1e-5)
+    gcfg = gnn.GNNConfig(name="g", arch="gin", n_layers=3, d_hidden=16,
+                         d_feat=6, n_classes=4)
+    g_card = gnn.init_params(gcfg, device=cuda_device)
+    g_cpu = gnn.init_params(gcfg, device="cpu")
+    g_cpu.load_state_dict({k: v.cpu() for k, v in g_card.state_dict().items()})
+    batch = make_gnn_batch(power_law_graph(300, seed=0), 6, n_classes=4)
+    before = LAUNCHES["segment_sum"]
+    out = gnn.forward(g_card, batch)
+    assert LAUNCHES["segment_sum"] == before + 3
+    np.testing.assert_allclose(out.cpu().numpy(),
+                               gnn.forward(g_cpu, batch).numpy(),
+                               rtol=1e-4, atol=1e-5)

@@ -37,6 +37,8 @@ def test_no_jax_or_reference_import(path):
 
 
 def test_import_and_solve_with_jax_and_reference_blocked():
+    """Solves, an FM forward and a GIN forward on the CPU, with jax and
+    the reference unimportable, load no kernel library."""
     code = """
 import sys
 sys.modules["jax"] = None
@@ -54,7 +56,20 @@ for m in ("sequential", "frontier:segment_sum", "frontier:pallas"):
 for m in ("engine:chunk", "engine:bsr"):
     rep = repro_torch.solve(p, method=m, device="cpu", k=2, dynamic=True)
     assert rep.converged, m
-assert not _build._LIBS, "a kernel library was loaded for a CPU solve"
+from repro_torch.core import power_law_graph
+from repro_torch.data import criteo_like_batch, make_gnn_batch
+from repro_torch.models import gnn, recsys
+
+fm = recsys.FM(recsys.FMConfig(name="fm", n_fields=4, vocab_per_field=20,
+                               embed_dim=3), device="cpu")
+logits = recsys.forward_logits(fm, criteo_like_batch(0, 9, 4, 20)["ids"])
+assert logits.shape == (9,) and bool(logits.isfinite().all())
+cfg = gnn.GNNConfig(name="g", arch="gin", n_layers=2, d_hidden=8, d_feat=5,
+                    n_classes=3)
+out = gnn.forward(gnn.init_params(cfg, device="cpu"),
+                  make_gnn_batch(power_law_graph(60, seed=1), 5, n_classes=3))
+assert out.shape == (60, 3) and bool(out.isfinite().all())
+assert not _build._LIBS, "a kernel library was loaded for a CPU run"
 assert not any(k.split(".")[0] in ("jax", "repro", "triton")
                and sys.modules[k] is not None for k in sys.modules)
 print("ok")
