@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py                 # N = 2**21, on the card
     python3 chip_smoke.py --n 65536       # a smaller graph
-    python3 chip_smoke.py --device cpu    # rehearsal: plain versions, no result
+    python3 chip_smoke.py --device cpu --n 16384 --fm-vocab 1000 \
+        --gin-nodes 5000 --lm-reduced   # rehearsal: plain versions, no result
 
 Phases, each printed on its own lines (any failure exits non-zero):
 
@@ -74,16 +75,41 @@ Phases, each printed on its own lines (any failure exits non-zero):
    off the solve loop, so its count there is 0 and its check launch is
    reported apart), and each kernel's CUDA-event time at the main path's
    shapes beside its bound (the larger of bytes over 3.35 TB/s and flops
-   over 67 TFLOP/s f32, counted for this run's inputs), its plain
-   version's time and a one-call library yardstick (torch.sparse.mm on a
-   sparse_bsr tensor for K2, index_add_ for K3, none for K1).  The engine's
-   K2 and K3 get rows of their own (``bsr_gather_spmm``: the engine:bsr
-   rounds of phase 7; ``engine_edge_sum``: the engine:chunk rounds); the
-   ``edge_sum`` row counts K3 over the node-space edge list (phases 4-5
-   and the engine's warm seed).  K4 and K5 get rows at the FM serve_bulk
-   and GIN layer shapes, their launches those of phases 9 and 10, the
-   library yardstick ``torch.segment_reduce`` for K5 (``index_add_``
-   beside it) and none for K4.
+   over 67 TFLOP/s f32, or 989 TFLOP/s for K6's bf16, counted for this
+   run's inputs), its plain version's time and a one-call library
+   yardstick (torch.sparse.mm on a sparse_bsr tensor for K2, index_add_
+   for K3, none for K1).  The engine's K2 and K3 get rows of their own
+   (``bsr_gather_spmm``: the engine:bsr rounds of phase 7;
+   ``engine_edge_sum``: the engine:chunk rounds); the ``edge_sum`` row
+   counts K3 over the node-space edge list (phases 4-5 and the engine's
+   warm seed).  K4 and K5 get rows at the FM serve_bulk and GIN layer
+   shapes, their launches those of phases 9 and 10, the library yardstick
+   ``torch.segment_reduce`` for K5 (``index_add_`` beside it) and none for
+   K4.
+12. LM serving: qwen1.5-0.5b at full width and depth (24 layers,
+   619,570,176 parameters, 1.24 GB bf16 drawn from a seeded generator on
+   the card) through ``launch.steps``' prefill / decode kinds, counters
+   zeroed just before: request A, 8 prompts x 2,048 tokens
+   (``lm_token_batch(0, ...)``) and 32 greedy decode steps over a
+   2,080-slot cache; request B, 1 prompt x 32,768 tokens and 16 steps over
+   a 32,784-slot cache (prefill_32k / decode_32k at batch 1).  Gates: K6
+   (flash_attention) launched 24 times in each prefill and 24 x steps in
+   each decode loop, counted apart, and its split-KV combine kernel
+   (flash_attention_combine) once per K6 launch that ``split_count``
+   splits (every decode step here, no prefill); finite logits;
+   K6 against its plain version in bf16 on layer 0's q / k / v at each
+   prefill (B's on its last 1,024 queries) and at each request's last
+   decode step (``kv_len``), max abs err <= 3e-2 and a bit-identical
+   relaunch; a float32 copy of the weights through A's prefill and 8
+   decode steps teacher-forced on A's tokens, with K6 and with the plain
+   attention, logits within relative L1 1e-4.  Prints the prefill walls
+   (cold, and warm once more), the wall per decode step and tok/s, the
+   device memory peak and a torch.profiler trace of one decode step of
+   each request; K6's rows (A's prefill layer and decode step, B's decode
+   step and prefill layer, ``scaled_dot_product_attention`` as the
+   library yardstick) join phase 11's in the kernels line, each with the
+   launches counted at its shape in this phase (``combine_launches`` those
+   of the combine kernel; a timed call of a split shape runs both).
 
 The line before the last is the card's name and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -102,6 +128,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 BS = 128
 REL_L1 = 1e-5
 # the kernels the frontier solve loop and warm starts launch; K2 (bsr_spmm)
@@ -117,6 +144,7 @@ GIN_SHAPE = "ogb_products"
 # nodes has 61,209,125 edges, under the cell's 61,859,328 (alpha 1.65
 # expects 64.1M edge stubs, over it)
 GIN_ALPHA = 1.655
+LM_ARCH = "qwen1.5-0.5b"
 
 
 def fail(msg: str) -> None:
@@ -172,11 +200,358 @@ class Timer:
         return start.elapsed_time(stop) / iters
 
 
-def bound_ms(n_bytes: float, n_flops: float):
+def bound_ms(n_bytes: float, n_flops: float,
+             flops_per_s: float = F32_FLOPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_flops = n_flops / F32_FLOPS_PER_S * 1e3
+    t_flops = n_flops / flops_per_s * 1e3
     return (max(t_bytes, t_flops),
             "bytes" if t_bytes >= t_flops else "operations")
+
+
+def device_share(torch, what, fn, untraced_ms=None):
+    """One call of ``fn`` under torch.profiler: its wall, the device time of
+    its kernels and their share of that wall (the profiler's own host cost
+    included, so the share reads low), the share of ``untraced_ms`` (the
+    same work's wall without the profiler) where given, and the kernels
+    that took most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    from torch.autograd import DeviceType
+
+    # the kernels' own rows (the ops that launched them carry their time too)
+    stats = sorted(((getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0)) / 1e3,
+                     e.count, e.key) for e in prof.key_averages()
+                    if getattr(e, "device_type", None) == DeviceType.CUDA),
+                   reverse=True)
+    stats = [st for st in stats if st[0] > 0]
+    busy = sum(st[0] for st in stats)
+    if busy == 0:
+        print(f"{what} under torch.profiler: wall {wall:.3f} ms, device time "
+              "not measured (the trace holds none)")
+        return
+    top = ", ".join(f"{key[:48]} x{n} {ms:.3f} ms" for ms, n, key in stats[:6])
+    plain = ("" if untraced_ms is None else
+             f", {100 * busy / untraced_ms:.1f} % of the {untraced_ms:.3f} ms "
+             "untraced wall")
+    print(f"{what} under torch.profiler: wall {wall:.3f} ms, device kernels "
+          f"{busy:.3f} ms ({100 * busy / wall:.1f} % of the traced wall"
+          f"{plain}); top: {top}")
+
+
+class _Captured(Exception):
+    """Stops a forward at its first attention call (``first_attention``)."""
+
+
+def first_attention(run):
+    """The inputs of the first attention call of ``run(attention)``: layer
+    0's q, k, v (views, as the model hands them to K6) and masks.  The
+    forward stops there."""
+    got = {}
+
+    def capture(q, k, v, *, causal, kv_len=None):
+        got.update(q=q, k=k, v=v, causal=causal, kv_len=kv_len)
+        raise _Captured
+
+    try:
+        run(capture)
+    except _Captured:
+        return got
+    fail("the forward never called its attention")
+
+
+def lm_serving(args, torch, dev, timer, sync):
+    """Phase 12: qwen1.5-0.5b served through ``launch.steps`` (requests A
+    and B), K6 held to its plain version, the float32 whole-path check and
+    K6's rows for the kernels line.  Returns ``(rows, summary)``."""
+    import copy
+
+    import torch.nn.functional as fn
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.smoke import lm_shrink
+    from repro_torch.data import lm_token_batch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.attention import attention_plain, flash_attention
+    from repro_torch.kernels.attention.kernel import split_count
+    from repro_torch.launch.steps import build_cell_step
+    from repro_torch.models import transformer
+
+    on_card = dev.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 stays float32
+    torch.backends.cudnn.allow_tf32 = False
+    spec = get_arch(LM_ARCH)
+    cfg = lm_shrink(spec.model_cfg) if args.lm_reduced else spec.model_cfg
+    # (lm_token_batch step, batch, prompt tokens, decode steps): A batched
+    # chat, B the 32k prompt of prefill_32k / decode_32k at batch 1
+    requests = {"A": (0, 8, 64 if args.lm_reduced else 2048, 32),
+                "B": (1, 1, 512 if args.lm_reduced else 32768, 16)}
+    t0 = time.perf_counter()
+    model = transformer.init_params(cfg, seed=args.seed, device=dev)
+    sync()
+    n_par = sum(p.numel() for p in model.parameters())
+    width = model.embed.element_size()
+    print(f"{cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff="
+          f"{cfg.d_ff}, vocab {cfg.vocab}, {model.embed.dtype}: {n_par} "
+          f"parameters ({n_par * width / 1e9:.3f} GB), drawn on the device "
+          f"in {time.perf_counter() - t0:.3f} s")
+    if n_par != cfg.n_params:
+        fail(f"{n_par} parameters where the config counts {cfg.n_params}")
+    prefill = build_cell_step(spec, spec.cells["prefill_32k"], model)
+    decode = build_cell_step(spec, spec.cells["decode_32k"], model)
+
+    n_sm = (torch.cuda.get_device_properties(dev).multi_processor_count
+            if on_card else 0)
+
+    def counted():
+        return (LAUNCHES["flash_attention"],
+                LAUNCHES["flash_attention_combine"])
+
+    def serve(name, step, b, s, n_steps):
+        tokens = lm_token_batch(step, b, s, cfg.vocab, seed=args.seed)["tokens"]
+        before = counted()
+        held = torch.cuda.memory_allocated() if on_card else 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cache, logits = prefill({"tokens": tokens, "max_seq": s + n_steps})
+        sync()
+        t_pre = time.perf_counter() - t0
+        after_prefill = counted()
+        finite = logits.isfinite().all()
+        toks = logits.argmax(-1)
+        gen, walls = [toks], []
+        for _ in range(n_steps):
+            last = (toks, cache["pos"])
+            t0 = time.perf_counter()
+            logits, cache = decode({"tokens": toks, "cache_k": cache["k"],
+                                    "cache_v": cache["v"],
+                                    "pos": cache["pos"]})
+            toks = logits.argmax(-1)
+            sync()
+            walls.append(time.perf_counter() - t0)
+            finite &= logits.isfinite().all()
+            gen.append(toks)
+        after_decode = counted()
+        # (attention, combine) launches of the prefill and of the decode loop
+        pre = [a - c for a, c in zip(after_prefill, before)]
+        dec = [a - c for a, c in zip(after_decode, after_prefill)]
+        k6 = pre[0] + dec[0]
+        peak = ((torch.cuda.max_memory_allocated() - held) / 1e9 if on_card
+                else 0.0)
+        kv_gb = cache["k"].numel() * 2 * cache["k"].element_size() / 1e9
+        step_ms = 1e3 * sum(walls) / len(walls)
+        print(f"request {name}: {b} x {s} tokens, prefill wall "
+              f"{t_pre * 1e3:.3f} ms; {n_steps} decode steps over a "
+              f"{s + n_steps}-slot cache ({kv_gb:.3f} GB): wall per step "
+              f"{step_ms:.3f} ms (first {walls[0] * 1e3:.3f}, min "
+              f"{min(walls) * 1e3:.3f}, max {max(walls) * 1e3:.3f}), "
+              f"{b * 1e3 / step_ms:.1f} tok/s; K6 launches {k6} (prefill "
+              f"{pre[0]}, decode {dec[0]}; combine kernel: prefill {pre[1]}, "
+              f"decode {dec[1]}); device memory peak {peak:.3f} GB above "
+              f"the {held / 1e9:.3f} GB held")
+        if not bool(finite):
+            fail(f"request {name}: logits not finite")
+        if on_card:
+            # decode step i attends over kv_len = s + i + 1 keys; K6 splits
+            # (and combines) where split_count says so
+            want = [cfg.n_layers, cfg.n_layers * n_steps,
+                    cfg.n_layers * (split_count(b, cfg.n_heads, s, s, n_sm)
+                                    > 1),
+                    cfg.n_layers * sum(
+                        split_count(b, cfg.n_heads, 1, s + i + 1, n_sm) > 1
+                        for i in range(n_steps))]
+            got = [pre[0], dec[0], pre[1], dec[1]]
+            if got != want:
+                fail(f"request {name}: K6 launches (prefill, decode, combine "
+                     f"in prefill, combine in decode) {got}, not {want}")
+        return {"tokens": tokens, "cache": cache, "last": last,
+                "gen": torch.stack(gen, 1), "prefill_s": t_pre,
+                "step_ms": step_ms, "tok_s": b * 1e3 / step_ms,
+                "launches": k6, "prefill_launches": pre, "decode_launches":
+                dec, "peak_gb": peak, "b": b, "s": s}
+
+    reset_launches()
+    with torch.inference_mode():
+        served = {name: serve(name, *shape)
+                  for name, shape in requests.items()}
+    path_launches = counted()
+    print(f"LM path K6 launches: {path_launches[0]}, of its combine kernel "
+          f"{path_launches[1]}")
+    if on_card and 0 in path_launches:
+        fail("K6 or its combine kernel was never launched on the LM path")
+    # each request's first prefill carries one-time costs (allocator
+    # growth, library set-up for new shapes): time each once more, warm,
+    # then trace one decode step after it
+    with torch.inference_mode():
+        for name, r in served.items():
+            t0 = time.perf_counter()
+            cache, logits = prefill({"tokens": r["tokens"],
+                                     "max_seq": r["s"] + 1})
+            sync()
+            r["warm_prefill_s"] = time.perf_counter() - t0
+            print(f"request {name}: prefill again, warm: "
+                  f"{r['warm_prefill_s'] * 1e3:.3f} ms")
+            if on_card:
+                device_share(torch, f"request {name} decode step", lambda: (
+                    decode({"tokens": logits.argmax(-1),
+                            "cache_k": cache["k"], "cache_v": cache["v"],
+                            "pos": cache["pos"]})), r["step_ms"])
+            del cache, logits
+
+    # ---- checks, off the path: K6 against its plain version --------------
+    def check(tag, ins, q_start=None):
+        """K6 on layer 0's inputs against the plain version; with
+        ``q_start`` only the queries from there on are compared."""
+        q, k, v = ins["q"], ins["k"], ins["v"]
+        kw = {"causal": ins["causal"], "kv_len": ins["kv_len"]}
+        out, again = flash_attention(q, k, v, **kw), flash_attention(q, k, v,
+                                                                     **kw)
+        if q_start is None:
+            plain = attention_plain(q, k, v, **kw)
+        else:
+            plain = attention_plain(q[:, :, q_start:], k, v, q_start=q_start,
+                                    **kw)
+            out = out[:, :, q_start:]
+            again = again[:, :, q_start:]
+        err = float((out.float() - plain.float()).abs().max())
+        # the scale the bf16 error is read against: one bf16 ulp of the
+        # largest output is 2**-7 of its power of two
+        scale = float(plain.float().abs().max())
+        same = torch.equal(out, again)
+        print(f"K6 {tag}: q {tuple(q.shape)} k {tuple(k.shape)} "
+              f"{str(q.dtype)[6:]} causal {kw['causal']} kv_len "
+              f"{kw['kv_len']}"
+              f"{'' if q_start is None else f', from query {q_start} on'}"
+              f": max abs err {err:.3e} (bound 3e-2) at max |plain| "
+              f"{scale:.3e}, bit-identical relaunch {same}")
+        if not (err <= 3e-2 and same):
+            fail(f"K6 against its plain version at {tag}")
+        return err
+
+    caps, errs = {}, {}
+    with torch.inference_mode():
+        for name, r in served.items():
+            caps[name + " prefill"] = first_attention(
+                lambda att: transformer.prefill_step(
+                    model, r["tokens"], attention=att))
+            toks, pos = r["last"]
+            caps[name + " decode"] = first_attention(
+                lambda att: transformer.decode_step(
+                    model, {"k": r["cache"]["k"], "v": r["cache"]["v"],
+                            "pos": pos}, toks, attention=att))
+        errs["A prefill"] = check("A prefill", caps["A prefill"])
+        s_b = requests["B"][2]
+        errs["B prefill"] = check("B prefill", caps["B prefill"],
+                                  q_start=max(0, s_b - 1024))
+        errs["A decode"] = check("A decode", caps["A decode"])
+        errs["B decode"] = check("B decode", caps["B decode"])
+
+        # ---- the whole path in float32: K6 against the plain attention ---
+        a = served["A"]
+        del served["B"]["cache"]
+        m32 = copy.deepcopy(model).float()
+        m32.cfg = dataclasses.replace(cfg, dtype=torch.float32)
+
+        def teacher_forced(attention, n=8):
+            cache, lg = transformer.prefill_step(
+                m32, a["tokens"], max_seq=a["s"] + n, attention=attention)
+            out = [lg]
+            for i in range(n):
+                lg, cache = transformer.decode_step(
+                    m32, cache, a["gen"][:, i], attention=attention)
+                out.append(lg)
+            return torch.stack(out)
+
+        t0 = time.perf_counter()
+        l_k6 = teacher_forced(flash_attention)
+        l_plain = teacher_forced(attention_plain)
+        sync()
+        e32 = rel_l1(l_k6, l_plain)
+        print(f"float32 copy of the weights, request A prefill + 8 "
+              f"teacher-forced decode steps, K6 against the plain "
+              f"attention: logits {tuple(l_k6.shape)} finite "
+              f"{bool(l_k6.isfinite().all())}, relative L1 {e32:.3e} "
+              f"(bound 1e-4); {time.perf_counter() - t0:.1f} s")
+        if not (bool(l_k6.isfinite().all()) and e32 <= 1e-4):
+            fail("float32 logits with K6 disagree with the plain attention")
+        del m32, l_k6, l_plain
+
+        # ---- K6's rows: time, bound, plain version, library yardstick ----
+        rows = []
+
+        def row(name, tag, launches, iters, plain_iters, plain_fn=None):
+            # launches: this run's (attention, combine) counts at the shape;
+            # a timed call of a split shape runs both kernels
+            ins = caps[tag]
+            q, k, v = ins["q"], ins["k"], ins["v"]
+            causal, kv_len = ins["causal"], ins["kv_len"]
+            b, hq, sq, dh = q.shape
+            sk = kv_len or k.shape[2]
+            if causal:  # the (query, key) pairs under the mask
+                pairs = sq * (sq + 1) // 2 if sq == sk else sq * sk
+            else:
+                pairs = sq * sk
+            n_flops = 4.0 * b * hq * dh * pairs
+            n_bytes = (2 * q.numel() + 2 * b * k.shape[1] * sk * dh) * (
+                q.element_size())
+            b_ms, b_by = bound_ms(n_bytes, n_flops, BF16_FLOPS_PER_S
+                                  if q.dtype == torch.bfloat16
+                                  else F32_FLOPS_PER_S)
+            kw = {"causal": causal, "kv_len": kv_len}
+            ks, vs = k[:, :, :sk], v[:, :, :sk]
+            lib = timer(lambda: fn.scaled_dot_product_attention(
+                q, ks, vs, is_causal=causal), iters)
+            plain_fn = plain_fn or (lambda: attention_plain(q, k, v, **kw))
+            return {
+                "name": name, "route": "cuda",
+                "source": "src/repro_torch/csrc/attention.cu",
+                "replaces": "src/repro/kernels/attention/kernel.py:75",
+                "launches": launches[0], "combine_launches": launches[1],
+                "max_abs_err": errs[tag],
+                "ms": timer(lambda: flash_attention(q, k, v, **kw), iters),
+                "plain_ms": timer(plain_fn, plain_iters, warmup=1),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+                "shape": [b, hq, sq, sk, dh], "dtype": str(q.dtype)[6:],
+                "causal": causal,
+            }
+
+        ra, rb = served["A"], served["B"]
+        rows.append(row("flash_attention", "A prefill",
+                        ra["prefill_launches"], 20, 5))
+        rows.append(row("flash_attention_decode", "A decode",
+                        ra["decode_launches"], 50, 10))
+        rows.append(row("flash_attention_decode_32k", "B decode",
+                        rb["decode_launches"], 20, 5))
+        cb = caps["B prefill"]
+
+        def plain_chunked(chunk=1024):
+            # the whole layer's plain version, 1,024 queries at a time (one
+            # [1, 16, 32768, 32768] float32 score matrix would be 69 GB)
+            q = cb["q"]
+            for lo in range(0, q.shape[2], chunk):
+                attention_plain(q[:, :, lo:lo + chunk], cb["k"], cb["v"],
+                                causal=True, q_start=lo)
+
+        rows.append(row("flash_attention_prefill_32k", "B prefill",
+                        rb["prefill_launches"], 3, 1,
+                        plain_fn=plain_chunked))
+    summary = "; ".join(
+        f"request {n}: {r['b']} x {r['s']} prefill {r['prefill_s']:.3f} s "
+        f"(warm {r['warm_prefill_s']:.3f} s), "
+        f"{r['step_ms']:.3f} ms per decode step ({r['tok_s']:.1f} tok/s), "
+        f"peak {r['peak_gb']:.3f} GB" for n, r in served.items())
+    del caps, served, model
+    if on_card:
+        torch.cuda.empty_cache()
+    return rows, f"LM ({cfg.name}): {summary}"
 
 
 def main() -> int:
@@ -189,6 +564,9 @@ def main() -> int:
     ap.add_argument("--gin-nodes", type=int, default=None,
                     help="nodes of the GIN graph (default: the ogb_products "
                     "cell's 2,449,029, padded to the cell's N and E)")
+    ap.add_argument("--lm-reduced", action="store_true",
+                    help="phase 12 on the reduced LM config (2 layers, "
+                    "float32) with 64- and 512-token prompts")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu for a rehearsal of the "
                     "control flow on the plain versions, which prints no "
@@ -1034,11 +1412,27 @@ def main() -> int:
           f"{[round(w * 1e3, 3) for w in p99_walls]}, serve_bulk "
           f"{bulk_wall * 1e3:.3f} ms, retrieval_cand {retr_wall * 1e3:.3f} ms")
     print(gin_summary)
-    for r in rows:
-        print(f"{r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms "
-              f"by {r['bound_by']}, plain {r['plain_ms']:.4f} ms, library "
-              f"{r['library_ms']}) launches {r['launches']} on {smi}")
-    print(f"total wall {time.perf_counter() - t_start:.1f} s")
+
+    def show(rows):
+        for r in rows:
+            print(f"{r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} "
+                  f"ms by {r['bound_by']}, plain {r['plain_ms']:.4f} ms, "
+                  f"library {r['library_ms']}) launches {r['launches']}"
+                  + (f" (+ {r['combine_launches']} of the combine kernel)"
+                     if r.get("combine_launches") else "") + f" on {smi}")
+
+    show(rows)
+    print(f"phases 1-11 wall {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 12. LM serving ----------------------------------------------------
+    print("== phase 12: LM serving")
+    t0 = time.perf_counter()
+    lm_rows, lm_summary = lm_serving(args, torch, dev, timer, sync)
+    print(lm_summary)
+    show(lm_rows)
+    rows += lm_rows
+    print(f"phase 12 wall {time.perf_counter() - t0:.1f} s; total wall "
+          f"{time.perf_counter() - t_start:.1f} s")
     if not on_card:
         print("rehearsal on the CPU done: no device numbers, no result")
         return 3

@@ -8,9 +8,10 @@ needs neither ``nvcc`` nor a card:
 >>> import repro_torch
 >>> report = repro_torch.solve(repro_torch.Problem.pagerank(g))
 
-The substrates ported so far live beside it: FM recsys serving and the
-GIN forward (:mod:`repro_torch.models`, with ``configs``, ``data`` and
-``launch.steps``).
+The substrates ported so far live beside it: FM recsys serving, the
+GIN forward and qwen1.5-0.5b prefill / decode serving
+(:mod:`repro_torch.models`, with ``configs``, ``data``, ``launch.steps``
+and ``launch.serve``).
 """
 _API_NAMES = (
     "BackendCapabilities",

@@ -1,9 +1,10 @@
 """Deterministic synthetic batches for the port's substrates (numpy).
 
-The port's own copy of ``repro.data.pipeline``'s recsys and full-graph
-GNN generators: the same arguments give the same arrays byte for byte,
-so the parity tests can feed both packages one batch.
+The port's own copy of ``repro.data.pipeline``'s LM, recsys and
+full-graph GNN generators: the same arguments give the same arrays byte
+for byte, so the parity tests can feed both packages one batch.
 
+* LM: Zipf tokens, labels the next token.
 * RecSys: criteo-like power-law categorical ids + click labels.
 * GNN: the full-graph batch of a :class:`~repro_torch.core.CSRGraph`,
   and its padding to a cell's static node / edge counts.
@@ -16,7 +17,17 @@ import numpy as np
 
 from ..core.graph import CSRGraph
 
-__all__ = ["criteo_like_batch", "make_gnn_batch", "pad_gnn_batch"]
+__all__ = ["lm_token_batch", "criteo_like_batch", "make_gnn_batch",
+           "pad_gnn_batch"]
+
+
+def lm_token_batch(step: int, batch: int, seq: int, vocab: int,
+                   seed: int = 0) -> Dict[str, np.ndarray]:
+    """Zipf tokens; labels = next token (teacher forcing)."""
+    rng = np.random.default_rng(seed * 1_000_003 + step)
+    toks = rng.zipf(1.3, size=(batch, seq + 1)) % vocab
+    toks = toks.astype(np.int32)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
 def make_gnn_batch(

@@ -17,9 +17,11 @@ thing from the same state.
   reference ``EngineArrays``' fields, optionally carrying a reference
   ``EngineState`` across (``f``, ``h``, ``t`` and the bucket → row map),
   so both packages run one layout from one state.
-* :func:`fm_params_from_numpy` and :func:`gnn_params_from_numpy` build the
-  port's FM and GIN modules holding a reference parameter pytree
-  (``recsys.init_params`` / ``gnn.init_params``) given as numpy arrays.
+* :func:`fm_params_from_numpy`, :func:`gnn_params_from_numpy` and
+  :func:`lm_params_from_numpy` build the port's FM, GIN and transformer
+  modules holding a reference parameter pytree (``recsys.init_params`` /
+  ``gnn.init_params`` / ``transformer.init_params``) given as numpy
+  arrays.
 """
 from __future__ import annotations
 
@@ -35,9 +37,12 @@ from .core.graph import CSRGraph
 from .graph.views import tile_groups
 from .models.gnn import GIN, GNNConfig, init_params
 from .models.recsys import FM, FMConfig
+from .models.transformer import Transformer, TransformerConfig
+from .models.transformer import init_params as init_lm
 
 __all__ = ["problem_from_arrays", "seed_session", "engine_from_arrays",
-           "fm_params_from_numpy", "gnn_params_from_numpy"]
+           "fm_params_from_numpy", "gnn_params_from_numpy",
+           "lm_params_from_numpy"]
 
 
 def problem_from_arrays(indptr, indices, edge_weights, n: int, b, eps: float,
@@ -158,4 +163,22 @@ def gnn_params_from_numpy(params: Mapping, cfg: GNNConfig,
     for mlp, p in zip(model.mlps, params["mlps"], strict=True):
         _fill_mlp(mlp, p)
     _fill_mlp(model.readout, params["readout"])
+    return model
+
+
+def lm_params_from_numpy(params: Mapping, cfg: TransformerConfig,
+                         device="cuda") -> Transformer:
+    """The port's transformer holding the reference's ``embed``,
+    ``final_norm``, ``lm_head`` and stacked ``layers`` (``ln1``, ``ln2``,
+    ``wq``, ``wk``, ``wv``, ``wo``, the QKV biases, ``w1``, ``w3``,
+    ``w2``), cast to ``cfg.dtype``."""
+    model = init_lm(cfg, device=device)
+    for name in ("embed", "final_norm", "lm_head"):
+        _fill(getattr(model, name), params[name])
+    layers = params["layers"]
+    if set(layers) != set(model.layers):
+        raise ValueError(f"layers {sorted(layers)} where the port holds "
+                         f"{sorted(model.layers)}")
+    for name, p in model.layers.items():
+        _fill(p, layers[name])
     return model

@@ -14,6 +14,9 @@ built at first use (:mod:`repro_torch.kernels._build`).
 * ``segment``   — K5, the sorted (optionally weighted) segment sum behind
   ``segment_sum_sorted`` / ``embedding_bag`` and GIN's aggregation
   (``csrc/segment_sum.cu``).
+* ``attention`` — K6, flash attention (causal or not, GQA, ``kv_len``
+  masking) behind the transformer's prefill and decode
+  (``csrc/attention.cu``).
 * ``tune``      — the read side of the tuned-config records.
 
 ``LAUNCHES`` counts each kernel's launches; ``reset_launches`` zeroes it.

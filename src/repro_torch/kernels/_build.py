@@ -40,6 +40,8 @@ LAUNCHES: Dict[str, int] = {
     "edge_sum": 0,
     "fm_interaction": 0,
     "segment_sum": 0,
+    "flash_attention": 0,
+    "flash_attention_combine": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,1 +1,2 @@
-"""Launchers: the solve CLI and the recsys serving steps."""
+"""Launchers: the solve CLI, the LM serving CLI (``serve lm``) and the
+recsys and LM serving steps."""

@@ -334,3 +334,200 @@ def test_fm_and_gin_forward_on_the_card_match_the_cpu(cuda_device):
     np.testing.assert_allclose(out.cpu().numpy(),
                                gnn.forward(g_cpu, batch).numpy(),
                                rtol=1e-4, atol=1e-5)
+
+
+# K6: the reference's attention shapes (tests/test_kernels.py), inputs as
+# the reference makes them; float32 sums in another order than the plain
+# version's full softmax (rtol 1e-5 / atol 1e-6 on outputs of order 1),
+# bf16 at the reference's own bf16 bound
+ATTN_SHAPES = [(2, 4, 2, 256, 64, True), (1, 8, 1, 128, 32, True),
+               (2, 4, 4, 384, 64, False), (1, 2, 1, 100, 64, True),
+               (1, 16, 2, 128, 128, True)]
+
+
+def _qkv(b, hq, hkv, sq, sk, dh, seed, dtype, device):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, hq, sq, dh)) * 0.2
+    k = rng.standard_normal((b, hkv, sk, dh)) * 0.2
+    v = rng.standard_normal((b, hkv, sk, dh))
+    return [torch.from_numpy(a.astype(np.float32)).to(device=device,
+                                                      dtype=dtype)
+            for a in (q, k, v)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,s,dh,causal", ATTN_SHAPES)
+def test_flash_attention_kernel_matches_plain(cuda_device, b, hq, hkv, s, dh,
+                                              causal, dtype):
+    from repro_torch.kernels.attention import attention_plain, flash_attention
+
+    dt = getattr(torch, dtype)
+    q, k, v = _qkv(b, hq, hkv, s, s, dh, s + dh, dt, cuda_device)
+    before = LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal)
+    again = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 2
+    assert got.shape == q.shape and got.dtype == dt
+    assert torch.equal(got, again)
+    plain = attention_plain(q, k, v, causal=causal)
+    tol = dict(rtol=1e-5, atol=1e-6) if dt == torch.float32 else dict(
+        rtol=3e-2, atol=3e-2)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               plain.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_takes_strided_views_and_kv_len(cuda_device,
+                                                               dtype):
+    """The model's views: q and the cache as ``[B, S, H, Dh]`` transposed,
+    the cache longer than the keys in use (decode); K6 must equal the
+    same call on contiguous copies, and the plain version."""
+    from repro_torch.kernels.attention import (
+        attention_plain, flash_attention, flash_attention_kernel)
+
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(7)
+    b, hq, hkv, smax, dh = 3, 8, 2, 300, 64
+    cache = torch.from_numpy(rng.standard_normal(
+        (2, b, smax, hkv, dh)).astype(np.float32)).to(cuda_device, dt)
+    q_bshd = torch.from_numpy(rng.standard_normal(
+        (b, 1, hq, dh)).astype(np.float32) * 0.2).to(cuda_device, dt)
+    q = q_bshd.transpose(1, 2)
+    k, v = cache[0].transpose(1, 2), cache[1].transpose(1, 2)
+    assert not k.is_contiguous()
+    tol = dict(rtol=1e-5, atol=1e-6) if dt == torch.float32 else dict(
+        rtol=3e-2, atol=3e-2)
+    for kv_len in (1, 63, 64, 65, 217, smax):
+        got = flash_attention(q, k, v, causal=False, kv_len=kv_len)
+        flat = flash_attention_kernel(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), causal=False,
+                                      kv_len=kv_len)
+        assert torch.equal(got, flat)
+        # the keys past kv_len are never read: poisoning them changes nothing
+        poisoned = cache.clone()
+        poisoned[:, :, kv_len:] = float("nan")
+        again = flash_attention(q, poisoned[0].transpose(1, 2),
+                                poisoned[1].transpose(1, 2), causal=False,
+                                kv_len=kv_len)
+        assert torch.equal(got, again)
+        plain = attention_plain(q, k[:, :, :kv_len], v[:, :, :kv_len],
+                                causal=False)
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   plain.float().cpu().numpy(), **tol)
+    # causal prefill over [B, S, H, Dh] views with a ragged S
+    x = torch.from_numpy(rng.standard_normal(
+        (3, b, 129, hq, dh)).astype(np.float32) * 0.3).to(cuda_device, dt)
+    qs, ks, vs = (x[i].transpose(1, 2) for i in range(3))
+    got = flash_attention(qs, ks, vs, causal=True)
+    assert torch.equal(got, flash_attention(
+        qs.contiguous(), ks.contiguous(), vs.contiguous(), causal=True))
+    np.testing.assert_allclose(
+        got.float().cpu().numpy(),
+        attention_plain(qs, ks, vs, causal=True).float().cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_prefill_every_head_dim(cuda_device, dh, causal):
+    """bf16 with more than one query block runs K6's tensor-core path: every
+    head dim, a ragged last block, GQA."""
+    from repro_torch.kernels.attention import attention_plain, flash_attention
+
+    q, k, v = _qkv(2, 4, 2, 200, 200, dh, dh, torch.bfloat16, cuda_device)
+    got = flash_attention(q, k, v, causal=causal)
+    assert torch.equal(got, flash_attention(q, k, v, causal=causal))
+    np.testing.assert_allclose(
+        got.float().cpu().numpy(),
+        attention_plain(q, k, v, causal=causal).float().cpu().numpy(),
+        rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq", [1, 5, 64])
+def test_flash_attention_split_kv_matches_plain(cuda_device, sq, dtype):
+    """Few rows over a long cache: K6 splits the key tiles over CTAs and
+    combines them; the result must match the plain version and relaunch
+    bit-identically, at kv_len values that leave splits ragged or empty.
+    A split call launches the combine kernel too, and counts it."""
+    from repro_torch.kernels.attention import attention_plain, flash_attention
+    from repro_torch.kernels.attention.kernel import split_count
+
+    dt = getattr(torch, dtype)
+    b, hq, hkv, smax, dh = 1, 4, 2, 4096, 64
+    q, k, v = _qkv(b, hq, hkv, sq, smax, dh, sq, dt, cuda_device)
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    tol = dict(rtol=1e-5, atol=1e-6) if dt == torch.float32 else dict(
+        rtol=3e-2, atol=3e-2)
+    for kv_len in (1, 1000, 4095, 4096):
+        split = split_count(b, hq, sq, kv_len, n_sm) > 1
+        assert kv_len < 256 or split
+        before = dict(LAUNCHES)
+        got = flash_attention(q, k, v, causal=False, kv_len=kv_len)
+        assert torch.equal(got, flash_attention(q, k, v, causal=False,
+                                                kv_len=kv_len))
+        assert LAUNCHES["flash_attention"] - before["flash_attention"] == 2
+        assert (LAUNCHES["flash_attention_combine"]
+                - before["flash_attention_combine"]) == 2 * split
+        np.testing.assert_allclose(
+            got.float().cpu().numpy(),
+            attention_plain(q, k, v, causal=False, kv_len=kv_len).float()
+            .cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels.attention import flash_attention
+
+    q, k, v = _qkv(1, 4, 2, 64, 64, 64, 0, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention(q.half(), k.half(), v.half())
+    q, k, v = _qkv(1, 4, 2, 64, 64, 48, 0, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="head dim 48"):
+        flash_attention(q, k, v)
+    q, k, v = _qkv(1, 4, 2, 64, 64, 64, 0, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="kv_len"):
+        flash_attention(q, k, v, kv_len=65)
+    # rows 66 floats apart: not 16-byte aligned
+    padded = torch.zeros((2, 1, 2, 64, 66), device=cuda_device)[..., :64]
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention(q, padded[0], padded[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_kv_heads", [2, 1])
+def test_lm_serving_on_the_card_matches_the_cpu(cuda_device, n_kv_heads):
+    """The reduced qwen1.5-0.5b (float32) through prefill and 4 decode
+    steps: K6 launched once per layer and step, logits and cache equal to
+    the CPU's (plain attention) within rtol 1e-4 / atol 1e-5."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.smoke import lm_shrink
+    from repro_torch.data import lm_token_batch
+    from repro_torch.models import transformer as lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(lm_shrink(get_arch("qwen1.5-0.5b").model_cfg),
+                              n_kv_heads=n_kv_heads)
+    card = lm.init_params(cfg, device=cuda_device)
+    cpu = lm.init_params(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    toks = lm_token_batch(0, 3, 40, cfg.vocab)["tokens"]
+    before = LAUNCHES["flash_attention"]
+    c_card, l_card = lm.prefill_step(card, toks[:, :36], max_seq=40)
+    c_cpu, l_cpu = lm.prefill_step(cpu, toks[:, :36], max_seq=40)
+    tol = dict(rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(l_card.cpu().numpy(), l_cpu.numpy(), **tol)
+    for t in range(36, 40):
+        l_card, c_card = lm.decode_step(card, c_card, toks[:, t])
+        l_cpu, c_cpu = lm.decode_step(cpu, c_cpu, toks[:, t])
+        np.testing.assert_allclose(l_card.cpu().numpy(), l_cpu.numpy(),
+                                   **tol)
+    assert LAUNCHES["flash_attention"] == before + cfg.n_layers * 5
+    np.testing.assert_allclose(c_card["k"].cpu().numpy(),
+                               c_cpu["k"].numpy(), **tol)

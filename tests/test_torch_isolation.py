@@ -37,8 +37,9 @@ def test_no_jax_or_reference_import(path):
 
 
 def test_import_and_solve_with_jax_and_reference_blocked():
-    """Solves, an FM forward and a GIN forward on the CPU, with jax and
-    the reference unimportable, load no kernel library."""
+    """Solves, an FM forward, a GIN forward and an LM prefill + decode
+    step on the CPU, with jax and the reference unimportable, load no
+    kernel library."""
     code = """
 import sys
 sys.modules["jax"] = None
@@ -69,6 +70,17 @@ cfg = gnn.GNNConfig(name="g", arch="gin", n_layers=2, d_hidden=8, d_feat=5,
 out = gnn.forward(gnn.init_params(cfg, device="cpu"),
                   make_gnn_batch(power_law_graph(60, seed=1), 5, n_classes=3))
 assert out.shape == (60, 3) and bool(out.isfinite().all())
+from repro_torch.configs import get_arch
+from repro_torch.configs.smoke import lm_shrink
+from repro_torch.data import lm_token_batch
+from repro_torch.models import transformer
+
+lm = transformer.init_params(lm_shrink(get_arch("qwen1.5-0.5b").model_cfg),
+                             device="cpu")
+cache, logits = transformer.prefill_step(
+    lm, lm_token_batch(0, 2, 9, 128)["tokens"], max_seq=10)
+logits, cache = transformer.decode_step(lm, cache, logits.argmax(-1))
+assert logits.shape == (2, 128) and bool(logits.isfinite().all())
 assert not _build._LIBS, "a kernel library was loaded for a CPU run"
 assert not any(k.split(".")[0] in ("jax", "repro", "triton")
                and sys.modules[k] is not None for k in sys.modules)
