@@ -94,13 +94,17 @@ Phases, each printed on its own lines (any failure exits non-zero):
    2,080-slot cache; request B, 1 prompt x 32,768 tokens and 16 steps over
    a 32,784-slot cache (prefill_32k / decode_32k at batch 1).  Gates: K6
    (flash_attention) launched 24 times in each prefill and 24 x steps in
-   each decode loop, counted apart, and its split-KV combine kernel
-   (flash_attention_combine) once per K6 launch that ``split_count``
-   splits (every decode step here, no prefill); finite logits;
+   each decode loop, counted apart; every decode step run with the split
+   count ``split_count`` gives at its kv_len (``SPLITS``, added to by the
+   wrapper at each launch; the decode kernel combines its splits in the
+   same launch); finite logits;
    K6 against its plain version in bf16 on layer 0's q / k / v at each
    prefill (B's on its last 1,024 queries) and at each request's last
    decode step (``kv_len``), max abs err <= 3e-2 and a bit-identical
-   relaunch; a float32 copy of the weights through A's prefill and 8
+   relaunch (mean |plain| and relative L1 printed beside it); each
+   decode's inputs cast to float32, K6 within rtol 1e-5 / atol 1e-6 of the
+   plain version, B's on the split path; a float32 copy of the weights
+   through A's prefill and 8
    decode steps teacher-forced on A's tokens, with K6 and with the plain
    attention, logits within relative L1 1e-4.  Prints the prefill walls
    (cold, and warm once more), the wall per decode step and tok/s, the
@@ -108,8 +112,11 @@ Phases, each printed on its own lines (any failure exits non-zero):
    each request; K6's rows (A's prefill layer and decode step, B's decode
    step and prefill layer, ``scaled_dot_product_attention`` as the
    library yardstick) join phase 11's in the kernels line, each with the
-   launches counted at its shape in this phase (``combine_launches`` those
-   of the combine kernel; a timed call of a split shape runs both).
+   launches counted at its shape in this phase; the decode rows also with
+   the ``splits`` the last decode step ran with, and with K6 and the
+   library call timed by CUDA graph replay as well (``graph_ms``,
+   ``library_graph_ms``: without the host's cost per call, which is of the
+   kernels' order); ``ms`` and ``library_ms`` are eager in every row.
 
 The line before the last is the card's name and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -199,6 +206,26 @@ class Timer:
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / iters
 
+    def graphed(self, fn, iters: int) -> float:
+        """Mean device milliseconds per call with the host's launch cost out
+        of the way: ``iters`` calls captured in one CUDA graph (after two
+        warm-up calls on a side stream), the graph replayed 3 times.  The
+        host clock in a CPU rehearsal."""
+        if not self.cuda:
+            return self(fn, iters)
+        torch = self.torch
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+        return self(graph.replay, 3, warmup=1) / iters
+
 
 def bound_ms(n_bytes: float, n_flops: float,
              flops_per_s: float = F32_FLOPS_PER_S):
@@ -279,7 +306,8 @@ def lm_serving(args, torch, dev, timer, sync):
     from repro_torch.data import lm_token_batch
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels.attention import attention_plain, flash_attention
-    from repro_torch.kernels.attention.kernel import split_count
+    from repro_torch.kernels.attention.kernel import (
+        SPLITS, decode_geometry, split_count)
     from repro_torch.launch.steps import build_cell_step
     from repro_torch.models import transformer
 
@@ -311,8 +339,8 @@ def lm_serving(args, torch, dev, timer, sync):
             if on_card else 0)
 
     def counted():
-        return (LAUNCHES["flash_attention"],
-                LAUNCHES["flash_attention_combine"])
+        # K6 launches, and the split counts they ran with, summed
+        return LAUNCHES["flash_attention"], SPLITS["flash_attention"]
 
     def serve(name, step, b, s, n_steps):
         tokens = lm_token_batch(step, b, s, cfg.vocab, seed=args.seed)["tokens"]
@@ -327,9 +355,10 @@ def lm_serving(args, torch, dev, timer, sync):
         after_prefill = counted()
         finite = logits.isfinite().all()
         toks = logits.argmax(-1)
-        gen, walls = [toks], []
+        gen, walls, step_splits = [toks], [], []
         for _ in range(n_steps):
             last = (toks, cache["pos"])
+            splits_before = SPLITS["flash_attention"]
             t0 = time.perf_counter()
             logits, cache = decode({"tokens": toks, "cache_k": cache["k"],
                                     "cache_v": cache["v"],
@@ -337,10 +366,11 @@ def lm_serving(args, torch, dev, timer, sync):
             toks = logits.argmax(-1)
             sync()
             walls.append(time.perf_counter() - t0)
+            step_splits.append(SPLITS["flash_attention"] - splits_before)
             finite &= logits.isfinite().all()
             gen.append(toks)
         after_decode = counted()
-        # (attention, combine) launches of the prefill and of the decode loop
+        # (launches, splits) of the prefill and of the decode loop
         pre = [a - c for a, c in zip(after_prefill, before)]
         dec = [a - c for a, c in zip(after_decode, after_prefill)]
         k6 = pre[0] + dec[0]
@@ -354,25 +384,30 @@ def lm_serving(args, torch, dev, timer, sync):
               f"{step_ms:.3f} ms (first {walls[0] * 1e3:.3f}, min "
               f"{min(walls) * 1e3:.3f}, max {max(walls) * 1e3:.3f}), "
               f"{b * 1e3 / step_ms:.1f} tok/s; K6 launches {k6} (prefill "
-              f"{pre[0]}, decode {dec[0]}; combine kernel: prefill {pre[1]}, "
-              f"decode {dec[1]}); device memory peak {peak:.3f} GB above "
-              f"the {held / 1e9:.3f} GB held")
+              f"{pre[0]}, decode {dec[0]}); device memory peak {peak:.3f} "
+              f"GB above the {held / 1e9:.3f} GB held")
         if not bool(finite):
             fail(f"request {name}: logits not finite")
         if on_card:
-            # decode step i attends over kv_len = s + i + 1 keys; K6 splits
-            # (and combines) where split_count says so
-            want = [cfg.n_layers, cfg.n_layers * n_steps,
-                    cfg.n_layers * (split_count(b, cfg.n_heads, s, s, n_sm)
-                                    > 1),
-                    cfg.n_layers * sum(
-                        split_count(b, cfg.n_heads, 1, s + i + 1, n_sm) > 1
-                        for i in range(n_steps))]
-            got = [pre[0], dec[0], pre[1], dec[1]]
+            # decode step i attends over kv_len = s + i + 1 keys in each
+            # layer, split as split_count says; prefill launches add none
+            geometry = decode_geometry(cfg.dtype, cfg.head_dim)
+            policy = [cfg.n_layers * split_count(
+                b, cfg.n_heads, cfg.n_kv_heads, 1, s + i + 1, n_sm, geometry)
+                for i in range(n_steps)]
+            ran = [n // cfg.n_layers for n in step_splits]
+            print(f"request {name}: decode splits per (batch row, kv head) "
+                  f"as launched {min(ran)}-{max(ran)}, at most "
+                  f"{b * cfg.n_kv_heads * max(ran)} CTAs per launch; "
+                  f"prefill splits {pre[1]}")
+            want = [cfg.n_layers, cfg.n_layers * n_steps, 0, policy]
+            got = [pre[0], dec[0], pre[1], step_splits]
             if got != want:
-                fail(f"request {name}: K6 launches (prefill, decode, combine "
-                     f"in prefill, combine in decode) {got}, not {want}")
+                fail(f"request {name}: K6 (prefill launches, decode "
+                     f"launches, prefill splits, splits per decode step) "
+                     f"{got}, not {want}")
         return {"tokens": tokens, "cache": cache, "last": last,
+                "splits": step_splits[-1] // cfg.n_layers,
                 "gen": torch.stack(gen, 1), "prefill_s": t_pre,
                 "step_ms": step_ms, "tok_s": b * 1e3 / step_ms,
                 "launches": k6, "prefill_launches": pre, "decode_launches":
@@ -383,10 +418,10 @@ def lm_serving(args, torch, dev, timer, sync):
         served = {name: serve(name, *shape)
                   for name, shape in requests.items()}
     path_launches = counted()
-    print(f"LM path K6 launches: {path_launches[0]}, of its combine kernel "
-          f"{path_launches[1]}")
-    if on_card and 0 in path_launches:
-        fail("K6 or its combine kernel was never launched on the LM path")
+    print(f"LM path K6 launches: {path_launches[0]}, with {path_launches[1]} "
+          f"decode splits in all")
+    if on_card and path_launches[0] == 0:
+        fail("K6 was never launched on the LM path")
     # each request's first prefill carries one-time costs (allocator
     # growth, library set-up for new shapes): time each once more, warm,
     # then trace one decode step after it
@@ -431,7 +466,9 @@ def lm_serving(args, torch, dev, timer, sync):
               f"{kw['kv_len']}"
               f"{'' if q_start is None else f', from query {q_start} on'}"
               f": max abs err {err:.3e} (bound 3e-2) at max |plain| "
-              f"{scale:.3e}, bit-identical relaunch {same}")
+              f"{scale:.3e}, mean |plain| "
+              f"{float(plain.float().abs().mean()):.3e}, relative L1 "
+              f"{rel_l1(out, plain):.3e}, bit-identical relaunch {same}")
         if not (err <= 3e-2 and same):
             fail(f"K6 against its plain version at {tag}")
         return err
@@ -453,6 +490,29 @@ def lm_serving(args, torch, dev, timer, sync):
                                   q_start=max(0, s_b - 1024))
         errs["A decode"] = check("A decode", caps["A decode"])
         errs["B decode"] = check("B decode", caps["B decode"])
+
+        # ---- each decode's inputs in float32: K6 held tight --------------
+        for name in ("A", "B"):
+            ins = caps[name + " decode"]
+            q, k, v = (ins[n].float() for n in "qkv")
+            kw = {"causal": ins["causal"], "kv_len": ins["kv_len"]}
+            splits_before = SPLITS["flash_attention"]
+            out = flash_attention(q, k, v, **kw)
+            ran = SPLITS["flash_attention"] - splits_before
+            plain = attention_plain(q, k, v, **kw)
+            diff = (out - plain).abs()
+            over = int((diff > 1e-6 + 1e-5 * plain.abs()).sum())
+            print(f"K6 {name} decode in float32: q {tuple(q.shape)} kv_len "
+                  f"{kw['kv_len']}, {ran} split(s): max abs err "
+                  f"{float(diff.max()):.3e} at mean |plain| "
+                  f"{float(plain.abs().mean()):.3e} (max "
+                  f"{float(plain.abs().max()):.3e}), relative L1 "
+                  f"{rel_l1(out, plain):.3e}; {over} of {plain.numel()} "
+                  f"outside rtol 1e-5 / atol 1e-6")
+            if over or (on_card and name == "B" and ran < 2):
+                fail(f"K6 {name} decode in float32 against its plain "
+                     f"version (or B's not on the split path)")
+            del q, k, v, out, plain, diff
 
         # ---- the whole path in float32: K6 against the plain attention ---
         a = served["A"]
@@ -487,9 +547,12 @@ def lm_serving(args, torch, dev, timer, sync):
         # ---- K6's rows: time, bound, plain version, library yardstick ----
         rows = []
 
-        def row(name, tag, launches, iters, plain_iters, plain_fn=None):
-            # launches: this run's (attention, combine) counts at the shape;
-            # a timed call of a split shape runs both kernels
+        def row(name, tag, launches, iters, plain_iters, plain_fn=None,
+                splits=None):
+            # launches: this run's (launches, splits) at the shape.  With
+            # splits (decode): K6 and the library call are also timed by
+            # CUDA graph replay, where a call's host cost (tens of
+            # microseconds, the kernel's order) does not starve the card
             ins = caps[tag]
             q, k, v = ins["q"], ins["k"], ins["v"]
             causal, kv_len = ins["causal"], ins["kv_len"]
@@ -507,29 +570,40 @@ def lm_serving(args, torch, dev, timer, sync):
                                   else F32_FLOPS_PER_S)
             kw = {"causal": causal, "kv_len": kv_len}
             ks, vs = k[:, :, :sk], v[:, :, :sk]
-            lib = timer(lambda: fn.scaled_dot_product_attention(
-                q, ks, vs, is_causal=causal), iters)
+
+            def lib_fn():
+                return fn.scaled_dot_product_attention(q, ks, vs,
+                                                       is_causal=causal)
+
+            def k6_fn():
+                return flash_attention(q, k, v, **kw)
+
             plain_fn = plain_fn or (lambda: attention_plain(q, k, v, **kw))
-            return {
+            out = {
                 "name": name, "route": "cuda",
                 "source": "src/repro_torch/csrc/attention.cu",
                 "replaces": "src/repro/kernels/attention/kernel.py:75",
-                "launches": launches[0], "combine_launches": launches[1],
-                "max_abs_err": errs[tag],
-                "ms": timer(lambda: flash_attention(q, k, v, **kw), iters),
+                "launches": launches[0], "max_abs_err": errs[tag],
+                "ms": timer(k6_fn, iters),
                 "plain_ms": timer(plain_fn, plain_iters, warmup=1),
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": timer(lib_fn, iters),
                 "shape": [b, hq, sq, sk, dh], "dtype": str(q.dtype)[6:],
                 "causal": causal,
             }
+            if splits is not None:
+                out.update(splits=splits,
+                           graph_ms=timer.graphed(k6_fn, iters),
+                           library_graph_ms=timer.graphed(lib_fn, iters))
+            return out
 
         ra, rb = served["A"], served["B"]
         rows.append(row("flash_attention", "A prefill",
                         ra["prefill_launches"], 20, 5))
         rows.append(row("flash_attention_decode", "A decode",
-                        ra["decode_launches"], 50, 10))
+                        ra["decode_launches"], 50, 10, splits=ra["splits"]))
         rows.append(row("flash_attention_decode_32k", "B decode",
-                        rb["decode_launches"], 20, 5))
+                        rb["decode_launches"], 20, 5, splits=rb["splits"]))
         cb = caps["B prefill"]
 
         def plain_chunked(chunk=1024):
@@ -1418,8 +1492,9 @@ def main() -> int:
             print(f"{r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} "
                   f"ms by {r['bound_by']}, plain {r['plain_ms']:.4f} ms, "
                   f"library {r['library_ms']}) launches {r['launches']}"
-                  + (f" (+ {r['combine_launches']} of the combine kernel)"
-                     if r.get("combine_launches") else "") + f" on {smi}")
+                  + (f"; by CUDA graph replay {r['graph_ms']:.4f} ms, library "
+                     f"{r['library_graph_ms']:.4f} ms, {r['splits']} split(s)"
+                     if "graph_ms" in r else "") + f" on {smi}")
 
     show(rows)
     print(f"phases 1-11 wall {time.perf_counter() - t_start:.1f} s")

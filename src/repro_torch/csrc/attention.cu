@@ -16,26 +16,38 @@
 // What bounds it on an H100: in prefill, operations (4.Sq.Sk.Dh.Hq.B flops,
 // half of them under the causal mask: 6.9e10 per layer at 8 x 2048 tokens of
 // qwen1.5-0.5b, 0.07 ms at the 989 TFLOP/s of the bf16 tensor cores); in
-// decode (Sq = 1), the bytes of the K/V cache (68 MB per layer at 8 x 2080).
+// decode (Sq <= 64), the bytes of the K/V cache (68 MB per layer at 8 x 2080
+// keys, 134 MB at 1 x 32784: 0.020 and 0.040 ms at 3.35 TB/s).
 //
-// What the design does about it: one CTA per (64-query block, q head, batch
-// row) walks the key tiles of 64 in order, with an online softmax.  bf16
-// with more than one query block (prefill) runs on the tensor cores
-// (mma.sync, flash_attention_mma_kernel below, K/V tiles double-buffered by
-// cp.async).  The rest (float32, and decode's few query rows, where the
-// bytes and not the arithmetic count) runs on FMA: 256 threads stage Q once
-// and each K/V tile in shared memory as float32, each thread owning a 4 x 4
-// block of the score tile and a 4-row slice of the accumulator; warps whose
-// 8 query rows all lie past Sq (decode: all but the first) skip the
-// arithmetic.  In decode the (b, h) pairs alone would leave most SMs idle
-// (16 CTAs at batch 1), so the wrapper splits each row's key tiles over
-// n_split CTAs (split-KV, as flash-decoding does); each writes its m, l and
-// unnormalised acc to a float32 scratch, and a second kernel combines the
-// splits in split order.  Key tiles wholly above the causal diagonal or at or
-// past kv_len are never read, and the ragged last tile is masked here, so the
-// caller pads nothing.  The GQA head map h / group is in the K/V offsets: no
-// KV copy.  Keys are visited in one fixed order, splits are combined in one
-// fixed order and no atomics are used, so a relaunch is bit-identical.
+// What the design does about it.  Prefill (Sq > 64): one CTA per (query
+// block, q head, batch row) walks the key tiles of 64 in order, with an
+// online softmax; bf16 runs on the tensor cores (mma.sync,
+// flash_attention_mma_kernel, K/V tiles double-buffered by cp.async),
+// float32 on FMA (flash_attention_kernel: 256 threads stage Q once and each
+// K/V tile in shared memory, each thread owning a 4 x 4 block of the score
+// tile and a 4-row slice of the accumulator).  Decode (Sq <= 64,
+// flash_decode_kernel) is a stream over the cache: one 8-warp CTA (4 for
+// float32 at Dh 128) per (split, kv head, batch row, chunk of up to 4 query
+// rows) holds all the query rows that read its kv head in registers, so a
+// kv head's cache is read once, not once per q head; each warp streams its
+// own 16 keys of every 128-key tile through a ring of cp.async stages in the
+// cache's own dtype (16 KB a warp: 4 stages at Dh 64 in bf16, one CTA an
+// SM, 96 KB in flight) with no barrier at all, each lane fetching the
+// pieces it reads; it scores them without padding (a key row spread over
+// Dh.sizeof(T)/16 lanes, reduced by shuffles) and keeps a per-lane online
+// softmax; at the end the lanes, then the warps (through shared memory, in
+// warp order), merge their (m, l, acc).  The wrapper splits a row's key
+// tiles over enough CTAs to fill the card once (split-KV, as
+// flash-decoding does): each split leaves its (m, l, acc) in a float32
+// scratch, and the last CTA of a (batch row, kv head, chunk) to arrive --
+// found by an arrival counter that lives in the same scratch, zeroed on the
+// launch's stream just before it -- combines all splits in split order, in
+// the same launch.  The counter picks who combines, never the order of a
+// sum.  Key tiles wholly above the causal diagonal or at
+// or past kv_len are never read, and the ragged last tile is masked here,
+// so the caller pads nothing.  The GQA head map h / group is in the K/V
+// offsets: no KV copy.  Keys are visited in one fixed order and every sum
+// runs in a fixed order, so a relaunch is bit-identical.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,7 +56,7 @@
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per CTA
+constexpr int kBQ = 64;        // query rows per CTA of the FMA kernel
 constexpr int kBK = 64;        // keys per tile
 constexpr int kThreads = 256;  // 16 x 16: ty owns 4 rows, tx 4 columns
 static_assert(kBQ == kBK, "load_tile stages kBK rows for Q as well");
@@ -68,13 +80,22 @@ __device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// 16 bytes of T at src -> float dst[16 / sizeof(T)]
-__device__ __forceinline__ void load16(const float* src, float* dst) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(src));
+// 16 bytes of T -> float dst[16 / sizeof(T)]
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  using type = float4;
+};
+template <>
+struct Vec16<__nv_bfloat16> {
+  using type = uint4;
+};
+
+__device__ __forceinline__ void unpack16(const float4& v, float* dst) {
   dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
 }
-__device__ __forceinline__ void load16(const __nv_bfloat16* src, float* dst) {
-  const uint4 v = __ldg(reinterpret_cast<const uint4*>(src));
+__device__ __forceinline__ void unpack16(const uint4& v, float* dst) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -84,18 +105,21 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* src, float* dst) {
   }
 }
 
-// 4 floats -> 4 T at dst (aligned to 4 T)
+// from global memory, read-only for the kernel's lifetime
+template <typename T>
+__device__ __forceinline__ void load16(const T* src, float* dst) {
+  unpack16(__ldg(reinterpret_cast<const typename Vec16<T>::type*>(src)), dst);
+}
+
+// from shared memory
+template <typename T>
+__device__ __forceinline__ void lds16(const T* src, float* dst) {
+  unpack16(*reinterpret_cast<const typename Vec16<T>::type*>(src), dst);
+}
+
+// 4 floats at dst (16-byte aligned)
 __device__ __forceinline__ void store4(float* dst, float a, float b, float c, float d) {
   *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* dst, float a, float b, float c,
-                                       float d) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-  uint2 v;
-  v.x = *reinterpret_cast<uint32_t*>(&lo);
-  v.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(dst) = v;
 }
 
 // Rows [row0, row0 + 64) of a [rows, DH] operand into dst[64][LD] as float;
@@ -131,8 +155,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, Strides sq, Strides sk,
                        Strides sv, Strides so, int group, int seq_q, int seq_k,
-                       int kv_len, int causal, float scale, int n_split,
-                       float* __restrict__ part) {
+                       int kv_len, int causal, float scale) {
   constexpr int QLD = DH + 4;  // float4 rows, conflict-free column reads
   constexpr int KLD = DH + 4;
   constexpr int PLD = kBK + 4;
@@ -144,16 +167,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sV = sK + kBK * KLD;
   float* sP = sV + kBK * DH;
 
-  // heavier (later) causal query blocks first; n_split CTAs per query block
-  // share its key tiles (split-KV, decode)
-  const int qb = gridDim.x / n_split - 1 - blockIdx.x / n_split;
-  const int split = blockIdx.x % n_split;
+  const int qb = gridDim.x - 1 - blockIdx.x;  // heavier causal blocks first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int q0 = qb * kBQ;
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
   // a warp holds rows [8w, 8w + 8): skip its arithmetic when all lie past Sq
+  // (in the ragged last query block)
   const bool busy = q0 + (threadIdx.x >> 5) * 8 < seq_q;
 
   const T* qp = q + b * sq.b + h * sq.h;
@@ -168,9 +189,6 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int q_last = min(q0 + kBQ, seq_q) - 1;
     n_tiles = min(n_tiles, q_last / kBK + 1);
   }
-  const int per_split = (n_tiles + n_split - 1) / n_split;
-  const int t_begin = split * per_split;
-  const int t_end = min(n_tiles, t_begin + per_split);
 
   float m[4], l[4], acc[4][GPT][4];
 #pragma unroll
@@ -183,7 +201,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int c = 0; c < 4; ++c) acc[i][g][c] = 0.0f;
   }
 
-  for (int t = t_begin; t < t_end; ++t) {
+  for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kBK;
     __syncthreads();  // the previous tile's sK / sV / sP are consumed
     load_tile<T, DH, KLD>(sK, kp, sk.s, k0, kv_lim);
@@ -284,28 +302,6 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (!busy) return;
-  if (n_split > 1) {  // this split's unnormalised acc, m and l, row by row
-    const int64_t rows = (int64_t)gridDim.z * gridDim.y * seq_q;
-    float* pm = part + rows * n_split * DH;  // acc first: float4-aligned
-    float* pl = pm + rows * n_split;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty * 4 + i;
-      if (qi >= seq_q) continue;
-      const int64_t r = split * rows + ((int64_t)b * gridDim.y + h) * seq_q + qi;
-      if (tx == 0) {
-        pm[r] = m[i];
-        pl[r] = l[i];
-      }
-      float* pa = part + r * DH;
-#pragma unroll
-      for (int g = 0; g < GPT; ++g) {
-        const int col = (tx + 16 * g) * 4;
-        if (col < DH) store4(pa + col, acc[i][g][0], acc[i][g][1], acc[i][g][2], acc[i][g][3]);
-      }
-    }
-    return;
-  }
   T* op = o + b * so.b + h * so.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -321,46 +317,6 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 }
-
-// The splits of one query row, combined in split order: one warp per row,
-// lanes over Dh.  A split past the row's last key tile holds m = -1e30,
-// l = 0 and acc = 0, and weighs exp(-1e30 - M) = 0.
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
-combine_splits_kernel(const float* __restrict__ part, T* __restrict__ o, Strides so,
-                      int hq, int seq_q, int64_t rows, int n_split) {
-  const int64_t r = (int64_t)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (r >= rows) return;  // r is the same for the whole warp
-  const float* pa = part;
-  const float* pm = part + rows * n_split * DH;
-  const float* pl = pm + rows * n_split;
-  float mx = kNegInf;
-  for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, pm[s * rows + r]);
-  float l = 0.0f, acc[(DH + 31) / 32];
-#pragma unroll
-  for (int c = 0; c < (DH + 31) / 32; ++c) acc[c] = 0.0f;
-  for (int s = 0; s < n_split; ++s) {
-    const float w = expf(pm[s * rows + r] - mx);
-    l = fmaf(w, pl[s * rows + r], l);
-#pragma unroll
-    for (int c = 0; c < (DH + 31) / 32; ++c) {
-      const int d = lane + 32 * c;
-      if (d < DH) acc[c] = fmaf(w, pa[(s * rows + r) * DH + d], acc[c]);
-    }
-  }
-  const float denom = fmaxf(l, 1e-30f);
-  const int qi = (int)(r % seq_q);
-  const int h = (int)((r / seq_q) % hq);
-  const int64_t b = r / ((int64_t)seq_q * hq);
-  T* op = o + b * so.b + h * so.h + (int64_t)qi * so.s;
-#pragma unroll
-  for (int c = 0; c < (DH + 31) / 32; ++c) {
-    const int d = lane + 32 * c;
-    if (d < DH) op[d] = from_float<T>(acc[c] / denom);
-  }
-}
-
 
 // ---- bf16 prefill on the tensor cores --------------------------------------
 // Eight warps, each owning 16 of the block's 128 query rows, run
@@ -402,6 +358,14 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Starts a 16-byte copy from global src to shared dst; with ok false it
+// reads nothing and zero-fills dst.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  const uint32_t saddr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
 // Starts the copy of rows [row0, row0 + ROWS) of a bf16 [rows, DH] operand
 // into dst[ROWS][DH + 8] (cp.async, 16 bytes a thread at a time); rows at or
 // past n_rows are zero-filled without a read.
@@ -414,11 +378,8 @@ __device__ __forceinline__ void fetch_tile_bf16(__nv_bfloat16* dst,
     const int r = idx / kPerRow;
     const int c = (idx - r * kPerRow) * 8;
     const bool ok = row0 + r < n_rows;
-    const __nv_bfloat16* src = ok ? base + (int64_t)(row0 + r) * s_stride + c : base;
-    const uint32_t saddr =
-        static_cast<uint32_t>(__cvta_generic_to_shared(dst + r * (DH + 8) + c));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr),
-                 "l"(src), "r"(ok ? 16 : 0));
+    cp_async16(dst + r * (DH + 8) + c,
+               ok ? base + (int64_t)(row0 + r) * s_stride + c : base, ok);
   }
 }
 
@@ -426,9 +387,10 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// waits until at most one committed group of this thread is still in flight
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
+// waits until at most N committed groups of this thread are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 template <int DH>
@@ -490,7 +452,7 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     // the wait below uniform
     if (t + 1 < n_tiles) fetch_kv(t + 1);
     cp_async_commit();
-    cp_async_wait_one();  // tile t (and Q) have landed for this thread
+    cp_async_wait<1>();  // tile t (and Q) have landed for this thread
     __syncthreads();      // ... and for every thread
     const __nv_bfloat16* sK = sK0 + (t & 1) * 2 * kBK * LD;
     const __nv_bfloat16* sV = sK + kBK * LD;
@@ -605,65 +567,423 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ---- decode (Sq <= 64): a stream over the K/V cache -------------------------
+// One CTA of W warps per (split, kv head, batch row, chunk of ROWS query
+// rows).  The rows that read kv head kvh are (g, i) for q head kvh.group + g
+// and query i, numbered g.Sq + i (head-major), so that row r of kv head kvh
+// of batch row b is row (b.Hkv + kvh).group.Sq + r of q's [B, Hq, Sq] order.
+// A tile is W x 16 keys, 16 to a warp.  Each lane holds a 16-byte column
+// slice (at dc) of every row's q, as float32, and of one key per pass: a key
+// row spans LPK lanes, KPP keys are scored per pass, and lane (ks, dc) scores
+// keys ks, ks + KPP, ... of its warp's 16.  It also fetches exactly the K and
+// V pieces it reads, so each lane's ring is its own: no barrier in the walk.
+constexpr int kWarpKeys = 16;  // a warp's keys of each tile
+constexpr int kDecMaxSq = 64;  // the decode kernel takes Sq <= 64
+constexpr int kDecRows = 4;    // query rows per CTA when more than 1
+
 template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, void* o, int batch, int hq,
-           int group, int seq_q, int seq_k, int kv_len, int causal, float scale,
-           const int64_t* st, int n_split, float* part, cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (seq_q > kBQ) {  // prefill: the tensor cores (n_split is 1 here)
-      const int smem = mma_smem_bytes<DH>();
-      auto kern = flash_attention_mma_kernel<DH>;
-      cudaError_t err =
-          cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return err;
-      const dim3 grid((seq_q + kMmaRows - 1) / kMmaRows, hq, batch);
-      kern<<<grid, kMmaThreads, smem, stream>>>(
-          (const T*)q, (const T*)k, (const T*)v, (T*)o, Strides{st[0], st[1], st[2]},
-          Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]},
-          Strides{st[9], st[10], st[11]}, group, seq_q, seq_k, kv_len, causal, scale);
-      return cudaGetLastError();
+struct Dec {
+  static constexpr int kEpl = 16 / (int)sizeof(T);     // elements per lane slice
+  static constexpr int kLpk = DH / kEpl;               // lanes per key row
+  static constexpr int kKpp = 32 / kLpk;               // keys per pass
+  static constexpr int kPasses = kWarpKeys / kKpp;     // passes per tile
+  static constexpr int kStage = 2 * kWarpKeys * DH;    // one warp's K and V, elements
+  static constexpr int kStageBytes = kStage * (int)sizeof(T);
+  // about 16 KB of ring per warp: 4 stages of 4 KB at Dh 64 in bf16 (8 and
+  // 12 KB measured within 2 % of it, one CTA an SM)
+  static constexpr int kStages =
+      16384 / kStageBytes > 8 ? 8 : 16384 / kStageBytes < 2 ? 2 : 16384 / kStageBytes;
+  // 8 warps (two a scheduler, one CTA an SM) where their rings fit, else 4
+  static constexpr int kWarps = 8 * kStages * kStageBytes <= 160 * 1024 ? 8 : 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kTile = kWarps * kWarpKeys;
+  static_assert(kLpk <= 32 && 32 % kLpk == 0 && kWarpKeys % kKpp == 0, "lane map");
+};
+
+template <typename T, int DH, int ROWS>
+constexpr int dec_smem_bytes() {  // the warps' rings, then their (m, l, acc)
+  using D = Dec<T, DH>;
+  return D::kWarps * D::kStages * D::kStageBytes +
+         D::kWarps * ROWS * (DH + 2) * (int)sizeof(float);
+}
+
+template <typename T, int DH, int ROWS>
+__global__ void __launch_bounds__(Dec<T, DH>::kThreads)
+flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ o, Strides sq, Strides sk,
+                    Strides sv, Strides so, int hkv, int group, int seq_q, int seq_k,
+                    int kv_len, int causal, float scale, int n_split, int n_chunks,
+                    float* __restrict__ part) {
+  using D = Dec<T, DH>;
+  constexpr int EPL = D::kEpl, LPK = D::kLpk, KPP = D::kKpp, NP = D::kPasses;
+  constexpr int NS = D::kStages, W = D::kWarps, TILE = D::kTile;
+  constexpr int NC = (DH + 31) / 32;  // head-dim columns per lane in the combine
+  extern __shared__ uint4 smem_dec[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int ks = lane / LPK;          // this lane's first key of a warp tile
+  const int dc = (lane % LPK) * EPL;  // its first head-dim column
+  T* ring = reinterpret_cast<T*>(smem_dec) + warp * NS * D::kStage + ks * DH + dc;
+  float* sm_m = reinterpret_cast<float*>(reinterpret_cast<T*>(smem_dec) +
+                                         W * NS * D::kStage);
+  float* sm_l = sm_m + W * ROWS;
+  float* sm_acc = sm_l + W * ROWS;
+
+  const int split = blockIdx.x % n_split;
+  const int unit = blockIdx.x / n_split;  // (batch row, kv head, chunk)
+  const int chunk = unit % n_chunks;
+  const int bh = unit / n_chunks;         // b.Hkv + kvh
+  const int kvh = bh % hkv;
+  const int b = bh / hkv;
+  const int rows_kv = seq_q * group;
+  const int r0 = chunk * ROWS;
+  const int n_rows = min(ROWS, rows_kv - r0);
+
+  // q in registers; padding rows (past n_rows) score zeros and are dropped
+  float qr[ROWS][EPL];
+  int qpos[ROWS];
+  int q_max = 0;
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    qpos[r] = 0;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) qr[r][e] = 0.0f;
+    if (r < n_rows) {
+      const int g = (r0 + r) / seq_q, i = (r0 + r) % seq_q;
+      load16(q + b * sq.b + (int64_t)(kvh * group + g) * sq.h + (int64_t)i * sq.s + dc,
+             qr[r]);
+      qpos[r] = i;
+      q_max = max(q_max, i);
     }
   }
-  const size_t smem = smem_floats<DH>() * sizeof(float);
-  auto kern = flash_attention_kernel<T, DH>;
+
+  const int kv_lim = min(kv_len, seq_k);
+  int n_tiles = (kv_lim + TILE - 1) / TILE;
+  if (causal) n_tiles = min(n_tiles, q_max / TILE + 1);
+  const int per_split = (n_tiles + n_split - 1) / n_split;
+  const int t_begin = min(n_tiles, split * per_split);
+  const int t_end = min(n_tiles, t_begin + per_split);
+  const T* kp = k + b * sk.b + (int64_t)kvh * sk.h + dc;  // this lane's column
+  const T* vp = v + b * sv.b + (int64_t)kvh * sv.h + dc;
+
+  // this lane's pieces of tile t (keys ks + KPP.p of the warp's 16, K and V)
+  // into stage (t - t_begin) % NS; keys at or past kv_lim are zero-filled
+  // without a read
+  auto fetch = [&](int t) {
+    T* dst = ring + ((t - t_begin) % NS) * D::kStage;
+    const int key = t * TILE + warp * kWarpKeys + ks;
+    const T* kg = kp + (int64_t)key * sk.s;
+    const T* vg = vp + (int64_t)key * sv.s;
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      const bool ok = key + p * KPP < kv_lim;
+      cp_async16(dst + p * KPP * DH, ok ? kg + (int64_t)(p * KPP) * sk.s : kp, ok);
+      cp_async16(dst + (kWarpKeys + p * KPP) * DH, ok ? vg + (int64_t)(p * KPP) * sv.s : vp,
+                 ok);
+    }
+  };
+
+  float m[ROWS], l[ROWS], acc[ROWS][EPL];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) acc[r][e] = 0.0f;
+  }
+
+#pragma unroll
+  for (int st = 0; st < NS - 1; ++st) {
+    if (t_begin + st < t_end) fetch(t_begin + st);
+    cp_async_commit();
+  }
+  for (int t = t_begin; t < t_end; ++t) {
+    cp_async_wait<NS - 2>();  // this lane's pieces of tile t have landed
+    // refill the stage this lane read tile t - 1 from; the last groups are
+    // empty, which keeps the wait above uniform
+    if (t + NS - 1 < t_end) fetch(t + NS - 1);
+    cp_async_commit();
+    const T* sK = ring + ((t - t_begin) % NS) * D::kStage;
+    const T* sV = sK + kWarpKeys * DH;
+    const int key0 = t * TILE + warp * kWarpKeys + ks;  // this lane's key, pass 0
+
+    float s[ROWS][NP];
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      float kf[EPL];
+      lds16(sK + p * KPP * DH, kf);
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        float d = 0.0f;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) d = fmaf(qr[r][e], kf[e], d);
+        s[r][p] = d;
+      }
+    }
+    // each score summed over its key's LPK lanes; the butterfly adds
+    // commutative pairs, so every lane of the key gets the same bits
+#pragma unroll
+    for (int off = LPK / 2; off > 0; off >>= 1)
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+        for (int p = 0; p < NP; ++p) s[r][p] += __shfl_xor_sync(0xffffffffu, s[r][p], off);
+
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      bool ok[NP];
+      float mx = kNegInf;
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        const int kj = key0 + p * KPP;
+        ok[p] = kj < kv_lim && (!causal || qpos[r] >= kj);
+        s[r][p] = ok[p] ? s[r][p] * scale : kNegInf;
+        mx = fmaxf(mx, s[r][p]);
+      }
+      const float m_new = fmaxf(m[r], mx);
+      const float alpha = expf(m[r] - m_new);
+      float sum = 0.0f;
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        s[r][p] = ok[p] ? expf(s[r][p] - m_new) : 0.0f;
+        sum += s[r][p];
+      }
+      l[r] = alpha * l[r] + sum;
+      m[r] = m_new;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) acc[r][e] *= alpha;
+    }
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      float vf[EPL];
+      lds16(sV + p * KPP * DH, vf);
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const float pr = round_to(s[r][p], T());  // p in v's dtype
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[r][e] = fmaf(pr, vf[e], acc[r][e]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // merge the warp's key slots (lanes ks and ks ^ 1, 2, ...), then lanes
+  // 0 .. LPK - 1 hold the warp's (m, l, acc)
+#pragma unroll
+  for (int off = LPK; off < 32; off <<= 1)
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, m[r], off);
+      const float l2 = __shfl_xor_sync(0xffffffffu, l[r], off);
+      const float mm = fmaxf(m[r], m2);
+      const float a = expf(m[r] - mm), a2 = expf(m2 - mm);
+      l[r] = a * l[r] + a2 * l2;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e)
+        acc[r][e] = a * acc[r][e] + a2 * __shfl_xor_sync(0xffffffffu, acc[r][e], off);
+      m[r] = mm;
+    }
+  if (lane < LPK) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      if (lane == 0) {
+        sm_m[warp * ROWS + r] = m[r];
+        sm_l[warp * ROWS + r] = l[r];
+      }
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) sm_acc[(warp * ROWS + r) * DH + dc + e] = acc[r][e];
+    }
+  }
+  __syncthreads();
+
+  const int64_t rows_total = (int64_t)(gridDim.x / (n_split * n_chunks)) * rows_kv;
+  const int64_t row0 = (int64_t)bh * rows_kv + r0;  // this chunk's first row
+  float* pm = part + n_split * rows_total * DH;      // acc first: float4-aligned
+  float* pl = pm + n_split * rows_total;
+  unsigned* arrivals = reinterpret_cast<unsigned*>(pl + n_split * rows_total);
+  auto store = [&](int r, int d, float x) {
+    const int g = (r0 + r) / seq_q, i = (r0 + r) % seq_q;
+    o[b * so.b + (int64_t)(kvh * group + g) * so.h + (int64_t)i * so.s + d] =
+        from_float<T>(x);
+  };
+  // the warps in warp order: the output, or this split's partial
+  for (int idx = threadIdx.x; idx < n_rows * DH; idx += D::kThreads) {
+    const int r = idx / DH, d = idx % DH;
+    float mm = kNegInf;
+#pragma unroll
+    for (int w = 0; w < W; ++w) mm = fmaxf(mm, sm_m[w * ROWS + r]);
+    float ll = 0.0f, aa = 0.0f;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const float wt = expf(sm_m[w * ROWS + r] - mm);
+      ll += wt * sm_l[w * ROWS + r];
+      aa += wt * sm_acc[(w * ROWS + r) * DH + d];
+    }
+    if (n_split == 1) {
+      store(r, d, aa / fmaxf(ll, 1e-30f));
+    } else {
+      const int64_t pr = split * rows_total + row0 + r;
+      part[pr * DH + d] = aa;
+      if (d == 0) {
+        pm[pr] = mm;
+        pl[pr] = ll;
+      }
+    }
+  }
+  if (n_split == 1) return;
+
+  // the last split of this (batch row, kv head, chunk) to arrive combines
+  // them all, in split order
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(arrivals + unit, 1u) == (unsigned)(n_split - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // a warp a row, lanes over the splits (m, l) and over the head dim (acc);
+  // the partials are read past L1 (__ldcg): other CTAs wrote them
+  for (int r = warp; r < n_rows; r += W) {
+    const int64_t pr = row0 + r;
+    // lane s holds split s's m and l (the first 32 splits: one round trip
+    // for the max and the weights)
+    const bool has = lane < n_split;
+    const float m_first = has ? __ldcg(pm + lane * rows_total + pr) : kNegInf;
+    const float l_first = has ? __ldcg(pl + lane * rows_total + pr) : 0.0f;
+    float mm = m_first;
+    for (int sp = lane + 32; sp < n_split; sp += 32)
+      mm = fmaxf(mm, __ldcg(pm + sp * rows_total + pr));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mm = fmaxf(mm, __shfl_xor_sync(0xffffffffu, mm, off));
+    float ll = 0.0f, aa[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) aa[c] = 0.0f;
+    for (int s0 = 0; s0 < n_split; s0 += 32) {
+      float ws = expf(m_first - mm), ls = l_first;  // split s0 + lane's
+      if (s0 > 0) {
+        const bool in = s0 + lane < n_split;
+        const int64_t at = (s0 + lane) * rows_total + pr;
+        ws = in ? expf(__ldcg(pm + at) - mm) : 0.0f;
+        ls = in ? __ldcg(pl + at) : 0.0f;
+      }
+      const int n = min(32, n_split - s0);
+#pragma unroll 8
+      for (int j = 0; j < n; ++j) {  // split order
+        const float w = __shfl_sync(0xffffffffu, ws, j);
+        ll += w * __shfl_sync(0xffffffffu, ls, j);
+        const float* pa = part + ((s0 + j) * rows_total + pr) * DH;
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          if (lane + 32 * c < DH) aa[c] += w * __ldcg(pa + lane + 32 * c);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      if (lane + 32 * c < DH) store(r, lane + 32 * c, aa[c] / fmaxf(ll, 1e-30f));
+  }
+}
+
+template <typename T, int DH, int ROWS>
+int launch_decode(const void* q, const void* k, const void* v, void* o, int batch,
+                  int hkv, int group, int seq_q, int seq_k, int kv_len, int causal,
+                  float scale, const int64_t* st, int n_split, float* part,
+                  cudaStream_t stream) {
+  const int smem = dec_smem_bytes<T, DH, ROWS>();
+  auto kern = flash_decode_kernel<T, DH, ROWS>;
   cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((seq_q + kBQ - 1) / kBQ * n_split, hq, batch);
-  const Strides so{st[9], st[10], st[11]};
-  kern<<<grid, kThreads, smem, stream>>>(
+  const int n_chunks = (seq_q * group + ROWS - 1) / ROWS;
+  const int64_t units = (int64_t)batch * hkv * n_chunks;
+  const int64_t blocks = units * n_split;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  if (n_split > 1) {  // the arrival counters, after the partials: zero them
+    const int64_t rows_total = (int64_t)batch * hkv * group * seq_q;
+    err = cudaMemsetAsync(part + n_split * rows_total * (DH + 2), 0,
+                          units * sizeof(unsigned), stream);
+    if (err != cudaSuccess) return err;
+  }
+  kern<<<(unsigned)blocks, Dec<T, DH>::kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, Strides{st[0], st[1], st[2]},
-      Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]}, so, group, seq_q,
-      seq_k, kv_len, causal, scale, n_split, part);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || n_split == 1) return err;
-  const int64_t rows = (int64_t)batch * hq * seq_q;
-  const int64_t blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
-  combine_splits_kernel<T, DH><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      part, (T*)o, so, hq, seq_q, rows, n_split);
+      Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]},
+      Strides{st[9], st[10], st[11]}, hkv, group, seq_q, seq_k, kv_len, causal, scale,
+      n_split, n_chunks, part);
   return cudaGetLastError();
+}
+
+template <typename T, int DH>
+int launch(const void* q, const void* k, const void* v, void* o, int batch, int hq,
+           int hkv, int seq_q, int seq_k, int kv_len, int causal, float scale,
+           const int64_t* st, int n_split, float* part, cudaStream_t stream) {
+  const int group = hq / hkv;
+  if (seq_q <= kDecMaxSq) {
+    if (seq_q * group == 1)
+      return launch_decode<T, DH, 1>(q, k, v, o, batch, hkv, group, seq_q, seq_k,
+                                     kv_len, causal, scale, st, n_split, part,
+                                     stream);
+    return launch_decode<T, DH, kDecRows>(q, k, v, o, batch, hkv, group, seq_q, seq_k,
+                                          kv_len, causal, scale, st, n_split, part,
+                                          stream);
+  }
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {  // prefill: the tensor cores
+    const int smem = mma_smem_bytes<DH>();
+    auto kern = flash_attention_mma_kernel<DH>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((seq_q + kMmaRows - 1) / kMmaRows, hq, batch);
+    kern<<<grid, kMmaThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (T*)o, Strides{st[0], st[1], st[2]},
+        Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]},
+        Strides{st[9], st[10], st[11]}, group, seq_q, seq_k, kv_len, causal, scale);
+    return cudaGetLastError();
+  } else {  // float32 prefill: FMA
+    const size_t smem = smem_floats<DH>() * sizeof(float);
+    auto kern = flash_attention_kernel<T, DH>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((seq_q + kBQ - 1) / kBQ, hq, batch);
+    kern<<<grid, kThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (T*)o, Strides{st[0], st[1], st[2]},
+        Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]},
+        Strides{st[9], st[10], st[11]}, group, seq_q, seq_k, kv_len, causal, scale);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>
 int dispatch_dh(int dh, const void* q, const void* k, const void* v, void* o, int batch,
-                int hq, int group, int seq_q, int seq_k, int kv_len, int causal,
+                int hq, int hkv, int seq_q, int seq_k, int kv_len, int causal,
                 float scale, const int64_t* st, int n_split, float* part,
                 cudaStream_t stream) {
   switch (dh) {
     case 16:
-      return launch<T, 16>(q, k, v, o, batch, hq, group, seq_q, seq_k, kv_len, causal,
+      return launch<T, 16>(q, k, v, o, batch, hq, hkv, seq_q, seq_k, kv_len, causal,
                            scale, st, n_split, part, stream);
     case 32:
-      return launch<T, 32>(q, k, v, o, batch, hq, group, seq_q, seq_k, kv_len, causal,
+      return launch<T, 32>(q, k, v, o, batch, hq, hkv, seq_q, seq_k, kv_len, causal,
                            scale, st, n_split, part, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, batch, hq, group, seq_q, seq_k, kv_len, causal,
+      return launch<T, 64>(q, k, v, o, batch, hq, hkv, seq_q, seq_k, kv_len, causal,
                            scale, st, n_split, part, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, batch, hq, group, seq_q, seq_k, kv_len, causal,
+      return launch<T, 128>(q, k, v, o, batch, hq, hkv, seq_q, seq_k, kv_len, causal,
                             scale, st, n_split, part, stream);
     default:
       return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int dec_tile(int dh, int* tile) {
+  switch (dh) {
+    case 16: *tile = Dec<T, 16>::kTile; return cudaSuccess;
+    case 32: *tile = Dec<T, 32>::kTile; return cudaSuccess;
+    case 64: *tile = Dec<T, 64>::kTile; return cudaSuccess;
+    case 128: *tile = Dec<T, 128>::kTile; return cudaSuccess;
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -673,28 +993,42 @@ extern "C" {
 
 const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
+// The decode kernel's geometry for dtype (0 float32, 1 bfloat16) and dh, in
+// out[0..2]: the largest seq_q it takes, the query rows a CTA holds (when a
+// kv head serves more than one; with one, its CTA holds that one, in the
+// same number of chunks) and the keys of a tile.  The wrapper's split policy
+// and its sizing of `part` read them.
+int flash_decode_geometry(int dtype, int dh, int* out) {
+  out[0] = kDecMaxSq;
+  out[1] = kDecRows;
+  if (dtype == 0) return dec_tile<float>(dh, out + 2);
+  if (dtype == 1) return dec_tile<__nv_bfloat16>(dh, out + 2);
+  return cudaErrorInvalidValue;
+}
+
 // dtype: 0 float32, 1 bfloat16.  strides: 12 element strides, (b, h, s) of q,
 // k, v and o in that order; Dh is contiguous in all four, and every pointer and
-// stride is 16-byte aligned (the wrapper checks both).  n_split > 1 (only
-// with seq_q <= 64) splits each row's key tiles over n_split CTAs, which
-// leave acc, m and l in `part` (n_split * batch * hq * seq_q * (dh + 2)
-// float32, in that order, allocated by the caller) for a second kernel to
-// combine.
+// stride is 16-byte aligned (the wrapper checks both).  seq_q <= 64 runs the
+// decode kernel, which splits each row's key tiles over n_split CTAs; with
+// n_split > 1 they leave acc, m and l in `part` (n_split * batch * hq * seq_q
+// * (dh + 2) float32, in that order) followed by their arrival counters
+// (batch * hkv * ceil(seq_q * hq / hkv / rows) unsigned, rows from
+// flash_decode_geometry, zeroed here on `stream`), allocated by the caller.
+// seq_q > 64 takes n_split 1.
 int flash_attention(const void* q, const void* k, const void* v, void* o, int dtype,
                     int dh, int batch, int hq, int hkv, int seq_q, int seq_k, int kv_len,
                     int causal, float scale, const int64_t* strides, int n_split,
                     void* part, void* stream) {
   if (batch == 0 || hq == 0 || seq_q == 0) return cudaSuccess;
   if (hkv <= 0 || hq % hkv != 0 || kv_len < 1 || seq_k < 1 || n_split < 1 ||
-      (n_split > 1 && (seq_q > kBQ || part == nullptr)))
+      (n_split > 1 && (seq_q > kDecMaxSq || part == nullptr)))
     return cudaErrorInvalidValue;
-  const int group = hq / hkv;
   if (dtype == 0)
-    return dispatch_dh<float>(dh, q, k, v, o, batch, hq, group, seq_q, seq_k, kv_len,
+    return dispatch_dh<float>(dh, q, k, v, o, batch, hq, hkv, seq_q, seq_k, kv_len,
                               causal, scale, strides, n_split, (float*)part,
                               (cudaStream_t)stream);
   if (dtype == 1)
-    return dispatch_dh<__nv_bfloat16>(dh, q, k, v, o, batch, hq, group, seq_q, seq_k,
+    return dispatch_dh<__nv_bfloat16>(dh, q, k, v, o, batch, hq, hkv, seq_q, seq_k,
                                       kv_len, causal, scale, strides, n_split,
                                       (float*)part, (cudaStream_t)stream);
   return cudaErrorInvalidValue;

@@ -41,7 +41,6 @@ LAUNCHES: Dict[str, int] = {
     "fm_interaction": 0,
     "segment_sum": 0,
     "flash_attention": 0,
-    "flash_attention_combine": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -9,15 +9,16 @@ and ``Hq`` a multiple of ``Hkv``.  Replaces
 ``repro.kernels.attention.kernel.flash_attention_pallas``; unlike it, any
 ``Sq`` and ``Sk`` are taken (K6 masks its ragged tiles) and ``kv_len``
 masks the keys at index ``>= kv_len`` (decode over a partly filled cache)
-without reading them.  When one query block's (batch, head) pairs would
-leave the card's SMs idle (decode), the wrapper splits the key tiles over
-:func:`split_count` CTAs per row and K6 combines the splits in a second
-launch, in a fixed order.  For CPU tensors the wrapper runs the plain version
-:func:`~repro_torch.kernels.attention.ref.attention_plain`; for CUDA
-tensors it launches K6 or raises, and adds one to
-``LAUNCHES["flash_attention"]`` per launch of the attention kernel and one
-to ``LAUNCHES["flash_attention_combine"]`` per launch of the combine kernel
-(a split call launches both).
+without reading them.  ``Sq <= 64`` (decode) runs K6's decode kernel,
+one CTA per (split, kv head, batch row, chunk of query rows): the wrapper
+splits the key tiles over :func:`split_count` CTAs per chunk, and the last
+split to arrive combines them all inside the same launch, in split order
+(there is no combine kernel).  For CPU tensors the wrapper runs the plain
+version :func:`~repro_torch.kernels.attention.ref.attention_plain`; for
+CUDA tensors it launches K6 or raises, adds one to
+``LAUNCHES["flash_attention"]`` per launch, prefill or decode, and adds
+the split count each decode launch ran with to
+``SPLITS["flash_attention"]``.
 """
 from __future__ import annotations
 
@@ -31,14 +32,17 @@ import torch
 from .._build import LAUNCHES, check, library, stream_handle
 from .ref import attention_plain
 
-__all__ = ["flash_attention_kernel", "split_count", "HEAD_DIMS", "DTYPES"]
+__all__ = ["flash_attention_kernel", "split_count", "decode_geometry",
+           "SPLITS", "HEAD_DIMS", "DTYPES"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-BLOCK = 64  # K6's query rows per CTA and keys per tile
-CTAS_PER_SM = 4  # the split-KV target: enough CTAs to cover the load latency
+CTAS_PER_SM = 1  # one decode CTA per SM (128 KB of cp.async ring at Dh 64)
+MIN_TILES = 4  # tiles a split walks at least: enough to fill its ring
+# split CTAs per (batch row, kv head, row chunk), summed over decode launches
+SPLITS = {"flash_attention": 0}
 
 
 def _lib() -> ctypes.CDLL:
@@ -48,6 +52,8 @@ def _lib() -> ctypes.CDLL:
                                         _I, _I, _I, _I, ctypes.c_float, _P,
                                         _I, _P, _P]
         lib.flash_attention.restype = ctypes.c_int
+        lib.flash_decode_geometry.argtypes = [_I, _I, _P]
+        lib.flash_decode_geometry.restype = ctypes.c_int
     return lib
 
 
@@ -69,15 +75,32 @@ def _check(q, k, v, kv_len):
         raise ValueError(f"kv_len {kv_len} outside [1, {k.shape[2]}]")
 
 
-def split_count(b: int, hq: int, sq: int, kv_len: int, n_sm: int) -> int:
-    """CTAs that share one query block's key tiles: 1 unless ``sq`` fits
-    one block and the ``b * hq`` blocks would leave SMs idle; then enough
-    for about ``CTAS_PER_SM`` CTAs per SM, each walking 4 tiles or more."""
-    if sq > BLOCK:
+def split_count(b: int, hq: int, hkv: int, sq: int, kv_len: int, n_sm: int,
+                geometry: tuple) -> int:
+    """Decode CTAs that share one (batch row, kv head, row chunk)'s key
+    tiles, for the decode kernel's ``geometry`` (its largest Sq, query rows
+    a CTA and keys a tile: :func:`decode_geometry`): 1 in prefill; else as
+    many as keep all of the ``b * hkv * chunks`` CTAs of the launch
+    resident at once (``CTAS_PER_SM`` per SM, one wave), with ``MIN_TILES``
+    tiles or more per split, and at least 1."""
+    max_sq, rows, tile = geometry
+    if sq > max_sq:
         return 1
-    tiles = -(-kv_len // BLOCK)
-    want = -(-CTAS_PER_SM * n_sm // (b * hq))
-    return max(1, min(want, -(-tiles // 4)))
+    ctas = b * hkv * -(-sq * (hq // hkv) // rows)
+    return max(1, min(CTAS_PER_SM * n_sm // ctas,
+                      -(-kv_len // tile) // MIN_TILES))
+
+
+@functools.lru_cache(maxsize=None)
+def decode_geometry(dtype: torch.dtype, dh: int) -> tuple:
+    """(largest Sq, query rows a CTA, keys a tile) of K6's decode kernel for
+    ``dtype`` and head dim ``dh``, as ``csrc/attention.cu`` reports them
+    (builds the kernel library)."""
+    lib = _lib()
+    out = (ctypes.c_int * 3)()
+    check(lib, lib.flash_decode_geometry(DTYPES[dtype], dh, out),
+          "flash_decode_geometry")
+    return tuple(out)
 
 
 def _strides(t: torch.Tensor, name: str):
@@ -124,10 +147,13 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         *_strides(q, "q"), *_strides(k, "k"), *_strides(v, "v"),
         *_strides(out, "out"))
     kv_len = sk if kv_len is None else kv_len
-    n_split = split_count(b, hq, sq, kv_len, _sm_count(q.device))
+    geometry = decode_geometry(q.dtype, dh)
+    n_split = split_count(b, hq, hkv, sq, kv_len, _sm_count(q.device),
+                          geometry)
     part = None
-    if n_split > 1:  # each split's acc, m and l, combined by K6 itself
-        part = torch.empty(n_split * b * hq * sq * (dh + 2),
+    if n_split > 1:  # each split's acc, m and l, then the arrival counters
+        chunks = -(-sq * (hq // hkv) // geometry[1])
+        part = torch.empty(n_split * b * hq * sq * (dh + 2) + b * hkv * chunks,
                            dtype=torch.float32, device=q.device)
     lib = _lib()
     err = lib.flash_attention(
@@ -137,6 +163,6 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         None if part is None else part.data_ptr(), stream_handle(q.device))
     check(lib, err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
-    if n_split > 1:
-        LAUNCHES["flash_attention_combine"] += 1
+    if sq <= geometry[0]:
+        SPLITS["flash_attention"] += n_split
     return out

@@ -64,4 +64,4 @@ def build_cell_step(spec: ArchSpec, cell: ShapeCell,
         return step
     raise NotImplementedError(
         f"{spec.family} {cell.kind} steps are not ported yet (ROADMAP §1, "
-        "'Next')")
+        "item 7)")

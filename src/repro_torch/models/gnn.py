@@ -35,8 +35,8 @@ from ..kernels.segment import row_ranges, segment_sum_sorted
 __all__ = ["GNNConfig", "GIN", "init_params", "prepare_batch", "forward",
            "graph_pool"]
 
-_NOT_PORTED = ("is not ported yet (ROADMAP §1, 'Next': the remaining GNN "
-               "archs, the halo path and training)")
+_NOT_PORTED = ("is not ported yet (ROADMAP §1, items 7 (b)-(d): training, "
+               "the remaining GNN archs and the halo path)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -64,8 +64,8 @@ class TransformerConfig:
     def __post_init__(self):
         if self.moe is not None:
             raise NotImplementedError(
-                "MoE is not ported yet (ROADMAP §1, 'Next': MoE with its "
-                "expert-parallel path)")
+                "MoE is not ported yet (ROADMAP §1, item 7 (a): MoE with "
+                "its expert-parallel path)")
 
     @property
     def head_dim(self) -> int:

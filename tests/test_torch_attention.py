@@ -136,14 +136,32 @@ def test_wrapper_refuses_what_k6_does_not_take():
                                causal=True)
 
 
-@pytest.mark.parametrize("b,hq,sq,kv_len,want", [
-    (8, 16, 2048, 2048, 1),  # prefill: 32 query blocks per (b, h)
-    (8, 16, 1, 2080, 5),     # request A's decode: 128 rows, 33 tiles
-    (1, 16, 1, 32784, 33),   # request B's decode: 16 rows, 513 tiles
-    (1, 8, 1, 128, 1),       # 2 tiles: too few to split
-    (64, 64, 1, 32768, 1),   # 4,096 rows already fill 132 SMs
+# the decode kernel's geometry (largest Sq, query rows a CTA, keys a tile)
+# in bf16 at Dh 64, as csrc/attention.cu reports it; float32 at Dh 128 has
+# 64-key tiles
+BF16_DH64 = (64, 4, 128)
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,kv_len,geometry,want", [
+    # prefill: never split
+    (8, 16, 16, 2048, 2048, BF16_DH64, 1),
+    # request A's decode: 128 CTAs, 17 tiles
+    (8, 16, 16, 1, 2080, BF16_DH64, 1),
+    # request B's decode: 16 CTAs, 257 tiles
+    (1, 16, 16, 1, 32784, BF16_DH64, 8),
+    # 1 tile: too few to split
+    (1, 8, 8, 1, 128, BF16_DH64, 1),
+    # 32 tiles: 8 splits of 4
+    (1, 8, 8, 1, 4096, BF16_DH64, 8),
+    # 4,096 CTAs already fill 132 SMs
+    (64, 64, 64, 1, 32768, BF16_DH64, 1),
+    # GQA: 40 rows per kv head, 10 chunks of 4
+    (2, 16, 2, 5, 4096, BF16_DH64, 3),
+    # 64 tiles of 64 keys: 16 splits of 4
+    (1, 8, 8, 1, 4096, (64, 4, 64), 16),
 ])
-def test_split_count_fills_the_card_in_decode_only(b, hq, sq, kv_len, want):
+def test_split_count_fills_the_card_in_decode_only(b, hq, hkv, sq, kv_len,
+                                                   geometry, want):
     from repro_torch.kernels.attention.kernel import split_count
 
-    assert split_count(b, hq, sq, kv_len, n_sm=132) == want
+    assert split_count(b, hq, hkv, sq, kv_len, 132, geometry) == want

@@ -449,34 +449,119 @@ def test_flash_attention_bf16_prefill_every_head_dim(cuda_device, dh, causal):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("sq", [1, 5, 64])
-def test_flash_attention_split_kv_matches_plain(cuda_device, sq, dtype):
-    """Few rows over a long cache: K6 splits the key tiles over CTAs and
-    combines them; the result must match the plain version and relaunch
-    bit-identically, at kv_len values that leave splits ragged or empty.
-    A split call launches the combine kernel too, and counts it."""
+@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+def test_flash_attention_split_kv_matches_plain(cuda_device, sq, group, dh,
+                                                dtype):
+    """K6's decode kernel (Sq <= 64) over a ``[B, Smax, Hkv, Dh]`` cache
+    through the model's transposed views, at kv_len values that leave the
+    last tile ragged and splits ragged or empty (4224: 33 tiles over 8
+    splits; causal: every split past the first tile): equal to the plain
+    version, causal or not, bit-identical on relaunch and with the tail
+    past kv_len poisoned with NaN; one K6 launch a call, run with the split
+    count the policy gives (more than 1 at kv_len 4224 wherever a kv head
+    serves at most 64 rows; the splits are combined in the same launch)."""
     from repro_torch.kernels.attention import attention_plain, flash_attention
-    from repro_torch.kernels.attention.kernel import split_count
+    from repro_torch.kernels.attention.kernel import (
+        SPLITS, decode_geometry, split_count)
 
     dt = getattr(torch, dtype)
-    b, hq, hkv, smax, dh = 1, 4, 2, 4096, 64
-    q, k, v = _qkv(b, hq, hkv, sq, smax, dh, sq, dt, cuda_device)
-    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    b, hkv, smax = 2, 2, 4224
+    hq = hkv * group
+    rng = np.random.default_rng(1000 * sq + 10 * group + dh)
+    cache = torch.from_numpy(rng.standard_normal(
+        (2, b, smax, hkv, dh)).astype(np.float32)).to(cuda_device, dt)
+    q = torch.from_numpy(rng.standard_normal(
+        (b, sq, hq, dh)).astype(np.float32) * 0.2).to(cuda_device,
+                                                      dt).transpose(1, 2)
+    k, v = cache[0].transpose(1, 2), cache[1].transpose(1, 2)
     tol = dict(rtol=1e-5, atol=1e-6) if dt == torch.float32 else dict(
         rtol=3e-2, atol=3e-2)
-    for kv_len in (1, 1000, 4095, 4096):
-        split = split_count(b, hq, sq, kv_len, n_sm) > 1
-        assert kv_len < 256 or split
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for kv_len in (1, 63, 64, 65, 4095, 4096, 4224):
+        n_split = split_count(b, hq, hkv, sq, kv_len, n_sm,
+                              decode_geometry(dt, dh))
+        assert kv_len < 4224 or sq * group > 64 or n_split > 1
+        poisoned = cache.clone()
+        poisoned[:, :, kv_len:] = float("nan")
         before = dict(LAUNCHES)
+        splits_before = SPLITS["flash_attention"]
         got = flash_attention(q, k, v, causal=False, kv_len=kv_len)
-        assert torch.equal(got, flash_attention(q, k, v, causal=False,
-                                                kv_len=kv_len))
-        assert LAUNCHES["flash_attention"] - before["flash_attention"] == 2
-        assert (LAUNCHES["flash_attention_combine"]
-                - before["flash_attention_combine"]) == 2 * split
-        np.testing.assert_allclose(
-            got.float().cpu().numpy(),
-            attention_plain(q, k, v, causal=False, kv_len=kv_len).float()
-            .cpu().numpy(), **tol)
+        again = flash_attention(q, k, v, causal=False, kv_len=kv_len)
+        tail = flash_attention(q, poisoned[0].transpose(1, 2),
+                               poisoned[1].transpose(1, 2), causal=False,
+                               kv_len=kv_len)
+        causal = flash_attention(q, k, v, causal=True, kv_len=kv_len)
+        torch.cuda.synchronize()
+        assert LAUNCHES["flash_attention"] - before["flash_attention"] == 4
+        assert SPLITS["flash_attention"] - splits_before == 4 * n_split
+        assert torch.equal(got, again) and torch.equal(got, tail)
+        for out, c in ((got, False), (causal, True)):
+            np.testing.assert_allclose(
+                out.float().cpu().numpy(),
+                attention_plain(q, k, v, causal=c, kv_len=kv_len).float()
+                .cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+def test_decode_geometry_is_what_the_policy_tests_assume(cuda_device):
+    """The decode kernel reports the geometry that
+    tests/test_torch_attention.py holds ``split_count`` to: Sq <= 64, 4
+    query rows a CTA, 128-key tiles in bf16 at Dh 64 and 64-key tiles in
+    float32 at Dh 128."""
+    from repro_torch.kernels.attention.kernel import decode_geometry
+
+    assert decode_geometry(torch.bfloat16, 64) == (64, 4, 128)
+    assert decode_geometry(torch.float32, 128) == (64, 4, 64)
+
+
+@pytest.mark.cuda
+def test_flash_attention_decode_graphs_replay_on_two_streams(cuda_device):
+    """Two CUDA graphs of split decode calls, both captured on torch's one
+    default capture stream, replayed the second before the first ever has
+    and then both at once on two streams: each equals the plain version of
+    its inputs, so no two launches share their arrival counters."""
+    from repro_torch.kernels.attention import attention_plain, flash_attention
+    from repro_torch.kernels.attention.kernel import (
+        decode_geometry, split_count)
+
+    b, hq, hkv, sk, dh = 1, 8, 8, 4096, 64
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert split_count(b, hq, hkv, 1, sk, n_sm,
+                       decode_geometry(torch.float32, dh)) > 1
+    rng = np.random.default_rng(11)
+
+    def inputs():
+        return [torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda_device) for shape in
+            ((b, hq, 1, dh), (b, hkv, sk, dh), (b, hkv, sk, dh))]
+
+    sets = [inputs(), inputs()]
+    outs, graphs = [], []
+    for qkv in sets:
+        flash_attention(*qkv, causal=False)  # builds and loads K6
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs.append(flash_attention(*qkv, causal=False))
+        graphs.append(graph)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for round_ in range(3):
+        for qkv in sets:
+            for t, new in zip(qkv, inputs()):
+                t.copy_(new)
+        torch.cuda.synchronize()
+        order = (1,) if round_ == 0 else (1, 0)
+        for i in order:
+            streams[i].wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(streams[i]):
+                graphs[i].replay()
+        torch.cuda.synchronize()
+        for i in order:
+            np.testing.assert_allclose(
+                outs[i].cpu().numpy(),
+                attention_plain(*sets[i], causal=False).cpu().numpy(),
+                rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.cuda

@@ -138,6 +138,50 @@ def test_prefill_and_teacher_forced_decode_match_reference(pair):
     assert LAUNCHES == before, "a CPU run launched a kernel"
 
 
+def _rel_l1(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.abs(a - b).sum() / np.abs(b).sum()
+
+
+def test_bf16_prefill_and_decode_stay_near_reference(pair):
+    """The production dtype: the same weights rounded to bf16 through both
+    packages' prefill and 8 teacher-forced decode steps.  bf16 rounds at
+    other places in the two (the reference's einsum rounds its scores to
+    bf16, K6 keeps them in float32), so the port is held, per logits
+    array, to within 2x the reference's own distance from a float32 run of
+    the same bf16 weights, and to the reference's argmax."""
+    ref_cfg, params, tokens, _ = pair
+    cfg16 = dataclasses.replace(ref_cfg, dtype=jnp.bfloat16)
+    p16 = jax.tree.map(lambda x: x.astype(jnp.bfloat16), params)
+    p32 = jax.tree.map(lambda x: x.astype(jnp.float32), p16)
+    port_cfg = dataclasses.replace(_port_cfg(ref_cfg), dtype=torch.bfloat16)
+    model = lm_params_from_numpy(jax.tree.map(np.asarray, p32), port_cfg,
+                                 device="cpu")
+    prompt, max_seq = tokens[:, :24], 32
+
+    def reference(ps, cfg):
+        cache, logits = ref_lm.prefill_step(ps, jnp.asarray(prompt), cfg,
+                                            max_seq=max_seq)
+        out = [logits]
+        for t in range(24, 32):
+            logits, cache = ref_lm.decode_step(
+                ps, cache, jnp.asarray(tokens[:, t]), cfg)
+            out.append(logits)
+        return [np.asarray(x, np.float32) for x in out]
+
+    want, exact = reference(p16, cfg16), reference(p32, ref_cfg)
+    cache, logits = lm.prefill_step(model, prompt, max_seq=max_seq)
+    got = [logits]
+    for t in range(24, 32):
+        logits, cache = lm.decode_step(model, cache, tokens[:, t])
+        got.append(logits)
+    for i, (g, w, e) in enumerate(zip(got, want, exact)):
+        g = g.float().numpy()
+        assert np.isfinite(g).all()
+        assert _rel_l1(g, w) <= 2 * _rel_l1(w, e), i
+        np.testing.assert_array_equal(g.argmax(-1), w.argmax(-1))
+
+
 def test_decode_matches_prefill(pair):
     """Teacher-forced decode reproduces the prefill logits (the reference's
     test_models_lm.py::test_decode_matches_prefill, on the port alone)."""
