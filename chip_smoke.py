@@ -94,7 +94,10 @@ Phases, each printed on its own lines (any failure exits non-zero):
    2,080-slot cache; request B, 1 prompt x 32,768 tokens and 16 steps over
    a 32,784-slot cache (prefill_32k / decode_32k at batch 1).  Gates: K6
    (flash_attention) launched 24 times in each prefill and 24 x steps in
-   each decode loop, counted apart; every decode step run with the split
+   each decode loop, counted apart; each prefill's 24 launches run by
+   ``flash_prefill_wgmma_kernel`` (the wrapper's ``ROUTES["wgmma"]``, the
+   route ``prefill_route`` gives bf16 at Dh 64), none by another prefill
+   kernel; every decode step run with the split
    count ``split_count`` gives at its kv_len (``SPLITS``, added to by the
    wrapper at each launch; the decode kernel combines its splits in the
    same launch); finite logits;
@@ -112,7 +115,10 @@ Phases, each printed on its own lines (any failure exits non-zero):
    each request; K6's rows (A's prefill layer and decode step, B's decode
    step and prefill layer, ``scaled_dot_product_attention`` as the
    library yardstick) join phase 11's in the kernels line, each with the
-   launches counted at its shape in this phase; the decode rows also with
+   launches counted at its shape in this phase and the ``kernel`` that ran
+   it (``wgmma`` for the prefill rows, ``decode``), the prefill rows' TFLOP/s
+   (K6's and the library's, the pairs under the causal mask counted)
+   printed on a line of their own; the decode rows also with
    the ``splits`` the last decode step ran with, and with K6 and the
    library call timed by CUDA graph replay as well (``graph_ms``,
    ``library_graph_ms``: without the host's cost per call, which is of the
@@ -307,7 +313,7 @@ def lm_serving(args, torch, dev, timer, sync):
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels.attention import attention_plain, flash_attention
     from repro_torch.kernels.attention.kernel import (
-        SPLITS, decode_geometry, split_count)
+        ROUTES, SPLITS, decode_geometry, prefill_route, split_count)
     from repro_torch.launch.steps import build_cell_step
     from repro_torch.models import transformer
 
@@ -337,10 +343,16 @@ def lm_serving(args, torch, dev, timer, sync):
 
     n_sm = (torch.cuda.get_device_properties(dev).multi_processor_count
             if on_card else 0)
+    # the kernel a prefill of this config runs on (reads csrc/attention.cu)
+    route = prefill_route(cfg.dtype, cfg.head_dim) if on_card else None
+    if on_card and not args.lm_reduced and route != "wgmma":
+        fail(f"{cfg.name}'s prefill routes to {route}, not the wgmma kernel")
 
     def counted():
-        # K6 launches, and the split counts they ran with, summed
-        return LAUNCHES["flash_attention"], SPLITS["flash_attention"]
+        # K6 launches, the split counts they ran with, summed, and the
+        # prefill launches by route
+        return (LAUNCHES["flash_attention"], SPLITS["flash_attention"],
+                *ROUTES.values())
 
     def serve(name, step, b, s, n_steps):
         tokens = lm_token_batch(step, b, s, cfg.vocab, seed=args.seed)["tokens"]
@@ -396,16 +408,21 @@ def lm_serving(args, torch, dev, timer, sync):
                 b, cfg.n_heads, cfg.n_kv_heads, 1, s + i + 1, n_sm, geometry)
                 for i in range(n_steps)]
             ran = [n // cfg.n_layers for n in step_splits]
+            routes = dict(zip(ROUTES, pre[2:]))
             print(f"request {name}: decode splits per (batch row, kv head) "
                   f"as launched {min(ran)}-{max(ran)}, at most "
                   f"{b * cfg.n_kv_heads * max(ran)} CTAs per launch; "
-                  f"prefill splits {pre[1]}")
-            want = [cfg.n_layers, cfg.n_layers * n_steps, 0, policy]
-            got = [pre[0], dec[0], pre[1], step_splits]
+                  f"prefill splits {pre[1]}; prefill launches by kernel "
+                  f"{routes}")
+            want = [cfg.n_layers, cfg.n_layers * n_steps, 0, policy,
+                    {r: cfg.n_layers if r == route else 0 for r in ROUTES},
+                    [0] * len(ROUTES)]
+            got = [pre[0], dec[0], pre[1], step_splits, routes, dec[2:]]
             if got != want:
                 fail(f"request {name}: K6 (prefill launches, decode "
-                     f"launches, prefill splits, splits per decode step) "
-                     f"{got}, not {want}")
+                     f"launches, prefill splits, splits per decode step, "
+                     f"prefill launches by kernel, decode launches counted "
+                     f"as prefill) {got}, not {want}")
         return {"tokens": tokens, "cache": cache, "last": last,
                 "splits": step_splits[-1] // cfg.n_layers,
                 "gen": torch.stack(gen, 1), "prefill_s": t_pre,
@@ -547,7 +564,7 @@ def lm_serving(args, torch, dev, timer, sync):
         # ---- K6's rows: time, bound, plain version, library yardstick ----
         rows = []
 
-        def row(name, tag, launches, iters, plain_iters, plain_fn=None,
+        def row(name, tag, kernel, launches, iters, plain_iters, plain_fn=None,
                 splits=None):
             # launches: this run's (launches, splits) at the shape.  With
             # splits (decode): K6 and the library call are also timed by
@@ -583,6 +600,7 @@ def lm_serving(args, torch, dev, timer, sync):
                 "name": name, "route": "cuda",
                 "source": "src/repro_torch/csrc/attention.cu",
                 "replaces": "src/repro/kernels/attention/kernel.py:75",
+                "kernel": kernel,
                 "launches": launches[0], "max_abs_err": errs[tag],
                 "ms": timer(k6_fn, iters),
                 "plain_ms": timer(plain_fn, plain_iters, warmup=1),
@@ -591,6 +609,12 @@ def lm_serving(args, torch, dev, timer, sync):
                 "shape": [b, hq, sq, sk, dh], "dtype": str(q.dtype)[6:],
                 "causal": causal,
             }
+            if splits is None and on_card:  # prefill: the rate reached
+                print(f"K6 {tag} ({kernel}): {n_flops / out['ms'] / 1e9:.1f} "
+                      f"TFLOP/s in {out['ms']:.4f} ms; library "
+                      f"{n_flops / out['library_ms'] / 1e9:.1f} TFLOP/s in "
+                      f"{out['library_ms']:.4f} ms; bound {b_ms:.4f} ms "
+                      f"({n_flops / b_ms / 1e9:.1f} TFLOP/s)")
             if splits is not None:
                 out.update(splits=splits,
                            graph_ms=timer.graphed(k6_fn, iters),
@@ -598,11 +622,11 @@ def lm_serving(args, torch, dev, timer, sync):
             return out
 
         ra, rb = served["A"], served["B"]
-        rows.append(row("flash_attention", "A prefill",
+        rows.append(row("flash_attention", "A prefill", route,
                         ra["prefill_launches"], 20, 5))
-        rows.append(row("flash_attention_decode", "A decode",
+        rows.append(row("flash_attention_decode", "A decode", "decode",
                         ra["decode_launches"], 50, 10, splits=ra["splits"]))
-        rows.append(row("flash_attention_decode_32k", "B decode",
+        rows.append(row("flash_attention_decode_32k", "B decode", "decode",
                         rb["decode_launches"], 20, 5, splits=rb["splits"]))
         cb = caps["B prefill"]
 
@@ -614,7 +638,7 @@ def lm_serving(args, torch, dev, timer, sync):
                 attention_plain(q[:, :, lo:lo + chunk], cb["k"], cb["v"],
                                 causal=True, q_start=lo)
 
-        rows.append(row("flash_attention_prefill_32k", "B prefill",
+        rows.append(row("flash_attention_prefill_32k", "B prefill", route,
                         rb["prefill_launches"], 3, 1,
                         plain_fn=plain_chunked))
     summary = "; ".join(

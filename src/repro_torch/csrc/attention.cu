@@ -15,17 +15,31 @@
 //
 // What bounds it on an H100: in prefill, operations (4.Sq.Sk.Dh.Hq.B flops,
 // half of them under the causal mask: 6.9e10 per layer at 8 x 2048 tokens of
-// qwen1.5-0.5b, 0.07 ms at the 989 TFLOP/s of the bf16 tensor cores); in
-// decode (Sq <= 64), the bytes of the K/V cache (68 MB per layer at 8 x 2080
-// keys, 134 MB at 1 x 32784: 0.020 and 0.040 ms at 3.35 TB/s).
+// qwen1.5-0.5b, 0.07 ms at the 989 TFLOP/s of the bf16 tensor cores; 2.2e12
+// and 2.22 ms at 1 x 32768).  At Dh 64 the exponentials are an equal floor:
+// a score costs 4.Dh = 256 tensor-core flops (1/16 of an SM's clock) and one
+// exp2, of which the SM's MUFU units give 16 a clock (also 1/16), so 8.6e9
+// exp2 at 1 x 32768 take 2.22 ms too, and a kernel that runs the softmax
+// and the products one after the other cannot go under about twice the
+// bound.  In decode (Sq <= 64), the bytes of the K/V cache (68 MB per layer
+// at 8 x 2080 keys, 134 MB at 1 x 32784: 0.020 and 0.040 ms at 3.35 TB/s).
 //
 // What the design does about it.  Prefill (Sq > 64): one CTA per (query
-// block, q head, batch row) walks the key tiles of 64 in order, with an
-// online softmax; bf16 runs on the tensor cores (mma.sync,
-// flash_attention_mma_kernel, K/V tiles double-buffered by cp.async),
-// float32 on FMA (flash_attention_kernel: 256 threads stage Q once and each
-// K/V tile in shared memory, each thread owning a 4 x 4 block of the score
-// tile and a 4-row slice of the accumulator).  Decode (Sq <= 64,
+// block, q head, batch row) walks the key tiles in order, with an online
+// softmax.  bf16 at Dh 64 and 128 runs flash_prefill_wgmma_kernel, built
+// so that one tile's softmax runs while the tensor cores work on another:
+// a producer warpgroup feeds K / V tiles of 128 keys by TMA through a ring
+// of mbarrier-guarded stages; two (Dh 128) or three (Dh 64) consumer
+// warpgroups of 64 query rows run S = Q.K^T and O += P.V on wgmma, take
+// turns to issue them (named barriers in a ring), and each runs tile t's
+// softmax while its P.V of tile t - 1 is on the tensor cores; three
+// consumers at Dh 64 (192-row blocks) cut the K / V re-reads from L2 per
+// flop by a third.  bf16 at Dh 16 and 32 runs flash_attention_mma_kernel
+// (mma.sync, 64-key tiles double-buffered by cp.async), float32 the FMA
+// kernel (flash_attention_kernel: 256 threads stage Q once and each K/V
+// tile in shared memory, each thread owning a 4 x 4 block of the score tile
+// and a 4-row slice of the accumulator); prefill_route holds that rule, and
+// the wrapper reads it.  Decode (Sq <= 64,
 // flash_decode_kernel) is a stream over the cache: one 8-warp CTA (4 for
 // float32 at Dh 128) per (split, kv head, batch row, chunk of up to 4 query
 // rows) holds all the query rows that read its kv head in registers, so a
@@ -48,10 +62,12 @@
 // so the caller pads nothing.  The GQA head map h / group is in the K/V
 // offsets: no KV copy.  Keys are visited in one fixed order and every sum
 // runs in a fixed order, so a relaunch is bit-identical.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <limits>
 #include <type_traits>
 
 namespace {
@@ -61,6 +77,7 @@ constexpr int kBK = 64;        // keys per tile
 constexpr int kThreads = 256;  // 16 x 16: ty owns 4 rows, tx 4 columns
 static_assert(kBQ == kBK, "load_tile stages kBK rows for Q as well");
 constexpr float kNegInf = -1.0e30f;
+constexpr float kNegInfinity = -std::numeric_limits<float>::infinity();
 
 struct Strides {
   int64_t b, h, s;  // element strides; Dh is contiguous
@@ -567,6 +584,551 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ---- bf16 prefill at Dh 64 and 128: wgmma, TMA, warp-specialised ----------
+// One CTA per (block of 64.kConsumers query rows, q head, batch row), of
+// 1 + kConsumers warpgroups.  Warpgroup 0 is the producer: after setmaxnreg
+// gives its registers away, one thread loads Q once and then each 128-key K
+// and V tile through TMA into a ring of stages (128-byte swizzle; a row of
+// Dh 128 is two 64-column panels), each stage with a "full" mbarrier for K,
+// one for V and an "empty" one that every consumer arrives on.  The others
+// are consumers, 64 query rows each: S = Q.K^T by wgmma m64n128k16 with
+// both operands K-major in shared memory, the online softmax on the
+// accumulator, then O += P.V by wgmma m64nDHk16 with P from registers (S's
+// float pairs packed to bf16x2 in place: p's rounding to v's dtype) and V
+// MN-major in shared memory (the transpose bit).  In each step a consumer
+// issues S for tile t, rescales O, issues P.V for tile t - 1, and runs
+// tile t's softmax while that product is on the tensor cores.  The
+// consumers take turns to issue (named barriers 1.., in a ring: FA3's
+// "ping-pong"), so one's softmax runs while another's products run.  A
+// stage is released only after the P.V product that read it is done.  TMA
+// zero-fills the query rows past seq_q and the keys past kv_lim (the K / V
+// maps end there: those keys are never read); the kv_len and causal masks
+// are computed only on the tiles that cross them.  All consumers take the
+// same turns (the ring needs it), but each computes only the tiles it
+// needs: none if its rows all lie past seq_q, none wholly above its causal
+// diagonal.  Inside a tile, a warp's keys above its diagonal score -inf.
+constexpr int kRouteFma = 0, kRouteMma = 1, kRouteWgmma = 2;
+
+// The prefill kernel of a dtype (0 float32, 1 bfloat16) and head dim; the
+// wrapper reads the same rule through flash_prefill_route.
+constexpr int prefill_route(int dtype, int dh) {
+  return dtype == 0 ? kRouteFma : (dh == 64 || dh == 128) ? kRouteWgmma : kRouteMma;
+}
+
+template <int DH>
+struct Wg {
+  static constexpr int kConsumers = DH == 64 ? 3 : 2;  // warpgroups of 64 query rows
+  static constexpr int kRows = 64 * kConsumers;        // query rows a CTA
+  static constexpr int kKeys = 128;                    // keys a tile
+  static constexpr int kPanel = kKeys * 128;   // bytes of a K / V tile's 64 columns
+  static constexpr int kQPanel = kRows * 128;  // ... and of Q's
+  static constexpr int kTile = DH / 64 * kPanel;
+  static constexpr int kQTile = DH / 64 * kQPanel;
+  static constexpr int kStages = 3;
+  static constexpr int kThreads = 128 * (1 + kConsumers);
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = kConsumers == 3 ? 160 : 240;
+  static constexpr int kBars = 1 + 3 * kStages;  // Q full; K full, V full, empty
+  // 1024 bytes of slack to align the swizzled tiles to 1024
+  static constexpr int kSmem = 1024 + kQTile + 2 * kStages * kTile + 8 * kBars;
+  static_assert(128 * (kProducerRegs + kConsumers * kConsumerRegs) <= 65536,
+                "the warpgroups' registers fit the SM's 64K");
+  static_assert(kSmem <= 232448, "a CTA has at most 227 KB of shared memory");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// waits until the phase of parity `parity` of the barrier has completed
+// (no __trap on a timeout here: with one, ptxas stops giving the consumers
+// the registers setmaxnreg raises them to, and Dh 128 spills)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// the box at (c0, c1, c2, c3) of a 4-D map into shared dst; completes on bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// named barrier `id` between two consumer warpgroups, one of which syncs
+// on it while the other arrives (256 threads)
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving reads or writes of r across a wgmma wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// wgmma descriptor of a 128-byte-swizzled operand at shared address addr
+// (1024-aligned atoms of 8 rows x 128 bytes): lbo and sbo in bytes
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | (uint64_t)1 << 62;
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d (+)= A.B^T, m64n128k16: A [64 x 16] and B [128 x 16] both K-major in
+// shared memory (descriptors da, db); scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d += A.B, m64n64k16: A [64 x 16] bf16 from registers (a: the
+// accumulator layout's pairs, packed), B [16 x 64] MN-major in shared memory
+// (descriptor db, transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+
+// d += A.B, m64n128k16: A [64 x 16] bf16 from registers (a: the
+// accumulator layout's pairs, packed), B [16 x 128] MN-major in shared memory
+// (descriptor db, transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+
+
+template <int DH>
+__device__ __forceinline__ void wgmma_pv(float (&d)[DH / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (DH == 64)
+    wgmma_rs_n64(d, a, db);
+  else
+    wgmma_rs_n128(d, a, db);
+}
+
+// The online softmax of one tile on a consumer thread's S fragment: s[4j +
+// 2r + e] is row row0 + 8r, key k0 + 8j + col0 + e.  Scores stay raw; the
+// exponent folds the scale in, exp2(s.c - m.c) with c = scale.log2(e): one
+// FFMA and one ex2 a score.  l holds this thread's share of each row sum
+// (its 32 keys of every tile), summed over the row's four lanes at the end.
+// With `masked`, keys at or past kv_lim and, causally, past the row score
+// -inf.  Sums and maxima run in a fixed order: a relaunch is bit-identical.
+__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int k0, int row0, int col0,
+                                             int kv_lim, int causal, bool masked, float c) {
+  if (masked) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kj = k0 + 8 * j + col0 + (e & 1);
+        if (kj >= kv_lim || (causal && kj > row0 + 8 * (e >> 1)))
+          s[4 * j + e] = kNegInfinity;
+      }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx[4] = {m[r], m[r], m[r], m[r]};
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      mx[j & 3] = fmaxf(mx[j & 3], fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+    float mn = fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]));
+    mn = fmaxf(mn, __shfl_xor_sync(0xffffffffu, mn, 1));
+    mn = fmaxf(mn, __shfl_xor_sync(0xffffffffu, mn, 2));
+    // every row holds a real key in tile 0 (key 0), so mn is finite from
+    // there on and alpha is 0 at tile 0 (m starts at -1e30)
+    alpha[r] = ex2((m[r] - mn) * c);
+    m[r] = mn;
+    const float mc = mn * c;
+    float sum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * j + 2 * r + e];
+        x = ex2(fmaf(x, c, -mc));
+        sum[j & 3] += x;
+      }
+    l[r] = l[r] * alpha[r] + ((sum[0] + sum[1]) + (sum[2] + sum[3]));
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(Wg<DH>::kThreads, 1)
+flash_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           __nv_bfloat16* __restrict__ o, Strides so, int group, int seq_q,
+                           int kv_lim, int causal, float scale2) {
+  using G = Wg<DH>;
+  constexpr int NS = G::kStages;
+  constexpr int KS = DH / 16;  // k steps of S = Q.K^T, 4 to a 64-column panel
+  extern __shared__ uint4 smem_wg[];
+  // Q, then stage s's K at base + kQTile + 2s.kTile and its V after it
+  const uint32_t base = (smem_u32(smem_wg) + 1023) & ~1023u;
+  const uint32_t bars = base + G::kQTile + 2 * NS * G::kTile;
+  const uint32_t q_full = bars;
+  auto k_tile = [&](int st) { return base + G::kQTile + 2 * st * G::kTile; };
+  auto k_full = [&](int st) { return bars + 8 * (1 + st); };
+  auto v_full = [&](int st) { return bars + 8 * (1 + NS + st); };
+  auto empty = [&](int st) { return bars + 8 * (1 + 2 * NS + st); };
+
+  const int qb = gridDim.x - 1 - blockIdx.x;  // heavier causal blocks first
+  const int head = blockIdx.y;
+  const int b = blockIdx.z;
+  const int q0 = qb * G::kRows;
+  int n_tiles = (kv_lim + G::kKeys - 1) / G::kKeys;
+  if (causal) n_tiles = min(n_tiles, (min(q0 + G::kRows, seq_q) - 1) / G::kKeys + 1);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < NS; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(empty(st), G::kConsumers);  // one thread of each consumer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // ---- producer: one thread issues every load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(G::kProducerRegs) : "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, G::kQTile);
+#pragma unroll
+      for (int p = 0; p < DH / 64; ++p)
+        tma_load(base + p * G::kQPanel, &tm_q, q_full, 64 * p, q0, head, b);
+      const int hk = head / group;
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % NS;
+        if (t >= NS) mbar_wait(empty(st), (t / NS - 1) & 1);  // tile t - NS is done
+        const uint32_t dk = k_tile(st), dv = dk + G::kTile;
+        mbar_expect_tx(k_full(st), G::kTile);
+#pragma unroll
+        for (int p = 0; p < DH / 64; ++p)
+          tma_load(dk + p * G::kPanel, &tm_k, k_full(st), 64 * p, t * G::kKeys, hk, b);
+        mbar_expect_tx(v_full(st), G::kTile);
+#pragma unroll
+        for (int p = 0; p < DH / 64; ++p)
+          tma_load(dv + p * G::kPanel, &tm_v, v_full(st), 64 * p, t * G::kKeys, hk, b);
+      }
+    }
+  } else {  // ---- consumers: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(G::kConsumerRegs) : "memory");
+    const int c = wg - 1;
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int row0 = q0 + 64 * c + 16 * warp + (lane >> 2);  // and row0 + 8
+    const int col0 = 2 * (lane & 3);  // first column of each 8-column group
+    const int warp_row = q0 + 64 * c + 16 * warp;
+    // the tiles this warpgroup computes: none when its rows all lie past
+    // seq_q (a ragged last block), and causally none wholly above its last
+    // row; on the others it only takes its turns and releases their stages
+    const int last_row = min(q0 + 64 * c + 63, seq_q - 1);
+    const int n_live = last_row < q0 + 64 * c ? 0
+                       : causal                ? min(n_tiles, last_row / G::kKeys + 1)
+                                               : n_tiles;
+    // the K-major descriptors step 32 bytes a k step inside a 128-byte panel
+    const uint64_t dq = wgmma_desc(base + c * 64 * 128, 16, 1024);
+    float s[64], acc[DH / 2];
+    uint32_t p[32];
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f}, alpha[2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) acc[i] = 0.0f;
+
+    auto gemm_s = [&](int st) {  // S = Q.K^T over stage st's K
+      const uint64_t dk = wgmma_desc(k_tile(st), 16, 1024);
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const uint32_t in_panel = (ks & 3) * 32;
+        wgmma_ss_n128(s, dq + (((ks >> 2) * G::kQPanel + in_panel) >> 4),
+                      dk + (((ks >> 2) * G::kPanel + in_panel) >> 4), ks > 0);
+      }
+      wgmma_commit();
+    };
+    auto gemm_pv = [&](int st) {  // O += P.V over stage st's V, 16 keys a step
+      const uint64_t dv = wgmma_desc(k_tile(st) + G::kTile, G::kPanel, 1024);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < G::kKeys / 16; ++kk) {
+        const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
+        wgmma_pv<DH>(acc, a, dv + ((kk * 16 * 128) >> 4));
+      }
+      wgmma_commit();
+      fence_regs(p);
+    };
+    auto masked = [&](int t) {  // does tile t hold a key this warp masks?
+      const int k0 = t * G::kKeys;
+      return k0 + G::kKeys > kv_lim || (causal && k0 + G::kKeys - 1 > warp_row);
+    };
+    auto pack = [&]() {  // P in the A fragment layout: p's rounding to bf16
+#pragma unroll
+      for (int i = 0; i < 32; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+    };
+    auto rescale = [&]() {
+#pragma unroll
+      for (int i = 0; i < DH / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    };
+    // Turns: consumer c issues its products after bar_sync(turn) and then
+    // lets the next one issue (bar_arrive(next)), in a ring; consumer 0
+    // goes first.  Every consumer takes n_tiles + 1 turns: S of tile 0;
+    // S of tile t with P.V of tile t - 1; P.V of the last tile.  Past its
+    // n_live tiles a turn issues nothing and only releases the stage of
+    // tile t - 1, which every turn t < n_tiles does.  The last consumer's
+    // last turn lets nobody on: nobody waits on a later one.
+    const int turn = 1 + c, next = 1 + (c + 1) % G::kConsumers;
+    auto pass_on = [&](int t) {
+      if (c != G::kConsumers - 1 || t < n_tiles) bar_arrive(next);
+    };
+    auto release = [&](int t) {  // after turn t: tile t - 1's stage is read
+      if (t >= 1 && t < n_tiles && tid == 0) mbar_arrive(empty((t - 1) % NS));
+    };
+    if (c == G::kConsumers - 1) bar_arrive(1);
+    int t = 0;
+    if (n_live > 0) {
+      mbar_wait(q_full, 0);
+      mbar_wait(k_full(0), 0);
+      bar_sync(turn);
+      gemm_s(0);
+      pass_on(0);
+      wgmma_wait<0>();
+      fence_regs(s);
+      softmax_tile(s, m, l, alpha, 0, row0, col0, kv_lim, causal, masked(0), scale2);
+      pack();
+      for (t = 1; t < n_live; ++t) {
+        const int st = t % NS, sp = (t - 1) % NS;
+        mbar_wait(k_full(st), (t / NS) & 1);
+        bar_sync(turn);
+        gemm_s(st);
+        rescale();
+        mbar_wait(v_full(sp), ((t - 1) / NS) & 1);
+        gemm_pv(sp);
+        pass_on(t);
+        wgmma_wait<1>();  // S of tile t is done; P.V of tile t - 1 runs on
+        fence_regs(s);
+        softmax_tile(s, m, l, alpha, t * G::kKeys, row0, col0, kv_lim, causal, masked(t),
+                     scale2);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        release(t);
+        pack();
+      }
+      const int sl = (n_live - 1) % NS;  // turn n_live: P.V of the last live tile
+      bar_sync(turn);
+      rescale();
+      mbar_wait(v_full(sl), ((n_live - 1) / NS) & 1);
+      gemm_pv(sl);
+      pass_on(n_live);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(n_live);
+      t = n_live + 1;
+    }
+    for (; t <= n_tiles; ++t) {
+      bar_sync(turn);
+      pass_on(t);
+      // tile t - 1 has been loaded, so this arrival is on its phase
+      if (t >= 1 && t < n_tiles) mbar_wait(k_full((t - 1) % NS), ((t - 1) / NS) & 1);
+      release(t);
+    }
+
+    __nv_bfloat16* op = o + b * so.b + head * so.h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int qi = row0 + 8 * r;
+      if (qi >= seq_q) continue;
+      const float denom = fmaxf(l[r], 1e-30f);
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(op + (int64_t)qi * so.s + 8 * j + col0) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r] / denom, acc[4 * j + 2 * r + 1] / denom);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime: the library
+// links no libcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The 4-D map (Dh, S, H, B) of a bf16 operand [B, H, S, Dh] with element
+// strides st = (b, h, s), its S cut at `rows`: a box of 64 columns x
+// box_rows rows with the 128-byte swizzle, zero-filled past every extent.
+int tensor_map(CUtensorMap* map, const void* ptr, int dh, int rows, int heads, int batch,
+               const int64_t* st, int box_rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)rows, (cuuint64_t)heads,
+                              (cuuint64_t)batch};
+  cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
+                           (cuuint64_t)st[0] * 2};
+  // a dimension of extent 1 is never stepped: where the view's stride is
+  // not one TMA takes (the wrapper checks only those it steps), pack it
+  cuuint64_t dense = (cuuint64_t)dh * 2;
+  for (int i = 0; i < 3; ++i) {
+    if (dims[i + 1] == 1 && (strides[i] == 0 || strides[i] % 16)) strides[i] = dense;
+    dense = strides[i] * dims[i + 1];
+  }
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r =
+      encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int DH>
+int launch_prefill_wgmma(const void* q, const void* k, const void* v, void* o, int batch,
+                         int hq, int hkv, int seq_q, int seq_k, int kv_len, int causal,
+                         float scale, const int64_t* st, cudaStream_t stream) {
+  using G = Wg<DH>;
+  // the K / V maps end at kv_lim: TMA never reads the keys past it
+  const int kv_lim = min(kv_len, seq_k);
+  CUtensorMap mq, mk, mv;
+  int err = tensor_map(&mq, q, DH, seq_q, hq, batch, st, G::kRows);
+  if (err == cudaSuccess) err = tensor_map(&mk, k, DH, kv_lim, hkv, batch, st + 3, G::kKeys);
+  if (err == cudaSuccess) err = tensor_map(&mv, v, DH, kv_lim, hkv, batch, st + 6, G::kKeys);
+  if (err != cudaSuccess) return err;
+  auto kern = flash_prefill_wgmma_kernel<DH>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq_q + G::kRows - 1) / G::kRows, hq, batch);
+  kern<<<grid, G::kThreads, G::kSmem, stream>>>(
+      mq, mk, mv, (__nv_bfloat16*)o, Strides{st[9], st[10], st[11]}, hq / hkv, seq_q, kv_lim,
+      causal, scale * kLog2e);
+  return cudaGetLastError();
+}
+
 // ---- decode (Sq <= 64): a stream over the K/V cache -------------------------
 // One CTA of W warps per (split, kv head, batch row, chunk of ROWS query
 // rows).  The rows that read kv head kvh are (g, i) for q head kvh.group + g
@@ -926,7 +1488,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch, int 
                                           kv_len, causal, scale, st, n_split, part,
                                           stream);
   }
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {  // prefill: the tensor cores
+  constexpr int route = prefill_route(std::is_same<T, float>::value ? 0 : 1, DH);
+  if constexpr (route == kRouteWgmma) {
+    return launch_prefill_wgmma<DH>(q, k, v, o, batch, hq, hkv, seq_q, seq_k, kv_len, causal,
+                                    scale, st, stream);
+  } else if constexpr (route == kRouteMma) {
     const int smem = mma_smem_bytes<DH>();
     auto kern = flash_attention_mma_kernel<DH>;
     cudaError_t err =
@@ -1004,6 +1570,16 @@ int flash_decode_geometry(int dtype, int dh, int* out) {
   if (dtype == 0) return dec_tile<float>(dh, out + 2);
   if (dtype == 1) return dec_tile<__nv_bfloat16>(dh, out + 2);
   return cudaErrorInvalidValue;
+}
+
+// The kernel that runs a prefill (seq_q > 64) of dtype (0 float32, 1
+// bfloat16) at head dim dh, in *route: 0 the FMA kernel, 1 the mma.sync
+// kernel, 2 flash_prefill_wgmma_kernel.  The wrapper counts launches by it.
+int flash_prefill_route(int dtype, int dh, int* route) {
+  if ((dtype != 0 && dtype != 1) || (dh != 16 && dh != 32 && dh != 64 && dh != 128))
+    return cudaErrorInvalidValue;
+  *route = prefill_route(dtype, dh);
+  return cudaSuccess;
 }
 
 // dtype: 0 float32, 1 bfloat16.  strides: 12 element strides, (b, h, s) of q,

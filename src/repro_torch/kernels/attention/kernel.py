@@ -16,9 +16,15 @@ split to arrive combines them all inside the same launch, in split order
 (there is no combine kernel).  For CPU tensors the wrapper runs the plain
 version :func:`~repro_torch.kernels.attention.ref.attention_plain`; for
 CUDA tensors it launches K6 or raises, adds one to
-``LAUNCHES["flash_attention"]`` per launch, prefill or decode, and adds
-the split count each decode launch ran with to
-``SPLITS["flash_attention"]``.
+``LAUNCHES["flash_attention"]`` per launch, prefill or decode, adds the
+split count each decode launch ran with to ``SPLITS["flash_attention"]``
+and counts each prefill launch (``Sq > 64``) in ``ROUTES`` under the
+kernel that ran it, as ``csrc/attention.cu`` picks it
+(:func:`prefill_route`): ``wgmma`` (``flash_prefill_wgmma_kernel``, bf16
+at Dh 64 and 128), ``mma_sync`` (bf16 at Dh 16 and 32) or ``fma``
+(float32).  Every route takes strides below 2**40 bytes and extents below
+2**31 (the wgmma route's TMA maps and 32-bit coordinates): the wrapper
+refuses the rest on any device.
 """
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ from .._build import LAUNCHES, check, library, stream_handle
 from .ref import attention_plain
 
 __all__ = ["flash_attention_kernel", "split_count", "decode_geometry",
-           "SPLITS", "HEAD_DIMS", "DTYPES"]
+           "prefill_route", "SPLITS", "ROUTES", "HEAD_DIMS", "DTYPES"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +49,10 @@ CTAS_PER_SM = 1  # one decode CTA per SM (128 KB of cp.async ring at Dh 64)
 MIN_TILES = 4  # tiles a split walks at least: enough to fill its ring
 # split CTAs per (batch row, kv head, row chunk), summed over decode launches
 SPLITS = {"flash_attention": 0}
+# prefill launches by the kernel that ran them; csrc/attention.cu's route
+# codes index _ROUTE_NAMES
+ROUTES = {"wgmma": 0, "mma_sync": 0, "fma": 0}
+_ROUTE_NAMES = ("fma", "mma_sync", "wgmma")
 
 
 def _lib() -> ctypes.CDLL:
@@ -54,6 +64,8 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention.restype = ctypes.c_int
         lib.flash_decode_geometry.argtypes = [_I, _I, _P]
         lib.flash_decode_geometry.restype = ctypes.c_int
+        lib.flash_prefill_route.argtypes = [_I, _I, _P]
+        lib.flash_prefill_route.restype = ctypes.c_int
     return lib
 
 
@@ -73,6 +85,14 @@ def _check(q, k, v, kv_len):
         raise ValueError(f"head dim {dh}: K6 takes {HEAD_DIMS}")
     if kv_len is not None and not 1 <= kv_len <= k.shape[2]:
         raise ValueError(f"kv_len {kv_len} outside [1, {k.shape[2]}]")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if max(t.shape) >= 2**31:
+            raise ValueError(f"{name} {tuple(t.shape)}: K6 takes extents "
+                             "below 2**31")
+        if any(t.stride(i) * t.element_size() >= 2**40 for i in range(3)
+               if t.shape[i] > 1):
+            raise ValueError(f"{name}: strides {t.stride()} reach 2**40 "
+                             "bytes, past what a TMA map takes")
 
 
 def split_count(b: int, hq: int, hkv: int, sq: int, kv_len: int, n_sm: int,
@@ -101,6 +121,18 @@ def decode_geometry(dtype: torch.dtype, dh: int) -> tuple:
     check(lib, lib.flash_decode_geometry(DTYPES[dtype], dh, out),
           "flash_decode_geometry")
     return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def prefill_route(dtype: torch.dtype, dh: int) -> str:
+    """The ``ROUTES`` key of the kernel that runs a prefill (``Sq > 64``)
+    of ``dtype`` at head dim ``dh``, as ``csrc/attention.cu`` reports it
+    (builds the kernel library)."""
+    lib = _lib()
+    out = ctypes.c_int()
+    check(lib, lib.flash_prefill_route(DTYPES[dtype], dh, ctypes.byref(out)),
+          "flash_prefill_route")
+    return _ROUTE_NAMES[out.value]
 
 
 def _strides(t: torch.Tensor, name: str):
@@ -165,4 +197,6 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     LAUNCHES["flash_attention"] += 1
     if sq <= geometry[0]:
         SPLITS["flash_attention"] += n_split
+    else:
+        ROUTES[prefill_route(q.dtype, dh)] += 1
     return out

@@ -30,7 +30,7 @@ F32 = dict(rtol=1e-5, atol=1e-6)
 BF16 = dict(rtol=3e-2, atol=3e-2)
 SHAPES = [(2, 4, 2, 256, 64, True), (1, 8, 1, 128, 32, True),
           (2, 4, 4, 384, 64, False), (1, 2, 1, 100, 64, True),
-          (1, 16, 2, 128, 128, True)]
+          (1, 16, 2, 128, 128, True), (1, 16, 2, 200, 128, True)]
 
 
 def _qkv(b, hq, hkv, sq, sk, dh, seed):
@@ -73,15 +73,21 @@ def test_flash_attention_bf16_matches_reference():
                                    np.asarray(want, np.float32), **BF16)
 
 
-@pytest.mark.parametrize("hq,hkv,pos", [(4, 2, 0), (4, 2, 37), (2, 1, 63),
-                                        (4, 4, 99)])
-def test_kv_len_over_a_strided_cache_matches_reference_decode(hq, hkv, pos):
-    """Decode: one query over a ``[B, Smax, Hkv, Dh]`` cache, keys past
-    ``pos`` masked (the reference's ``kv_pos_limit``, the port's
-    ``kv_len = pos + 1``), through the model's transposed views."""
-    b, smax, dh = 2, 100, 16
+@pytest.mark.parametrize("hq,hkv,pos,sq,dh,smax", [
+    (4, 2, 0, 1, 16, 100), (4, 2, 37, 1, 16, 100), (2, 1, 63, 1, 16, 100),
+    (4, 4, 99, 1, 16, 100),
+    # Sq > 64 over a cache, as a layer with a cache calls K6 (the shapes of
+    # the wgmma prefill kernel: Dh 64, and Dh 128 with group 8)
+    (4, 2, 199, 100, 64, 300), (16, 2, 150, 129, 128, 256)])
+def test_kv_len_over_a_strided_cache_matches_reference_decode(hq, hkv, pos,
+                                                              sq, dh, smax):
+    """Decode: ``sq`` queries over a ``[B, Smax, Hkv, Dh]`` cache, keys
+    past ``pos`` masked (the reference's ``kv_pos_limit``, the port's
+    ``kv_len = pos + 1``), through the model's transposed views; one query,
+    or more than 64 (a prompt chunk over a cache)."""
+    b = 2
     rng = np.random.default_rng(pos)
-    q = (rng.standard_normal((b, 1, hq, dh)) * 0.5).astype(np.float32)
+    q = (rng.standard_normal((b, sq, hq, dh)) * 0.5).astype(np.float32)
     ck = (rng.standard_normal((b, smax, hkv, dh)) * 0.5).astype(np.float32)
     cv = rng.standard_normal((b, smax, hkv, dh)).astype(np.float32)
     want = np.asarray(ref_lm._attention_block(
@@ -134,6 +140,23 @@ def test_wrapper_refuses_what_k6_does_not_take():
     with pytest.raises(ValueError, match="no kernel for devices"):
         flash_attention_kernel(q.to("meta"), k.to("meta"), v.to("meta"),
                                causal=True)
+
+
+def test_wrapper_refuses_what_the_wgmma_route_does_not_take():
+    """The wgmma prefill kernel reads q, k and v through TMA maps, whose
+    strides stay below 2**40 bytes, at 32-bit coordinates: the wrapper
+    refuses larger strides or extents before it looks at the device (meta
+    tensors: nothing is allocated)."""
+    ok = torch.empty((1, 2, 128, 64), dtype=torch.bfloat16, device="meta")
+    far = torch.empty_strided((1, 2, 128, 64), (2**41, 2**40, 64, 1),
+                              dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match=r"2\*\*40 bytes"):
+        flash_attention_kernel(far, ok, ok, causal=True)
+    with pytest.raises(ValueError, match=r"2\*\*40 bytes"):
+        flash_attention_kernel(ok, ok, far, causal=True)
+    long = torch.empty((1, 2, 2**31, 64), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match=r"below 2\*\*31"):
+        flash_attention_kernel(ok, long, long, causal=False)
 
 
 # the decode kernel's geometry (largest Sq, query rows a CTA, keys a tile)

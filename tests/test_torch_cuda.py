@@ -434,16 +434,85 @@ def test_flash_attention_kernel_takes_strided_views_and_kv_len(cuda_device,
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_bf16_prefill_every_head_dim(cuda_device, dh, causal):
     """bf16 with more than one query block runs K6's tensor-core path: every
-    head dim, a ragged last block, GQA."""
+    head dim, a ragged last block, GQA; Dh 64 and 128 on the wgmma kernel,
+    16 and 32 on mma.sync (``ROUTES``)."""
     from repro_torch.kernels.attention import attention_plain, flash_attention
 
+    from repro_torch.kernels.attention.kernel import ROUTES
+
+    route = "wgmma" if dh in (64, 128) else "mma_sync"
     q, k, v = _qkv(2, 4, 2, 200, 200, dh, dh, torch.bfloat16, cuda_device)
+    before = dict(ROUTES)
     got = flash_attention(q, k, v, causal=causal)
     assert torch.equal(got, flash_attention(q, k, v, causal=causal))
+    assert ROUTES == {r: n + 2 * (r == route) for r, n in before.items()}
     np.testing.assert_allclose(
         got.float().cpu().numpy(),
         attention_plain(q, k, v, causal=causal).float().cpu().numpy(),
         rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq", [65, 127, 128, 129, 300, 1000])
+@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_attention_wgmma_prefill_matches_plain(cuda_device, dh, causal,
+                                                     group, sq):
+    """K6's bf16 prefill kernel on wgmma and TMA
+    (``flash_prefill_wgmma_kernel``) at ragged query blocks and key tiles (Sq around the 64-row warpgroup,
+    the 128-key tile and the 128- or 192-row block), GQA, B = 2 over the
+    model's transposed ``[B, S, H, Dh]`` views (equal to the same call on
+    contiguous copies), and over a longer cache cut at kv_len 65, 200 and
+    511, as a layer with a cache calls it, whose tail past kv_len is NaN
+    and changes nothing: within the bf16 bound of the plain version,
+    bit-identical on relaunch, every call counted under ``wgmma``."""
+    from repro_torch.kernels.attention import (
+        attention_plain, flash_attention, flash_attention_kernel)
+    from repro_torch.kernels.attention.kernel import ROUTES
+
+    b, hkv, smax = 2, 2, 512
+    hq = hkv * group
+    rng = np.random.default_rng(10_000 * dh + 1000 * group + 2 * sq + causal)
+
+    def bshd(h, s, scale):
+        x = rng.standard_normal((b, s, h, dh)).astype(np.float32) * scale
+        return torch.from_numpy(x).to(cuda_device,
+                                      torch.bfloat16).transpose(1, 2)
+
+    def check(got, want):
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), rtol=3e-2,
+                                   atol=3e-2)
+
+    q, k, v = bshd(hq, sq, 0.5), bshd(hkv, sq, 0.5), bshd(hkv, sq, 1.0)
+    assert not q.is_contiguous()
+    before = ROUTES["wgmma"]
+    got = flash_attention(q, k, v, causal=causal)
+    again = flash_attention(q, k, v, causal=causal)
+    flat = flash_attention_kernel(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=causal)
+    torch.cuda.synchronize()
+    assert ROUTES["wgmma"] == before + 3
+    assert torch.equal(got, again) and torch.equal(got, flat)
+    check(got, attention_plain(q, k, v, causal=causal))
+    cache = torch.from_numpy(rng.standard_normal(
+        (2, b, smax, hkv, dh)).astype(np.float32)).to(cuda_device,
+                                                      torch.bfloat16)
+    ck, cv = cache[0].transpose(1, 2), cache[1].transpose(1, 2)
+    for kv_len in (65, 200, 511):
+        poisoned = cache.clone()
+        poisoned[:, :, kv_len:] = float("nan")
+        before = ROUTES["wgmma"]
+        got = flash_attention(q, ck, cv, causal=causal, kv_len=kv_len)
+        again = flash_attention(q, ck, cv, causal=causal, kv_len=kv_len)
+        tail = flash_attention(q, poisoned[0].transpose(1, 2),
+                               poisoned[1].transpose(1, 2), causal=causal,
+                               kv_len=kv_len)
+        torch.cuda.synchronize()
+        assert ROUTES["wgmma"] == before + 3
+        assert torch.equal(got, again) and torch.equal(got, tail)
+        check(got, attention_plain(q, ck, cv, causal=causal, kv_len=kv_len))
 
 
 @pytest.mark.cuda
