@@ -61,14 +61,21 @@ Phases, each printed on its own lines (any failure exits non-zero):
 10. GIN forward: ``gin-tu`` at the ``ogb_products`` cell on a synthetic
    ``power_law_graph`` (2,449,029 nodes, alpha chosen to stay under the
    cell's 61,859,328 edges, padded to it with edge_mask-0 edges and to
-   2,449,056 nodes): two forwards over the destination-sorted batch.
-   Gates: K5 (segment_sum) launched 5 times per forward; the [N, 47]
-   output finite and within relative L1 <= 1e-5 of the same forward with
-   K5 replaced by its plain version; K5 against its plain version on one
-   layer's messages (relative L1 <= 1e-5, bit-identical relaunch) and,
+   2,449,056 nodes): two forwards over the destination-sorted batch, each
+   layer's aggregation K5 in its gather form (rows = the sources, data =
+   the node states).  Gates: K5 (segment_sum) launched 5 times per
+   forward, every launch in the gather form and followed by one launch
+   of its carry kernel; the forward's device memory peak above what
+   earlier phases hold under E·d·4 bytes (no [E, d] message buffer);
+   the [N, 47] output finite and within relative L1 <= 1e-5 of the same
+   forward with K5 replaced by its plain version; K5 against its plain
+   version on layer 0's messages (contiguous form) and on layer 0's node
+   states (gather form), relative L1 <= 1e-5 and a bit-identical
+   relaunch each, and,
    exactly, on a small integer-valued case with sentinel ids and mask-0
-   rows.  Prints N, E, the real E, the host build times, the forward's
-   wall and its device memory peak.
+   rows in both forms.  Prints N, E, the real E, the host build times,
+   K5's chunk count and longest segment, the forward's wall and its
+   device memory peak.
 11. Numbers: rounds, ops, wall times, launch counts of the main path
    (phases 4 and 5, and phase 7, counters zeroed just before each solve
    and read just after; K2 runs in phase 5 only in the invariant check,
@@ -83,9 +90,15 @@ Phases, each printed on its own lines (any failure exits non-zero):
    ``engine_edge_sum``: the engine:chunk rounds); the ``edge_sum`` row
    counts K3 over the node-space edge list (phases 4-5 and the engine's
    warm seed).  K4 and K5 get rows at the FM serve_bulk and GIN layer
-   shapes, their launches those of phases 9 and 10, the library yardstick
-   ``torch.segment_reduce`` for K5 (``index_add_`` beside it) and none for
-   K4.
+   shapes, their launches those of phases 9 and 10 by form (the
+   forward runs the gather form only): ``segment_sum``, the contiguous
+   form on layer 0's messages, unweighted beside its library yardstick
+   ``torch.segment_reduce`` (and weighted, as GIN weights them, with
+   ``index_add_`` beside it; both bounds printed in phase 10);
+   ``segment_sum_gather``, one GIN layer's aggregation, beside
+   ``torch.sparse.mm`` of a ``sparse_csr`` (ptr, src, mask) matrix, its
+   bound counting each input byte once (phase 10 prints beside it the
+   time of its rows read with no reuse); none for K4.
 12. LM serving: qwen1.5-0.5b at full width and depth (24 layers,
    619,570,176 parameters, 1.24 GB bf16 drawn from a seeded generator on
    the card) through ``launch.steps``' prefill / decode kinds, counters
@@ -698,7 +711,7 @@ def main() -> int:
         criteo_like_batch, make_gnn_batch, pad_gnn_batch)
     from repro_torch.kernels.fm import fm_interaction_kernel, fm_interaction_ref
     from repro_torch.kernels.segment import (
-        segment_sum_ref, segment_sum_sorted)
+        CHUNK_ROWS, FORMS, segment_sum_ref, segment_sum_sorted)
     from repro_torch.launch.steps import build_cell_step
     from repro_torch.models import gnn, recsys
 
@@ -1273,10 +1286,16 @@ def main() -> int:
           f"d_hidden={gin_cfg.d_hidden} layers={gin_cfg.n_layers} classes="
           f"{gin_cfg.n_classes}; host build graph {graph_s:.1f} s, batch "
           f"{batch_s:.1f} s; upload + destination sort {prep_s:.1f} s")
+    src_s, seg_s, w_s, ptr_s, plan_s = (
+        prepared["agg_src"], prepared["agg_dst"], prepared["agg_w"],
+        prepared["agg_ptr"], prepared["agg_plan"])
+    print(f"K5 plan: {plan_s.numel() - 1} chunks of {CHUNK_ROWS} rows; "
+          f"longest segment {int(torch.diff(ptr_s).max())} rows")
     held = torch.cuda.memory_allocated() / 1e9 if on_card else 0.0
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    forms_before = dict(FORMS)
     gin_walls = []
     for i in range(2):
         t0 = time.perf_counter()
@@ -1287,18 +1306,32 @@ def main() -> int:
             fail(f"K5 launched {LAUNCHES['segment_sum']} times in {i + 1} "
                  "forwards")
     gin_launches = LAUNCHES["segment_sum"]
+    carry_launches = LAUNCHES["segment_sum_carry"]
+    gin_forms = {k: v - forms_before[k] for k, v in FORMS.items()}
     peak = (torch.cuda.max_memory_allocated() / 1e9 - held if on_card
             else 0.0)
+    msg_gb = gin_e * gin_cfg.d_hidden * 4 / 1e9
     if out.shape != (gin_n, gin_cfg.n_classes) or not bool(
             out.isfinite().all()):
         fail(f"GIN output not finite or of shape {tuple(out.shape)}")
     print(f"forward walls {[round(w, 4) for w in gin_walls]} s; K5 launches "
-          f"{gin_launches}; device memory peak {peak:.3f} GB above the "
-          f"{held:.3f} GB held by earlier phases; "
+          f"{gin_launches} (carry kernel {carry_launches}, by form "
+          f"{gin_forms}); device memory "
+          f"peak {peak:.3f} GB above the {held:.3f} GB held by earlier "
+          f"phases (an [E, d] message buffer would be {msg_gb:.3f} GB); "
           f"|out|_1 / N {float(out.abs().sum()) / gin_n:.4e}")
+    if on_card and (carry_launches != gin_launches
+                    or gin_forms["gather"] != gin_launches):
+        fail(f"K5 launched {gin_launches} times, {gin_forms} by form, its "
+             f"carry kernel {carry_launches} times: the forward must run "
+             "the gather form, each launch followed by one carry")
+    if peak * 1e9 >= gin_e * gin_cfg.d_hidden * 4:
+        fail(f"the GIN forward's memory peak {peak:.3f} GB holds an [E, d] "
+             "message buffer")
 
-    def plain_agg(data, seg, n, weights=None, ptr=None):
-        return segment_sum_ref(data, seg, n, weights)
+    def plain_agg(data, seg, n, weights=None, ptr=None, rows=None,
+                  plan=None):
+        return segment_sum_ref(data, seg, n, weights, rows)
 
     out_plain = gnn.forward(gin, prepared, segment_sum=plain_agg)
     e_fwd = rel_l1(out, out_plain)
@@ -1306,40 +1339,58 @@ def main() -> int:
     if e_fwd > REL_L1:
         fail("GIN forward with K5 disagrees with the plain version")
     del out, out_plain
-    src_s, seg_s, w_s, ptr_s = (prepared["agg_src"], prepared["agg_dst"],
-                                prepared["agg_w"], prepared["agg_ptr"])
     h0 = gin.embed(prepared["x"], final_act=True)
+    n_e, dh = gin_e, h0.shape[1]
+    # the contiguous form on layer 0's messages, weighted as GIN weights
+    # them and unweighted as torch.segment_reduce sums them
     msgs = h0.index_select(0, src_s)
-    a5, a5b = (segment_sum_sorted(msgs, seg_s, gin_n, weights=w_s, ptr=ptr_s)
-               for _ in range(2))
+    a5, a5b = (segment_sum_sorted(msgs, seg_s, gin_n, weights=w_s, ptr=ptr_s,
+                                  plan=plan_s) for _ in range(2))
     p5 = segment_sum_ref(msgs, seg_s, gin_n, w_s)
     e5, same5 = rel_l1(a5, p5), torch.equal(a5, a5b)
     print(f"K5 on layer 0's messages {tuple(msgs.shape)}: rel L1 {e5:.3e}, "
           f"bit-identical relaunch {same5}")
     if not (e5 <= REL_L1 and same5):
         fail("K5 against its plain version")
-    # integer-valued rows and weights sum exactly in any order
+    err5 = float((a5 - p5).abs().max())
+    del a5b, p5
+    # integer-valued rows and weights sum exactly in any order, in both forms
     seg_i = np.sort(rng.integers(0, 300, 10_000)).astype(np.int32)
     seg_i[-100:] = 2**30
     small = [torch.as_tensor(a, device=dev) for a in (
         rng.integers(-8, 8, (10_000, 64)).astype(np.float32), seg_i,
-        rng.integers(0, 3, 10_000).astype(np.float32))]
+        rng.integers(0, 3, 10_000).astype(np.float32),
+        rng.integers(0, 2_000, 10_000).astype(np.int32))]
     exact = torch.equal(segment_sum_sorted(small[0], small[1], 300,
                                            weights=small[2]),
                         segment_sum_ref(small[0], small[1], 300, small[2]))
+    table = small[0][:2_000]
+    exact_g = torch.equal(
+        segment_sum_sorted(table, small[1], 300, weights=small[2],
+                           rows=small[3]),
+        segment_sum_ref(table, small[1], 300, small[2], small[3]))
     print(f"K5 with 2**30 sentinel ids and mask-0 rows (integer-valued): "
-          f"equal to the plain version {exact}")
-    if not exact:
+          f"equal to the plain version {exact}, gather form {exact_g}")
+    if not (exact and exact_g):
         fail("K5 on sentinel / mask-0 rows")
-    n_e, dh = msgs.shape
-    b_ms, b_by = bound_ms(msgs.numel() * 4 + n_e * 4 + ptr_s.numel() * 8
-                          + gin_n * dh * 4, 2.0 * msgs.numel())
+    b_ms, b_by = bound_ms(msgs.numel() * 4 + ptr_s.numel() * 8
+                          + gin_n * dh * 4, msgs.numel())
+    bw_ms, _ = bound_ms(msgs.numel() * 4 + n_e * 4 + ptr_s.numel() * 8
+                        + gin_n * dh * 4, 2.0 * msgs.numel())
+    print(f"contiguous form bound: {b_ms:.4f} ms unweighted, {bw_ms:.4f} ms "
+          "weighted")
     lib_ms = idx_ms = None
     if on_card:
         lengths = torch.diff(ptr_s)
         lo, hi = int(ptr_s[0]), int(ptr_s[-1])
         lib_ms = timer(lambda: torch.segment_reduce(
             msgs[lo:hi], "sum", lengths=lengths), 5)
+        lib_err = float((torch.segment_reduce(msgs[lo:hi], "sum",
+                                              lengths=lengths)
+                         - segment_sum_sorted(msgs, seg_s, gin_n, ptr=ptr_s,
+                                              plan=plan_s)).abs().max())
+        print(f"torch.segment_reduce vs K5 (unweighted): max abs diff "
+              f"{lib_err:.3e}")
         seg_l = seg_s.long()
         idx_ms = timer(lambda: torch.zeros_like(a5).index_add_(
             0, seg_l, msgs * w_s[:, None]), 5)
@@ -1348,21 +1399,71 @@ def main() -> int:
         "name": "segment_sum", "route": "cuda",
         "source": "src/repro_torch/csrc/segment_sum.cu",
         "replaces": "src/repro/kernels/segment/kernel.py:50",
-        "launches": gin_launches,
-        "max_abs_err": float((a5 - p5).abs().max()),
-        "ms": timer(lambda: segment_sum_sorted(msgs, seg_s, gin_n,
-                                               weights=w_s, ptr=ptr_s), 10),
-        "plain_ms": timer(lambda: segment_sum_ref(msgs, seg_s, gin_n, w_s), 3),
+        # the forward runs the gather form only (segment_sum_gather's row)
+        "launches": gin_forms["contiguous"], "form": "contiguous",
+        "max_abs_err": err5,
+        # unweighted, like the library call
+        "ms": timer(lambda: segment_sum_sorted(msgs, seg_s, gin_n, ptr=ptr_s,
+                                               plan=plan_s), 10),
+        "plain_ms": timer(lambda: segment_sum_ref(msgs, seg_s, gin_n), 3),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        # weighted by the edge mask, as the forward weights its messages
+        "weighted_ms": timer(lambda: segment_sum_sorted(
+            msgs, seg_s, gin_n, weights=w_s, ptr=ptr_s, plan=plan_s), 10),
         "index_add_ms": idx_ms,
         "gather_ms": timer(lambda: h0.index_select(0, src_s), 5),
+        "shape": [n_e, dh, gin_n],
+    }
+    del msgs, a5
+    if on_card:
+        torch.cuda.empty_cache()
+    # the gather form: one GIN layer's aggregation, as the forward runs it
+    g5, g5b = (segment_sum_sorted(h0, seg_s, gin_n, weights=w_s, ptr=ptr_s,
+                                  rows=src_s, plan=plan_s) for _ in range(2))
+    pg = segment_sum_ref(h0, seg_s, gin_n, w_s, src_s)
+    eg, sameg = rel_l1(g5, pg), torch.equal(g5, g5b)
+    print(f"K5 gather form on layer 0 (h {tuple(h0.shape)}, rows = src): "
+          f"rel L1 {eg:.3e}, bit-identical relaunch {sameg}")
+    if not (eg <= REL_L1 and sameg):
+        fail("K5's gather form against its plain version")
+    errg = float((g5 - pg).abs().max())
+    del g5b, pg
+    gb_ms, gb_by = bound_ms(h0.numel() * 4 * 2 + n_e * 4 * 2
+                            + ptr_s.numel() * 8, 2.0 * n_e * dh)
+    rows_ms = n_e * dh * 4 / HBM_BYTES_PER_S * 1e3
+    print(f"gather form bound: {gb_ms:.4f} ms counting each input byte once; "
+          f"its {n_e * dh * 4 / 1e9:.3f} GB of rows at 3.35 TB/s, none "
+          f"reused in L2: {rows_ms:.4f} ms")
+    lib_g = None
+    if on_card:
+        lo, hi = int(ptr_s[0]), int(ptr_s[-1])
+        a_csr = torch.sparse_csr_tensor(
+            ptr_s - lo, src_s[lo:hi].long(), w_s[lo:hi],
+            size=(gin_n, h0.shape[0]))
+        lib_g = timer(lambda: torch.sparse.mm(a_csr, h0), 5)
+        print(f"torch.sparse.mm (sparse_csr) vs K5 gather form: max abs "
+              f"diff {float((torch.sparse.mm(a_csr, h0) - g5).abs().max()):.3e}")
+        del a_csr
+    k5g_row = {
+        "name": "segment_sum_gather", "route": "cuda",
+        "source": "src/repro_torch/csrc/segment_sum.cu",
+        "replaces": "src/repro/kernels/segment/kernel.py:50",
+        "launches": gin_forms["gather"], "carry_launches": carry_launches,
+        "form": "gather",
+        "max_abs_err": errg,
+        "ms": timer(lambda: segment_sum_sorted(
+            h0, seg_s, gin_n, weights=w_s, ptr=ptr_s, rows=src_s,
+            plan=plan_s), 10),
+        "plain_ms": timer(lambda: segment_sum_ref(h0, seg_s, gin_n, w_s,
+                                                  src_s), 3),
+        "bound_ms": gb_ms, "bound_by": gb_by, "library_ms": lib_g,
         "shape": [n_e, dh, gin_n],
     }
     gin_summary = (f"GIN (gin-tu {GIN_SHAPE}): N={gin_n} E={gin_e} "
                    f"({e_real} real) forward walls "
                    f"{[round(w, 4) for w in gin_walls]} s, peak {peak:.3f} GB "
                    f"above the earlier phases' {held:.3f} GB")
-    del msgs, h0, a5, a5b, p5, prepared, gin, small
+    del h0, g5, prepared, gin, small, table
     if on_card:
         torch.cuda.empty_cache()
 
@@ -1505,7 +1606,7 @@ def main() -> int:
             n_out, dtype=torch.float32, device=dev).index_add_(
                 0, dst_e, xe[src_e] * edges_e.wgt), 20),
     })
-    rows += [k4_row, k5_row]
+    rows += [k4_row, k5_row, k5g_row]
     print(f"FM (fm, vocab {args.fm_vocab}/field): serve_p99 walls (ms) "
           f"{[round(w * 1e3, 3) for w in p99_walls]}, serve_bulk "
           f"{bulk_wall * 1e3:.3f} ms, retrieval_cand {retr_wall * 1e3:.3f} ms")

@@ -11,9 +11,9 @@ built at first use (:mod:`repro_torch.kernels._build`).
   of the per-edge frontier round and of warm starts (``csrc/edge_sum.cu``).
 * ``fm``        — K4, the factorization-machine pairwise term of FM
   serving (``csrc/fm.cu``).
-* ``segment``   — K5, the sorted (optionally weighted) segment sum behind
-  ``segment_sum_sorted`` / ``embedding_bag`` and GIN's aggregation
-  (``csrc/segment_sum.cu``).
+* ``segment``   — K5, the sorted (optionally weighted, optionally
+  gathered) segment sum behind ``segment_sum_sorted`` / ``embedding_bag``
+  and GIN's aggregation (``csrc/segment_sum.cu``).
 * ``attention`` — K6, flash attention (causal or not, GQA, ``kv_len``
   masking) behind the transformer's prefill and decode
   (``csrc/attention.cu``).

@@ -40,6 +40,7 @@ LAUNCHES: Dict[str, int] = {
     "edge_sum": 0,
     "fm_interaction": 0,
     "segment_sum": 0,
+    "segment_sum_carry": 0,
     "flash_attention": 0,
 }
 

@@ -1,10 +1,10 @@
 """Public segment ops: the sorted segment sum and embedding-bag on K5.
 
 ``segment_sum_sorted`` is K5 for tensors on the card and its plain
-version on the CPU.  ``embedding_bag`` gathers the rows and reduces each
-bag with the same segment sum, the bag weights folded into K5 (mode
-``"sum"``); modes ``"mean"`` and ``"max"`` take the plain version, as in
-the reference.
+version on the CPU.  ``embedding_bag`` reduces each bag with the same
+segment sum in its gather form, the table rows read through the ids and
+the bag weights folded into K5 (mode ``"sum"``); modes ``"mean"`` and
+``"max"`` take the plain version, as in the reference.
 """
 from __future__ import annotations
 
@@ -37,14 +37,20 @@ def pad_sorted_edges(data: torch.Tensor, seg_ids: torch.Tensor, tile: int):
 def segment_sum_sorted(data: torch.Tensor, seg_ids: torch.Tensor,
                        n_segments: int, *,
                        weights: Optional[torch.Tensor] = None,
-                       ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``out[s] = Σ_{e: seg[e] = s} w[e]·data[e]`` for ``seg_ids`` sorted
-    ascending; ``[E, D] -> [n_segments, D]``.  ``weights`` multiply the rows
-    first (absent: 1); ``ptr`` is the ids' ``row_ranges`` if known."""
+                       ptr: Optional[torch.Tensor] = None,
+                       rows: Optional[torch.Tensor] = None,
+                       plan: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``out[s] = Σ_{e: seg[e] = s} w[e]·data[r(e)]`` for ``seg_ids``
+    sorted ascending; ``-> [n_segments, D]``.  ``r(e) = rows[e]`` when
+    ``rows`` is given (the gather form, ``data [*, D]``), else ``e``
+    (``data [E, D]``).  ``weights`` multiply the rows first (absent: 1);
+    ``ptr`` and ``plan`` are the ids' ``row_ranges`` and ``chunk_plan`` if
+    known."""
+    def c(t):
+        return None if t is None else t.contiguous()
+
     return segment_sum_kernel(data.contiguous(), seg_ids.contiguous(),
-                              n_segments,
-                              None if weights is None
-                              else weights.contiguous(), ptr)
+                              n_segments, c(weights), ptr, c(rows), plan)
 
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
@@ -54,10 +60,9 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     if mode != "sum":
         return embedding_bag_ref(table, ids, weights, mode)
     b, l = ids.shape
-    emb = table.index_select(0, ids.reshape(-1))  # [B·L, D]
     dev = ids.device
-    seg = torch.arange(b, device=dev).repeat_interleave(l)
+    seg = torch.arange(b, dtype=torch.int32, device=dev).repeat_interleave(l)
     ptr = torch.arange(b + 1, device=dev) * l
     return segment_sum_sorted(
-        emb, seg, b, weights=None if weights is None else weights.reshape(-1),
-        ptr=ptr)
+        table, seg, b, weights=None if weights is None else weights.reshape(-1),
+        ptr=ptr, rows=ids.reshape(-1))

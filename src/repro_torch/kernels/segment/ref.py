@@ -10,10 +10,15 @@ __all__ = ["segment_sum_ref", "embedding_bag_ref"]
 
 def segment_sum_ref(data: torch.Tensor, seg_ids: torch.Tensor,
                     n_segments: int,
-                    weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``out[s] = Σ_{e: seg[e] = s} w[e]·data[e]``; ids outside
-    ``[0, n_segments)`` are dropped, as ``jax.ops.segment_sum`` drops them.
-    ``weights`` (``[E]``, optional) multiply the rows before the sum."""
+                    weights: Optional[torch.Tensor] = None,
+                    rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``out[s] = Σ_{e: seg[e] = s} w[e]·data[r(e)]`` with ``r(e) = e``, or
+    ``rows[e]`` when ``rows`` (``[E]``) is given: the rows are gathered
+    first.  Ids outside ``[0, n_segments)`` are dropped, as
+    ``jax.ops.segment_sum`` drops them.  ``weights`` (``[E]``, optional)
+    multiply the rows before the sum."""
+    if rows is not None:
+        data = data.index_select(0, rows)
     if weights is not None:
         data = data * weights[:, None]
     # out-of-range rows land in a spare last row, dropped after the sum (no

@@ -3,9 +3,10 @@
 Message passing reduces edge messages by destination.  The port keeps the
 edges in destination-sorted order (:func:`prepare_batch`, once per
 batch) so that each layer's aggregation is one launch of K5
-(:func:`repro_torch.kernels.segment.segment_sum_sorted`), the edge mask
-folded into it as the per-row weight: no ``[E, d]`` masked copy of the
-messages and no atomics.
+(:func:`repro_torch.kernels.segment.segment_sum_sorted`) in its gather
+form: K5 reads ``h[src[e]]`` itself and folds the edge mask in as the
+per-row weight, so no ``[E, d]`` message buffer is ever made, and no
+atomics run.
 
 Batch convention (the reference's; numpy arrays or tensors):
 
@@ -30,7 +31,7 @@ import torch
 import torch.nn.functional as fn
 from torch import nn
 
-from ..kernels.segment import row_ranges, segment_sum_sorted
+from ..kernels.segment import chunk_plan, row_ranges, segment_sum_sorted
 
 __all__ = ["GNNConfig", "GIN", "init_params", "prepare_batch", "forward",
            "graph_pool"]
@@ -111,8 +112,9 @@ def init_params(cfg: GNNConfig, *, seed: int = 0, device="cuda") -> GIN:
 def prepare_batch(batch: Dict, device="cuda") -> Dict[str, torch.Tensor]:
     """The batch as tensors on ``device`` plus its destination-sorted edge
     order: ``agg_src`` / ``agg_dst`` (int32) and ``agg_w`` (the edge mask,
-    or None) in a stable sort by destination, and ``agg_ptr``, K5's row
-    ranges.  A forward over a prepared batch sorts nothing."""
+    or None) in a stable sort by destination, and K5's row ranges
+    ``agg_ptr`` and work plan ``agg_plan``.  A forward over a prepared
+    batch sorts and builds nothing."""
     if "src_slot" in batch:
         raise NotImplementedError(f"the halo batch {_NOT_PORTED}")
     dev = torch.device(device)
@@ -124,6 +126,7 @@ def prepare_batch(batch: Dict, device="cuda") -> Dict[str, torch.Tensor]:
     out["agg_dst"] = seg
     out["agg_w"] = None if em is None else em[order].contiguous()
     out["agg_ptr"] = row_ranges(seg, out["x"].shape[0])
+    out["agg_plan"] = chunk_plan(out["agg_ptr"], seg.shape[0])
     return out
 
 
@@ -131,18 +134,19 @@ def forward(model: GIN, batch: Dict, *,
             segment_sum=segment_sum_sorted) -> torch.Tensor:
     """Node outputs ``[N, n_classes or d_out]``.  ``batch`` may be raw
     (numpy) or :func:`prepare_batch`'s; ``segment_sum`` is the aggregation's
-    reduction (``chip_smoke.py`` passes the plain version to check K5 in
-    place)."""
-    if "agg_ptr" not in batch:
+    reduction, called in its gather form (``chip_smoke.py`` passes the
+    plain version to check K5 in place)."""
+    if "agg_plan" not in batch:
         batch = prepare_batch(batch, model.device)
     x = batch["x"]
     n = x.shape[0]
-    src, seg, w, ptr = (batch["agg_src"], batch["agg_dst"], batch["agg_w"],
-                        batch["agg_ptr"])
+    src, seg, w, ptr, plan = (batch["agg_src"], batch["agg_dst"],
+                              batch["agg_w"], batch["agg_ptr"],
+                              batch["agg_plan"])
     h = model.embed(x, final_act=True)
     for l in range(model.cfg.n_layers):
-        # the [E, d] messages live only inside this call
-        agg = segment_sum(h.index_select(0, src), seg, n, weights=w, ptr=ptr)
+        # sum over in-edges of w·h[src]: the messages are never built
+        agg = segment_sum(h, seg, n, weights=w, ptr=ptr, rows=src, plan=plan)
         h = model.mlps[l]((1.0 + model.eps[l]) * h + agg, final_act=True)
     return model.readout(h)
 
@@ -152,5 +156,5 @@ def graph_pool(node_vals: torch.Tensor, graph_ids: torch.Tensor,
     """Sum node values per graph (``[N, d] -> [n_graphs, d]``), masked."""
     ids, order = torch.sort(graph_ids.to(torch.int32), stable=True)
     return segment_sum_sorted(
-        node_vals[order], ids, n_graphs,
+        node_vals, ids, n_graphs, rows=order,
         weights=None if node_mask is None else node_mask[order])

@@ -11,8 +11,9 @@ Tolerances: float32 sums taken in another order than the twin's, on
 values of order 1: rtol 1e-5 with atol 1e-6 (1e-5 for the products, whose
 sums run over more terms); relaunches must be bit-identical (no atomics).
 K4 (fm_interaction) is held to 1e-5 of the magnitude of its cancelling
-terms, K5 (segment_sum) to rtol/atol 1e-5, and exactly on integer-valued
-inputs, whose sums do not depend on the order.
+terms, K5 (segment_sum, contiguous and gather forms) to rtol/atol 1e-5,
+and exactly on integer-valued inputs, whose sums do not depend on the
+order.
 """
 import numpy as np
 import pytest
@@ -249,7 +250,8 @@ def test_fm_kernel_matches_plain(cuda_device, b, f, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [1, 10, 64, 128])
 @pytest.mark.parametrize("weighted", [False, True])
-def test_segment_sum_kernel_matches_plain(cuda_device, d, weighted):
+@pytest.mark.parametrize("gather", [False, True])
+def test_segment_sum_kernel_matches_plain(cuda_device, d, weighted, gather):
     from repro_torch.kernels.segment import (
         pad_sorted_edges, segment_sum_ref, segment_sum_sorted)
 
@@ -263,18 +265,90 @@ def test_segment_sum_kernel_matches_plain(cuda_device, d, weighted):
                                      torch.from_numpy(seg), 512)
     w = (torch.from_numpy(rng.choice([0.0, 0.5, 2.0], data_t.shape[0])
                           .astype(np.float32)) if weighted else None)
+    rows = None
+    if gather:  # the rows read through an index into a node table
+        rows = torch.from_numpy(rng.integers(0, 700, data_t.shape[0]))
+        data_t = torch.from_numpy(rng.standard_normal((700, d))
+                                  .astype(np.float32))
     dev = lambda t: None if t is None else t.to(cuda_device)
     before = LAUNCHES["segment_sum"]
-    got = segment_sum_sorted(dev(data_t), dev(seg_t), n, weights=dev(w))
-    again = segment_sum_sorted(dev(data_t), dev(seg_t), n, weights=dev(w))
+    got = segment_sum_sorted(dev(data_t), dev(seg_t), n, weights=dev(w),
+                             rows=dev(rows))
+    again = segment_sum_sorted(dev(data_t), dev(seg_t), n, weights=dev(w),
+                               rows=dev(rows))
     torch.cuda.synchronize()
     assert LAUNCHES["segment_sum"] == before + 2
     assert got.shape == (n, d) and torch.equal(got, again)
     assert bool((got[n // 2:] == 0).all())
     assert bool((got[3: n // 2: 5] == 0).all())
-    plain = segment_sum_ref(data_t, seg_t, n, w)
+    plain = segment_sum_ref(data_t, seg_t, n, w, rows)
     np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), rtol=1e-5,
                                atol=1e-5)
+
+
+def _long_segment_case(rng, chunk):
+    """One segment of about 150,000 rows (many chunks), then a run of 20
+    empty segments with a chunk boundary inside it, then segments of every
+    length up to 3,000 and sentinel padding."""
+    lengths = np.concatenate([[3, 150_000], np.zeros(20, np.int64),
+                              rng.integers(0, 3000, 60), [0, 0]])
+    seg = np.repeat(np.arange(lengths.size), lengths).astype(np.int32)
+    # the boundary in the empty run: move rows from segment 1 so that the
+    # first row after the run starts a chunk
+    end = 150_003 + (-150_003) % chunk
+    seg[150_003:end] = 1
+    seg = np.concatenate([seg, np.full(777, 2**30, np.int32)])
+    return seg, lengths.size
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gather", [False, True])
+@pytest.mark.parametrize("weighted", [True, False])
+def test_segment_sum_kernel_long_segment_across_chunks(cuda_device, gather,
+                                                      weighted):
+    from repro_torch.kernels.segment import (
+        CHUNK_ROWS, chunk_plan, row_ranges, segment_sum_kernel,
+        segment_sum_ref)
+
+    rng = np.random.default_rng(11)
+    seg, n = _long_segment_case(rng, CHUNK_ROWS)
+    e = seg.size
+    seg_t = torch.from_numpy(seg).to(cuda_device)
+    ptr = row_ranges(seg_t, n)
+    plan = chunk_plan(ptr, e)
+    assert (plan == 1).sum() >= 100  # segment 1 spans many chunks
+    # segments 2..21 are empty, and a chunk begins where they sit
+    assert int(ptr[2]) == int(ptr[22]) and int(ptr[2]) % CHUNK_ROWS == 0
+    n_data = 5000 if gather else e
+    rows = (torch.from_numpy(rng.integers(0, n_data, e)).to(cuda_device)
+            if gather else None)
+    w = (torch.from_numpy(rng.choice([0.0, 0.5, 1.0], e).astype(np.float32)
+                          ).to(cuda_device) if weighted else None)
+    # random rows: a sum of 150,000 float32 terms in another order than the
+    # plain version's differs by ~1e-5 of its value, so the whole output is
+    # held to relative L1 1e-5; integer-valued rows sum exactly
+    random = torch.randn((n_data, 64), device=cuda_device)
+    integer = torch.from_numpy(rng.integers(-8, 8, (n_data, 64))
+                               .astype(np.float32)).to(cuda_device)
+    for data in (random, integer):
+        before = dict(LAUNCHES)
+        got, again = (segment_sum_kernel(data, seg_t, n, w, ptr, rows, plan)
+                      for _ in range(2))
+        torch.cuda.synchronize()
+        assert LAUNCHES["segment_sum"] == before["segment_sum"] + 2
+        assert LAUNCHES["segment_sum_carry"] == before["segment_sum_carry"] + 2
+        assert torch.equal(got, again)
+        # the plan the wrapper builds itself is the same
+        assert torch.equal(got, segment_sum_kernel(data, seg_t, n, w, ptr,
+                                                   rows))
+        cpu = lambda t: None if t is None else t.cpu()
+        plain = segment_sum_ref(data.cpu(), seg_t.cpu(), n, cpu(w), cpu(rows))
+        if data is integer:
+            assert torch.equal(got.cpu(), plain)
+        rel = float((got.cpu().double() - plain.double()).abs().sum()
+                    / plain.double().abs().sum())
+        assert rel <= 1e-5
+        assert bool((got[2:22] == 0).all()) and bool((got[-2:] == 0).all())
 
 
 @pytest.mark.cuda
@@ -295,6 +369,14 @@ def test_segment_sum_kernel_is_exact_on_integers(cuda_device):
                              300, weights=args[2].to(cuda_device))
     assert torch.equal(got.cpu(), segment_sum_ref(args[0], args[1], 300,
                                                   args[2]))
+    # the gather form, through int32 rows of a 2,000-row table
+    table = args[0][:2000]
+    rows = torch.from_numpy(rng.integers(0, 2000, 10_000).astype(np.int32))
+    got = segment_sum_sorted(table.to(cuda_device), args[1].to(cuda_device),
+                             300, weights=args[2].to(cuda_device),
+                             rows=rows.to(cuda_device))
+    assert torch.equal(got.cpu(), segment_sum_ref(table, args[1], 300,
+                                                  args[2], rows))
     table = torch.from_numpy(rng.integers(-4, 4, (50, 10)).astype(np.float32))
     ids = torch.from_numpy(rng.integers(0, 50, (17, 9)).astype(np.int32))
     bw = torch.from_numpy(rng.integers(0, 3, (17, 9)).astype(np.float32))
@@ -303,6 +385,24 @@ def test_segment_sum_kernel_is_exact_on_integers(cuda_device):
                         bw.to(cuda_device))
     assert LAUNCHES["segment_sum"] == before + 1
     assert torch.equal(got.cpu(), embedding_bag_ref(table, ids, bw))
+
+
+@pytest.mark.cuda
+def test_segment_sum_kernel_refuses_bad_rows(cuda_device):
+    from repro_torch.kernels.segment import segment_sum_kernel
+
+    data = torch.randn((50, 8), device=cuda_device)
+    seg = torch.arange(20, dtype=torch.int32, device=cuda_device) // 2
+    good = torch.arange(20, device=cuda_device)
+    assert segment_sum_kernel(data, seg, 10, rows=good).shape == (10, 8)
+    before = LAUNCHES["segment_sum"]
+    for bad in (good.to(torch.float32), good.to(torch.int16), good[:19],
+                good.reshape(4, 5), good.cpu(), good.repeat(2)[::2]):
+        with pytest.raises(ValueError, match="rows"):
+            segment_sum_kernel(data, seg, 10, rows=bad)
+    with pytest.raises(ValueError, match="seg_ids"):  # no rows: data is [E, D]
+        segment_sum_kernel(data, seg, 10)
+    assert LAUNCHES["segment_sum"] == before
 
 
 @pytest.mark.cuda

@@ -26,6 +26,7 @@ from repro_torch.core import power_law_graph
 from repro_torch.data import make_gnn_batch, pad_gnn_batch
 from repro_torch.interop import gnn_params_from_numpy
 from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.segment import chunk_plan, segment_sum_sorted
 from repro_torch.models import gnn
 
 # small tensors: one intra-op thread, so that parallel test workers do
@@ -148,3 +149,48 @@ def test_other_archs_and_halo_are_not_ported(arch):
         gnn.init_params(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         gnn.prepare_batch({"src_slot": np.zeros(3, np.int32)}, "cpu")
+
+
+def test_prepared_forward_builds_no_message_buffer(pair, batch):
+    """On a prepared batch the forward hands each layer's aggregation the
+    node states and ``rows = agg_src`` (K5's gather form) with the prepared
+    row ranges and plan, launches no kernel on the CPU, and creates no
+    ``[E, d]`` tensor outside the reduction (whose plain version gathers)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    _, model = pair
+    p = gnn.prepare_batch(batch, "cpu")
+    e = p["agg_src"].shape[0]
+    assert torch.equal(p["agg_plan"], chunk_plan(p["agg_ptr"], e))
+    made, calls = [], []
+
+    class Shapes(TorchDispatchMode):
+        active = True
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if self.active:
+                for t in out if isinstance(out, (tuple, list)) else (out,):
+                    if isinstance(t, torch.Tensor):
+                        made.append(tuple(t.shape))
+            return out
+
+    mode = Shapes()
+
+    def reduction(data, seg, n, *, weights, ptr, rows, plan):
+        calls.append((tuple(data.shape), rows is p["agg_src"],
+                      ptr is p["agg_ptr"], plan is p["agg_plan"]))
+        mode.active = False
+        try:
+            return segment_sum_sorted(data, seg, n, weights=weights, ptr=ptr,
+                                      rows=rows, plan=plan)
+        finally:
+            mode.active = True
+
+    before = dict(LAUNCHES)
+    with mode:
+        got = gnn.forward(model, p, segment_sum=reduction)
+    assert LAUNCHES == before, "a CPU forward launched a kernel"
+    assert calls == [((300, 16), True, True, True)] * 3
+    assert made and not [s for s in made if s and s[0] == e]
+    assert torch.equal(got, gnn.forward(model, p))
