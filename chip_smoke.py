@@ -17,7 +17,9 @@ Phases, each printed on its own lines (any failure exits non-zero):
    threshold in {0, 0.5}, and the same pool with every other block row
    emptied).  ``sent`` must agree exactly, sums within
    |delta|_1 <= 1e-5 |plain|_1 (fluid values are around 1/N, so the bound is
-   relative), and two launches must give bit-identical results.
+   relative), and two launches must give bit-identical results; K2's bulk
+   route (the one its rule picks at bs=128) must give the bits of its simt
+   body, launched apart.
 4. Main path: ``repro_torch.solve(Problem.pagerank(host_block_graph(N)),
    method="frontier:pallas")`` on the card must converge with K1 launched
    once per round, and land within |x - x'|_1 <= 1e-5 of the same problem
@@ -33,7 +35,7 @@ Phases, each printed on its own lines (any failure exits non-zero):
    (its wall time printed); K2 over the engine's visit table (the port of
    bsr_gather_spmm_pallas) and K3 over the engine's edge table against
    their plain versions on random fluid: relative L1 <= 1e-5, bit-identical
-   relaunch.
+   relaunch, and K2's bulk route the bits of its simt body.
 7. Engine main path, N, k=4, policy slope_ema: cold ``engine:bsr`` and
    ``engine:chunk`` solves must converge within |x - x_segment_sum|_1 <=
    1e-5 (2·target_error below N = 2e5: two converged schedules may differ
@@ -42,11 +44,15 @@ Phases, each printed on its own lines (any failure exits non-zero):
    ``engine:bsr`` solve with a forced MovePlan(0 -> 3, 2 buckets) after its
    first chunk, under the same gates; one warm request (the drift of phase
    5) on the cold ``engine:bsr`` session, which must converge with fewer
-   edge pushes than the cold solve.
+   edge pushes than the cold solve.  Every K2 launch of phases 4-7 must
+   run on the bulk route (the wrapper's ``ROUTES``), and at the default N
+   and seed each ``engine:bsr`` solve and the ``frontier:pallas`` solve of
+   phase 4 must keep their recorded rounds and edge pushes (``RECORDED``).
 8. Replay: power_law_graph(1600, seed=7) ordered by out-degree, k=8,
    40 buckets per PID (8 headroom), dynamic with eta=0.9, target 1e-8, on
    both engine backends: converged, max |x - x_dense| < 1e-5 against a
-   dense numpy solve, a non-empty move log, the same log on both.
+   dense numpy solve, a non-empty move log, the same log on both; its K2
+   launches all on the route K2's rule gives its 7-slot tiles (simt).
 9. FM serving: the ``fm`` config at full width (39 fields x 10^6 rows, a
    39,000,000 x 10 float32 table drawn from a seeded generator on the
    card) through ``launch.steps``: 8 ``serve_p99`` requests (B=512), one
@@ -85,8 +91,10 @@ Phases, each printed on its own lines (any failure exits non-zero):
    over 67 TFLOP/s f32, or 989 TFLOP/s for K6's bf16, counted for this
    run's inputs), its plain version's time and a one-call library
    yardstick (torch.sparse.mm on a sparse_bsr tensor for K2, index_add_
-   for K3, none for K1).  The engine's K2 and K3 get rows of their own
-   (``bsr_gather_spmm``: the engine:bsr rounds of phase 7;
+   for K3, none for K1).  The K2 rows also carry the body that ran them
+   (``kernel``) and the TB/s of K2 and of the library call.  The engine's
+   K2 and K3 get rows of their own (``bsr_gather_spmm``: the engine:bsr
+   rounds of phase 7;
    ``engine_edge_sum``: the engine:chunk rounds); the ``edge_sum`` row
    counts K3 over the node-space edge list (phases 4-5 and the engine's
    warm seed).  K4 and K5 get rows at the FM serve_bulk and GIN layer
@@ -165,6 +173,13 @@ ON_PATH = ("frontier_round_bsr", "edge_sum")
 # (engine:chunk rounds, warm starts)
 ENGINE_PATH = ("bsr_spmm", "edge_sum")
 ENGINE_OPTS = {"k": 4, "policy": "slope_ema"}
+# (rounds, edge pushes) of the default run's solves (N = 2**21, seed 0), as
+# every earlier run of this script gave them: K1 and K2 keep their sums'
+# order, so they may not move
+RECORDED = {"frontier:pallas": (3974, 267820931),
+            "engine:bsr cold": (3392, 267629992),
+            "engine:bsr forced move": (3520, 270165051),
+            "engine:bsr warm": (1888, 107390909)}
 GIN_SHAPE = "ogb_products"
 # power_law_graph exponent of the GIN graph: its seed-0 graph at 2,449,029
 # nodes has 61,209,125 edges, under the cell's 61,859,328 (alpha 1.65
@@ -696,9 +711,10 @@ def main() -> int:
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels import _build
     from repro_torch.kernels.diffusion import (
-        BsrMatrix, bsr_spmm, bsr_spmm_kernel, bsr_spmm_plain,
-        frontier_round_bsr, frontier_round_bsr_kernel,
-        frontier_round_bsr_plain)
+        ROUTES as K2_ROUTES, BsrMatrix, bsr_spmm, bsr_spmm_kernel,
+        bsr_spmm_plain, bsr_spmm_route, frontier_round_bsr,
+        frontier_round_bsr_kernel, frontier_round_bsr_plain,
+        launch_bsr_spmm)
     from repro_torch.kernels.edge_sum import (
         csc_edges, edge_sum, edge_sum_plain)
     from repro_torch.balance import MovePlan
@@ -858,9 +874,14 @@ def main() -> int:
             e = rel_l1(a, p)
             zero = bool((a[~mat.row_occupied] == 0).all())
             same = torch.equal(a, a2)
+            # the simt body, launched apart (counted nowhere): the same bits
+            simt = (torch.equal(a, launch_bsr_spmm(
+                mat.blocks, mat.visit_block, mat.block_col, mat.row_ptr, x,
+                route="simt")[0]) if on_card else True)
             print(f"K2 C={c} {name}: rel L1 {e:.3e}, empty rows exactly 0 "
-                  f"{zero}, bit-identical relaunch {same}")
-            if not (e <= REL_L1 and zero and same):
+                  f"{zero}, bit-identical relaunch {same}, route "
+                  f"{bsr_spmm_route(BS, c)}, the simt body's bits {simt}")
+            if not (e <= REL_L1 and zero and same and simt):
                 fail(f"K2 C={c} {name}")
             if c == 1 and name == "full":
                 timing_inputs["k2"] = (
@@ -882,8 +903,19 @@ def main() -> int:
     print("kernels agree with their plain versions: frontier_round_bsr, "
           "bsr_spmm, edge_sum")
 
+    def recorded(name, rep):
+        """Prints a solve's rounds and pushes beside the recorded ones; at
+        the default N and seed they must agree."""
+        want = RECORDED[name]
+        print(f"{name}: rounds {rep.n_rounds} pushes {rep.n_ops} (recorded "
+              f"at N=2**21, seed 0: rounds {want[0]} pushes {want[1]})")
+        if (args.n == 2**21 and args.seed == 0
+                and (rep.n_rounds, rep.n_ops) != want):
+            fail(f"{name} moved from its recorded rounds and pushes")
+
     # ---- 4. main path ------------------------------------------------------
     print("== phase 4: main path")
+    k2_routes0 = dict(K2_ROUTES)  # K2's launches by body, phases 4-7
     reset_launches()
     rep = repro_torch.solve(problem, method="frontier:pallas",
                             device=args.device)
@@ -897,6 +929,7 @@ def main() -> int:
         fail("frontier:pallas did not converge")
     if on_card and k1_solve != rep.n_rounds:
         fail(f"K1 launched {k1_solve} times in {rep.n_rounds} rounds")
+    recorded("frontier:pallas", rep)
     reset_launches()
     rep_ss = repro_torch.solve(problem, method="frontier:segment_sum",
                                device=args.device)
@@ -1022,10 +1055,15 @@ def main() -> int:
     a2b = engine_tile_push(eng.pool, visits, sent_e)
     p2 = k2_engine_plain()
     e2, same2 = rel_l1(a2, p2), torch.equal(a2, a2b)
+    # the simt body over the same visits (launched apart, counted nowhere)
+    simt2 = (torch.equal(a2, launch_bsr_spmm(
+        eng.pool, visits.visit_block, visits.visit_col, visits.row_ptr,
+        x3_e, route="simt")[0][..., 0]) if on_card else True)
     print(f"K2 engine visit table: {visits.n_visits} visits into "
           f"{k_e * r_e} output rows, rel L1 {e2:.3e}, bit-identical "
-          f"relaunch {same2}")
-    if not (e2 <= REL_L1 and same2):
+          f"relaunch {same2}, route {bsr_spmm_route(s_e, 1)}, the simt "
+          f"body's bits {simt2}")
+    if not (e2 <= REL_L1 and same2 and simt2):
         fail("K2 over the engine visit table")
     # the engine:chunk layout has its own sizing (buckets_per_dev)
     xe = torch.as_tensor(
@@ -1069,6 +1107,7 @@ def main() -> int:
     reset_launches()
     rep_bsr = s_bsr.solve()
     engine_gates("engine:bsr cold", s_bsr, rep_bsr, "bsr_spmm", problem.b)
+    recorded("engine:bsr cold", rep_bsr)
     bank()
     reset_launches()
     rep_chk = s_chk.solve()
@@ -1103,6 +1142,7 @@ def main() -> int:
     rep_fm = s_fm.solve()
     engine_gates("engine:bsr forced move", s_fm, rep_fm, "bsr_spmm",
                  problem.b)
+    recorded("engine:bsr forced move", rep_fm)
     dx = float(np.abs(rep_fm.x - rep_ss.x).sum())
     print(f"engine:bsr forced move: |x - x_segment_sum|_1 {dx:.3e}")
     if dx > dx_bound:
@@ -1121,15 +1161,22 @@ def main() -> int:
     if on_card and k3_warm_launches != 1:
         fail(f"the engine warm seed launched K3 {k3_warm_launches} times")
     engine_gates("engine:bsr warm", s_bsr, warm_e, "bsr_spmm", b_new)
+    recorded("engine:bsr warm", warm_e)
     if not warm_e.n_ops < rep_bsr.n_ops:
         fail(f"engine warm request used {warm_e.n_ops} ops, cold "
              f"{rep_bsr.n_ops}")
     bank()
     print(f"engine path launches (phase 7): {json.dumps(engine_launches)}")
+    k2_routes = {k: v - k2_routes0[k] for k, v in K2_ROUTES.items()}
+    print(f"K2 launches by body, phases 4-7: {k2_routes}")
     if on_card:
         missing = [k for k in ENGINE_PATH if engine_launches[k] == 0]
         if missing:
             fail(f"kernels never launched on the engine path: {missing}")
+        if k2_routes["simt"] or k2_routes["bulk"] < (
+                check_launches + engine_launches["bsr_spmm"]):
+            fail(f"K2 launches of phases 4-7 not all on the bulk route: "
+                 f"{k2_routes}")
 
     # ---- 8. replay: moves fire ---------------------------------------------
     print("== phase 8: replay")
@@ -1139,6 +1186,8 @@ def main() -> int:
     x_dense = np.linalg.solve(np.eye(g_r.n) - p_r.to_dense(), b_r)
     prob_r = repro_torch.Problem.pagerank(g_r, target_error=1e-8)
     logs = {}
+    k2_routes0 = dict(K2_ROUTES)
+    reset_launches()
     for method in ("engine:chunk", "engine:bsr"):
         rep_r = repro_torch.solve(prob_r, method=method, device=args.device,
                                   k=8, dynamic=True, buckets_per_dev=40,
@@ -1152,6 +1201,20 @@ def main() -> int:
             fail(f"replay {method}")
     if logs["engine:chunk"] != logs["engine:bsr"]:
         fail("the two engine backends made different moves")
+    # the replay's tiles are as wide as its buckets: K2's rule picks the
+    # body (7 slots: simt, the bulk copies need bs % 4 == 0)
+    k2_routes = {k: v - k2_routes0[k] for k, v in K2_ROUTES.items()}
+    slots = repro_torch.SolverSession(
+        prob_r, "engine:bsr", device=args.device, k=8, buckets_per_dev=40,
+        headroom=8)._driver.engine.a.bucket_size
+    replay_route = bsr_spmm_route(slots, 1)
+    print(f"replay K2 launches by body: {k2_routes} (the rule's route for "
+          f"its {slots}-slot tiles: {replay_route})")
+    if on_card and k2_routes != {
+            k: LAUNCHES["bsr_spmm"] if k == replay_route else 0
+            for k in K2_ROUTES}:
+        fail(f"replay K2 launches {LAUNCHES['bsr_spmm']} not all on "
+             f"{replay_route}: {k2_routes}")
 
     # ---- 9. FM serving -----------------------------------------------------
     print("== phase 9: FM serving")
@@ -1522,6 +1585,7 @@ def main() -> int:
                          - bsr_spmm_kernel(*ins)).abs().max())
         print(f"torch.sparse.mm (sparse_bsr) vs K2: max abs diff "
               f"{lib_err:.3e}")
+    k2_ms = timer(lambda: bsr_spmm_kernel(*ins), 20)
     rows.append({
         "name": "bsr_spmm", "route": "cuda",
         "source": "src/repro_torch/csrc/diffusion.cu",
@@ -1529,9 +1593,12 @@ def main() -> int:
         "launches": main_launches["bsr_spmm"],
         "check_launches": check_launches,
         "max_abs_err": err,
-        "ms": timer(lambda: bsr_spmm_kernel(*ins), 20),
+        "ms": k2_ms,
         "plain_ms": timer(lambda: bsr_spmm_plain(*ins), 5),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "kernel": launch_bsr_spmm(*ins)[1] if on_card else None,
+        "tb_per_s": k2_bytes / k2_ms / 1e9,
+        "library_tb_per_s": lib_ms and k2_bytes / lib_ms / 1e9,
     })
     (x, edges), err = timing_inputs["k3"]
     n_e = edges.n_edges
@@ -1573,15 +1640,21 @@ def main() -> int:
         print(f"torch.sparse.mm (sparse_bsr) vs K2 at the engine's shapes: "
               f"max abs diff {lib_err:.3e}")
         del a_bsr
+    k2_ms = timer(lambda: engine_tile_push(eng.pool, visits, sent_e), 20)
     rows.append({
         "name": "bsr_gather_spmm", "route": "cuda",
         "source": "src/repro_torch/csrc/diffusion.cu",
         "replaces": "src/repro/kernels/diffusion/kernel.py:182",
         "launches": engine_launches["bsr_spmm"],
         "max_abs_err": timing_inputs["k2e"],
-        "ms": timer(lambda: engine_tile_push(eng.pool, visits, sent_e), 20),
+        "ms": k2_ms,
         "plain_ms": timer(k2_engine_plain, 3),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "kernel": launch_bsr_spmm(
+            eng.pool, visits.visit_block, visits.visit_col, visits.row_ptr,
+            x3_e)[1] if on_card else None,
+        "tb_per_s": k2e_bytes / k2_ms / 1e9,
+        "library_tb_per_s": lib_ms and k2e_bytes / lib_ms / 1e9,
         "visits": v,
     })
     # K3 at the engine's shapes: the engine:chunk per-edge push
@@ -1619,7 +1692,9 @@ def main() -> int:
                   f"library {r['library_ms']}) launches {r['launches']}"
                   + (f"; by CUDA graph replay {r['graph_ms']:.4f} ms, library "
                      f"{r['library_graph_ms']:.4f} ms, {r['splits']} split(s)"
-                     if "graph_ms" in r else "") + f" on {smi}")
+                     if "graph_ms" in r else "")
+                  + (f"; {r['kernel']} body, {r['tb_per_s']:.3f} TB/s"
+                     if "tb_per_s" in r else "") + f" on {smi}")
 
     show(rows)
     print(f"phases 1-11 wall {time.perf_counter() - t_start:.1f} s")

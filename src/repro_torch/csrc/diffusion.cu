@@ -5,15 +5,16 @@
 //   (bodies _frontier_kernel / _frontier_kernel_dma).
 // K2 bsr_spmm replaces
 //   src/repro/kernels/diffusion/kernel.py : bsr_spmm_pallas (body _kernel),
-//   and takes a visit table (visit_block, visit_col, row_ptr) so the engine's
-//   bsr_gather_spmm_pallas can later run on the same kernel.
+//   and, through a visit table (visit_block, visit_col, row_ptr) over a tile
+//   pool, the engine's bsr_gather_spmm_pallas (bodies _gather_kernel /
+//   _gather_kernel_dma).
 //
 // What bounds them on an H100: the tile bytes.  Each [bs, bs] f32 tile is read
 // once per round (64 KiB at bs = 128) against bs * C fluid values, so at C = 1
 // a round does 2 flops per 4-byte weight: 0.5 flop/byte, far below the card's
 // ~20 flop/byte f32 balance point.  Only the HBM rate matters.
 //
-// What the design does about it:
+// What K1 and K2's simt route do about it:
 //   * One CUDA block owns one output block row r and walks that row's tiles
 //     row_ptr[r] .. row_ptr[r+1] in their sorted order.  This loop inside the
 //     block replaces the TPU grid's in-order "first visit seeds, last visit
@@ -30,6 +31,26 @@
 //     memory with the same predicate the wrapper uses, fabsf(f) * wt > 1.
 // Rows that own no tile (row_ptr[r] == row_ptr[r+1]) write the kept fluid and
 // its |.|_1 directly: the result the TPU path gets from its occupancy epilogue.
+//
+// K2 has two routes, chosen here (spmm_route) and nowhere else:
+//   * bulk (bsr_spmm_bulk_kernel), every bs % 4 == 0 whose ring fits:
+//     persistent CTAs (kCtasPerSm an SM, as many as fit) walk the output rows
+//     r = blockIdx.x + i * gridDim.x.
+//     One producer thread streams the visited tiles as contiguous slabs of
+//     whole tile rows (kSlabBytes) by 1-D TMA bulk copies into a kBulkStages
+//     ring guarded by full / empty mbarriers, each visit's x segment into a
+//     slot of its own, and runs ahead across slab, tile, visit and row edges,
+//     so the HBM stream never drains at a tile edge and no __syncthreads sits
+//     in the walk.  Consumer warps own the tile
+//     rows row == warp (mod kBulkWarps) for the whole walk and keep their sums
+//     in shared memory; rows without visits are zero-filled by the same
+//     launch, so empty rows cost no CTA.  Two CTAs an SM: at bs = 128 one
+//     CTA's eight consumer warps cannot keep up with the stream.
+//   * simt (bsr_spmm_kernel): one CTA per output row, 4-byte loads from
+//     global memory; odd bs, unaligned operands and C too wide for the ring.
+// Both take every (row, c) sum in the same order: fmaf over j = lane, lane +
+// 32, ..., the warp_sum butterfly, then added to a 0-seeded accumulator visit
+// after visit in row_ptr order.  The routes give the same bits on every input.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -38,6 +59,18 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowsInFlight = 4;
+constexpr int kMaxSmem = 232448;  // bytes of shared memory one CTA may use
+
+// the bulk route's ring (kernel.py mirrors these in its route rule)
+constexpr int kBulkStages = 3;
+constexpr int kSlabBytes = 32 * 1024;
+constexpr int kCtasPerSm = 2;
+// an evict_first L2 policy on the tile copies (each tile is read once a
+// launch): off, as it costs the engine's shapes 0.8 % (tools/k2_probe.py)
+constexpr bool kEvictFirst = false;
+constexpr int kBulkWarps = 8;                        // consumer warps a CTA
+constexpr int kBulkThreads = 32 * (kBulkWarps + 1);  // and a producer warp
+constexpr int kRouteSimt = 0, kRouteBulk = 1;
 
 __device__ __forceinline__ float warp_sum(float v) {
   // butterfly: a fixed tree, so the result does not depend on timing
@@ -163,6 +196,206 @@ bsr_spmm_kernel(const float* __restrict__ blocks, const int32_t* __restrict__ vi
   for (int i = tid; i < m; i += kThreads) out_r[i] = acc_s[i];
 }
 
+// ---- the bulk route --------------------------------------------------------
+
+// tile rows a slab holds: kSlabBytes of them, at most the whole tile
+__host__ __device__ constexpr int slab_rows(int bs) {
+  return kSlabBytes / (bs * 4) < 1 ? 1 : (kSlabBytes / (bs * 4) > bs ? bs : kSlabBytes / (bs * 4));
+}
+
+// the ring, an x slot a stage, the accumulator, then 4 barriers a stage
+__host__ __device__ constexpr size_t bulk_smem(int bs, int C) {
+  return (size_t)kBulkStages * slab_rows(bs) * bs * 4 + (kBulkStages + 1) * (size_t)bs * C * 4 +
+         4 * kBulkStages * 8;
+}
+
+// kRouteBulk, kRouteSimt, or -1 where no route fits
+int spmm_route(int bs, int C, bool aligned) {
+  if (bs < 1 || bs > 1024 || C < 1 || 2 * (size_t)bs * C * 4 > kMaxSmem) return -1;
+  if (bs % 4 == 0 && aligned && bulk_smem(bs, C) <= kMaxSmem) return kRouteBulk;
+  return kRouteSimt;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// waits until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned; completes on bar
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// the same with an L2 cache policy
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar,
+                                          uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar), "l"(policy)
+      : "memory");
+}
+
+// acc_s[row * C + c] += sum_j slab[row - row0, j] * x_s[j * C + c] for the
+// rows row0 .. row0 + nr - 1 this warp owns (row == warp mod kBulkWarps): per
+// row the same sum, in the same order, as accumulate_tile's
+__device__ __forceinline__ void accumulate_slab(const float* __restrict__ slab,
+                                                const float* __restrict__ x_s,
+                                                float* __restrict__ acc_s, int row0, int nr,
+                                                int bs, int C, int warp, int lane) {
+  const int end = row0 + nr;
+  const int first = row0 + (warp - row0 % kBulkWarps + kBulkWarps) % kBulkWarps;
+  for (int rq = first; rq < end; rq += kRowsInFlight * kBulkWarps) {
+    for (int c = 0; c < C; ++c) {
+      float part[kRowsInFlight];
+#pragma unroll
+      for (int q = 0; q < kRowsInFlight; ++q) part[q] = 0.0f;
+#pragma unroll 4
+      for (int j = lane; j < bs; j += 32) {
+        const float xj = x_s[j * C + c];
+#pragma unroll
+        for (int q = 0; q < kRowsInFlight; ++q) {
+          const int row = rq + q * kBulkWarps;
+          if (row < end) part[q] = fmaf(slab[(row - row0) * bs + j], xj, part[q]);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kRowsInFlight; ++q) {
+        const int row = rq + q * kBulkWarps;
+        const float s = warp_sum(part[q]);
+        if (lane == 0 && row < end) acc_s[row * C + c] += s;
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kBulkThreads, kCtasPerSm)
+bsr_spmm_bulk_kernel(const float* __restrict__ blocks, const int32_t* __restrict__ visit_block,
+                     const int32_t* __restrict__ visit_col, const int64_t* __restrict__ row_ptr,
+                     const float* __restrict__ x, float* __restrict__ out, int n_rows, int bs,
+                     int C) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int m = bs * C;
+  const int sr = slab_rows(bs);
+  float* ring = reinterpret_cast<float*>(smem_raw);
+  float* x_ring = ring + (size_t)kBulkStages * sr * bs;
+  float* acc_s = x_ring + (size_t)kBulkStages * m;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(acc_s + m);
+  auto full = [&](int st) { return smem_u32(bars + st); };
+  auto empty = [&](int st) { return smem_u32(bars + kBulkStages + st); };
+  auto x_full = [&](int st) { return smem_u32(bars + 2 * kBulkStages + st); };
+  auto x_empty = [&](int st) { return smem_u32(bars + 3 * kBulkStages + st); };
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  for (int i = tid; i < m; i += kBulkThreads) acc_s[i] = 0.0f;
+  if (tid == 0) {
+    for (int st = 0; st < kBulkStages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), kBulkWarps);  // lane 0 of each consumer warp
+      mbar_init(x_full(st), 1);
+      mbar_init(x_empty(st), kBulkWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Both sides walk the same rows, visits and slabs in the same order: slab
+  // number `it` sits in stage it % kBulkStages, visit number `vi`'s x in slot
+  // vi % kBulkStages, each in phase (count / kBulkStages) & 1.
+  if (warp == kBulkWarps) {  // ---- producer: one thread issues every copy ----
+    if (lane != 0) return;
+    uint64_t policy = 0;
+    if (kEvictFirst) asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+    const int x_bytes = m * 4;
+    int it = 0, vi = 0;
+    for (int r = blockIdx.x; r < n_rows; r += gridDim.x) {
+      const int64_t hi = row_ptr[r + 1];
+      for (int64_t k = row_ptr[r]; k < hi; ++k, ++vi) {
+        const int xs = vi % kBulkStages;
+        if (vi >= kBulkStages) mbar_wait(x_empty(xs), (vi / kBulkStages - 1) & 1);
+        mbar_expect_tx(x_full(xs), x_bytes);
+        bulk_load(smem_u32(x_ring + (size_t)xs * m), x + (size_t)visit_col[k] * m, x_bytes,
+                  x_full(xs));
+        const float* tile = blocks + (size_t)visit_block[k] * bs * bs;
+        for (int row0 = 0; row0 < bs; row0 += sr, ++it) {
+          const int st = it % kBulkStages;
+          const int bytes = min(sr, bs - row0) * bs * 4;
+          if (it >= kBulkStages) mbar_wait(empty(st), (it / kBulkStages - 1) & 1);
+          mbar_expect_tx(full(st), bytes);
+          const uint32_t dst = smem_u32(ring + (size_t)st * sr * bs);
+          if (kEvictFirst)
+            bulk_load(dst, tile + (size_t)row0 * bs, bytes, full(st), policy);
+          else
+            bulk_load(dst, tile + (size_t)row0 * bs, bytes, full(st));
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warp owns the tile rows == warp (mod kBulkWarps) ----
+  int it = 0, vi = 0;
+  for (int r = blockIdx.x; r < n_rows; r += gridDim.x) {
+    const int64_t hi = row_ptr[r + 1];
+    for (int64_t k = row_ptr[r]; k < hi; ++k, ++vi) {
+      const int xs = vi % kBulkStages;
+      mbar_wait(x_full(xs), (vi / kBulkStages) & 1);
+      const float* x_s = x_ring + (size_t)xs * m;
+      for (int row0 = 0; row0 < bs; row0 += sr, ++it) {
+        const int st = it % kBulkStages;
+        mbar_wait(full(st), (it / kBulkStages) & 1);
+        accumulate_slab(ring + (size_t)st * sr * bs, x_s, acc_s, row0, min(sr, bs - row0), bs, C,
+                        warp, lane);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(st));
+      }
+      if (lane == 0) mbar_arrive(x_empty(xs));
+    }
+    // the warp's rows of out[r], then their accumulators back to 0
+    __syncwarp();
+    float* out_r = out + (size_t)r * m;
+    const int n_own = (bs - warp + kBulkWarps - 1) / kBulkWarps;
+    for (int i = lane; i < n_own * C; i += 32) {
+      const int e = (warp + i / C * kBulkWarps) * C + i % C;
+      out_r[e] = acc_s[e];
+      acc_s[e] = 0.0f;
+    }
+    __syncwarp();
+  }
+}
+
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -191,17 +424,53 @@ int frontier_round_bsr(const void* blocks, const void* block_col, const void* ro
   return cudaGetLastError();
 }
 
+// The route bsr_spmm takes by itself (route = -1) for a bs x C product whose
+// blocks and x are (aligned = 1) or are not 16-byte aligned: kRouteBulk,
+// kRouteSimt, or an error where neither fits.
+int bsr_spmm_route(int bs, int C, int aligned, int* route) {
+  *route = spmm_route(bs, C, aligned != 0);
+  return *route < 0 ? cudaErrorInvalidValue : cudaSuccess;
+}
+
 // x: [n_col_blocks, bs, C]; out: [n_row_blocks, bs, C]; visits sorted by
-// destination row, row_ptr: [n_row_blocks + 1] over the visits.
+// destination row, row_ptr: [n_row_blocks + 1] over the visits.  route: -1
+// for bsr_spmm_route's choice, else kRouteSimt or kRouteBulk (an error where
+// that route does not fit); *taken: the route that ran.
 int bsr_spmm(const void* blocks, const void* visit_block, const void* visit_col,
              const void* row_ptr, const void* x, void* out, int n_row_blocks, int bs, int C,
-             void* stream) {
-  const size_t smem = 2 * (size_t)bs * C * sizeof(float);
-  cudaError_t err = prepare(bsr_spmm_kernel, smem);
+             int route, int* taken, void* stream) {
+  const bool aligned = ((uintptr_t)blocks | (uintptr_t)x) % 16 == 0;
+  const int fits = spmm_route(bs, C, aligned);
+  if (route < 0) route = fits;
+  if (fits < 0 || (route == kRouteBulk && fits != kRouteBulk) ||
+      (route != kRouteBulk && route != kRouteSimt))
+    return cudaErrorInvalidValue;
+  *taken = route;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (route == kRouteSimt) {
+    const size_t smem = 2 * (size_t)bs * C * sizeof(float);
+    cudaError_t err = prepare(bsr_spmm_kernel, smem);
+    if (err != cudaSuccess || n_row_blocks == 0) return err;
+    bsr_spmm_kernel<<<n_row_blocks, kThreads, smem, st>>>(
+        (const float*)blocks, (const int32_t*)visit_block, (const int32_t*)visit_col,
+        (const int64_t*)row_ptr, (const float*)x, (float*)out, bs, C);
+    return cudaGetLastError();
+  }
+  // persistent: kCtasPerSm CTAs an SM, or as many as this ring lets stay
+  const size_t smem = bulk_smem(bs, C);
+  cudaError_t err = prepare(bsr_spmm_bulk_kernel, smem);
+  int dev = 0, n_sm = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bsr_spmm_bulk_kernel,
+                                                        kBulkThreads, smem);
   if (err != cudaSuccess || n_row_blocks == 0) return err;
-  bsr_spmm_kernel<<<n_row_blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  const int ctas = (per_sm < 1 ? 1 : per_sm < kCtasPerSm ? per_sm : kCtasPerSm) * n_sm;
+  const int grid = n_row_blocks < ctas ? n_row_blocks : ctas;
+  bsr_spmm_bulk_kernel<<<grid, kBulkThreads, smem, st>>>(
       (const float*)blocks, (const int32_t*)visit_block, (const int32_t*)visit_col,
-      (const int64_t*)row_ptr, (const float*)x, (float*)out, bs, C);
+      (const int64_t*)row_ptr, (const float*)x, (float*)out, n_row_blocks, bs, C);
   return cudaGetLastError();
 }
 

@@ -16,6 +16,9 @@ from .ref import (  # noqa: F401
 from .kernel import (  # noqa: F401
     bsr_spmm_kernel,
     bsr_spmm_plain,
+    bsr_spmm_route,
+    launch_bsr_spmm,
+    ROUTES,
     frontier_round_bsr_kernel,
     frontier_round_bsr_plain,
 )

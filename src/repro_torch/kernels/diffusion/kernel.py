@@ -11,18 +11,28 @@ Each kernel comes as a pair with one contract:
 * ``bsr_spmm_kernel`` / ``bsr_spmm_plain`` (K2) — ``out[r] = Σ_k
   blocks[visit_block[k]] @ x[visit_col[k]]`` over the visits
   ``row_ptr[r] .. row_ptr[r+1]``; rows without visits come out exactly 0.
-  Replaces ``bsr_spmm_pallas``; the visit table lets the engine's gather
-  SpMM run on it later.
+  Replaces ``bsr_spmm_pallas`` and, fed the engine's visit table,
+  ``bsr_gather_spmm_pallas``.
 
 The ``*_kernel`` wrapper takes the plain version only for CPU tensors.
 For CUDA tensors it launches the kernel or raises, and adds one to
 ``LAUNCHES[name]`` per launch.  The source's header says what bounds the
 kernels on an H100 (tile bytes) and how the design answers it.
+
+K2 has two bodies, and ``csrc/diffusion.cu`` picks one per launch: ``bulk``
+(``bsr_spmm_bulk_kernel``: persistent CTAs streaming the tiles through a
+TMA bulk-copy ring) for every ``bs % 4 == 0`` whose ring fits in shared
+memory, ``simt`` (``bsr_spmm_kernel``: a CTA per output row) for the
+rest.  Both take every sum in the same order, so they give the same bits.
+The wrapper counts its launches by route in ``ROUTES``;
+:func:`bsr_spmm_route` mirrors the rule, and :func:`launch_bsr_spmm` runs
+either body on request, counted nowhere, to hold the two against each
+other.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,11 +43,21 @@ __all__ = [
     "frontier_round_bsr_plain",
     "bsr_spmm_kernel",
     "bsr_spmm_plain",
+    "bsr_spmm_route",
+    "launch_bsr_spmm",
+    "ROUTES",
 ]
 
 _MAX_BS = 1024
 _MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
 _WARPS = 8  # kThreads / 32 in diffusion.cu
+# K2 launches by the body that ran them; csrc/diffusion.cu's route codes
+# index _ROUTE_NAMES
+ROUTES = {"bulk": 0, "simt": 0}
+_ROUTE_NAMES = ("simt", "bulk")
+# the bulk route's ring, as csrc/diffusion.cu sets it (kBulkStages, kSlabBytes)
+BULK_STAGES = 3
+SLAB_BYTES = 32 * 1024
 
 
 # --------------------------------------------------------------------------- #
@@ -95,9 +115,25 @@ def _lib() -> ctypes.CDLL:
     if lib.frontier_round_bsr.argtypes is None:
         lib.frontier_round_bsr.argtypes = [_P] * 8 + [_I, _I, _I, _P]
         lib.frontier_round_bsr.restype = ctypes.c_int
-        lib.bsr_spmm.argtypes = [_P] * 6 + [_I, _I, _I, _P]
+        lib.bsr_spmm.argtypes = [_P] * 6 + [_I, _I, _I, _I, _P, _P]
         lib.bsr_spmm.restype = ctypes.c_int
+        lib.bsr_spmm_route.argtypes = [_I, _I, _I, _P]
+        lib.bsr_spmm_route.restype = ctypes.c_int
     return lib
+
+
+def bsr_spmm_route(bs: int, c: int, aligned: bool = True) -> Optional[str]:
+    """The body K2 runs a ``bs x C`` product on, ``None`` where none fits:
+    ``csrc/diffusion.cu``'s ``spmm_route``, mirrored.  ``aligned``: the
+    tile pool and ``x`` start on 16 bytes, as the bulk copies need."""
+    if not 1 <= bs <= _MAX_BS or c < 1 or 2 * bs * c * 4 > _MAX_SMEM:
+        return None
+    slab_rows = min(bs, max(1, SLAB_BYTES // (bs * 4)))
+    ring = (BULK_STAGES * slab_rows * bs * 4 + (BULK_STAGES + 1) * bs * c * 4
+            + 4 * BULK_STAGES * 8)
+    if bs % 4 == 0 and aligned and ring <= _MAX_SMEM:
+        return "bulk"
+    return "simt"
 
 
 def _require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -181,9 +217,31 @@ def bsr_spmm_kernel(
     x: torch.Tensor,
 ) -> torch.Tensor:
     """K2: block-sparse product over a visit table (see
-    :func:`bsr_spmm_plain`)."""
+    :func:`bsr_spmm_plain`), on the body ``csrc/diffusion.cu`` picks."""
     if not _on_card(x):
         return bsr_spmm_plain(blocks, visit_block, visit_col, row_ptr, x)
+    out, route = launch_bsr_spmm(blocks, visit_block, visit_col, row_ptr, x)
+    LAUNCHES["bsr_spmm"] += 1
+    ROUTES[route] += 1
+    return out
+
+
+def launch_bsr_spmm(
+    blocks: torch.Tensor,
+    visit_block: torch.Tensor,
+    visit_col: torch.Tensor,
+    row_ptr: torch.Tensor,
+    x: torch.Tensor,
+    route: Optional[str] = None,
+) -> Tuple[torch.Tensor, str]:
+    """One K2 launch on the card, counted nowhere; returns ``(out, the
+    route that ran)``.  ``route`` ``None`` takes the source's choice;
+    ``"bulk"`` or ``"simt"`` runs that body (raising where it does not
+    fit), so that tests and the probe can hold the two against each
+    other."""
+    if not _on_card(x):
+        raise ValueError("launch_bsr_spmm launches the kernel: x must be "
+                         f"on a card, not {x.device}")
     ncb, bs, c = x.shape
     nrb = row_ptr.numel() - 1
     n_visits = visit_block.numel()
@@ -195,11 +253,12 @@ def bsr_spmm_kernel(
     _require(row_ptr, "row_ptr", torch.int64, (nrb + 1,), dev)
     _require(x, "x", torch.float32, (ncb, bs, c), dev)
     out = torch.empty((nrb, bs, c), dtype=torch.float32, device=dev)
+    taken = ctypes.c_int(-1)
     lib = _lib()
     err = lib.bsr_spmm(
         blocks.data_ptr(), visit_block.data_ptr(), visit_col.data_ptr(),
         row_ptr.data_ptr(), x.data_ptr(), out.data_ptr(), nrb, bs, c,
-        stream_handle(dev))
-    check(lib, err, "bsr_spmm")
-    LAUNCHES["bsr_spmm"] += 1
-    return out
+        -1 if route is None else _ROUTE_NAMES.index(route),
+        ctypes.byref(taken), stream_handle(dev))
+    check(lib, err, f"bsr_spmm (route {route or 'auto'})")
+    return out, _ROUTE_NAMES[taken.value]

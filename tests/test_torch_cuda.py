@@ -10,6 +10,7 @@ it also runs on a machine that has only torch:
 Tolerances: float32 sums taken in another order than the twin's, on
 values of order 1: rtol 1e-5 with atol 1e-6 (1e-5 for the products, whose
 sums run over more terms); relaunches must be bit-identical (no atomics).
+K2's bulk route is held bit-equal to its simt body.
 K4 (fm_interaction) is held to 1e-5 of the magnitude of its cancelling
 terms, K5 (segment_sum, contiguous and gather forms) to rtol/atol 1e-5,
 and exactly on integer-valued inputs, whose sums do not depend on the
@@ -98,6 +99,90 @@ def test_bsr_spmm_kernel_matches_plain_with_empty_rows(cuda_device, bs,
                                atol=1e-5)
     assert bool((got[bs: 2 * bs] == 0).all())
     assert bool((got[3 * bs:] == 0).all())
+
+
+def _visit_case(bs, c, seed, device):
+    """A shuffled pool of 60 tiles and 6 output rows of 3, 0, 40, 0, 2 and
+    1 visits (the 40-visit row wraps the bulk ring many times), visits in
+    no tile order; positive values, so the sums do not cancel."""
+    rng = np.random.default_rng(seed)
+    counts = np.array([3, 0, 40, 0, 2, 1])
+    n_visits = int(counts.sum())
+    row_ptr = np.zeros(counts.size + 1, np.int64)
+    np.cumsum(counts, out=row_ptr[1:])
+    pool = (rng.random((60, bs, bs)) / bs).astype(np.float32)
+    visit_block = rng.integers(0, 60, n_visits).astype(np.int32)
+    visit_col = rng.integers(0, 5, n_visits).astype(np.int32)
+    x = rng.random((5, bs, c)).astype(np.float32)
+    return [torch.from_numpy(a).to(device)
+            for a in (pool, visit_block, visit_col, row_ptr, x)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 3, 8])
+@pytest.mark.parametrize("bs", [4, 8, 64, 128, 512])
+def test_bsr_spmm_bulk_route_gives_the_simt_bits(cuda_device, bs, c):
+    """K2's two bodies take every sum in the same order: the bulk route is
+    bit-equal to the simt body, relaunch after relaunch, and within the
+    products' rtol / atol 1e-5 of the plain version; empty rows are 0."""
+    from repro_torch.kernels.diffusion.kernel import launch_bsr_spmm
+
+    ins = _visit_case(bs, c, seed=bs * 10 + c, device=cuda_device)
+    before = (dict(LAUNCHES), dict(td.ROUTES))
+    bulk, route = launch_bsr_spmm(*ins, route="bulk")
+    again, _ = launch_bsr_spmm(*ins, route="bulk")
+    simt, simt_route = launch_bsr_spmm(*ins, route="simt")
+    torch.cuda.synchronize()
+    assert (route, simt_route) == ("bulk", "simt")
+    assert (dict(LAUNCHES), dict(td.ROUTES)) == before
+    assert torch.equal(bulk, simt) and torch.equal(bulk, again)
+    assert bool((bulk[1] == 0).all()) and bool((bulk[3] == 0).all())
+    plain = td.bsr_spmm_plain(*[t.cpu() for t in ins])
+    np.testing.assert_allclose(bulk.cpu().numpy(), plain.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [7, 128])
+def test_bsr_spmm_counts_each_launch_under_its_route(cuda_device, bs):
+    """The wrapper runs the route the source picks (simt for an odd bs) and
+    counts it in ROUTES beside LAUNCHES."""
+    ins = _visit_case(bs, 1, seed=3, device=cuda_device)
+    route = td.bsr_spmm_route(bs, 1)
+    assert route == ("simt" if bs % 4 else "bulk")
+    before, routes = LAUNCHES["bsr_spmm"], dict(td.ROUTES)
+    got = td.bsr_spmm_kernel(*ins)
+    torch.cuda.synchronize()
+    assert LAUNCHES["bsr_spmm"] == before + 1
+    assert td.ROUTES == {k: v + (k == route) for k, v in routes.items()}
+    plain = td.bsr_spmm_plain(*[t.cpu() for t in ins])
+    np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_bsr_spmm_route_mirror_matches_the_source(cuda_device):
+    """kernel.bsr_spmm_route is csrc/diffusion.cu's rule, shape for shape,
+    and a misaligned x takes the simt body."""
+    import ctypes
+
+    from repro_torch.kernels.diffusion import kernel as k2
+
+    lib = k2._lib()
+    names = {0: "simt", 1: "bulk", -1: None}
+    for bs in list(range(1, 17)) + [96, 100, 128, 256, 500, 512, 1000, 1024]:
+        for c in (1, 2, 3, 8, 9, 10, 16, 39, 40, 64):
+            for aligned in (True, False):
+                out = ctypes.c_int()
+                lib.bsr_spmm_route(bs, c, int(aligned), ctypes.byref(out))
+                assert names[out.value] == td.bsr_spmm_route(bs, c, aligned), (
+                    bs, c, aligned)
+    pool, vb, vc, ptr, x = _visit_case(128, 1, seed=1, device=cuda_device)
+    x_off = torch.empty(x.numel() + 1, device=cuda_device)[1:].view(x.shape)
+    x_off.copy_(x)
+    got, route = k2.launch_bsr_spmm(pool, vb, vc, ptr, x_off)
+    assert route == "simt"
+    assert torch.equal(got, k2.launch_bsr_spmm(pool, vb, vc, ptr, x)[0])
 
 
 @pytest.mark.cuda

@@ -198,3 +198,62 @@ def test_wrappers_validate_and_count_nothing_on_cpu():
     with pytest.raises(ValueError, match="square"):
         td.BsrMatrix(np.zeros((1, 8, 8), np.float32), [0], [3], 2, 8,
                      device="cpu")
+
+
+@pytest.mark.parametrize("bs,c,aligned,route", [
+    (512, 1, True, "bulk"),  # the engine's tiles
+    (128, 1, True, "bulk"),  # the frontier's tiles
+    (128, 8, True, "bulk"),
+    (4, 1, True, "bulk"),  # a slab is the whole tile
+    (1024, 1, True, "bulk"),
+    (512, 16, True, "bulk"),  # the widest C whose ring fits at bs = 512
+    (512, 17, True, "simt"),
+    (256, 33, True, "simt"),
+    (7, 1, True, "simt"),  # rows of 28 bytes: no 16-byte bulk copy
+    (128, 1, False, "simt"),
+    (1024, 64, True, None),  # neither body fits
+    (1025, 1, True, None),
+])
+def test_bsr_spmm_route_rule(bs, c, aligned, route):
+    """K2's route and shared-memory rule (mirrored from csrc/diffusion.cu;
+    the card tests hold the mirror to the source): bulk needs bs % 4 == 0,
+    16-byte aligned operands and its ring, an x slot a stage and the
+    accumulator in 227 KB; simt needs 2·bs·C floats."""
+    assert td.bsr_spmm_route(bs, c, aligned) == route
+
+
+def _k2_probe():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools/k2_probe.py"
+    spec = importlib.util.spec_from_file_location("k2_probe", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("variant", list(_k2_probe().VARIANTS))
+def test_k2_probe_edits_find_their_text(variant):
+    """Every source edit of tools/k2_probe.py finds its text in
+    csrc/diffusion.cu, so the probe cannot rot."""
+    probe = _k2_probe()
+    edits, route = probe.VARIANTS[variant]
+    assert route in ("bulk", "simt")
+    src = probe.edited_source(variant, [])
+    got = probe.edited_source(variant, edits)
+    for old, new in edits:
+        assert src.count(old) == 1
+        assert new in got
+    assert (got != src) == bool(edits)
+
+
+def test_launch_bsr_spmm_refuses_the_cpu():
+    """The launch helper runs the CUDA kernel only; the CPU's K2 is the
+    wrapper's plain twin."""
+    x = torch.zeros((2, 8, 1))
+    with pytest.raises(ValueError, match="on a card"):
+        td.launch_bsr_spmm(torch.zeros((1, 8, 8)),
+                           torch.zeros(1, dtype=torch.int32),
+                           torch.zeros(1, dtype=torch.int32),
+                           torch.tensor([0, 1, 1]), x)
