@@ -17,9 +17,11 @@ Phases, each printed on its own lines (any failure exits non-zero):
    threshold in {0, 0.5}, and the same pool with every other block row
    emptied).  ``sent`` must agree exactly, sums within
    |delta|_1 <= 1e-5 |plain|_1 (fluid values are around 1/N, so the bound is
-   relative), and two launches must give bit-identical results; K2's bulk
-   route (the one its rule picks at bs=128) must give the bits of its simt
-   body, launched apart.
+   relative), and two launches must give bit-identical results; K1's and
+   K2's bulk routes (the ones their rules pick at bs=128) must give the
+   bits of their simt bodies, launched apart.  K1 also at its input (b):
+   the operands of round 3,001 of the ``frontier:pallas`` cold solve (a
+   ``SolverSession`` with ``max_rounds=3000``), its armed share printed.
 4. Main path: ``repro_torch.solve(Problem.pagerank(host_block_graph(N)),
    method="frontier:pallas")`` on the card must converge with K1 launched
    once per round, and land within |x - x'|_1 <= 1e-5 of the same problem
@@ -29,7 +31,9 @@ Phases, each printed on its own lines (any failure exits non-zero):
    |H|_1) in float64 on the host and, through the public ``bsr_spmm`` op
    (K2), in float32 on the card; then it serves 4 drifted right-hand sides
    through ``warm_start`` + ``solve``.  Each must converge, the first with
-   fewer edge pushes than the cold solve.
+   fewer edge pushes than the cold solve.  Every K1 launch of phases 4-5
+   must run on the bulk route (the wrapper's ``FRONTIER_ROUTES``, printed
+   as ``{bulk: n, simt: 0}``).
 6. Engine kernels: the K-PID engine's layout at N, k=4 (the sizing rule
    of ``engine:bsr``: 512-slot buckets), built through ``SolverSession``
    (its wall time printed); K2 over the engine's visit table (the port of
@@ -91,8 +95,13 @@ Phases, each printed on its own lines (any failure exits non-zero):
    over 67 TFLOP/s f32, or 989 TFLOP/s for K6's bf16, counted for this
    run's inputs), its plain version's time and a one-call library
    yardstick (torch.sparse.mm on a sparse_bsr tensor for K2, index_add_
-   for K3, none for K1).  The K2 rows also carry the body that ran them
-   (``kernel``) and the TB/s of K2 and of the library call.  The engine's
+   for K3, none for K1).  The K1 and K2 rows also carry the body that ran
+   them (``kernel``) and their TB/s (K2's also the library call's); K1's
+   row carries its armed tile share, its ratio to K2's time over the same
+   pool (``k2_ratio``) and, under ``late_*`` keys, its numbers at input
+   (b).  K1 at inputs (a) and (b) and K2 are timed by one rule (``timing``:
+   the least of two 20-call means, in turns, the second round reversed);
+   every other row is one mean.  The engine's
    K2 and K3 get rows of their own (``bsr_gather_spmm``: the engine:bsr
    rounds of phase 7;
    ``engine_edge_sum``: the engine:chunk rounds); the ``edge_sum`` row
@@ -180,6 +189,8 @@ RECORDED = {"frontier:pallas": (3974, 267820931),
             "engine:bsr cold": (3392, 267629992),
             "engine:bsr forced move": (3520, 270165051),
             "engine:bsr warm": (1888, 107390909)}
+# K1's input (b) is the round after this many of the frontier:pallas solve
+LATE_ROUNDS = 3000
 GIN_SHAPE = "ogb_products"
 # power_law_graph exponent of the GIN graph: its seed-0 graph at 2,449,029
 # nodes has 61,209,125 edges, under the cell's 61,859,328 (alpha 1.65
@@ -203,6 +214,68 @@ def invariant(b, f_nodes, h_nodes, src, dst, wgt):
     ph = np.bincount(dst, weights=h_nodes[src] * wgt, minlength=b.size)
     viol = float(np.abs(b - h_nodes + ph - f_nodes).sum())
     return viol, 1e-4 * float(np.abs(b).sum() + np.abs(h_nodes).sum())
+
+
+def random_fluid(torch, rng, n, n_pad, c, dev):
+    """[n_pad, C] fluid around 1/N like the solver's, with a per-block-row
+    scale so that some block columns fall under the occupancy threshold;
+    the padding rows 0."""
+    f = rng.standard_normal((n_pad, c)) / n
+    f *= 10.0 ** rng.uniform(-1, 1, size=(n_pad // BS, 1, 1)).repeat(
+        BS, axis=1).reshape(n_pad, 1)
+    f[n:] = 0.0
+    return torch.as_tensor(f, dtype=torch.float32, device=dev)
+
+
+def median_threshold(torch, f, w):
+    """The median of the nonzero |f|·w (the first 2**24 of them)."""
+    fw = (f.abs() * w[:, None]).flatten()
+    return torch.quantile(fw[fw > 0].float().cpu()[:2**24], 0.5).to(f.device)
+
+
+def k1_operands(torch, mat, f, w, t, tau):
+    """What ops.frontier_round_bsr hands K1 for the fluid f [n_pad, C]."""
+    c = f.shape[1]
+    wt = (w / t).to(torch.float32)
+    sel = f.abs() * wt[:, None] > 1.0
+    blk = sel.reshape(-1, BS * c)
+    if tau > 0:
+        col_active = (blk.float().mean(dim=1) > tau).to(torch.int32)
+    else:
+        col_active = blk.any(dim=1).to(torch.int32)
+    return (mat.blocks, mat.block_col, mat.row_ptr, col_active,
+            f.reshape(-1, BS, c).contiguous(),
+            wt.reshape(-1, BS).contiguous())
+
+
+def late_round(torch, repro_torch, problem, device):
+    """K1's input (b): the operands of round ``LATE_ROUNDS + 1`` of the
+    frontier:pallas cold solve, from a session stopped after
+    ``LATE_ROUNDS`` rounds, built from its driver's state as
+    ops.frontier_round_bsr builds them.  Returns ``(operands, rounds
+    run)``."""
+    session = repro_torch.SolverSession(problem, "frontier:pallas",
+                                        device=device, max_rounds=LATE_ROUNDS)
+    session.solve()
+    drv = session._driver
+    f, t = drv.round_inputs()
+    return (k1_operands(torch, drv.m, f[:, None], drv.w, t,
+                        drv.occupancy_threshold), drv.rounds())
+
+
+def armed_tiles(col_active, block_col) -> int:
+    """The tiles K1 reads: those of armed block columns."""
+    return int(col_active.bool()[block_col.long()].sum())
+
+
+def k1_bytes(ins) -> int:
+    """The bytes K1 must move for its operands ``ins``: the armed tiles, its
+    index arrays, f read and written, wt and row_l1."""
+    blocks, block_col, row_ptr, col_active, f3, wt = ins
+    return (armed_tiles(col_active, block_col) * BS * BS * 4
+            + block_col.numel() * 4 + row_ptr.numel() * 8
+            + col_active.numel() * 4 + f3.numel() * 4 * 2 + wt.numel() * 4
+            + f3.shape[0] * 4)
 
 
 def nvidia_smi() -> str:
@@ -259,6 +332,17 @@ class Timer:
             for _ in range(iters):
                 fn()
         return self(graph.replay, 3, warmup=1) / iters
+
+
+def least(timer, fns, iters):
+    """{name: (least, greatest)} of two ``iters``-call means for each of
+    ``fns``, timed in turns: the second round in reverse order, so that
+    every function is timed once early and once late."""
+    got = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for k in order:
+            got[k].append(timer(fns[k], iters))
+    return {k: (min(v), max(v)) for k, v in got.items()}
 
 
 def bound_ms(n_bytes: float, n_flops: float,
@@ -711,10 +795,10 @@ def main() -> int:
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels import _build
     from repro_torch.kernels.diffusion import (
-        ROUTES as K2_ROUTES, BsrMatrix, bsr_spmm, bsr_spmm_kernel,
-        bsr_spmm_plain, bsr_spmm_route, frontier_round_bsr,
+        FRONTIER_ROUTES, ROUTES as K2_ROUTES, BsrMatrix, bsr_spmm,
+        bsr_spmm_kernel, bsr_spmm_plain, bsr_spmm_route, frontier_round_bsr,
         frontier_round_bsr_kernel, frontier_round_bsr_plain,
-        launch_bsr_spmm)
+        launch_bsr_spmm, launch_frontier_round_bsr)
     from repro_torch.kernels.edge_sum import (
         csc_edges, edge_sum, edge_sum_plain)
     from repro_torch.balance import MovePlan
@@ -781,27 +865,15 @@ def main() -> int:
     w[: g.n] = torch.as_tensor(w_nodes, dtype=torch.float32, device=dev)
 
     def fluid(c: int) -> torch.Tensor:
-        # around 1/N like the solver's fluid, with a per-block-row scale so
-        # that some block columns fall under the occupancy threshold
-        f = rng.standard_normal((n_pad, c)) / g.n
-        f *= 10.0 ** rng.uniform(-1, 1, size=(n_pad // BS, 1, 1)).repeat(
-            BS, axis=1).reshape(n_pad, 1)
-        f[g.n:] = 0.0
-        return torch.as_tensor(f, dtype=torch.float32, device=dev)
+        return random_fluid(torch, rng, g.n, n_pad, c, dev)
 
-    def k1_inputs(mat, f, t, tau):
-        """What ops.frontier_round_bsr hands K1, plus its sent."""
-        c = f.shape[1]
-        wt = (w / t).to(torch.float32)
-        sel = f.abs() * wt[:, None] > 1.0
-        blk = sel.reshape(-1, BS * c)
-        if tau > 0:
-            col_active = (blk.float().mean(dim=1) > tau).to(torch.int32)
-        else:
-            col_active = blk.any(dim=1).to(torch.int32)
-        return (mat.blocks, mat.block_col, mat.row_ptr, col_active,
-                f.reshape(-1, BS, c).contiguous(),
-                wt.reshape(-1, BS).contiguous())
+    def simt_bits(ins, out, l1):
+        """K1's bulk output against its simt body's, launched apart (counted
+        nowhere): the same bits.  True in a rehearsal."""
+        if not on_card:
+            return True
+        out_s, l1_s, _ = launch_frontier_round_bsr(*ins, route="simt")
+        return torch.equal(out, out_s) and torch.equal(l1, l1_s)
 
     # the same tiles on the CPU, for the cross-device predicate check
     m_cpu = BsrMatrix(tiles.blocks, tiles.block_row, tiles.block_col,
@@ -810,8 +882,7 @@ def main() -> int:
     for c in (1, 8):
         for tau in (0.0, 0.5):
             f = fluid(c)
-            fw = (f.abs() * w[:, None]).flatten()
-            t = torch.quantile(fw[fw > 0].float().cpu()[:2**24], 0.5).to(dev)
+            t = median_threshold(torch, f, w)
             f_new, sent, res = frontier_round_bsr(
                 m, f, w, t, backend="kernel", occupancy_threshold=tau)
             # the same round through the CPU's plain path: the predicate
@@ -822,18 +893,21 @@ def main() -> int:
                     occupancy_threshold=tau)
                 if not torch.equal(sent.cpu(), sent_cpu):
                     fail(f"K1 sent differs card vs cpu (C={c}, tau={tau})")
-            ins = k1_inputs(m, f, t, tau)
+            ins = k1_operands(torch, m, f, w, t, tau)
             out_k, l1_k = frontier_round_bsr_kernel(*ins)
             out_k2, l1_k2 = frontier_round_bsr_kernel(*ins)
             out_p, l1_p = frontier_round_bsr_plain(*ins)
             armed = int(ins[3].sum())
             e_f, e_l1 = rel_l1(out_k, out_p), rel_l1(l1_k, l1_p)
             same = torch.equal(out_k, out_k2) and torch.equal(l1_k, l1_k2)
+            simt = simt_bits(ins, out_k, l1_k)
             print(f"K1 C={c} tau={tau}: armed columns {armed}/"
                   f"{m.n_row_blocks}, sent nodes {int((sent != 0).sum())}, "
                   f"rel L1 f_new {e_f:.3e} row_l1 {e_l1:.3e}, "
-                  f"bit-identical relaunch {same}")
-            if not (e_f <= REL_L1 and e_l1 <= REL_L1 and same):
+                  f"bit-identical relaunch {same}, route "
+                  f"{launch_frontier_round_bsr(*ins)[2] if on_card else None}"
+                  f", the simt body's bits {simt}")
+            if not (e_f <= REL_L1 and e_l1 <= REL_L1 and same and simt):
                 fail(f"K1 C={c} tau={tau}")
             if not torch.equal(f_new.reshape(out_k.shape), out_k):
                 fail("K1 through ops.frontier_round_bsr differs from the "
@@ -848,9 +922,8 @@ def main() -> int:
                       tiles.block_col[keep], tiles.n_row_blocks, BS,
                       device=dev)
     f = fluid(1)
-    fw = (f.abs() * w[:, None]).flatten()
-    t = torch.quantile(fw[fw > 0].float().cpu()[:2**24], 0.5).to(dev)
-    ins = k1_inputs(m_odd, f, t, 0.0)
+    t = median_threshold(torch, f, w)
+    ins = k1_operands(torch, m_odd, f, w, t, 0.0)
     out_k, l1_k = frontier_round_bsr_kernel(*ins)
     out_p, l1_p = frontier_round_bsr_plain(*ins)
     empty = ~m_odd.row_occupied
@@ -858,10 +931,28 @@ def main() -> int:
                        torch.zeros_like(f), f).reshape(out_k.shape)
     ok_empty = torch.equal(out_k[empty], kept[empty])
     e_f = rel_l1(out_k, out_p)
+    simt = simt_bits(ins, out_k, l1_k)
     print(f"K1 interleaved empty rows: {int(empty.sum())} empty, kept "
-          f"fluid exact {ok_empty}, rel L1 {e_f:.3e}")
-    if not (ok_empty and e_f <= REL_L1):
+          f"fluid exact {ok_empty}, rel L1 {e_f:.3e}, the simt body's bits "
+          f"{simt}")
+    if not (ok_empty and e_f <= REL_L1 and simt):
         fail("K1 interleaved empty rows")
+    # input (b): a late round of the cold solve
+    t0 = time.perf_counter()
+    ins, late_rounds = late_round(torch, repro_torch, problem, args.device)
+    out_k, l1_k = frontier_round_bsr_kernel(*ins)
+    out_p, l1_p = frontier_round_bsr_plain(*ins)
+    e_f, e_l1 = rel_l1(out_k, out_p), rel_l1(l1_k, l1_p)
+    simt = simt_bits(ins, out_k, l1_k)
+    n_tiles = ins[1].numel()
+    print(f"K1 late round (input b: after {late_rounds} rounds of "
+          f"frontier:pallas, {time.perf_counter() - t0:.1f} s): armed "
+          f"columns {int(ins[3].sum())}/{m.n_row_blocks}, armed tiles "
+          f"{armed_tiles(ins[3], ins[1])}/{n_tiles}, rel L1 f_new {e_f:.3e} "
+          f"row_l1 {e_l1:.3e}, the simt body's bits {simt}")
+    if not (e_f <= REL_L1 and e_l1 <= REL_L1 and simt):
+        fail("K1 late round")
+    timing_inputs["k1_late"] = (ins, float((out_k - out_p).abs().max()))
     for c in (1, 8):
         x = fluid(c).reshape(-1, BS, c)
         for name, mat in (("full", m), ("empty rows", m_odd)):
@@ -916,6 +1007,7 @@ def main() -> int:
     # ---- 4. main path ------------------------------------------------------
     print("== phase 4: main path")
     k2_routes0 = dict(K2_ROUTES)  # K2's launches by body, phases 4-7
+    k1_routes0 = dict(FRONTIER_ROUTES)  # K1's, phases 4-5
     reset_launches()
     rep = repro_torch.solve(problem, method="frontier:pallas",
                             device=args.device)
@@ -991,8 +1083,14 @@ def main() -> int:
         fail(f"first warm solve used {warm_ops[0]} ops, cold {cold.n_ops}")
     for k, v in LAUNCHES.items():
         main_launches[k] += v
+    k1_routes = {k: v - k1_routes0[k] for k, v in FRONTIER_ROUTES.items()}
     print(f"main path launches (phases 4-5): {json.dumps(main_launches)}; "
-          f"K2 launches of the invariant check {check_launches}")
+          f"K2 launches of the invariant check {check_launches}; K1's by "
+          f"body {json.dumps(k1_routes)}")
+    if on_card and k1_routes != {
+            "bulk": main_launches["frontier_round_bsr"], "simt": 0}:
+        fail(f"K1 launches of phases 4-5 not all on the bulk body: "
+             f"{k1_routes}")
     if on_card:
         missing = [k for k in ON_PATH if main_launches[k] == 0]
         if missing:
@@ -1547,30 +1645,65 @@ def main() -> int:
           f"warm rounds {warm_e.n_rounds} ops {warm_e.n_ops} wall "
           f"{warm_e.wall_time_s:.3f} s")
     rows = []
-    ins, err = timing_inputs["k1"]
-    blocks, block_col, row_ptr, col_active, f3, wt = ins
-    armed = col_active.bool()
-    tiles_read = int(armed[block_col.long()].sum())
-    nrb, _, c = f3.shape
-    k1_bytes = (tiles_read * BS * BS * 4 + block_col.numel() * 4
-                + row_ptr.numel() * 8 + col_active.numel() * 4
-                + f3.numel() * 4 * 2 + wt.numel() * 4 + nrb * 4)
-    b_ms, b_by = bound_ms(k1_bytes, 2.0 * tiles_read * BS * BS * c)
-    print(f"K1 timing input: {int(armed.sum())}/{nrb} block columns armed, "
-          f"{tiles_read}/{block_col.numel()} tiles read "
-          f"({tiles_read / block_col.numel():.4f} of the pool)")
+
+    def k1_numbers(what, ins):
+        """K1's bytes, bound and armed tile share at the operands ``ins``."""
+        _, block_col, _, col_active, f3, _ = ins
+        tiles_read = armed_tiles(col_active, block_col)
+        n_bytes = k1_bytes(ins)
+        b_ms, b_by = bound_ms(n_bytes,
+                              2.0 * tiles_read * BS * BS * f3.shape[2])
+        print(f"K1 {what}: {int(col_active.sum())}/{f3.shape[0]} block "
+              f"columns armed, {tiles_read}/{block_col.numel()} tiles read "
+              f"({tiles_read / block_col.numel():.4f} of the pool)")
+        return n_bytes, b_ms, b_by, tiles_read / block_col.numel()
+
+    ins_a, err_a = timing_inputs["k1"]
+    ins_b, err_b = timing_inputs["k1_late"]
+    ins, err = timing_inputs["k2"]
+    # K1 at inputs (a) and (b) and K2 over the same pool, timed by one rule
+    # so that their ratio is like for like: each the least of two 20-call
+    # means, in turns, the second round reversed
+    pool_rule = ("least of two 20-call means, in turns with the other "
+                 "frontier_round_bsr input and bsr_spmm")
+    times = least(timer, {
+        "k1": lambda: frontier_round_bsr_kernel(*ins_a),
+        "k1_late": lambda: frontier_round_bsr_kernel(*ins_b),
+        "k2": lambda: bsr_spmm_kernel(*ins)}, 20)
+    print("K1 (a), K1 (b), K2 over the pool, ms (least, greatest of two): "
+          + ", ".join(f"{times[k][0]:.4f} [{times[k][1]:.4f}]"
+                      for k in ("k1", "k1_late", "k2")))
+    bytes_a, b_ms, b_by, share_a = k1_numbers("timing input (a)", ins_a)
+    bytes_b, b_ms_b, _, share_b = k1_numbers(
+        f"late round (input b, after {late_rounds} rounds)", ins_b)
+    k1_ms, late_ms, k2_ms = (times[k][0] for k in ("k1", "k1_late", "k2"))
     rows.append({
         "name": "frontier_round_bsr", "route": "cuda",
         "source": "src/repro_torch/csrc/diffusion.cu",
         "replaces": "src/repro/kernels/diffusion/kernel.py:376",
         "launches": main_launches["frontier_round_bsr"],
-        "max_abs_err": err,
-        "ms": timer(lambda: frontier_round_bsr_kernel(*ins), 20),
-        "plain_ms": timer(lambda: frontier_round_bsr_plain(*ins), 5),
+        "max_abs_err": err_a,
+        "ms": k1_ms,
+        "plain_ms": timer(lambda: frontier_round_bsr_plain(*ins_a), 5),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "armed_tile_fraction": tiles_read / block_col.numel(),
+        "timing": pool_rule,
+        "kernel": (launch_frontier_round_bsr(*ins_a)[2] if on_card
+                   else None),
+        "tb_per_s": bytes_a / k1_ms / 1e9,
+        "armed_tile_fraction": share_a,
+        # against K2's bulk body over the same pool, timed alike
+        "k2_ratio": k1_ms / k2_ms,
+        # input (b), a late round: the same kernel and launches
+        "late_ms": late_ms,
+        "late_plain_ms": timer(lambda: frontier_round_bsr_plain(*ins_b), 5),
+        "late_bound_ms": b_ms_b, "late_max_abs_err": err_b,
+        "late_kernel": (launch_frontier_round_bsr(*ins_b)[2] if on_card
+                        else None),
+        "late_tb_per_s": bytes_b / late_ms / 1e9,
+        "late_armed_tile_fraction": share_b,
     })
-    ins, err = timing_inputs["k2"]
+    print(f"K1 at input (a) / K2 over the same pool: {k1_ms:.4f} / "
+          f"{k2_ms:.4f} ms = {rows[0]['k2_ratio']:.4f}")
     blocks, visit_block, visit_col, row_ptr, x3 = ins
     k2_bytes = (blocks.numel() * 4 + visit_block.numel() * 8
                 + row_ptr.numel() * 8 + x3.numel() * 4 * 2)
@@ -1585,7 +1718,6 @@ def main() -> int:
                          - bsr_spmm_kernel(*ins)).abs().max())
         print(f"torch.sparse.mm (sparse_bsr) vs K2: max abs diff "
               f"{lib_err:.3e}")
-    k2_ms = timer(lambda: bsr_spmm_kernel(*ins), 20)
     rows.append({
         "name": "bsr_spmm", "route": "cuda",
         "source": "src/repro_torch/csrc/diffusion.cu",
@@ -1596,6 +1728,7 @@ def main() -> int:
         "ms": k2_ms,
         "plain_ms": timer(lambda: bsr_spmm_plain(*ins), 5),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "timing": pool_rule,
         "kernel": launch_bsr_spmm(*ins)[1] if on_card else None,
         "tb_per_s": k2_bytes / k2_ms / 1e9,
         "library_tb_per_s": lib_ms and k2_bytes / lib_ms / 1e9,
@@ -1694,7 +1827,12 @@ def main() -> int:
                      f"{r['library_graph_ms']:.4f} ms, {r['splits']} split(s)"
                      if "graph_ms" in r else "")
                   + (f"; {r['kernel']} body, {r['tb_per_s']:.3f} TB/s"
-                     if "tb_per_s" in r else "") + f" on {smi}")
+                     if "tb_per_s" in r else "")
+                  + (f"; input (b) {r['late_ms']:.4f} ms (bound "
+                     f"{r['late_bound_ms']:.4f} ms), "
+                     f"{r['late_armed_tile_fraction']:.4f} of the tiles "
+                     f"armed, {r['late_tb_per_s']:.3f} TB/s"
+                     if "late_ms" in r else "") + f" on {smi}")
 
     show(rows)
     print(f"phases 1-11 wall {time.perf_counter() - t_start:.1f} s")

@@ -283,6 +283,12 @@ class _BsrFrontierDriver:
     def threshold(self) -> np.ndarray:
         return np.asarray(float(self._state[3]), dtype=np.float64)
 
+    def round_inputs(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The padded fluid ``[n_pad]`` and the threshold T, on the device,
+        that the next round hands ``frontier_round_bsr``."""
+        f, _res, _h, t, _ops, _rounds = self._state
+        return f, t
+
     def set_threshold(self, t: np.ndarray) -> None:
         t = np.asarray(t, dtype=np.float64).reshape(-1)
         if t.shape != (1,):

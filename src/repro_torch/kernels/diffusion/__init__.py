@@ -21,4 +21,7 @@ from .kernel import (  # noqa: F401
     ROUTES,
     frontier_round_bsr_kernel,
     frontier_round_bsr_plain,
+    frontier_round_bsr_route,
+    launch_frontier_round_bsr,
+    FRONTIER_ROUTES,
 )

@@ -19,14 +19,18 @@ For CUDA tensors it launches the kernel or raises, and adds one to
 ``LAUNCHES[name]`` per launch.  The source's header says what bounds the
 kernels on an H100 (tile bytes) and how the design answers it.
 
-K2 has two bodies, and ``csrc/diffusion.cu`` picks one per launch: ``bulk``
-(``bsr_spmm_bulk_kernel``: persistent CTAs streaming the tiles through a
-TMA bulk-copy ring) for every ``bs % 4 == 0`` whose ring fits in shared
-memory, ``simt`` (``bsr_spmm_kernel``: a CTA per output row) for the
-rest.  Both take every sum in the same order, so they give the same bits.
-The wrapper counts its launches by route in ``ROUTES``;
-:func:`bsr_spmm_route` mirrors the rule, and :func:`launch_bsr_spmm` runs
-either body on request, counted nowhere, to hold the two against each
+K1 and K2 each have two bodies, and ``csrc/diffusion.cu`` picks one per
+launch: ``bulk`` (``frontier_round_bulk_kernel``, ``bsr_spmm_bulk_kernel``:
+persistent CTAs streaming the tiles through a TMA bulk-copy ring; K1's
+producer warp tests 32 tiles at once and copies only the armed ones) for
+every ``bs % 4 == 0`` with 16-byte aligned operands whose ring fits in
+shared memory, ``simt`` (``frontier_round_kernel``, ``bsr_spmm_kernel``: a
+CTA per output row) for the rest.  Both bodies of a kernel take every sum
+in the same order, so they give the same bits.  The wrappers count their
+launches by route in ``FRONTIER_ROUTES`` (K1) and ``ROUTES`` (K2);
+:func:`frontier_round_bsr_route` and :func:`bsr_spmm_route` mirror the
+rules, and :func:`launch_frontier_round_bsr` and :func:`launch_bsr_spmm`
+run either body on request, counted nowhere, to hold the two against each
 other.
 """
 from __future__ import annotations
@@ -41,6 +45,9 @@ from .._build import LAUNCHES, check, library, stream_handle
 __all__ = [
     "frontier_round_bsr_kernel",
     "frontier_round_bsr_plain",
+    "frontier_round_bsr_route",
+    "launch_frontier_round_bsr",
+    "FRONTIER_ROUTES",
     "bsr_spmm_kernel",
     "bsr_spmm_plain",
     "bsr_spmm_route",
@@ -51,13 +58,16 @@ __all__ = [
 _MAX_BS = 1024
 _MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
 _WARPS = 8  # kThreads / 32 in diffusion.cu
-# K2 launches by the body that ran them; csrc/diffusion.cu's route codes
-# index _ROUTE_NAMES
+# K1 and K2 launches by the body that ran them; csrc/diffusion.cu's route
+# codes index _ROUTE_NAMES
+FRONTIER_ROUTES = {"bulk": 0, "simt": 0}
 ROUTES = {"bulk": 0, "simt": 0}
 _ROUTE_NAMES = ("simt", "bulk")
-# the bulk route's ring, as csrc/diffusion.cu sets it (kBulkStages, kSlabBytes)
+# the bulk routes' rings, as csrc/diffusion.cu sets them (kBulkStages,
+# kSlabBytes, and K1's kRowSlots)
 BULK_STAGES = 3
 SLAB_BYTES = 32 * 1024
+ROW_SLOTS = 8
 
 
 # --------------------------------------------------------------------------- #
@@ -113,13 +123,38 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = library("diffusion")
     if lib.frontier_round_bsr.argtypes is None:
-        lib.frontier_round_bsr.argtypes = [_P] * 8 + [_I, _I, _I, _P]
+        lib.frontier_round_bsr.argtypes = [_P] * 8 + [_I, _I, _I, _I, _P, _P]
         lib.frontier_round_bsr.restype = ctypes.c_int
+        lib.frontier_round_bsr_route.argtypes = [_I, _I, _I, _P]
+        lib.frontier_round_bsr_route.restype = ctypes.c_int
         lib.bsr_spmm.argtypes = [_P] * 6 + [_I, _I, _I, _I, _P, _P]
         lib.bsr_spmm.restype = ctypes.c_int
         lib.bsr_spmm_route.argtypes = [_I, _I, _I, _P]
         lib.bsr_spmm_route.restype = ctypes.c_int
     return lib
+
+
+def _slab_rows(bs: int) -> int:
+    return min(bs, max(1, SLAB_BYTES // (bs * 4)))
+
+
+def frontier_round_bsr_route(bs: int, c: int,
+                             aligned: bool = True) -> Optional[str]:
+    """The body K1 runs a ``bs x C`` round on, ``None`` where none fits:
+    ``csrc/diffusion.cu``'s ``frontier_route``, mirrored.  ``aligned``:
+    the tile pool, ``f`` and ``wt`` start on 16 bytes, as the bulk copies
+    need."""
+    if not 1 <= bs <= _MAX_BS or c < 1 or (2 * bs * c + _WARPS) * 4 > _MAX_SMEM:
+        return None
+    # the ring, an (f, wt) slot a stage and a row slot, the accumulator,
+    # the epilogue's warp sums, the row records, the barriers
+    smem = (4 * (BULK_STAGES * _slab_rows(bs) * bs
+                 + (BULK_STAGES + ROW_SLOTS) * bs * (c + 1) + bs * c
+                 + _WARPS + 2 * ROW_SLOTS)
+            + 8 * (4 * BULK_STAGES + 2 * ROW_SLOTS))
+    if bs % 4 == 0 and aligned and smem <= _MAX_SMEM:
+        return "bulk"
+    return "simt"
 
 
 def bsr_spmm_route(bs: int, c: int, aligned: bool = True) -> Optional[str]:
@@ -128,9 +163,8 @@ def bsr_spmm_route(bs: int, c: int, aligned: bool = True) -> Optional[str]:
     tile pool and ``x`` start on 16 bytes, as the bulk copies need."""
     if not 1 <= bs <= _MAX_BS or c < 1 or 2 * bs * c * 4 > _MAX_SMEM:
         return None
-    slab_rows = min(bs, max(1, SLAB_BYTES // (bs * 4)))
-    ring = (BULK_STAGES * slab_rows * bs * 4 + (BULK_STAGES + 1) * bs * c * 4
-            + 4 * BULK_STAGES * 8)
+    ring = (BULK_STAGES * _slab_rows(bs) * bs * 4
+            + (BULK_STAGES + 1) * bs * c * 4 + 4 * BULK_STAGES * 8)
     if bs % 4 == 0 and aligned and ring <= _MAX_SMEM:
         return "bulk"
     return "simt"
@@ -175,17 +209,42 @@ def frontier_round_bsr_kernel(
     *,
     buffer_depth: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1: one fused frontier round (see :func:`frontier_round_bsr_plain`).
+    """K1: one fused frontier round (see :func:`frontier_round_bsr_plain`),
+    on the body ``csrc/diffusion.cu`` picks.
 
     ``buffer_depth`` is the TPU kernel's tile-prefetch depth.  It is
-    validated (>= 1) and has no effect on this kernel yet: the CUDA
-    kernel keeps several tile rows in flight per warp instead.
+    validated (>= 1) and has no effect on this kernel: the bulk body's
+    ring depth is a compile-time constant of the source.
     """
     if buffer_depth < 1:
         raise ValueError(f"buffer_depth must be >= 1, got {buffer_depth}")
     if not _on_card(f):
         return frontier_round_bsr_plain(blocks, block_col, row_ptr,
                                         col_active, f, wt)
+    f_new, row_l1, route = launch_frontier_round_bsr(
+        blocks, block_col, row_ptr, col_active, f, wt)
+    LAUNCHES["frontier_round_bsr"] += 1
+    FRONTIER_ROUTES[route] += 1
+    return f_new, row_l1
+
+
+def launch_frontier_round_bsr(
+    blocks: torch.Tensor,
+    block_col: torch.Tensor,
+    row_ptr: torch.Tensor,
+    col_active: torch.Tensor,
+    f: torch.Tensor,
+    wt: torch.Tensor,
+    route: Optional[str] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, str]:
+    """One K1 launch on the card, counted nowhere; returns ``(f_new,
+    row_l1, the route that ran)``.  ``route`` ``None`` takes the source's
+    choice; ``"bulk"`` or ``"simt"`` runs that body (raising where it does
+    not fit), so that tests and the probe can hold the two against each
+    other."""
+    if not _on_card(f):
+        raise ValueError("launch_frontier_round_bsr launches the kernel: f "
+                         f"must be on a card, not {f.device}")
     nrb, bs, c = f.shape
     n_blocks = blocks.shape[0]
     dev = f.device
@@ -198,15 +257,16 @@ def frontier_round_bsr_kernel(
     _require(wt, "wt", torch.float32, (nrb, bs), dev)
     f_new = torch.empty_like(f)
     row_l1 = torch.empty(nrb, dtype=torch.float32, device=dev)
+    taken = ctypes.c_int(-1)
     lib = _lib()
     err = lib.frontier_round_bsr(
         blocks.data_ptr(), block_col.data_ptr(), row_ptr.data_ptr(),
         col_active.data_ptr(), f.data_ptr(), wt.data_ptr(),
         f_new.data_ptr(), row_l1.data_ptr(), nrb, bs, c,
-        stream_handle(dev))
-    check(lib, err, "frontier_round_bsr")
-    LAUNCHES["frontier_round_bsr"] += 1
-    return f_new, row_l1
+        -1 if route is None else _ROUTE_NAMES.index(route),
+        ctypes.byref(taken), stream_handle(dev))
+    check(lib, err, f"frontier_round_bsr (route {route or 'auto'})")
+    return f_new, row_l1, _ROUTE_NAMES[taken.value]
 
 
 def bsr_spmm_kernel(

@@ -10,7 +10,7 @@ it also runs on a machine that has only torch:
 Tolerances: float32 sums taken in another order than the twin's, on
 values of order 1: rtol 1e-5 with atol 1e-6 (1e-5 for the products, whose
 sums run over more terms); relaunches must be bit-identical (no atomics).
-K2's bulk route is held bit-equal to its simt body.
+K1's and K2's bulk routes are held bit-equal to their simt bodies.
 K4 (fm_interaction) is held to 1e-5 of the magnitude of its cancelling
 terms, K5 (segment_sum, contiguous and gather forms) to rtol/atol 1e-5,
 and exactly on integer-valued inputs, whose sums do not depend on the
@@ -76,6 +76,177 @@ def test_frontier_round_kernel_matches_plain(cuda_device, bs, c, tau):
     np.testing.assert_allclose(fo.cpu().numpy(), fc.numpy(), rtol=1e-5,
                                atol=1e-6)
     assert abs(float(ro) - float(rc)) <= 1e-5 * max(float(rc), 1.0)
+
+
+def _k1_operands(monkeypatch, m, f, w, t, tau):
+    """The operands ops.frontier_round_bsr hands K1 for this round."""
+    from repro_torch.kernels.diffusion import ops
+
+    got = []
+    real = ops.frontier_round_bsr_kernel
+
+    def capture(*args, **kw):
+        got.append(args)
+        return real(*args, **kw)
+
+    with monkeypatch.context() as mp:
+        mp.setattr(ops, "frontier_round_bsr_kernel", capture)
+        td.frontier_round_bsr(m, f, w, t, backend="kernel",
+                              occupancy_threshold=tau)
+    return got[0]
+
+
+def _launch_k1_both(ins):
+    """K1's bulk body twice and its simt body, counted nowhere."""
+    before = (dict(LAUNCHES), dict(td.FRONTIER_ROUTES))
+    bulk = td.launch_frontier_round_bsr(*ins, route="bulk")
+    again = td.launch_frontier_round_bsr(*ins, route="bulk")
+    simt = td.launch_frontier_round_bsr(*ins, route="simt")
+    torch.cuda.synchronize()
+    assert (bulk[2], simt[2]) == ("bulk", "simt")
+    assert (dict(LAUNCHES), dict(td.FRONTIER_ROUTES)) == before
+    for a, b in ((bulk, simt), (bulk, again)):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    return bulk[:2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tau", [0.0, 0.5])
+@pytest.mark.parametrize("c", [1, 3, 8])
+@pytest.mark.parametrize("bs", [8, 16, 64, 128])
+def test_frontier_round_bulk_route_gives_the_simt_bits(cuda_device,
+                                                      monkeypatch, bs, c,
+                                                      tau):
+    """K1's two bodies take every sum in the same order: on the operands
+    ops.frontier_round_bsr builds, the bulk body's f_new and row_l1 are
+    bit-equal to the simt body's, relaunch after relaunch, and within
+    rtol 1e-5 / atol 1e-6 of the plain version."""
+    _, m, f, w, t = _round_inputs(700, c, 4, bs, cuda_device)
+    ins = _k1_operands(monkeypatch, m, torch.from_numpy(f).to(cuda_device),
+                       torch.from_numpy(w).to(cuda_device),
+                       torch.tensor(t, device=cuda_device), tau)
+    f_new, row_l1 = _launch_k1_both(ins)
+    plain = td.frontier_round_bsr_plain(*[a.cpu() for a in ins])
+    np.testing.assert_allclose(f_new.cpu().numpy(), plain[0].numpy(),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(row_l1.cpu().numpy(), plain[1].numpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
+def _frontier_case(bs, c, seed, arming, device):
+    """K1's operands over 44 block rows, of which rows 0, 2, 4, 5 and 43
+    own 3, 40 (the bulk ring wraps many times), 2, 1 (its own column, 5)
+    and 4 tiles, the rest none; positive tiles, so the sums do not cancel.
+    ``arming``: ``mixed`` (about half the columns armed, every column of
+    row 4 unarmed), ``none`` (every column unarmed) or ``own`` (only
+    column 5: row 5's own)."""
+    rng = np.random.default_rng(seed)
+    nrb = 44
+    counts = np.zeros(nrb, np.int64)
+    counts[[0, 2, 4, 5, 43]] = [3, 40, 2, 1, 4]
+    cols = [np.sort(rng.choice(nrb, n, replace=False)) for n in counts]
+    cols[5] = np.array([5])
+    row_ptr = np.zeros(nrb + 1, np.int64)
+    np.cumsum(counts, out=row_ptr[1:])
+    block_col = np.concatenate(cols).astype(np.int32)
+    blocks = (rng.random((block_col.size, bs, bs)) / bs).astype(np.float32)
+    f = rng.standard_normal((nrb, bs, c)).astype(np.float32)
+    wt = (2.0 * rng.random((nrb, bs))).astype(np.float32)
+    if arming == "mixed":
+        col_active = (rng.random(nrb) < 0.5).astype(np.int32)
+        col_active[cols[4]] = 0
+    else:
+        col_active = np.zeros(nrb, np.int32)
+        if arming == "own":
+            col_active[5] = 1
+    return [torch.from_numpy(a).to(device)
+            for a in (blocks, block_col, row_ptr, col_active, f, wt)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arming", ["mixed", "none", "own"])
+@pytest.mark.parametrize("c", [1, 8])
+@pytest.mark.parametrize("bs", [8, 128])
+def test_frontier_round_bulk_route_edge_rows(cuda_device, bs, c, arming):
+    """The bulk body on a 40-tile row, interleaved empty rows, a row whose
+    tiles are all unarmed, every column unarmed and only a row's own
+    column armed: the simt body's bits, and every row without an armed
+    tile exactly its kept fluid."""
+    ins = _frontier_case(bs, c, seed=bs + c, arming=arming,
+                         device=cuda_device)
+    f_new, _ = _launch_k1_both(ins)
+    blocks, block_col, row_ptr, col_active, f, wt = [a.cpu() for a in ins]
+    fire = (f.abs() * wt[..., None] > 1.0) & (col_active != 0)[:, None, None]
+    kept = torch.where(fire, torch.zeros_like(f), f)
+    armed = (col_active != 0)[block_col.long()].long()
+    n_armed = torch.zeros(len(f), dtype=torch.long).index_add_(
+        0, td.kernel._rows_of(row_ptr), armed)
+    idle = n_armed == 0
+    assert int(idle.sum()) >= 39  # the rows without tiles, and more
+    assert (not bool(idle[5])) if arming == "own" else bool(idle[4])
+    assert torch.equal(f_new.cpu()[idle], kept[idle])
+    plain = td.frontier_round_bsr_plain(blocks, block_col, row_ptr,
+                                        col_active, f, wt)
+    np.testing.assert_allclose(f_new.cpu().numpy(), plain[0].numpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_frontier_round_unaligned_or_odd_bs_runs_simt(cuda_device):
+    """An f that does not start on 16 bytes, or an odd bs, takes the simt
+    body (the bulk copies need both), which the bulk route refuses."""
+    ins = _frontier_case(128, 1, seed=2, arming="mixed", device=cuda_device)
+    f = ins[4]
+    f_off = torch.empty(f.numel() + 1, device=cuda_device)[1:].view(f.shape)
+    f_off.copy_(f)
+    aligned = td.launch_frontier_round_bsr(*ins)
+    off = td.launch_frontier_round_bsr(*ins[:4], f_off, ins[5])
+    assert (aligned[2], off[2]) == ("bulk", "simt")
+    assert torch.equal(aligned[0], off[0]) and torch.equal(aligned[1], off[1])
+    with pytest.raises(RuntimeError, match="route bulk"):
+        td.launch_frontier_round_bsr(*ins[:4], f_off, ins[5], route="bulk")
+    odd = _frontier_case(7, 2, seed=3, arming="mixed", device=cuda_device)
+    got = td.launch_frontier_round_bsr(*odd)
+    assert got[2] == "simt"
+    with pytest.raises(RuntimeError, match="route bulk"):
+        td.launch_frontier_round_bsr(*odd, route="bulk")
+    plain = td.frontier_round_bsr_plain(*[a.cpu() for a in odd])
+    np.testing.assert_allclose(got[0].cpu().numpy(), plain[0].numpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [7, 128])
+def test_frontier_round_counts_each_launch_under_its_route(cuda_device, bs):
+    """The wrapper runs the route the source picks (simt for an odd bs) and
+    counts each launch once in FRONTIER_ROUTES beside LAUNCHES."""
+    ins = _frontier_case(bs, 1, seed=5, arming="mixed", device=cuda_device)
+    route = td.frontier_round_bsr_route(bs, 1)
+    assert route == ("simt" if bs % 4 else "bulk")
+    before, routes = LAUNCHES["frontier_round_bsr"], dict(td.FRONTIER_ROUTES)
+    td.frontier_round_bsr_kernel(*ins)
+    torch.cuda.synchronize()
+    assert LAUNCHES["frontier_round_bsr"] == before + 1
+    assert td.FRONTIER_ROUTES == {k: v + (k == route)
+                                  for k, v in routes.items()}
+
+
+@pytest.mark.cuda
+def test_frontier_round_route_mirror_matches_the_source(cuda_device):
+    """kernel.frontier_round_bsr_route is csrc/diffusion.cu's rule, shape
+    for shape."""
+    import ctypes
+
+    lib = td.kernel._lib()
+    names = {0: "simt", 1: "bulk", -1: None}
+    for bs in list(range(1, 17)) + [96, 100, 128, 256, 500, 512, 1000, 1024]:
+        for c in (1, 2, 3, 4, 5, 8, 9, 16, 20, 21, 28, 29, 56, 57, 64):
+            for aligned in (True, False):
+                out = ctypes.c_int()
+                lib.frontier_round_bsr_route(bs, c, int(aligned),
+                                             ctypes.byref(out))
+                assert names[out.value] == td.frontier_round_bsr_route(
+                    bs, c, aligned), (bs, c, aligned)
 
 
 @pytest.mark.cuda

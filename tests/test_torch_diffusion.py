@@ -81,6 +81,11 @@ CASES = [
     (150, 1, 1, 1.0),  # empty frontier: f must pass through unchanged
     (300, 3, 7, 0.5),
     (257, 1, 11, 0.9),  # sparse frontier (occupancy skip exercised)
+    # late rounds: 2 of 75 block columns armed at bs=8, with 24 rows whose
+    # tiles are all unarmed (2 of 10 at bs=64, where every block row of
+    # this graph holds a tile in every column)
+    (600, 1, 5, 0.998),
+    (400, 3, 9, 0.995),  # 6 of 50 armed at bs=8, 7 such rows; 3 of 7
 ]
 
 
@@ -222,22 +227,49 @@ def test_bsr_spmm_route_rule(bs, c, aligned, route):
     assert td.bsr_spmm_route(bs, c, aligned) == route
 
 
-def _k2_probe():
+@pytest.mark.parametrize("bs,c,aligned,route", [
+    (128, 1, True, "bulk"),  # the frontier's tiles
+    (128, 8, True, "bulk"),
+    (128, 20, True, "bulk"),  # the widest C whose ring fits at bs = 128
+    (128, 21, True, "simt"),
+    (512, 4, True, "bulk"),
+    (512, 5, True, "simt"),
+    (4, 1, True, "bulk"),  # a slab is the whole tile
+    (1024, 1, True, "bulk"),
+    (1024, 2, True, "simt"),
+    (7, 1, True, "simt"),  # rows of 28 bytes: no 16-byte bulk copy
+    (130, 1, True, "simt"),  # bs % 4 != 0
+    (128, 1, False, "simt"),
+    (1024, 28, True, "simt"),  # the widest C simt takes at bs = 1024
+    (1024, 29, True, None),  # neither body fits
+    (1025, 1, True, None),
+    (8, 0, True, None),
+])
+def test_frontier_round_bsr_route_rule(bs, c, aligned, route):
+    """K1's route and shared-memory rule (mirrored from csrc/diffusion.cu;
+    the card tests hold the mirror to the source): bulk needs bs % 4 == 0,
+    16-byte aligned operands and its ring, an (f, wt) slot a stage and a
+    row slot, the accumulator and the records in 227 KB; simt needs
+    2·bs·C + 8 floats."""
+    assert td.frontier_round_bsr_route(bs, c, aligned) == route
+
+
+def _probe(name):
     import importlib.util
     import pathlib
 
-    path = pathlib.Path(__file__).resolve().parents[1] / "tools/k2_probe.py"
-    spec = importlib.util.spec_from_file_location("k2_probe", path)
+    path = pathlib.Path(__file__).resolve().parents[1] / f"tools/{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
 
 
-@pytest.mark.parametrize("variant", list(_k2_probe().VARIANTS))
+@pytest.mark.parametrize("variant", list(_probe("k2_probe").VARIANTS))
 def test_k2_probe_edits_find_their_text(variant):
     """Every source edit of tools/k2_probe.py finds its text in
     csrc/diffusion.cu, so the probe cannot rot."""
-    probe = _k2_probe()
+    probe = _probe("k2_probe")
     edits, route = probe.VARIANTS[variant]
     assert route in ("bulk", "simt")
     src = probe.edited_source(variant, [])
@@ -246,6 +278,31 @@ def test_k2_probe_edits_find_their_text(variant):
         assert src.count(old) == 1
         assert new in got
     assert (got != src) == bool(edits)
+
+
+@pytest.mark.parametrize("variant", list(_probe("k1_probe").VARIANTS))
+def test_k1_probe_edits_find_their_text(variant):
+    """Every source edit of tools/k1_probe.py finds its text, once, in
+    csrc/diffusion.cu, so the probe cannot rot."""
+    probe = _probe("k1_probe")
+    edits, route = probe.VARIANTS[variant]
+    assert route in ("bulk", "simt")
+    src = probe.edited_source(variant, [])
+    got = probe.edited_source(variant, edits)
+    for old, new in edits:
+        assert src.count(old) == 1
+        assert new in got
+    assert got != src
+
+
+def test_launch_frontier_round_bsr_refuses_the_cpu():
+    """The launch helper runs the CUDA kernel only; the CPU's K1 is the
+    wrapper's plain twin."""
+    with pytest.raises(ValueError, match="on a card"):
+        td.launch_frontier_round_bsr(
+            torch.zeros((1, 8, 8)), torch.zeros(1, dtype=torch.int32),
+            torch.tensor([0, 1]), torch.ones(1, dtype=torch.int32),
+            torch.zeros((1, 8, 1)), torch.ones((1, 8)))
 
 
 def test_launch_bsr_spmm_refuses_the_cpu():

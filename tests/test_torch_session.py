@@ -63,6 +63,33 @@ def test_kernel_semantics_solve_matches_reference_interpret():
                                                 rel=0.01)
 
 
+def test_frontier_round_inputs_are_the_next_rounds_operands():
+    """frontier:pallas's round_inputs, mid-solve: the padded device fluid
+    (the node-space fluid, zero in the padding) and T, and one round of
+    ``frontier_round_bsr`` from them gives the driver's next state."""
+    from repro_torch.kernels.diffusion import frontier_round_bsr
+
+    g = webgraph_like(300, seed=2)
+    session = repro_torch.SolverSession(
+        repro_torch.Problem.pagerank(g), method="frontier:pallas",
+        device="cpu", interpret=True, bs=64, max_rounds=20)
+    session.solve()
+    drv = session._driver
+    f, t = drv.round_inputs()
+    assert drv.rounds() == 20
+    assert f.shape == (drv.m.n_row_blocks * 64,)
+    np.testing.assert_array_equal(f[: g.n].double().numpy(), drv.fluid()[0])
+    assert not f[g.n:].any()
+    assert float(t) == float(drv.threshold())
+    f_next, _, _ = frontier_round_bsr(
+        drv.m, f, drv.w, t, backend=drv.backend,
+        buffer_depth=drv.buffer_depth,
+        occupancy_threshold=drv.occupancy_threshold)
+    drv.advance(0.0, 21)
+    assert drv.rounds() == 21
+    assert torch.equal(drv.round_inputs()[0], f_next)
+
+
 @pytest.mark.parametrize("method", ["frontier:segment_sum",
                                     "frontier:pallas"])
 def test_interop_carries_mid_solve_state(method):
