@@ -153,6 +153,33 @@ Phases, each printed on its own lines (any failure exits non-zero):
    library call timed by CUDA graph replay as well (``graph_ms``,
    ``library_graph_ms``: without the host's cost per call, which is of the
    kernels' order); ``ms`` and ``library_ms`` are eager in every row.
+13. Simulator: the paper's K-PID simulator (``repro_torch.core.
+   DistributedSimulator``) on the card, its push on K7 (sim_messages, the
+   messages; sim_push, their sum), at N, K=8, the batch schedule, target
+   1/N, the K7 counters zeroed just before each run and read just after.
+   Uniform partition, static and dynamic: each must converge, hold the
+   §2.2 invariant with F counting the fluid and every outbox, land within
+   |h - x_segment_sum|_1 <= 1e-5 of phase 4's solution (2·target_error
+   below N = 2e5) and launch each K7 kernel once per push.  A replay of
+   the dynamic run through ``repro_torch.solve(problem, "simulator",
+   ...)``, the device time of K7's sum taken by CUDA events around its
+   launches: equal steps, edge ops, exchanges and move log, and h bit for
+   bit.  Table 2's protocol at scale: the same graph ordered by
+   out-degree, static and dynamic (converged, the invariant; the costs and
+   moves printed).  The paper-exact sequential schedule at the paper's N =
+   1000 (out-degree order, K=16, dynamic): converged, the invariant.  K7
+   against its plain versions on CPU copies, ``torch.equal`` and a
+   bit-identical relaunch: the messages at the static run's largest push
+   and for 600 nodes of the N = 1000 graph (some with no out-edge) and none
+   (no launch); the sum (``index_add_`` on the CPU) at that push and on
+   synthetic pushes with repeated keys, all remote and empty (no launch).
+   Their rows join the kernels line, at the largest push, their launches
+   those of the static and dynamic runs: ``sim_messages`` (no library
+   call computes it) and ``sim_push`` (the wrapper with its sort as
+   ``ms``, the launch alone as ``kernel_ms``, ``index_add_``, which is also
+   its plain version, as the library call); each bound counts each input
+   read once and each output written once, flops over 34 TFLOP/s
+   float64.
 
 The line before the last is the card's name and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -172,6 +199,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+F64_FLOPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores
 BS = 128
 REL_L1 = 1e-5
 # the kernels the frontier solve loop and warm starts launch; K2 (bsr_spmm)
@@ -189,6 +217,8 @@ RECORDED = {"frontier:pallas": (3974, 267820931),
             "engine:bsr cold": (3392, 267629992),
             "engine:bsr forced move": (3520, 270165051),
             "engine:bsr warm": (1888, 107390909)}
+# the simulator's push: its messages, then their sum
+K7 = ("sim_messages", "sim_push")
 # K1's input (b) is the round after this many of the frontier:pallas solve
 LATE_ROUNDS = 3000
 GIN_SHAPE = "ogb_products"
@@ -762,6 +792,328 @@ def lm_serving(args, torch, dev, timer, sync):
     if on_card:
         torch.cuda.empty_cache()
     return rows, f"LM ({cfg.name}): {summary}"
+
+
+def simulator_phase(args, torch, dev, timer, g, problem, x_ref):
+    """Phase 13: the K-PID simulator on the card (K7), its gates and K7's
+    rows for the kernels line.  Returns ``(rows, summary)``."""
+    import repro_torch
+    from repro_torch.core import DistributedSimulator, SimulatorConfig
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.sim_push import (
+        sim_messages, sim_messages_plain, sim_push, sim_push_plain)
+    from repro_torch.kernels.sim_push import kernel as k7
+    from repro_torch.launch.paper_tables import ordered_system
+
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    class TimedSimulator(DistributedSimulator):
+        """The simulator with each whole push (K7's messages, the stable
+        sort, K7's sum and the remote |.| sums: ``_push``) timed on the card
+        by a pair of CUDA events; with ``capture``, the inputs of its
+        largest push are copied, before the first event, for K7's checks."""
+
+        def __init__(self, *a, capture=False, **kw):
+            super().__init__(*a, **kw)
+            self.capture, self.largest, self.events = capture, None, []
+
+        def _push(self, sel, pid, sent, n_e, counts, remote):
+            if self.capture and (self.largest is None
+                                 or n_e > self.largest["n_e"]):
+                self.largest = dict(n_e=n_e, state=self._state.clone(),
+                                    messages=(
+                    sel.clone(), pid.clone(), sent.clone(), self.deg,
+                    self.indptr, self.indices, self.edge_w,
+                    self.owner.clone(), n_e))
+            if not on_card:
+                return super()._push(sel, pid, sent, n_e, counts, remote)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            super()._push(sel, pid, sent, n_e, counts, remote)
+            stop.record()
+            self.events.append((start, stop))
+
+        def push_ms(self):
+            return (sum(a.elapsed_time(z) for a, z in self.events)
+                    if on_card else None)
+
+    def held(what, sim, res, p, b):
+        """Convergence and the §2.2 invariant, F counting f and every
+        outbox."""
+        s_, d_, w_ = p.edge_list()
+        f_all = (sim.f + sim.outbox.sum(0)).cpu().numpy()
+        viol, bound = invariant(np.asarray(b), f_all, sim.h.cpu().numpy(),
+                                s_, d_, w_)
+        print(f"{what}: invariant |B-(I-P)H-F|_1 = {viol:.3e} (bound "
+              f"{bound:.3e})")
+        if not res.converged or viol > bound:
+            fail(f"simulator {what}: converged {res.converged}, invariant "
+                 f"{viol:.3e} > {bound:.3e}")
+
+    def go(what, p, b, cls=DistributedSimulator, sim_kw=None, **kw):
+        """One simulator run, the K7 counters zeroed just before and read
+        just after, gated on each K7 kernel launched once per push."""
+        t0 = time.perf_counter()
+        sim = cls(p, b, SimulatorConfig(**kw), **(sim_kw or {}))
+        sync()
+        setup = time.perf_counter() - t0
+        reset_launches()
+        t0 = time.perf_counter()
+        res = sim.run()
+        sync()
+        wall = time.perf_counter() - t0
+        launches = {k: LAUNCHES[k] for k in K7}
+        print(f"{what}: converged {res.converged} wall {wall:.3f} s (set-up "
+              f"{setup:.3f} s) steps {res.n_steps} n_edge_ops "
+              f"{res.n_edge_ops} exchanges {res.n_exchanges} moves "
+              f"{res.n_moves} cost_iterations {res.cost_iterations:.4f} "
+              f"pushes {res.n_pushes}, K7 launches {json.dumps(launches)}")
+        if on_card and not all(v == res.n_pushes > 0
+                               for v in launches.values()):
+            fail(f"simulator {what}: K7 launched {launches} times for "
+                 f"{res.n_pushes} pushes")
+        return sim, res, wall, launches
+
+    def run(what, p, b, x=None, **kw):
+        """:func:`go`, then convergence, the invariant and, where ``x`` is
+        given, the distance to it."""
+        sim, res, wall, launches = go(what, p, b, **kw)
+        held(what, sim, res, p, b)
+        if x is not None:
+            # 2·target_error below N = 2e5: two converged schedules may
+            # differ by that much
+            tol = max(1e-5, 2 * problem.target_error)
+            dx = float(np.abs(res.h.cpu().numpy() - x).sum())
+            print(f"{what}: |h - x_segment_sum|_1 {dx:.3e} (bound {tol:.1e})")
+            if dx > tol:
+                fail(f"simulator {what}: |h - x_segment_sum|_1 {dx:.3e}")
+        return sim, res, wall, launches
+
+    def same_run(res, steps, ops, exchanges, move_log, h):
+        return (steps == res.n_steps and ops == res.n_edge_ops
+                and exchanges == res.n_exchanges and move_log == res.move_log
+                and torch.equal(h, res.h.cpu()))
+
+    t_phase = time.perf_counter()
+    opts = dict(k=8, target_error=problem.target_error, eps=problem.eps,
+                partition="uniform", mode="batch", record_every=100,
+                device=args.device)
+    p, b = problem.p, problem.b
+    # the main path's runs carry no instrumentation: their walls are clean
+    _, res_s, wall_s, n_s = run("batch K=8 uniform static", p, b, x_ref,
+                                dynamic=False, **opts)
+    _, res_d, wall_d, n_d = run("batch K=8 uniform dynamic", p, b, x_ref,
+                                dynamic=True, **opts)
+    # replay through the front door
+    reset_launches()
+    t0 = time.perf_counter()
+    rep = repro_torch.solve(problem, "simulator", k=8, dynamic=True,
+                            mode="batch", record_every=100,
+                            device=args.device)
+    sync()
+    wall_r = time.perf_counter() - t0
+    n_r = {k: LAUNCHES[k] for k in K7}
+    same = same_run(res_d, rep.n_rounds, rep.n_ops,
+                    rep.extras["n_exchanges"], rep.move_log,
+                    torch.from_numpy(rep.x))
+    print(f"replay (repro_torch.solve, dynamic): wall {wall_r:.3f} s steps "
+          f"{rep.n_rounds} n_edge_ops {rep.n_ops} exchanges "
+          f"{rep.extras['n_exchanges']} moves {len(rep.move_log)}; equal to "
+          f"the dynamic run (steps, ops, exchanges, move log, h bits) {same}")
+    if not same or (on_card and set(n_r.values()) != {res_d.n_pushes}):
+        fail("simulator replay differs from the dynamic run")
+    # K7's device time: both runs again with each push timed by CUDA events
+    # (and the static one keeping its largest push), held to the clean runs
+    push_ms, push_share = {}, {}
+    for what, res, wall, dyn in (("static", res_s, wall_s, False),
+                                 ("dynamic", res_d, wall_d, True)):
+        sim_t, res_t, wall_t, _ = go(
+            f"batch K=8 uniform {what}, each push timed", p, b,
+            cls=TimedSimulator, sim_kw=dict(capture=not dyn), dynamic=dyn,
+            **opts)
+        if not same_run(res, res_t.n_steps, res_t.n_edge_ops,
+                        res_t.n_exchanges, res_t.move_log, res_t.h.cpu()):
+            fail(f"simulator {what}: the timed run differs from the clean one")
+        push_ms[what] = sim_t.push_ms()
+        if push_ms[what] is not None:
+            push_share[what] = push_ms[what] / 1e3 / wall
+            print(f"{what}: the pushes' device time (K7's messages, sort, "
+                  f"sum, remote |.| sums) {push_ms[what]:.3f} ms over "
+                  f"{len(sim_t.events)} pushes, {push_share[what]:.4f} of the "
+                  f"clean run's {wall:.3f} s wall "
+                  f"({push_ms[what] / 1e3 / wall_t:.4f} of the timed run's "
+                  f"{wall_t:.3f} s); equal to the clean run")
+        if not dyn:
+            largest = sim_t.largest
+        del sim_t
+    # Table 2's protocol at scale: the same graph ordered by out-degree
+    t0 = time.perf_counter()
+    g_out = g.reorder(np.argsort(-g.out_degree(), kind="stable"))
+    prob_out = repro_torch.Problem.pagerank(g_out)
+    print(f"out-degree order: host build {time.perf_counter() - t0:.1f} s")
+    costs = {}
+    for dyn in (False, True):
+        _, r, wall, _ = run(
+            f"out-degree order K=8 {'dynamic' if dyn else 'static'}",
+            prob_out.p, prob_out.b, dynamic=dyn, **opts)
+        costs[dyn] = (r.cost_iterations, r.n_moves, wall)
+    # the paper-exact sequential schedule at the paper's N = 1000
+    p1, b1 = ordered_system("out_degree")
+    _, res_q, wall_q, n_q = run(
+        "sequential N=1000 out-degree K=16 uniform dynamic", p1, b1,
+        k=16, target_error=1e-3, eps=0.15, partition="uniform",
+        dynamic=True, mode="sequential", record_every=100,
+        device=args.device)
+
+    # ---- K7 against its plain version (launches here are not the path's) --
+    m_args = largest["messages"]
+    m_cpu = [a.cpu() if torch.is_tensor(a) else a for a in m_args]
+    got_m = [sim_messages(*m_args) for _ in range(2)]
+    want_m = sim_messages_plain(*m_cpu)
+    err_m = float((got_m[0][1].cpu() - want_m[1]).abs().max())
+    ok = all(torch.equal(a.cpu(), w) and torch.equal(a, a2)
+             for a, a2, w in zip(got_m[0], got_m[1], want_m))
+    print(f"K7 messages at the static run's largest push ({m_args[0].numel()}"
+          f" nodes, {m_args[-1]} messages): key, msg and |remote msg| equal "
+          f"to the plain version on the CPU and relaunch bit-identical {ok}")
+    if not ok:
+        fail("K7's messages differ from their plain version")
+    # the paper's N = 1000 graph: nodes with no out-edge among the selected,
+    # every PID's, and an empty selection (no launch)
+    gen = np.random.default_rng(args.seed + 7)
+    csr = [torch.as_tensor(a, device=dev) for a in (
+        np.diff(p1.indptr), p1.indptr, p1.indices.astype(np.int64),
+        p1.weights)]
+    owner_syn = torch.as_tensor(gen.integers(0, 4, p1.n).astype(np.int32),
+                                device=dev)
+    for what, n_sel in (("mixed", 600), ("empty", 0)):
+        sel_syn = torch.as_tensor(gen.choice(p1.n, n_sel, replace=False),
+                                  device=dev)
+        pid_syn = torch.as_tensor(gen.integers(0, 4, n_sel), device=dev)
+        sent_syn = torch.as_tensor(gen.standard_normal(n_sel), device=dev)
+        n_e_syn = int(csr[0][sel_syn].sum())
+        before = LAUNCHES["sim_messages"]
+        args_syn = (sel_syn, pid_syn, sent_syn, *csr, owner_syn, n_e_syn)
+        got_syn = sim_messages(*args_syn)
+        want_syn = sim_messages_plain(*[a.cpu() if torch.is_tensor(a) else a
+                                        for a in args_syn])
+        ok = all(torch.equal(a.cpu(), w) for a, w in zip(got_syn, want_syn))
+        if n_sel == 0:
+            ok = ok and LAUNCHES["sim_messages"] == before
+        dangling = int((csr[0][sel_syn] == 0).sum())
+        print(f"K7 messages, synthetic, {what} ({n_sel} nodes, {dangling} "
+              f"without an out-edge, {n_e_syn} messages): equal to the plain "
+              f"version {ok}")
+        if not ok:
+            fail(f"K7's messages, synthetic ({what})")
+    # K7's sum at the same push: its messages as the run made them
+    state0 = largest["state"]
+    key, msg = got_m[0][0], got_m[0][1]
+    outs = []
+    for _ in range(2):
+        got = state0.clone()
+        sim_push(got, key, msg)
+        outs.append(got)
+    want = state0.cpu()
+    sim_push_plain(want, key.cpu(), msg.cpu())
+    err = float((outs[0].cpu() - want).abs().max())
+    ok = torch.equal(outs[0].cpu(), want) and torch.equal(outs[0], outs[1])
+    n_keys = int(torch.unique(key).numel())
+    n_local = int((key < problem.n).sum())
+    print(f"K7 at the static run's largest push ({key.numel()} messages, "
+          f"{n_local} of them local, {n_keys} distinct targets): equal to "
+          f"its plain version on the CPU and relaunch bit-identical {ok}")
+    if not ok:
+        fail("K7 differs from its plain version at the simulator's push")
+    n_syn = 4096
+    for what, e, lo in (("repeated keys", 200_000, 0),
+                        ("all remote", 20_000, n_syn), ("empty", 0, 0)):
+        k_syn = torch.as_tensor(gen.choice(np.arange(lo, 4 * n_syn), 300)[
+            gen.integers(0, 300, e)].astype(np.int32), device=dev)
+        m_syn = torch.as_tensor(gen.standard_normal(e) * 10.0 ** gen.uniform(
+            -9, 2, e), device=dev)
+        s_syn = torch.as_tensor(gen.standard_normal(4 * n_syn), device=dev)
+        got = s_syn.clone()
+        before = LAUNCHES["sim_push"]
+        sim_push(got, k_syn, m_syn)
+        want_syn = s_syn.cpu()
+        sim_push_plain(want_syn, k_syn.cpu(), m_syn.cpu())
+        ok = torch.equal(got.cpu(), want_syn)
+        if e == 0:
+            ok = ok and LAUNCHES["sim_push"] == before
+        print(f"K7 synthetic push, {what} ({e} messages): equal to its plain "
+              f"version {ok}")
+        if not ok:
+            fail(f"K7 synthetic push ({what})")
+
+    # ---- K7's numbers at the captured push --------------------------------
+    sel_c, _, _, deg_c, indptr_c, indices_c, wgt_c, _, n_e_c = m_args
+    n_sel_c = sel_c.numel()
+    # each node (id, PID, fluid, out-degree, row start) read once, each
+    # message's edge (destination, weight, its owner) read once, each
+    # message (key, value, |remote value|) written once; a multiply each
+    b_ms, b_by = bound_ms(n_sel_c * 40 + n_e_c * 20 + n_e_c * 20, n_e_c,
+                          flops_per_s=F64_FLOPS_PER_S)
+    rows = [{
+        "name": "sim_messages", "route": "cuda",
+        "source": "src/repro_torch/csrc/sim_push.cu",
+        "replaces": "src/repro/core/simulator.py:300",
+        "launches": n_s["sim_messages"] + n_d["sim_messages"],
+        "max_abs_err": err_m,
+        "ms": timer(lambda: sim_messages(*m_args), 50),
+        "plain_ms": timer(lambda: sim_messages_plain(*m_args), 20),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "nodes": n_sel_c, "messages": n_e_c,
+    }]
+    state = state0.clone()
+    ms = timer(lambda: sim_push(state, key, msg), 50)
+    k_sorted, order = torch.sort(key, stable=True)
+    kernel_ms = (timer(lambda: k7._launch_sim_push(k_sorted, order, msg,
+                                                   state), 50)
+                 if on_card else None)
+    # the plain version is index_add_, the library call itself
+    plain_ms = timer(lambda: sim_push_plain(state, key, msg), 50)
+    library_ms = timer(lambda: state.index_add_(0, key, msg), 50)
+    # each message (int32 key, float64 value) read once, each distinct
+    # target read and written once; one float64 add a message
+    b_ms, b_by = bound_ms(
+        key.numel() * (key.element_size() + msg.element_size())
+        + n_keys * 2 * state.element_size(), key.numel(),
+        flops_per_s=F64_FLOPS_PER_S)
+    rows.append({
+        "name": "sim_push", "route": "cuda",
+        "source": "src/repro_torch/csrc/sim_push.cu",
+        "replaces": "src/repro/core/simulator.py:304",
+        "launches": n_s["sim_push"] + n_d["sim_push"],
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+        # the launch alone, on keys sorted beforehand
+        "kernel_ms": kernel_ms,
+        "messages": int(key.numel()), "targets": n_keys,
+        # the whole push (messages, sort, sum, remote |.| sums) summed over
+        # a run, and its share of the clean run's wall
+        "push_device_ms": push_ms, "push_wall_share": push_share,
+    })
+    summary = (
+        f"simulator (N={problem.n}, K=8, batch): static {wall_s:.3f} s "
+        f"{res_s.n_steps} steps cost {res_s.cost_iterations:.4f}, dynamic "
+        f"{wall_d:.3f} s {res_d.n_steps} steps cost "
+        f"{res_d.cost_iterations:.4f} {res_d.n_moves} moves, replay "
+        f"{wall_r:.3f} s; out-degree order static cost {costs[False][0]:.4f}"
+        f" ({costs[False][2]:.3f} s), dynamic {costs[True][0]:.4f} "
+        f"({costs[True][1]} moves, {costs[True][2]:.3f} s); sequential "
+        f"N=1000 K=16 {wall_q:.3f} s cost {res_q.cost_iterations:.4f} "
+        f"({res_q.n_pushes} pushes); the pushes' device share of the wall "
+        f"{json.dumps(push_share)}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return rows, summary
 
 
 def main() -> int:
@@ -1844,8 +2196,16 @@ def main() -> int:
     print(lm_summary)
     show(lm_rows)
     rows += lm_rows
-    print(f"phase 12 wall {time.perf_counter() - t0:.1f} s; total wall "
-          f"{time.perf_counter() - t_start:.1f} s")
+    print(f"phase 12 wall {time.perf_counter() - t0:.1f} s")
+
+    # ---- 13. simulator -----------------------------------------------------
+    print("== phase 13: simulator")
+    sim_rows, sim_summary = simulator_phase(args, torch, dev, timer, g,
+                                            problem, rep_ss.x)
+    print(sim_summary)
+    show(sim_rows)
+    rows += sim_rows
+    print(f"total wall {time.perf_counter() - t_start:.1f} s")
     if not on_card:
         print("rehearsal on the CPU done: no device numbers, no result")
         return 3

@@ -8,11 +8,12 @@ with the cross-backend field semantics (edge-push ``n_ops``,
 The port registers the reference's keys with the reference's
 capabilities: ``sequential`` (numpy), ``frontier:segment_sum`` (per-edge
 rounds over K3), ``frontier:pallas`` (fused BSR rounds over K1, native on
-the card where the reference's is native on the TPU), and the K-PID
+the card where the reference's is native on the TPU), the K-PID
 engine's ``engine:chunk`` (per-edge push over K3) and ``engine:bsr``
-(tile push over K2).  ``simulator`` comes with its slice; no backend
-takes a multi-RHS batch yet: ``solve_batch`` comes with the serving
-slice.
+(tile push over K2), and ``simulator``, the paper's faithful K-PID
+simulator (its push over K7; a fidelity choice, never auto's pick over an
+engine).  No backend takes a multi-RHS batch yet: ``solve_batch`` comes
+with the serving slice.
 """
 from __future__ import annotations
 
@@ -134,3 +135,75 @@ def _solve_engine_chunk(problem, options):
 )
 def _solve_engine_bsr(problem, options):
     return _session_solve(problem, options, "engine:bsr")
+
+
+# --------------------------------------------------------------------------- #
+# simulator — faithful K-PID time-stepped reference (§2.2–2.5)
+# --------------------------------------------------------------------------- #
+@register_backend(
+    "simulator",
+    BackendCapabilities(
+        supports_dynamic_partition=True, configurable_k=True,
+        auto_priority=1,
+    ),
+)
+def _solve_simulator(problem: Problem, options: SolverOptions
+                     ) -> SolveReport:
+    from ..core.simulator import DistributedSimulator, SimulatorConfig
+
+    _reject_batch(problem, "simulator")
+    if problem.weights is not None:
+        raise ValueError(
+            "the simulator selects weights by mode; set "
+            "Problem.weight_mode instead of an explicit weights array"
+        )
+    cfg = SimulatorConfig(
+        k=options.k or 8,
+        target_error=problem.target_error,
+        eps=problem.eps,
+        partition=options.partition,
+        dynamic=options.dynamic,
+        policy=options.policy,
+        signal=options.signal,
+        mode=options.mode,
+        weight_mode=problem.weight_mode,
+        gamma=options.gamma,
+        eta=options.eta,
+        z=options.z,
+        max_steps=options.max_steps,
+        record_every=options.record_every,
+        device=options.device,
+    )
+    t0 = time.perf_counter()
+    res = DistributedSimulator(problem.p, problem.b, cfg).run()
+    records = list(zip(res.hist_steps.tolist(),
+                       res.hist_residual.tolist(),
+                       res.hist_edge_ops.tolist()))
+    trace = [RoundReport(s, r, o) for s, r, o in _downsample(records)]
+    if not trace or trace[-1].n_ops != res.n_edge_ops:
+        trace.append(
+            RoundReport(res.n_steps, res.residual, res.n_edge_ops))
+    return SolveReport(
+        x=res.h.cpu().numpy(),
+        residual=res.residual,
+        n_ops=res.n_edge_ops,
+        cost_iterations=res.n_edge_ops / max(problem.n_edges, 1),
+        n_rounds=res.n_steps,
+        converged=res.converged,
+        method="simulator",
+        trace=trace,
+        move_log=list(res.move_log),
+        wall_time_s=time.perf_counter() - t0,
+        extras={
+            # the simulator's own §2.3/§2.4 wall-clock cost model (charged
+            # ops incl. exchange/reassignment, the paper's steps·PID_Speed/L
+            # table metric):
+            "cost_steps_iterations": res.cost_iterations,
+            "count_active": res.count_active,
+            "count_idle": res.count_idle,
+            "n_exchanges": res.n_exchanges,
+            "n_moves": res.n_moves,
+            "hist_sizes": res.hist_sizes,
+            "hist_rs": res.hist_rs,
+        },
+    )

@@ -1,11 +1,9 @@
 """One ``SolverOptions`` shape for every backend (DESIGN.md §4).
 
 The port's copy of ``repro.api.SolverOptions`` plus ``device``: the
-single validated front-door config.  It carries the fields that the
-backends registered in this port read — the frontier's, the engine's and
-the balance controller's, with the reference's defaults; the
-simulator's (``partition``, ``mode``, ``max_steps``, ``record_every``)
-come with the simulator backend.  Backend adapters translate the
+single validated front-door config, with the reference's fields and
+defaults — the simulator's, the frontier's, the engine's and the balance
+controller's.  Backend adapters translate the
 relevant subset into their native config and *reject* — rather than
 silently ignore — flags the chosen backend cannot honor.
 ``validated(caps)`` is the one choke point: the CLI and
@@ -32,6 +30,8 @@ GAMMA = 1.2  # paper default threshold decay
 
 _POLICIES = ("slope_ema", "cost_refresh", "hysteresis")
 _SIGNALS = ("residual", "edge-ops")
+_PARTITIONS = ("uniform", "cb")
+_MODES = ("sequential", "batch")
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
@@ -73,6 +73,11 @@ class SolverOptions:
     max_rounds: int = 1_000_000  # frontier rounds / sweeps cap
     max_ops: int = 10**9  # sequential-backend op budget
     verbose: bool = False  # engine progress, one line per chunk
+    # ---- simulator --------------------------------------------------------
+    partition: str = "uniform"
+    mode: str = "batch"  # simulator schedule (sequential = paper-exact)
+    max_steps: int = 2_000_000
+    record_every: int = 1
     # ---- frontier (segment_sum / pallas) ----------------------------------
     # kernel-config knobs default to None = "tuned record for this platform
     # if one exists, else the historical default" (bs=128, depth=1, thr=0);
@@ -130,6 +135,15 @@ class SolverOptions:
             raise ValueError(
                 f"unknown signal {opt.signal!r}; expected one of {_SIGNALS}"
             )
+        if opt.partition not in _PARTITIONS:
+            raise ValueError(
+                f"unknown partition {opt.partition!r}; expected one of "
+                f"{_PARTITIONS}"
+            )
+        if opt.mode not in _MODES:
+            raise ValueError(
+                f"unknown mode {opt.mode!r}; expected one of {_MODES}"
+            )
         if (engine_dtype(opt.dtype) != torch.float32
                 and torch.device(opt.device).type == "cuda"):
             raise ValueError(
@@ -159,11 +173,11 @@ class SolverOptions:
             if opt.k is not None and opt.k > 1 and not caps.configurable_k:
                 raise ValueError(
                     f"backend {method!r} is single-process; k={opt.k} "
-                    "cannot be honored (use 'engine:chunk' or 'engine:bsr')"
+                    "cannot be honored (use 'simulator' or 'engine:*')"
                 )
             if opt.dynamic and not caps.supports_dynamic_partition:
                 raise ValueError(
                     f"backend {method!r} has no dynamic partition; drop "
-                    "--dynamic/--policy or pick 'engine:chunk'/'engine:bsr'"
+                    "--dynamic/--policy or pick 'simulator'/'engine:*'"
                 )
         return opt

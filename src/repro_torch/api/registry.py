@@ -15,11 +15,12 @@ keys for the tiers this port has so far:
                           it is CUDA C++ (``csrc/diffusion.cu``).
 ``engine:chunk``          K-PID engine, per-edge push (K3), bucket moves
 ``engine:bsr``            K-PID engine, BSR tile push (K2), bucket moves
+``simulator``             faithful K-PID time-stepped simulator (push K7),
+                          node moves; the paper's Tables 1–3
 ========================  =================================================
 
-``simulator`` comes with a later slice.  The engine runs its K PIDs on
-one device, so unlike the reference auto-dispatch never excludes it
-for lack of devices.  Auto-dispatch reads the platform from ``options.device``
+The engine runs its K PIDs on one device, so unlike the reference
+auto-dispatch never excludes it for lack of devices.  Auto-dispatch reads the platform from ``options.device``
 (``"cuda"`` / ``"cpu"``) where the reference reads
 ``jax.default_backend()``.
 """

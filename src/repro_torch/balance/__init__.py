@@ -1,5 +1,5 @@
 """The rebalancing control plane (DESIGN.md §5), the port's copy of
-``repro.balance`` as far as the engine needs it.
+``repro.balance`` as far as the engine and the simulator need it.
 
 * :class:`~repro_torch.balance.signals.LoadSignal` — the one measurement
   container (per-PID residuals, per-PID edge-op counts, graph churn).
@@ -9,6 +9,8 @@
   :class:`HysteresisPolicy` and :class:`PressurePolicy`.
 * :class:`~repro_torch.balance.plan.MovePlan` — "move ``units`` from
   worker ``src`` to worker ``dst``", granularity-agnostic.
+* :class:`~repro_torch.balance.executors.NodeMoveExecutor` — turns a
+  node MovePlan into a node reassignment of the K-PID simulator.
 * :class:`~repro_torch.balance.executors.BucketMoveExecutor` — turns a
   bucket MovePlan into a row permutation of the K-PID engine.
 """
@@ -22,7 +24,7 @@ from .policies import (
     SlopeEMAPolicy,
     make_rebalancer,
 )
-from .executors import BucketMoveExecutor
+from .executors import BucketMoveExecutor, NodeMoveExecutor
 
 __all__ = [
     "LoadSignal",
@@ -33,5 +35,6 @@ __all__ = [
     "HysteresisPolicy",
     "PressurePolicy",
     "make_rebalancer",
+    "NodeMoveExecutor",
     "BucketMoveExecutor",
 ]

@@ -1,31 +1,85 @@
-"""The paper's dynamic partition controller (§2.5.2), the port's copy of
-the controller half of ``repro.core.partition``.
+"""Partition strategies for the distributed D-iteration (paper §2.5), the
+port's copy of ``repro.core.partition``.
 
-:class:`DynamicController` is a measurement-driven controller that
-equalizes per-PID convergence *slopes* by moving load units from the
-slowest PID to the fastest one, with a cooldown to damp oscillation.  It
-is deliberately ignorant of the graph structure: load balance emerges
-from the *observed* residual decay rates alone.  The
-:mod:`repro_torch.balance` control plane wraps it as ``SlopeEMAPolicy``;
-the engine executes its decisions as bucket moves.
+* :func:`uniform_partition` — Ω_k are contiguous equal-node-count ranges
+  (§2.5.1, "Uniform partition").
+* :func:`cb_partition` — Cost-Balanced: contiguous ranges with
+  (approximately) equal out-degree sums Σ#out = L/K (§2.5.1).
+* :class:`DynamicController` — the paper's contribution (§2.5.2): a
+  measurement-driven controller that equalizes per-PID convergence
+  *slopes* by moving load units from the slowest PID to the fastest one,
+  with a cooldown to damp oscillation.  It is deliberately ignorant of
+  the graph structure: load balance emerges from the *observed* residual
+  decay rates alone.  The :mod:`repro_torch.balance` control plane wraps
+  it as ``SlopeEMAPolicy``; the simulator executes its decisions as node
+  moves (:func:`apply_move`), the engine as bucket moves.
 
-The static partitions (``uniform_partition``, ``cb_partition``) and the
-node-granular ``apply_move`` come with the simulator slice.
+The node sets are int64 torch tensors on the device the caller names
+(the simulator's); the boundaries are computed on the host, as the
+reference computes them.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 __all__ = [
+    "uniform_partition",
+    "cb_partition",
+    "partition_bounds_to_sets",
+    "apply_move",
     "DynamicControllerConfig",
     "DynamicController",
     "MoveInstruction",
     "slope_ema_update",
 ]
+
+
+# ------------------------------------------------------------------------------
+# Static partitions (§2.5.1)
+# ------------------------------------------------------------------------------
+def uniform_partition(n: int, k: int, device="cpu") -> List[torch.Tensor]:
+    """Ω_1 = {0..N/K-1}, Ω_2 = {N/K..2N/K-1}, ... (paper uses 1-based ids)."""
+    bounds = np.linspace(0, n, k + 1).astype(np.int64)
+    return partition_bounds_to_sets(bounds, device)
+
+
+def cb_partition(out_deg: np.ndarray, k: int,
+                 device="cpu") -> List[torch.Tensor]:
+    """Cost-Balanced contiguous partition: Σ_{n∈Ω_k} #out_n ≈ L/K.
+
+    Greedy boundary placement on the cumulative out-degree curve: boundary
+    ω_{k+1} is the first node where the running cost reaches k·L/K.
+    Dangling nodes (deg 0) still cost one op to absorb, so they are counted
+    with weight 1 (cost model §2.3/§2.4).
+    """
+    n = out_deg.shape[0]
+    cost = np.maximum(np.asarray(out_deg).astype(np.float64), 1.0)
+    cum = np.concatenate([[0.0], np.cumsum(cost)])
+    total = cum[-1]
+    bounds = [0]
+    for i in range(1, k):
+        target = total * i / k
+        # first index where cumulative cost >= target, at least 1 past previous
+        b = int(np.searchsorted(cum, target))
+        b = min(max(b, min(bounds[-1] + 1, n)), max(n - (k - i), 0))
+        b = max(b, bounds[-1])  # k > n: allow empty tail sets
+        bounds.append(b)
+    bounds.append(n)
+    return partition_bounds_to_sets(bounds, device)
+
+
+def partition_bounds_to_sets(bounds: Sequence[int],
+                             device="cpu") -> List[torch.Tensor]:
+    return [
+        torch.arange(int(bounds[i]), int(bounds[i + 1]), dtype=torch.int64,
+                     device=device)
+        for i in range(len(bounds) - 1)
+    ]
 
 
 # ------------------------------------------------------------------------------
@@ -127,3 +181,25 @@ class DynamicController:
         """Re-seed a PID's slope after an external event (elastic join/leave)."""
         self.slope[k] = 0.0
         self.cooldown[k] = self.cfg.z
+
+
+def apply_move(
+    sets: List[torch.Tensor], move: MoveInstruction
+) -> Tuple[List[torch.Tensor], int]:
+    """Move the *tail* nodes of Ω_src to Ω_dst (boundary nodes for contiguous
+    partitions — matches the boundary evolution in paper Fig 4/9).
+
+    Returns the new sets and the number of nodes actually moved (≤ n_move,
+    never emptying the source).  Reassignment cost is charged by the caller
+    (§2.4: count_active += nodes modified, to both PIDs).
+    """
+    src_set = sets[move.src]
+    n_move = min(move.n_move, max(src_set.numel() - 1, 0))
+    if n_move == 0:
+        return sets, 0
+    moved, kept = src_set[-n_move:], src_set[:-n_move]
+    new_sets = list(sets)
+    new_sets[move.src] = kept
+    # keep destination sorted so its cyclic sweep order stays deterministic
+    new_sets[move.dst] = torch.sort(torch.cat([sets[move.dst], moved])).values
+    return new_sets, int(n_move)

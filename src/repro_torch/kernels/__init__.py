@@ -17,6 +17,9 @@ built at first use (:mod:`repro_torch.kernels._build`).
 * ``attention`` — K6, flash attention (causal or not, GQA, ``kv_len``
   masking) behind the transformer's prefill and decode
   (``csrc/attention.cu``).
+* ``sim_push``  — K7, the K-PID simulator's float64 push: its messages
+  (``sim_messages``) and their sum into the fluid and the outboxes, in
+  message order per destination (``sim_push``; ``csrc/sim_push.cu``).
 * ``tune``      — the read side of the tuned-config records.
 
 ``LAUNCHES`` counts each kernel's launches; ``reset_launches`` zeroes it.

@@ -42,6 +42,8 @@ LAUNCHES: Dict[str, int] = {
     "segment_sum": 0,
     "segment_sum_carry": 0,
     "flash_attention": 0,
+    "sim_messages": 0,
+    "sim_push": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -6,18 +6,20 @@ The same flags as ``repro.launch.solve``, plus ``--device`` (default
 :mod:`repro_torch.api` front door: a :class:`Problem` +
 :class:`SolverOptions` + a registry ``--method`` key (or ``auto``).
 Flag combinations are validated, never ignored: ``--k`` > 1,
-``--dynamic`` and ``--policy`` need an engine method (``engine:chunk``,
-``engine:bsr``; ``auto`` picks one for them); the engine's own flags
-``--signal``, ``--buckets-per-dev`` and ``--verbose`` at any value but
-their default are rejected unless the run is an engine run; the
-``simulator`` method (``--simulate``) and ``--partition`` wait for the
-simulator slice and are rejected.
+``--dynamic`` and ``--policy`` need the simulator or an engine method
+(``auto`` picks an engine for them); ``--signal`` at any value but its
+default needs one of them too; ``--buckets-per-dev`` and ``--verbose``
+need an engine run; ``--partition`` needs the simulator.  The simulator
+(``--simulate`` or ``-m simulator``) runs its batch schedule and records
+every 100 steps, as the reference's CLI does.
 
   PYTHONPATH=src python -m repro_torch.launch.solve --n 20000
   PYTHONPATH=src python -m repro_torch.launch.solve --method frontier:pallas
   PYTHONPATH=src python -m repro_torch.launch.solve --device cpu
   PYTHONPATH=src python -m repro_torch.launch.solve --device cpu --k 4 \
       --dynamic -m engine:bsr
+  PYTHONPATH=src python -m repro_torch.launch.solve --device cpu \
+      --simulate --k 8 --n 2000 --dynamic --partition cb
   PYTHONPATH=src python -m repro_torch.launch.solve --graph-file web.txt
 
 ``--graph-file`` loads a SNAP-style edge-list text file (``src dst``
@@ -69,10 +71,10 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-# flags only the engine reads, with their defaults: any other value needs
-# an engine run
-_ENGINE_FLAGS = {"signal": "residual", "buckets_per_dev": 8,
-                 "verbose": False}
+# flags only some backends read, with their defaults and what reads them:
+# any other value needs such a run
+_ENGINE_FLAGS = {"buckets_per_dev": 8, "verbose": False}
+_BALANCE_FLAGS = {"signal": "residual"}  # the engine's and the simulator's
 
 
 def main(argv=None):
@@ -83,21 +85,25 @@ def main(argv=None):
                 f"--simulate conflicts with --method {args.method!r}"
             )
         args.method = "simulator"
-    if args.partition != "uniform":
+    simulator_run = args.method == "simulator"
+    if args.partition != "uniform" and not simulator_run:
         raise SystemExit(
-            "inconsistent flags: --partition needs the simulator, which "
-            "this port does not have yet")
+            "inconsistent flags: --partition needs the simulator "
+            "(--simulate | --method simulator)")
     # auto picks an engine whenever k > 1 or the controller is on: only
-    # the engine backends honor them
+    # the engine backends and the simulator honor them
     engine_run = args.method.startswith("engine:") or (
         args.method == "auto"
         and ((args.k or 1) > 1 or args.dynamic or args.policy))
-    for name, default in _ENGINE_FLAGS.items():
-        if getattr(args, name) != default and not engine_run:
-            flag = "--" + name.replace("_", "-")
-            raise SystemExit(
-                f"inconsistent flags: {flag} needs the engine "
-                "(--method engine:chunk | engine:bsr)")
+    for flags, ok, what in (
+            (_ENGINE_FLAGS, engine_run,
+             "the engine (--method engine:chunk | engine:bsr)"),
+            (_BALANCE_FLAGS, engine_run or simulator_run,
+             "the engine or the simulator")):
+        for name, default in flags.items():
+            if getattr(args, name) != default and not ok:
+                flag = "--" + name.replace("_", "-")
+                raise SystemExit(f"inconsistent flags: {flag} needs {what}")
 
     import repro_torch as repro
     from repro_torch.core import power_law_graph, webgraph_like
@@ -118,7 +124,10 @@ def main(argv=None):
         dynamic=args.dynamic,
         policy=args.policy,
         signal=args.signal,
+        partition=args.partition,
         buckets_per_dev=args.buckets_per_dev,
+        mode="batch",
+        record_every=100,
         verbose=args.verbose,
         device=args.device,
     )

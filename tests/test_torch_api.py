@@ -93,22 +93,24 @@ def test_api_surface_and_registry():
     for name in API_SURFACE:
         assert getattr(repro_torch, name) is getattr(repro_torch.api, name)
     caps = repro_torch.list_backends()
-    assert tuple(caps) == tuple(sorted(METHODS + ENGINES))
+    assert tuple(caps) == tuple(sorted(METHODS + ENGINES + ("simulator",)))
     assert caps["frontier:pallas"].device_kinds == ("cuda",)
     assert caps["frontier:pallas"].tune_key == "frontier_round_bsr"
     assert caps["frontier:segment_sum"].supports_warm_start
     assert not caps["sequential"].supports_warm_start
     assert not any(c.supports_batch for c in caps.values())
-    assert [k for k, c in caps.items() if c.configurable_k] == list(ENGINES)
+    assert [k for k, c in caps.items() if c.configurable_k] == list(
+        ENGINES) + ["simulator"]
     ref_caps = repro.list_backends()
     for key, c in caps.items():  # same keys, same roles as the reference
         assert (c.supports_warm_start
                 == ref_caps[key].supports_warm_start)
+    assert repro_torch.get_backend("simulator").name == "simulator"
     with pytest.raises(KeyError):
-        repro_torch.get_backend("simulator")
+        repro_torch.get_backend("engine:nope")
 
 
-@pytest.mark.parametrize("method", ENGINES)
+@pytest.mark.parametrize("method", ENGINES + ("simulator",))
 def test_engine_backends_carry_the_reference_capabilities(method):
     """Everything but the device kinds (cpu/cuda here, cpu/gpu/tpu
     there) is the reference's: auto-dispatch ranks them the same way."""
@@ -167,8 +169,9 @@ def test_cli_runs_on_the_cpu(capsys):
                 "frontier:pallas"])
     assert rep.converged
     assert "[frontier:pallas] converged=True" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="inconsistent flags"):
-        main(["--n", "600", "--device", "cpu", "--simulate"])
+    rep = main(["--n", "600", "--device", "cpu", "--simulate"])
+    assert rep.converged and rep.method == "simulator"
+    assert "[simulator] converged=True" in capsys.readouterr().out
 
 
 def test_cli_runs_the_engine_on_the_cpu(capsys):
@@ -182,8 +185,11 @@ def test_cli_runs_the_engine_on_the_cpu(capsys):
     rep = main(["--n", "600", "--device", "cpu", "--k", "2", "--verbose"])
     assert rep.converged and rep.method == "engine:chunk"  # auto: k > 1
     assert "chunk 1: residual=" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="inconsistent flags"):
-        main(["--n", "600", "--device", "cpu", "-m", "simulator"])
+    rep = main(["--n", "600", "--device", "cpu", "-m", "simulator", "--k",
+                "4", "--dynamic", "--partition", "cb", "--signal",
+                "edge-ops"])
+    assert rep.converged and rep.method == "simulator"
+    assert "[simulator] converged=True" in capsys.readouterr().out
     with pytest.raises(SystemExit, match="--partition needs the simulator"):
         main(["--n", "600", "--device", "cpu", "--k", "4", "-m",
               "engine:bsr", "--partition", "cb"])
@@ -194,9 +200,9 @@ def test_cli_runs_the_engine_on_the_cpu(capsys):
     ["--buckets-per-dev", "4"], ["--verbose"],
 ])
 def test_cli_rejects_engine_flags(flag):
-    """The engine's flags (and the simulator's --partition) stay on the
-    CLI; a frontier run does not read them, so a non-default value is
-    rejected before any solve, never ignored."""
+    """The engine's and the simulator's flags stay on the CLI; a frontier
+    run does not read them, so a non-default value is rejected before any
+    solve, never ignored."""
     from repro_torch.launch.solve import main
 
     with pytest.raises(SystemExit, match=f"{flag[0]} needs the"):
@@ -207,13 +213,14 @@ def test_cli_rejects_engine_flags(flag):
 def test_options_carry_only_fields_a_backend_reads(monkeypatch):
     fields = {f.name for f in dataclasses.fields(repro_torch.SolverOptions)}
     ref = {f.name for f in dataclasses.fields(repro.SolverOptions)}
-    simulator_only = {"partition", "mode", "max_steps", "record_every"}
-    assert fields == (ref - simulator_only) | {"device"}
+    assert fields == ref | {"device"}
     for name in fields & ref:  # the reference's defaults
         assert (getattr(repro_torch.SolverOptions(device="cpu"), name)
                 == getattr(repro.SolverOptions(), name)), name
-    with pytest.raises(TypeError):
-        repro_torch.SolverOptions(device="cpu", partition="cb")
+    with pytest.raises(ValueError, match="unknown partition"):
+        repro_torch.SolverOptions(device="cpu", partition="nope").validated()
+    with pytest.raises(ValueError, match="unknown mode"):
+        repro_torch.SolverOptions(device="cpu", mode="nope").validated()
     with pytest.raises(ValueError, match="unknown signal"):
         repro_torch.SolverOptions(device="cpu", signal="nope").validated()
     with pytest.raises(ValueError, match="unknown engine dtype"):
@@ -232,7 +239,7 @@ def test_cpu_solves_launch_no_kernel():
     problem = repro_torch.Problem.pagerank(g)
     for method in METHODS:
         repro_torch.solve(problem, method=method, device="cpu")
-    for method in ENGINES:
+    for method in ENGINES + ("simulator",):
         repro_torch.solve(problem, method=method, device="cpu", k=2,
                           dynamic=True)
     session = repro_torch.SolverSession(problem, "frontier:pallas",
@@ -241,3 +248,28 @@ def test_cpu_solves_launch_no_kernel():
     session.warm_start(problem.b * 1.01)
     session.solve()
     assert LAUNCHES == before
+
+
+def test_simulator_solve_matches_the_reference():
+    """``solve(problem, "simulator", k=4, dynamic=True)`` on the CPU (K7's
+    plain push) against the reference's: the same schedule, so equal
+    counters and move log, and h within 1e-10."""
+    g = webgraph_like(1024, seed=1)
+    ref = repro.solve(repro.Problem.pagerank(g), "simulator", k=4,
+                      dynamic=True)
+    got = repro_torch.solve(repro_torch.Problem.pagerank(g), "simulator",
+                            k=4, dynamic=True, device="cpu")
+    assert got.converged and ref.converged
+    assert (got.n_ops, got.n_rounds, got.move_log) == (
+        ref.n_ops, ref.n_rounds, ref.move_log)
+    assert got.cost_iterations == ref.cost_iterations
+    assert float(np.abs(got.x - ref.x).sum()) <= 1e-10
+    assert set(got.extras) == set(ref.extras)
+    for key in ("cost_steps_iterations", "n_exchanges", "n_moves"):
+        assert got.extras[key] == ref.extras[key], key
+    for key in ("count_active", "count_idle", "hist_sizes"):
+        np.testing.assert_array_equal(got.extras[key], ref.extras[key])
+    np.testing.assert_allclose(got.extras["hist_rs"], ref.extras["hist_rs"],
+                               rtol=1e-12, atol=1e-18)
+    assert [(r.round, r.n_ops) for r in got.trace] == [
+        (r.round, r.n_ops) for r in ref.trace]

@@ -14,7 +14,10 @@ K1's and K2's bulk routes are held bit-equal to their simt bodies.
 K4 (fm_interaction) is held to 1e-5 of the magnitude of its cancelling
 terms, K5 (segment_sum, contiguous and gather forms) to rtol/atol 1e-5,
 and exactly on integer-valued inputs, whose sums do not depend on the
-order.
+order.  K7 (sim_messages and sim_push, float64) is held bit-equal to
+its plain versions, the sum adding in message order as the reference's
+np.add.at does; the simulator on the card to its CPU run within
+|Δh|_1 <= 1e-10.
 """
 import numpy as np
 import pytest
@@ -1041,3 +1044,125 @@ def test_lm_serving_on_the_card_matches_the_cpu(cuda_device, n_kv_heads):
     assert LAUNCHES["flash_attention"] == before + cfg.n_layers * 5
     np.testing.assert_allclose(c_card["k"].cpu().numpy(),
                                c_cpu["k"].numpy(), **tol)
+
+
+def _push_inputs(n, e, n_dst, case, seed, device):
+    """A K7 push into a state buffer of 4·n entries (the fluid of n nodes
+    and three PIDs' outboxes): ``e`` messages over ``n_dst`` keys (none in
+    the fluid for ``all_remote``), float64 values spread over eleven
+    decades."""
+    rng = np.random.default_rng(seed)
+    lo = n if case == "all_remote" else 0
+    key = rng.choice(np.arange(lo, 4 * n), n_dst, replace=False)[
+        rng.integers(0, n_dst, e)].astype(np.int32)
+    msg = rng.standard_normal(e) * 10.0 ** rng.uniform(-9, 2, e)
+    state = rng.standard_normal(4 * n)
+    return [torch.as_tensor(a, device=device) for a in (state, key, msg)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,e,n_dst,case", [
+    (1, 1, 1, "mixed"), (64, 31, 7, "mixed"), (4096, 1000, 1000, "mixed"),
+    (4096, 300_000, 300, "mixed"), (100_000, 262_144, 50_000, "mixed"),
+    (4096, 20_000, 100, "all_remote"), (4096, 0, 1, "empty"),
+])
+def test_sim_push_kernel_matches_plain(cuda_device, n, e, n_dst, case):
+    """K7 gives its plain version's bits (index_add_ on the CPU, which adds
+    in message order, as np.add.at does), relaunched bit-identically; an
+    empty push launches nothing."""
+    from repro_torch.kernels.sim_push import sim_push, sim_push_plain
+
+    state, key, msg = _push_inputs(n, e, n_dst, case, n + e, cuda_device)
+    outs = []
+    for _ in range(2):
+        got = state.clone()
+        before = LAUNCHES["sim_push"]
+        sim_push(got, key, msg)
+        assert LAUNCHES["sim_push"] == before + (e > 0)
+        outs.append(got)
+    torch.cuda.synchronize()
+    want = state.cpu()
+    sim_push_plain(want, key.cpu(), msg.cpu())
+    for got in outs:
+        assert torch.equal(got.cpu(), want)
+    if case == "all_remote":  # the fluid (the first n entries) untouched
+        assert torch.equal(outs[0][:n], state[:n])
+    if case == "empty":
+        assert torch.equal(want, state.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_sel,k", [(1, 1), (0, 4), (37, 2), (600, 4),
+                                     (1000, 8)])
+def test_sim_messages_kernel_matches_plain(cuda_device, n_sel, k):
+    """K7's messages (keys, values, |remote values|) are their plain
+    version's, bit for bit, with nodes that have no out-edge among the
+    selected; an empty selection launches nothing."""
+    from repro_torch.kernels.sim_push import sim_messages, sim_messages_plain
+
+    rng = np.random.default_rng(n_sel + k)
+    p, _ = pagerank_system(power_law_graph(1000, seed=5))
+    args = [torch.as_tensor(rng.choice(p.n, n_sel, replace=False)),
+            torch.as_tensor(rng.integers(0, k, n_sel)),
+            torch.as_tensor(rng.standard_normal(n_sel)),
+            torch.as_tensor(np.diff(p.indptr)), torch.as_tensor(p.indptr),
+            torch.as_tensor(p.indices.astype(np.int64)),
+            torch.as_tensor(p.weights),
+            torch.as_tensor(rng.integers(0, k, p.n).astype(np.int32))]
+    n_e = int(args[3][args[0]].sum())
+    want = sim_messages_plain(*args, n_e)
+    before = LAUNCHES["sim_messages"]
+    card = [a.to(cuda_device) for a in args]
+    got = [sim_messages(*card, n_e) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert LAUNCHES["sim_messages"] == before + 2 * (n_e > 0)
+    for a, b, w in zip(got[0], got[1], want):
+        assert torch.equal(a.cpu(), w) and torch.equal(a, b)
+
+
+def _sim_problem(mode):
+    from repro_torch import Problem
+    from repro_torch.core import host_block_graph
+
+    g = (host_block_graph(4096, seed=0) if mode == "batch"
+         else power_law_graph(300, seed=3))
+    return Problem.pagerank(g)
+
+
+def _sim_run(problem, mode, device):
+    from repro_torch.core import DistributedSimulator, SimulatorConfig
+
+    cfg = SimulatorConfig(k=8, target_error=problem.target_error,
+                          eps=problem.eps, mode=mode, dynamic=True,
+                          record_every=10, device=str(device))
+    before = (LAUNCHES["sim_messages"], LAUNCHES["sim_push"])
+    res = DistributedSimulator(problem.p, problem.b, cfg).run()
+    return res, (LAUNCHES["sim_messages"] - before[0],
+                 LAUNCHES["sim_push"] - before[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["batch", "sequential"])
+def test_simulator_on_the_card_matches_the_cpu(cuda_device, mode):
+    """The simulator on the card (each push on K7's two kernels, once
+    each) against its run on the CPU (the plain versions): converged,
+    |Δh|_1 <= 1e-10."""
+    problem = _sim_problem(mode)
+    card, launches = _sim_run(problem, mode, cuda_device)
+    cpu, cpu_launches = _sim_run(problem, mode, "cpu")
+    assert card.converged and cpu.converged
+    assert launches == (card.n_pushes, card.n_pushes)
+    assert card.n_pushes > 0 and cpu_launches == (0, 0)
+    assert float((card.h.cpu() - cpu.h).abs().sum()) <= 1e-10
+
+
+@pytest.mark.cuda
+def test_simulator_replays_on_the_card(cuda_device):
+    """Two card runs of the batch simulator: the same bits and counters."""
+    problem = _sim_problem("batch")
+    a, _ = _sim_run(problem, "batch", cuda_device)
+    b, _ = _sim_run(problem, "batch", cuda_device)
+    assert torch.equal(a.h, b.h)
+    assert (a.n_steps, a.n_edge_ops, a.n_exchanges, a.move_log) == (
+        b.n_steps, b.n_edge_ops, b.n_exchanges, b.move_log)
+    assert np.array_equal(a.count_active, b.count_active)

@@ -37,9 +37,10 @@ def test_no_jax_or_reference_import(path):
 
 
 def test_import_and_solve_with_jax_and_reference_blocked():
-    """Solves, an FM forward, a GIN forward and an LM prefill + decode
-    step on the CPU, with jax and the reference unimportable, load no
-    kernel library."""
+    """Solves (the simulator's too), the paper-tables and policy-ablation
+    modules, an FM forward, a GIN forward and an LM prefill + decode step
+    on the CPU, with jax and the reference unimportable, load no kernel
+    library."""
     code = """
 import sys
 sys.modules["jax"] = None
@@ -54,9 +55,19 @@ p = repro_torch.Problem.pagerank(webgraph_like(300, seed=1))
 for m in ("sequential", "frontier:segment_sum", "frontier:pallas"):
     rep = repro_torch.solve(p, method=m, device="cpu")
     assert rep.converged, m
-for m in ("engine:chunk", "engine:bsr"):
+for m in ("engine:chunk", "engine:bsr", "simulator"):
     rep = repro_torch.solve(p, method=m, device="cpu", k=2, dynamic=True)
     assert rep.converged, m
+import tempfile
+from repro_torch.launch import paper_tables, policy_ablation
+
+table = paper_tables.run_table("out_degree", n=200, ks=(2,), device="cpu",
+                               verbose=False)
+with tempfile.TemporaryDirectory() as out:
+    paper_tables.write_csv(table, out + "/table2.csv")
+ablation = policy_ablation.run_ablation("random", n=200, ks=(2,),
+                                        device="cpu", verbose=False)
+assert len(table) == 4 and len(ablation) == 4
 from repro_torch.core import power_law_graph
 from repro_torch.data import criteo_like_batch, make_gnn_batch
 from repro_torch.models import gnn, recsys
