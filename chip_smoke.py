@@ -162,24 +162,31 @@ Phases, each printed on its own lines (any failure exits non-zero):
    |h - x_segment_sum|_1 <= 1e-5 of phase 4's solution (2·target_error
    below N = 2e5) and launch each K7 kernel once per push.  A replay of
    the dynamic run through ``repro_torch.solve(problem, "simulator",
-   ...)``, the device time of K7's sum taken by CUDA events around its
-   launches: equal steps, edge ops, exchanges and move log, and h bit for
-   bit.  Table 2's protocol at scale: the same graph ordered by
+   ...)``: equal steps, edge ops, exchanges and move log, and h bit for
+   bit.  Both runs again with every whole push timed by CUDA events (its
+   stream time), held equal to the clean runs; the static one keeps its
+   largest push, the dynamic one the push nearest the static run's median
+   by messages, and the dynamic one replays both pushes whole to count
+   their device kernels and copies (torch.profiler) and time them back to
+   back.  Table 2's protocol at scale: the same graph ordered by
    out-degree, static and dynamic (converged, the invariant; the costs and
    moves printed).  The paper-exact sequential schedule at the paper's N =
-   1000 (out-degree order, K=16, dynamic): converged, the invariant.  K7
+   1000 (out-degree order, K=16, dynamic): converged, the invariant.  Every
+   run's (steps, edge ops, exchanges, pushes, moves) must equal
+   ``SIM_RECORDED`` (the N = 2**21 runs at the default N and seed).  K7
    against its plain versions on CPU copies, ``torch.equal`` and a
-   bit-identical relaunch: the messages at the static run's largest push
-   and for 600 nodes of the N = 1000 graph (some with no out-edge) and none
-   (no launch); the sum (``index_add_`` on the CPU) at that push and on
-   synthetic pushes with repeated keys, all remote and empty (no launch).
+   bit-identical relaunch, at the largest and the median push (each one's
+   longest bucket printed) and on synthetic pushes: the messages for 600
+   nodes of the N = 1000 graph (some with no out-edge) and none (no
+   launch); the sum with repeated keys, all remote and empty (no launch).
    Their rows join the kernels line, at the largest push, their launches
-   those of the static and dynamic runs: ``sim_messages`` (no library
-   call computes it) and ``sim_push`` (the wrapper with its sort as
-   ``ms``, the launch alone as ``kernel_ms``, ``index_add_``, which is also
-   its plain version, as the library call); each bound counts each input
-   read once and each output written once, flops over 34 TFLOP/s
-   float64.
+   those of the static and dynamic runs, with the median push's numbers
+   beside (``median_ms``, ...): ``sim_messages`` (no library call computes
+   it) and ``sim_push`` (the whole wrapper as ``ms``, ``index_add_``,
+   which is also its plain version, as the library call, the longest
+   bucket, a whole push's device kernels and copies and stream time);
+   each bound counts each input read once and each output written once,
+   flops over 34 TFLOP/s float64.
 
 The line before the last is the card's name and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -219,6 +226,17 @@ RECORDED = {"frontier:pallas": (3974, 267820931),
             "engine:bsr warm": (1888, 107390909)}
 # the simulator's push: its messages, then their sum
 K7 = ("sim_messages", "sim_push")
+# (steps, edge ops, exchanges, pushes, moves) of phase 13's runs as every
+# earlier run of this script on the card gave them (the N = 2**21 ones at
+# the default N and seed): K7 keeps np.add.at's order, so they may not move
+SIM_RECORDED = {
+    "batch K=8 uniform static": (129, 270550648, 17, 6102, 0),
+    "batch K=8 uniform dynamic": (129, 270550648, 17, 6102, 0),
+    "out-degree order K=8 static": (373, 344636619, 1380, 26675, 0),
+    "out-degree order K=8 dynamic": (216, 291079727, 684, 24411, 49),
+    "sequential N=1000 out-degree K=16 uniform dynamic": (79, 39324, 444,
+                                                          5976, 48),
+}
 # K1's input (b) is the round after this many of the frontier:pallas solve
 LATE_ROUNDS = 3000
 GIN_SHAPE = "ogb_products"
@@ -802,7 +820,6 @@ def simulator_phase(args, torch, dev, timer, g, problem, x_ref):
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels.sim_push import (
         sim_messages, sim_messages_plain, sim_push, sim_push_plain)
-    from repro_torch.kernels.sim_push import kernel as k7
     from repro_torch.launch.paper_tables import ordered_system
 
     on_card = dev.type == "cuda"
@@ -812,23 +829,34 @@ def simulator_phase(args, torch, dev, timer, g, problem, x_ref):
             torch.cuda.synchronize()
 
     class TimedSimulator(DistributedSimulator):
-        """The simulator with each whole push (K7's messages, the stable
-        sort, K7's sum and the remote |.| sums: ``_push``) timed on the card
-        by a pair of CUDA events; with ``capture``, the inputs of its
-        largest push are copied, before the first event, for K7's checks."""
+        """The simulator with each whole push (K7's messages, K7's sum and
+        the remote |.| sums: ``_push``) timed on the card by a pair of CUDA
+        events and its messages counted (``sizes``); the inputs of its
+        largest push (``capture="largest"``), or of the first push nearest
+        ``capture`` messages (an int), are copied, before the first event,
+        for K7's checks."""
 
-        def __init__(self, *a, capture=False, **kw):
+        def __init__(self, *a, capture=None, **kw):
             super().__init__(*a, **kw)
-            self.capture, self.largest, self.events = capture, None, []
+            self.capture, self.kept, self.events = capture, None, []
+            self.sizes = []
 
         def _push(self, sel, pid, sent, n_e, counts, remote):
-            if self.capture and (self.largest is None
-                                 or n_e > self.largest["n_e"]):
-                self.largest = dict(n_e=n_e, state=self._state.clone(),
-                                    messages=(
+            self.sizes.append(n_e)
+            if self.capture == "largest":
+                better = self.kept is None or n_e > self.kept["n_e"]
+            else:
+                better = self.kept is None or (abs(n_e - self.capture)
+                                               < abs(self.kept["n_e"]
+                                                     - self.capture))
+            if better:
+                self.kept = dict(n_e=n_e, state=self._state.clone(),
+                                 messages=(
                     sel.clone(), pid.clone(), sent.clone(), self.deg,
                     self.indptr, self.indices, self.edge_w,
-                    self.owner.clone(), n_e))
+                    self.owner.clone(), n_e),
+                    push=(sel.clone(), pid.clone(), sent.clone(), n_e,
+                          list(counts), list(remote)))
             if not on_card:
                 return super()._push(sel, pid, sent, n_e, counts, remote)
             start = torch.cuda.Event(enable_timing=True)
@@ -857,7 +885,8 @@ def simulator_phase(args, torch, dev, timer, g, problem, x_ref):
 
     def go(what, p, b, cls=DistributedSimulator, sim_kw=None, **kw):
         """One simulator run, the K7 counters zeroed just before and read
-        just after, gated on each K7 kernel launched once per push."""
+        just after, gated on each K7 kernel launched once per push and on
+        the recorded counters (``SIM_RECORDED``)."""
         t0 = time.perf_counter()
         sim = cls(p, b, SimulatorConfig(**kw), **(sim_kw or {}))
         sync()
@@ -877,6 +906,15 @@ def simulator_phase(args, torch, dev, timer, g, problem, x_ref):
                                for v in launches.values()):
             fail(f"simulator {what}: K7 launched {launches} times for "
                  f"{res.n_pushes} pushes")
+        want = SIM_RECORDED.get(what)
+        if want is not None and (what.startswith("sequential") or (
+                problem.n == 2**21 and args.seed == 0)):
+            got = (res.n_steps, res.n_edge_ops, res.n_exchanges,
+                   res.n_pushes, res.n_moves)
+            print(f"{what}: (steps, edge ops, exchanges, pushes, moves) "
+                  f"{got}, recorded {want}")
+            if got != want:
+                fail(f"simulator {what} moved from its recorded counters")
         return sim, res, wall, launches
 
     def run(what, p, b, x=None, **kw):
@@ -927,29 +965,66 @@ def simulator_phase(args, torch, dev, timer, g, problem, x_ref):
           f"the dynamic run (steps, ops, exchanges, move log, h bits) {same}")
     if not same or (on_card and set(n_r.values()) != {res_d.n_pushes}):
         fail("simulator replay differs from the dynamic run")
+    def whole_push(sim, push, reps=10):
+        """A whole push (``_push``: K7's messages, K7's sum, the remote |.|
+        sums) replayed ``reps`` times on ``sim``: its device kernels and
+        copies a push (torch.profiler) and its stream time a push, back to
+        back (CUDA events); ``(None, None)`` off the card."""
+        if not on_card:
+            return None, None
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        def one():
+            DistributedSimulator._push(sim, *push)
+
+        one()
+        sync()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                one()
+            sync()
+        n = sum(e.count for e in prof.key_averages()
+                if getattr(e, "device_type", None) == DeviceType.CUDA)
+        return n / reps, timer(one, reps)
+
     # K7's device time: both runs again with each push timed by CUDA events
-    # (and the static one keeping its largest push), held to the clean runs
-    push_ms, push_share = {}, {}
+    # (the static one keeping its largest push, the dynamic one the push
+    # nearest the static run's median by messages), held to the clean runs
+    push_ms, push_share, kept, whole = {}, {}, {}, {}
+    median_n_e = None
     for what, res, wall, dyn in (("static", res_s, wall_s, False),
                                  ("dynamic", res_d, wall_d, True)):
         sim_t, res_t, wall_t, _ = go(
             f"batch K=8 uniform {what}, each push timed", p, b,
-            cls=TimedSimulator, sim_kw=dict(capture=not dyn), dynamic=dyn,
-            **opts)
+            cls=TimedSimulator,
+            sim_kw=dict(capture=median_n_e if dyn else "largest"),
+            dynamic=dyn, **opts)
         if not same_run(res, res_t.n_steps, res_t.n_edge_ops,
                         res_t.n_exchanges, res_t.move_log, res_t.h.cpu()):
             fail(f"simulator {what}: the timed run differs from the clean one")
         push_ms[what] = sim_t.push_ms()
         if push_ms[what] is not None:
             push_share[what] = push_ms[what] / 1e3 / wall
-            print(f"{what}: the pushes' device time (K7's messages, sort, "
-                  f"sum, remote |.| sums) {push_ms[what]:.3f} ms over "
-                  f"{len(sim_t.events)} pushes, {push_share[what]:.4f} of the "
-                  f"clean run's {wall:.3f} s wall "
-                  f"({push_ms[what] / 1e3 / wall_t:.4f} of the timed run's "
-                  f"{wall_t:.3f} s); equal to the clean run")
+            print(f"{what}: the pushes' stream time (K7's messages, sum, "
+                  f"remote |.| sums; the host's gaps inside a push included) "
+                  f"{push_ms[what]:.3f} ms over {len(sim_t.events)} pushes, "
+                  f"{push_ms[what] / len(sim_t.events):.4f} ms a push, "
+                  f"{push_share[what]:.4f} of the clean run's {wall:.3f} s "
+                  f"wall ({push_ms[what] / 1e3 / wall_t:.4f} of the timed "
+                  f"run's {wall_t:.3f} s); equal to the clean run")
         if not dyn:
-            largest = sim_t.largest
+            kept["largest"] = sim_t.kept
+            median_n_e = sorted(sim_t.sizes)[len(sim_t.sizes) // 2]
+            print(f"static: pushes by messages: median {median_n_e}, largest "
+                  f"{max(sim_t.sizes)}, smallest {min(sim_t.sizes)}")
+        else:
+            kept["median"] = sim_t.kept
+            for at in ("largest", "median"):
+                whole[at] = whole_push(sim_t, kept[at]["push"])
+                print(f"a whole push at the {at} push ({kept[at]['n_e']} "
+                      f"messages): {whole[at][0]} device kernels and copies, "
+                      f"{whole[at][1]} ms of stream time back to back")
         del sim_t
     # Table 2's protocol at scale: the same graph ordered by out-degree
     t0 = time.perf_counter()
@@ -971,18 +1046,44 @@ def simulator_phase(args, torch, dev, timer, g, problem, x_ref):
         device=args.device)
 
     # ---- K7 against its plain version (launches here are not the path's) --
-    m_args = largest["messages"]
-    m_cpu = [a.cpu() if torch.is_tensor(a) else a for a in m_args]
-    got_m = [sim_messages(*m_args) for _ in range(2)]
-    want_m = sim_messages_plain(*m_cpu)
-    err_m = float((got_m[0][1].cpu() - want_m[1]).abs().max())
-    ok = all(torch.equal(a.cpu(), w) and torch.equal(a, a2)
-             for a, a2, w in zip(got_m[0], got_m[1], want_m))
-    print(f"K7 messages at the static run's largest push ({m_args[0].numel()}"
-          f" nodes, {m_args[-1]} messages): key, msg and |remote msg| equal "
-          f"to the plain version on the CPU and relaunch bit-identical {ok}")
-    if not ok:
-        fail("K7's messages differ from their plain version")
+    def k7_at(at):
+        """K7 at the static run's largest or the dynamic run's median push,
+        as the runs made them: each kernel held to its plain version on CPU
+        copies, ``torch.equal``, and relaunched bit-identically; the push's
+        nodes, messages, distinct targets and longest bucket."""
+        c = kept[at]
+        m_args = c["messages"]
+        m_cpu = [a.cpu() if torch.is_tensor(a) else a for a in m_args]
+        got_m = [sim_messages(*m_args) for _ in range(2)]
+        want_m = sim_messages_plain(*m_cpu)
+        ok_m = all(torch.equal(a.cpu(), w) and torch.equal(a, a2)
+                   for a, a2, w in zip(got_m[0], got_m[1], want_m))
+        key, msg = got_m[0][0], got_m[0][1]
+        outs = []
+        for _ in range(2):
+            got = c["state"].clone()
+            sim_push(got, key, msg)
+            outs.append(got)
+        want = c["state"].cpu()
+        sim_push_plain(want, key.cpu(), msg.cpu())
+        ok = torch.equal(outs[0].cpu(), want) and torch.equal(outs[0], outs[1])
+        targets, counts = torch.unique(key, return_counts=True)
+        out = dict(m_args=m_args, key=key, msg=msg, state=c["state"],
+                   err_m=float((got_m[0][1].cpu() - want_m[1]).abs().max()),
+                   err=float((outs[0].cpu() - want).abs().max()),
+                   nodes=m_args[0].numel(), messages=m_args[-1],
+                   targets=int(targets.numel()), longest=int(counts.max()))
+        print(f"K7 at the {at} push ({out['nodes']} nodes, {out['messages']} "
+              f"messages, {int((key < problem.n).sum())} of them local, "
+              f"{out['targets']} distinct targets, the longest bucket "
+              f"{out['longest']}): messages (key, msg, |remote msg|) equal to "
+              f"the plain version on the CPU and relaunch bit-identical "
+              f"{ok_m}; the sum likewise {ok}")
+        if not (ok_m and ok):
+            fail(f"K7 differs from its plain version at the {at} push")
+        return out
+
+    at = {w: k7_at(w) for w in ("largest", "median")}
     # the paper's N = 1000 graph: nodes with no out-edge among the selected,
     # every PID's, and an empty selection (no launch)
     gen = np.random.default_rng(args.seed + 7)
@@ -1011,25 +1112,6 @@ def simulator_phase(args, torch, dev, timer, g, problem, x_ref):
               f"version {ok}")
         if not ok:
             fail(f"K7's messages, synthetic ({what})")
-    # K7's sum at the same push: its messages as the run made them
-    state0 = largest["state"]
-    key, msg = got_m[0][0], got_m[0][1]
-    outs = []
-    for _ in range(2):
-        got = state0.clone()
-        sim_push(got, key, msg)
-        outs.append(got)
-    want = state0.cpu()
-    sim_push_plain(want, key.cpu(), msg.cpu())
-    err = float((outs[0].cpu() - want).abs().max())
-    ok = torch.equal(outs[0].cpu(), want) and torch.equal(outs[0], outs[1])
-    n_keys = int(torch.unique(key).numel())
-    n_local = int((key < problem.n).sum())
-    print(f"K7 at the static run's largest push ({key.numel()} messages, "
-          f"{n_local} of them local, {n_keys} distinct targets): equal to "
-          f"its plain version on the CPU and relaunch bit-identical {ok}")
-    if not ok:
-        fail("K7 differs from its plain version at the simulator's push")
     n_syn = 4096
     for what, e, lo in (("repeated keys", 200_000, 0),
                         ("all remote", 20_000, n_syn), ("empty", 0, 0)):
@@ -1051,56 +1133,82 @@ def simulator_phase(args, torch, dev, timer, g, problem, x_ref):
         if not ok:
             fail(f"K7 synthetic push ({what})")
 
-    # ---- K7's numbers at the captured push --------------------------------
-    sel_c, _, _, deg_c, indptr_c, indices_c, wgt_c, _, n_e_c = m_args
-    n_sel_c = sel_c.numel()
-    # each node (id, PID, fluid, out-degree, row start) read once, each
-    # message's edge (destination, weight, its owner) read once, each
-    # message (key, value, |remote value|) written once; a multiply each
-    b_ms, b_by = bound_ms(n_sel_c * 40 + n_e_c * 20 + n_e_c * 20, n_e_c,
-                          flops_per_s=F64_FLOPS_PER_S)
+    # ---- K7's numbers at the captured pushes -------------------------------
+    def numbers(c):
+        """Both kernels at one push: ms (the whole wrapper, 50-call means),
+        the plain versions' ms and the bounds; ``index_add_``, which is also
+        sim_push's plain version, as its library call."""
+        n_sel, n_e = c["nodes"], c["messages"]
+        # each node (id, PID, fluid, out-degree, row start) read once, each
+        # message's edge (destination, weight, its owner) read once, each
+        # message (key, value, |remote value|) written once; a multiply each
+        m_bound = bound_ms(n_sel * 40 + n_e * 20 + n_e * 20, n_e,
+                           flops_per_s=F64_FLOPS_PER_S)
+        state, key, msg = c["state"].clone(), c["key"], c["msg"]
+        # each message (int32 key, float64 value) read once, each distinct
+        # target read and written once; one float64 add a message
+        p_bound = bound_ms(
+            key.numel() * (key.element_size() + msg.element_size())
+            + c["targets"] * 2 * state.element_size(), key.numel(),
+            flops_per_s=F64_FLOPS_PER_S)
+        return (dict(ms=timer(lambda: sim_messages(*c["m_args"]), 50),
+                     plain_ms=timer(lambda: sim_messages_plain(*c["m_args"]),
+                                    20),
+                     bound=m_bound),
+                dict(ms=timer(lambda: sim_push(state, key, msg), 50),
+                     plain_ms=timer(lambda: sim_push_plain(state, key, msg),
+                                    50),
+                     library_ms=timer(lambda: state.index_add_(0, key, msg),
+                                      50),
+                     bound=p_bound))
+
+    (m_l, p_l), (m_m, p_m) = numbers(at["largest"]), numbers(at["median"])
+    big, mid = at["largest"], at["median"]
+    print(f"K7 at the median push ({mid['messages']} messages): sim_messages "
+          f"{m_m['ms']:.4f} ms (bound {m_m['bound'][0]:.4f}, plain "
+          f"{m_m['plain_ms']:.4f}), sim_push {p_m['ms']:.4f} ms (bound "
+          f"{p_m['bound'][0]:.4f}, index_add_ {p_m['library_ms']:.4f}); a "
+          f"whole push: {whole['largest'][0]} / {whole['median'][0]} device "
+          f"kernels and copies, {whole['largest'][1]} / {whole['median'][1]} "
+          "ms of stream time back to back (largest / median)")
     rows = [{
         "name": "sim_messages", "route": "cuda",
         "source": "src/repro_torch/csrc/sim_push.cu",
         "replaces": "src/repro/core/simulator.py:300",
         "launches": n_s["sim_messages"] + n_d["sim_messages"],
-        "max_abs_err": err_m,
-        "ms": timer(lambda: sim_messages(*m_args), 50),
-        "plain_ms": timer(lambda: sim_messages_plain(*m_args), 20),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "nodes": n_sel_c, "messages": n_e_c,
-    }]
-    state = state0.clone()
-    ms = timer(lambda: sim_push(state, key, msg), 50)
-    k_sorted, order = torch.sort(key, stable=True)
-    kernel_ms = (timer(lambda: k7._launch_sim_push(k_sorted, order, msg,
-                                                   state), 50)
-                 if on_card else None)
-    # the plain version is index_add_, the library call itself
-    plain_ms = timer(lambda: sim_push_plain(state, key, msg), 50)
-    library_ms = timer(lambda: state.index_add_(0, key, msg), 50)
-    # each message (int32 key, float64 value) read once, each distinct
-    # target read and written once; one float64 add a message
-    b_ms, b_by = bound_ms(
-        key.numel() * (key.element_size() + msg.element_size())
-        + n_keys * 2 * state.element_size(), key.numel(),
-        flops_per_s=F64_FLOPS_PER_S)
-    rows.append({
+        "max_abs_err": big["err_m"],
+        "ms": m_l["ms"], "plain_ms": m_l["plain_ms"],
+        "bound_ms": m_l["bound"][0], "bound_by": m_l["bound"][1],
+        "library_ms": None,
+        "nodes": big["nodes"], "messages": big["messages"],
+        # the same at the median push (by messages)
+        "median_ms": m_m["ms"], "median_plain_ms": m_m["plain_ms"],
+        "median_bound_ms": m_m["bound"][0], "median_nodes": mid["nodes"],
+        "median_messages": mid["messages"],
+    }, {
         "name": "sim_push", "route": "cuda",
         "source": "src/repro_torch/csrc/sim_push.cu",
         "replaces": "src/repro/core/simulator.py:304",
         "launches": n_s["sim_push"] + n_d["sim_push"],
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-        # the launch alone, on keys sorted beforehand
-        "kernel_ms": kernel_ms,
-        "messages": int(key.numel()), "targets": n_keys,
-        # the whole push (messages, sort, sum, remote |.| sums) summed over
-        # a run, and its share of the clean run's wall
+        "max_abs_err": big["err"],
+        # the whole kernel path: the wrapper and its one launch
+        "ms": p_l["ms"], "plain_ms": p_l["plain_ms"],
+        "bound_ms": p_l["bound"][0], "bound_by": p_l["bound"][1],
+        "library_ms": p_l["library_ms"],
+        "messages": big["messages"], "targets": big["targets"],
+        "longest_bucket": big["longest"],
+        "median_ms": p_m["ms"], "median_plain_ms": p_m["plain_ms"],
+        "median_bound_ms": p_m["bound"][0],
+        "median_library_ms": p_m["library_ms"],
+        "median_messages": mid["messages"], "median_targets": mid["targets"],
+        "median_longest_bucket": mid["longest"],
+        # the whole push (messages, sum, remote |.| sums): summed over a run
+        # and its share of the clean run's wall; its device kernels and
+        # copies and its stream time, replayed at the two pushes
         "push_device_ms": push_ms, "push_wall_share": push_share,
-    })
+        "push_launches": {k: v[0] for k, v in whole.items()},
+        "push_stream_ms": {k: v[1] for k, v in whole.items()},
+    }]
     summary = (
         f"simulator (N={problem.n}, K=8, batch): static {wall_s:.3f} s "
         f"{res_s.n_steps} steps cost {res_s.cost_iterations:.4f}, dynamic "

@@ -51,7 +51,7 @@ all of them.
 The push — the reference's messages and its ``np.add.at`` into ``f`` and
 into the outbox — is K7 (:mod:`repro_torch.kernels.sim_push`:
 ``sim_messages``, then ``sim_push``): in message order per destination,
-with no atomics, so a run on the card replays bit for bit and ``h`` gets
+with no float atomics, so a run on the card replays bit for bit and ``h`` gets
 ``np.add.at``'s bits for the same schedule.  The sums the
 schedule reads (``r_k``, ``s_k``, the residual) are ``torch.sum``:
 deterministic, but not numpy's pairwise order, so they may differ from the
@@ -508,9 +508,12 @@ class DistributedSimulator:
         sim_push(self._state, key, msg)
         self.n_pushes += 1
         if remote:
-            # each PID's segment summed alone (0 where none is remote)
+            # each PID's segment summed alone (0 where none is remote); the
+            # lengths sum to n_e by construction, so segment_reduce's checks
+            # of them (a read of the device each push) are skipped
             self._s_abs += torch.segment_reduce(
-                rabs, "sum", lengths=self._upload(counts, torch.int64))
+                rabs, "sum", lengths=self._upload(counts, torch.int64),
+                unsafe=True)
             for k in remote:
                 self._touched_any[k] = True
 

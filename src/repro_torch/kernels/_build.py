@@ -132,6 +132,13 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 
 def stream_handle(device) -> int:
+    """The raw handle of ``device``'s current stream (torch's C accessor,
+    a tenth of ``torch.cuda.current_stream``'s host time, where the build
+    has it)."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(device).cuda_stream
+    return raw(device.index if device.index is not None
+               else torch.cuda.current_device())

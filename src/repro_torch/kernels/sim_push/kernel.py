@@ -19,9 +19,18 @@ both scatters of a diffusion, the local one into ``f`` and the remote one
 into the outbox, for every PID that diffuses in it.  :func:`sim_push_plain` is
 ``index_add_`` on CPU tensors, a loop in index order, which gives
 ``np.add.at``'s bits.  On the card ``index_add_`` would add with float64
-atomics in an order that changes from run to run: K7 sorts the keys
-stably and gives each run of equal keys one thread (no atomics), so a run
-replays bit for bit.
+atomics in an order that changes from run to run: K7 ranks each message
+in its key's count with an integer atomic, gathers each key's message
+indices (in a row of 4 a key, or a bucket for longer keys), sorts them
+and adds the messages in that order with no float atomics, so a run
+replays bit for bit (``csrc/sim_push.cu`` says how).
+
+Each kernel is one cooperative launch.  The scratch it needs lives in a
+workspace per device and stream (:func:`_workspace`), grown and never
+shrunk: sim_push's counts (an int32 a state entry, zero between pushes:
+each push leaves them so) and rows (4 int32 a state entry: the indices of
+the key's first messages, any values between pushes), and both kernels'
+scratch.
 
 Each wrapper launches its kernel for tensors on the card and runs its
 plain version for tensors on the CPU; each counts its launches apart
@@ -31,7 +40,7 @@ launches nothing and counts nothing.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -71,17 +80,48 @@ def sim_messages_plain(sel: torch.Tensor, pid: torch.Tensor,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
+# a push's messages index int32 slots in the kernel
+MAX_MESSAGES = 2**30 - 1
+_WORKSPACES: Dict[Tuple[int, int], Dict[str, torch.Tensor]] = {}
 
 
 def _lib() -> ctypes.CDLL:
     lib = library("sim_push")
     if lib.sim_push.argtypes is None:
-        lib.sim_push.argtypes = [_P] * 4 + [_I, _P]
+        lib.sim_push.argtypes = [_P] * 3 + [_I, _I] + [_P] * 4
         lib.sim_push.restype = ctypes.c_int
         lib.sim_messages.argtypes = [_P] * 4 + [_I] + [_P] * 4 + [_I] + [
-            _P] * 3 + [_I, _P]
+            _P] * 3 + [_I, _P, _P]
         lib.sim_messages.restype = ctypes.c_int
+        for fn, n_args in ((lib.sim_push_rows, 1), (lib.sim_push_scratch, 1),
+                           (lib.sim_messages_scratch, 2)):
+            fn.argtypes = [_I] * n_args
+            fn.restype = _I
     return lib
+
+
+def _workspace(device: torch.device,
+               stream: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """K7's scratch on ``device`` for ``stream`` (its current stream when
+    omitted): ``count`` (int32, one a state entry, zero between pushes),
+    ``rows`` (int32, message indices), ``push`` (int32) and ``messages``
+    (int64); each as large as the largest call so far."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    if stream is None:
+        stream = stream_handle(device)
+    return _WORKSPACES.setdefault((index, stream), {})
+
+
+def _grown(ws: Dict[str, torch.Tensor], name: str, n: int, dtype,
+           device: torch.device, zero: bool = False) -> torch.Tensor:
+    t = ws.get(name)
+    if t is None or t.numel() < n:
+        if not zero:  # scratch: room to grow in, fewer reallocations
+            n += n // 4
+        t = ws[name] = (torch.zeros if zero else torch.empty)(
+            n, dtype=dtype, device=device)
+    return t
 
 
 def _check(dev, **tensors) -> None:
@@ -103,7 +143,7 @@ def sim_messages(sel: torch.Tensor, pid: torch.Tensor, sent: torch.Tensor,
     ``pid`` (int64) with the fluid ``sent`` (float64): ``(key int32, msg,
     rabs)`` over the CSR ``indptr``, ``indices`` (int64), ``wgt``
     (float64), with the out-degrees ``deg`` (int64) and the owner map
-    ``owner`` (int32)."""
+    ``owner`` (int32).  ``n_e`` must be the sum of ``deg[sel]``."""
     if sel.device.type == "cpu":
         return sim_messages_plain(sel, pid, sent, deg, indptr, indices, wgt,
                                   owner, n_e)
@@ -113,8 +153,7 @@ def sim_messages(sel: torch.Tensor, pid: torch.Tensor, sent: torch.Tensor,
            sent=(sent, torch.float64), deg=(deg, torch.int64),
            indptr=(indptr, torch.int64), indices=(indices, torch.int64),
            wgt=(wgt, torch.float64), owner=(owner, torch.int32))
-    n_sel, n = sel.numel(), owner.numel()
-    if pid.numel() != n_sel or sent.numel() != n_sel:
+    if pid.numel() != sel.numel() or sent.numel() != sel.numel():
         raise ValueError("sel, pid and sent must have one entry a node")
     dev = sel.device
     key = torch.empty(n_e, dtype=torch.int32, device=dev)
@@ -122,14 +161,14 @@ def sim_messages(sel: torch.Tensor, pid: torch.Tensor, sent: torch.Tensor,
     rabs = torch.empty(n_e, dtype=torch.float64, device=dev)
     if n_e == 0:
         return key, msg, rabs
-    base = torch.zeros(n_sel + 1, dtype=torch.int64, device=dev)
-    torch.cumsum(deg.index_select(0, sel), 0, out=base[1:])
-    lib = _lib()
+    lib, n_sel, stream = _lib(), sel.numel(), stream_handle(dev)
+    scratch = _grown(_workspace(dev, stream), "messages",
+                     lib.sim_messages_scratch(n_sel, n_e), torch.int64, dev)
     err = lib.sim_messages(
-        sel.data_ptr(), pid.data_ptr(), sent.data_ptr(), base.data_ptr(),
+        sel.data_ptr(), pid.data_ptr(), sent.data_ptr(), deg.data_ptr(),
         n_sel, indptr.data_ptr(), indices.data_ptr(), wgt.data_ptr(),
-        owner.data_ptr(), n, key.data_ptr(), msg.data_ptr(),
-        rabs.data_ptr(), n_e, stream_handle(dev))
+        owner.data_ptr(), owner.numel(), key.data_ptr(), msg.data_ptr(),
+        rabs.data_ptr(), n_e, scratch.data_ptr(), stream)
     check(lib, err, "sim_messages")
     LAUNCHES["sim_messages"] += 1
     return key, msg, rabs
@@ -138,8 +177,9 @@ def sim_messages(sel: torch.Tensor, pid: torch.Tensor, sent: torch.Tensor,
 def sim_push(state: torch.Tensor, key: torch.Tensor,
              msg: torch.Tensor) -> None:
     """Add ``msg`` (float64 ``[E]``) into ``state`` (float64, contiguous)
-    at ``key`` (int32 ``[E]``, as :func:`sim_messages` makes it), in
-    message order for every key."""
+    at ``key`` (int32 ``[E]``, each in ``[0, state.numel())``), in message
+    order for every key.  On the card a key outside the state stops the
+    kernel (a device-side trap)."""
     if key.dtype != torch.int32:
         raise ValueError(f"key: expected int32, got {key.dtype}")
     if state.device.type == "cpu":
@@ -155,19 +195,20 @@ def sim_push(state: torch.Tensor, key: torch.Tensor,
     if state.numel() >= 2**31:
         raise ValueError(f"state has {state.numel()} entries: K7's keys "
                          "are int32")
+    if e > MAX_MESSAGES:
+        raise ValueError(f"{e} messages: K7 takes at most {MAX_MESSAGES} "
+                         "a push")
     if e == 0:
         return
-    key_sorted, order = torch.sort(key, stable=True)
-    _launch_sim_push(key_sorted, order, msg, state)
-    LAUNCHES["sim_push"] += 1
-
-
-def _launch_sim_push(key_sorted: torch.Tensor, order: torch.Tensor,
-                     msg: torch.Tensor, state: torch.Tensor) -> None:
-    """K7's sum on ``key_sorted, order = torch.sort(key, stable=True)``,
-    CUDA tensors as :func:`sim_push` checks them; counted nowhere."""
-    lib = _lib()
-    err = lib.sim_push(key_sorted.data_ptr(), order.data_ptr(),
-                       msg.data_ptr(), state.data_ptr(), key_sorted.numel(),
-                       stream_handle(state.device))
+    lib, dev = _lib(), state.device
+    stream = stream_handle(dev)
+    ws = _workspace(dev, stream)
+    count = _grown(ws, "count", state.numel(), torch.int32, dev, zero=True)
+    rows = _grown(ws, "rows", lib.sim_push_rows(state.numel()), torch.int32,
+                  dev)
+    scratch = _grown(ws, "push", lib.sim_push_scratch(e), torch.int32, dev)
+    err = lib.sim_push(key.data_ptr(), msg.data_ptr(), state.data_ptr(),
+                       state.numel(), e, count.data_ptr(), rows.data_ptr(),
+                       scratch.data_ptr(), stream)
     check(lib, err, "sim_push")
+    LAUNCHES["sim_push"] += 1

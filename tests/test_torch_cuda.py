@@ -1120,6 +1120,200 @@ def test_sim_messages_kernel_matches_plain(cuda_device, n_sel, k):
         assert torch.equal(a.cpu(), w) and torch.equal(a, b)
 
 
+def _bucket_case(case, rng):
+    """A push for K7's bucket design: ``(state, key, msg)`` as numpy
+    arrays."""
+    msg = None
+    if case == "distinct":  # every key once: all settled in phase B
+        state = rng.standard_normal(300_000)
+        key = rng.permutation(300_000)[:200_000]
+    elif case == "hub":  # one key given 10,000 messages: a long bucket
+        state = rng.standard_normal(5000)
+        key = rng.integers(0, 5000, 15_000)
+        key[rng.permutation(15_000)[:10_000]] = 1234
+    elif case == "above_2_24":  # keys past float32's exact integers
+        state = rng.standard_normal(2**25 + 1000)
+        key = 2**24 + rng.integers(0, 2**24 + 1000, 100_000)
+        key[::7] = 2**25 + 999
+    elif case == "random_1_4m":  # the largest push's size, keys repeated
+        state = rng.standard_normal(2**21)
+        key = rng.integers(0, 2**21, 1_406_169)
+    elif case == "order":  # runs whose sum depends on the add order
+        # each key's messages in order: 1e16, 1, -1e16, u, ...; added in
+        # that order a key ends at its last u, added backwards at 0
+        state = rng.standard_normal(4096)
+        small = np.repeat(rng.permutation(4096)[:1000], 4)  # 4-message keys
+        key = np.concatenate([small, np.full(300, 77)])  # and a long one
+        key = key[rng.permutation(key.size)]  # the keys interleaved
+        msg = np.empty(key.size)
+        for d in np.unique(key):
+            at = np.flatnonzero(key == d)
+            run = np.tile([1e16, 1.0, -1e16, 0.0], at.size // 4)
+            run[3::4] = rng.standard_normal(at.size // 4)
+            msg[at] = run
+    elif case == "one":
+        state = rng.standard_normal(64)
+        key = np.array([17])
+    else:  # empty
+        state = rng.standard_normal(64)
+        key = np.zeros(0, np.int64)
+    if msg is None:
+        msg = rng.standard_normal(key.size) * 10.0 ** rng.uniform(
+            -9, 2, key.size)
+    return state, key.astype(np.int32), msg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["distinct", "hub", "above_2_24",
+                                  "random_1_4m", "order", "one", "empty"])
+def test_sim_push_buckets_match_plain(cuda_device, case):
+    """K7's ordered buckets give the plain version's bits (np.add.at's) on
+    every shape of push: distinct keys, a 10,000-message hub, keys above
+    2**24, 1.4M random keys with repeats, sums that change with the add
+    order, one message, none (no launch).  Relaunched on a fresh copy the
+    bits are the same, and every push leaves the counters all zero."""
+    from repro_torch.kernels.sim_push import kernel as k7
+
+    state, key, msg = _bucket_case(case, np.random.default_rng(11))
+    want = torch.from_numpy(state.copy())
+    k7.sim_push_plain(want, torch.from_numpy(key), torch.from_numpy(msg))
+    if case == "order":  # the case can tell one add order from another
+        other = state.copy()
+        np.add.at(other, key[::-1], msg[::-1])
+        assert not np.array_equal(other, want.numpy())
+    card = [torch.as_tensor(a, device=cuda_device) for a in (state, key,
+                                                              msg)]
+    outs = []
+    for _ in range(2):
+        got = card[0].clone()
+        before = LAUNCHES["sim_push"]
+        k7.sim_push(got, card[1], card[2])
+        assert LAUNCHES["sim_push"] == before + (key.size > 0)
+        outs.append(got)
+    torch.cuda.synchronize()
+    for got in outs:
+        assert torch.equal(got.cpu(), want)
+    count = k7._workspace(card[0].device).get("count")
+    assert key.size == 0 or not bool(count.any())
+
+
+@pytest.mark.cuda
+def test_sim_push_twice_on_one_state(cuda_device):
+    """Two pushes in a row into one state, the second with a bucket longer
+    than a key's row: each leaves the counts all zero, and the state is the
+    plain version's after both."""
+    from repro_torch.kernels.sim_push import kernel as k7
+
+    rng = np.random.default_rng(5)
+    state = rng.standard_normal(50_000)
+    pushes = [(rng.integers(0, 50_000, e).astype(np.int32),
+               rng.standard_normal(e)) for e in (120_000, 80_000)]
+    pushes[1][0][:500] = 42  # a long bucket in the second
+    want = torch.from_numpy(state.copy())
+    got = torch.as_tensor(state, device=cuda_device)
+    for key, msg in pushes:
+        k7.sim_push_plain(want, torch.from_numpy(key), torch.from_numpy(msg))
+        k7.sim_push(got, torch.as_tensor(key, device=cuda_device),
+                    torch.as_tensor(msg, device=cuda_device))
+        torch.cuda.synchronize()
+        assert not bool(k7._workspace(got.device)["count"].any())
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_sim_push_on_states_of_other_sizes_in_turn(cuda_device):
+    """Pushes into states of 3M, then 5,000, then 2M entries (the
+    workspace's counts and rows reused at other sizes): each gives the
+    plain version's bits and leaves the counts all zero."""
+    from repro_torch.kernels.sim_push import kernel as k7
+
+    rng = np.random.default_rng(17)
+    for n in (3_000_000, 5000, 2_000_000):
+        state = rng.standard_normal(n)
+        key = rng.integers(0, n, 400_000).astype(np.int32)
+        key[:50] = n - 1  # and a long bucket
+        msg = rng.standard_normal(key.size)
+        want = torch.from_numpy(state.copy())
+        k7.sim_push_plain(want, torch.from_numpy(key), torch.from_numpy(msg))
+        got = torch.as_tensor(state, device=cuda_device)
+        k7.sim_push(got, torch.as_tensor(key, device=cuda_device),
+                    torch.as_tensor(msg, device=cuda_device))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+        assert not bool(k7._workspace(got.device)["count"].any())
+
+
+@pytest.mark.cuda
+def test_sim_push_relaunch_is_bit_identical(cuda_device):
+    """Ten launches of one push on fresh copies of one state give one set
+    of bits: the integer atomics' order moves only where an index is
+    stored."""
+    from repro_torch.kernels.sim_push import sim_push
+
+    rng = np.random.default_rng(9)
+    state = torch.as_tensor(rng.standard_normal(200_000), device=cuda_device)
+    key = torch.as_tensor(rng.integers(0, 20_000, 600_000).astype(np.int32),
+                          device=cuda_device)
+    key[:2000] = 7  # and one long bucket
+    msg = torch.as_tensor(rng.standard_normal(600_000) * 10.0 ** rng.uniform(
+        -9, 2, 600_000), device=cuda_device)
+    first = None
+    for _ in range(10):
+        got = state.clone()
+        sim_push(got, key, msg)
+        if first is None:
+            first = got
+        assert torch.equal(got, first)
+
+
+def _csr_args(deg, rng, k=4):
+    """A CSR over ``deg.size`` nodes with out-degrees ``deg``, random
+    destinations and weights, and a random owner map over ``k`` PIDs."""
+    n = deg.size
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int64)
+    return [torch.as_tensor(deg.astype(np.int64)), torch.as_tensor(indptr),
+            torch.as_tensor(rng.integers(0, n, indptr[-1])),
+            torch.as_tensor(rng.random(indptr[-1])),
+            torch.as_tensor(rng.integers(0, k, n).astype(np.int32))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["zero_degree", "max_degree", "nodes_1_5m"])
+def test_sim_messages_expansion_matches_plain(cuda_device, case):
+    """K7's load-balanced expansion gives the plain version's bits: a tile
+    crowded with zero-degree nodes (more than it stages), one node at the
+    graph's maximum out-degree (many tiles of one node), and 1.5M
+    selected nodes."""
+    from repro_torch.kernels.sim_push import sim_messages, sim_messages_plain
+
+    rng = np.random.default_rng(3)
+    if case == "zero_degree":
+        deg = rng.integers(1, 4, 20_000)
+        deg[5000:15_000] = 0
+        sel = np.arange(20_000)
+    elif case == "max_degree":
+        deg = rng.integers(0, 6, 50_000)
+        deg[123] = 300_000
+        sel = np.sort(rng.choice(50_000, 2000, replace=False))
+        sel[0] = 123
+    else:
+        deg = rng.integers(0, 3, 2_000_000)
+        sel = np.sort(rng.choice(2_000_000, 1_500_000, replace=False))
+    csr = _csr_args(deg, rng)
+    args = [torch.as_tensor(sel), torch.as_tensor(rng.integers(0, 4,
+                                                               sel.size)),
+            torch.as_tensor(rng.standard_normal(sel.size)), *csr]
+    n_e = int(deg[sel].sum())
+    want = sim_messages_plain(*args, n_e)
+    card = [a.to(cuda_device) for a in args]
+    before = LAUNCHES["sim_messages"]
+    got = [sim_messages(*card, n_e) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert LAUNCHES["sim_messages"] == before + 2
+    for a, b, w in zip(got[0], got[1], want):
+        assert torch.equal(a.cpu(), w) and torch.equal(a, b)
+
+
 def _sim_problem(mode):
     from repro_torch import Problem
     from repro_torch.core import host_block_graph

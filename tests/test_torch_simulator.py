@@ -318,6 +318,57 @@ def test_sim_push_plain_is_np_add_at(n, e, n_dst):
     assert np.array_equal(state[n:].numpy(), want_o)
 
 
+def test_sim_push_plain_adds_in_message_order_for_unsorted_keys():
+    """K7's contract on CPU tensors, the one the card tests hold the kernel
+    to: keys in no order, each repeated, with values whose sum changes with
+    the add order (1e16, 1, -1e16, u per key: u in message order, 0
+    backwards), give np.add.at's bits."""
+    rng = np.random.default_rng(22)
+    keys = np.repeat(rng.permutation(500)[:200], 4)
+    keys = np.concatenate([keys, np.full(40, 499)])[
+        rng.permutation(840)]  # interleaved, not ascending
+    msg = np.empty(keys.size)
+    for d in np.unique(keys):
+        at = np.flatnonzero(keys == d)
+        run = np.tile([1e16, 1.0, -1e16, 0.0], at.size // 4)
+        run[3::4] = rng.standard_normal(at.size // 4)
+        msg[at] = run
+    state = rng.standard_normal(500)
+    want, backwards = state.copy(), state.copy()
+    np.add.at(want, keys, msg)
+    np.add.at(backwards, keys[::-1], msg[::-1])
+    assert not np.array_equal(want, backwards)  # the order shows
+    got = torch.from_numpy(state.copy())
+    sim_push(got, torch.from_numpy(keys.astype(np.int32)),
+             torch.from_numpy(msg))
+    assert np.array_equal(got.numpy(), want)
+
+
+def _k7_probe():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / (
+        "k7_probe.py")
+    spec = importlib.util.spec_from_file_location("k7_probe", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("variant", list(_k7_probe().VARIANTS))
+def test_k7_probe_edits_find_their_text(variant):
+    """Every source edit of tools/k7_probe.py finds its text in
+    csrc/sim_push.cu (once, or at least once for an edit marked "*"), so
+    the probe cannot rot."""
+    probe = _k7_probe()
+    src = probe.edited_source(variant, [])
+    got = probe.edited_source(variant, probe.VARIANTS[variant])
+    assert got != src
+    for old, new in probe.VARIANTS[variant]:
+        assert src.count(old.rstrip("*")) >= 1 and new in got
+
+
 def test_sim_push_takes_int32_keys_only():
     """K7's keys are int32, as ``sim_messages`` makes them: an int64 key
     is refused on every device, before anything is added."""
