@@ -56,19 +56,30 @@
 // then one atomicAdd a warp on a cursor: where a bucket lands does not
 // matter), fill its first kHeld slots and leave the list index in the count;
 // (C) their other messages write their indices into the bucket at slot r;
-// (D) one thread a key of at most kSmall messages sorts its bucket
-// (insertion, in registers) and adds in that order; a longer bucket's entries
-// each find their place in message order by counting the smaller indices in
-// the bucket (any length, spread over the grid); (E) one warp a long key adds
-// its messages in that order, the lanes loading 32 at a time.  The integer
-// atomics decide only where an index is stored, never the order of a float
-// add, and every add is __dadd_rn in message order: the bits are np.add.at's
-// and do not depend on the launch.  Every push leaves each count zero.
+// (D) each kChunk-slot chunk of a bucket is put in message order, each entry
+// placed by counting the smaller indices of its chunk; (M) a bucket longer
+// than kChunk is merge-sorted from there: runs of 32, 64, ... merged in
+// passes split by grid barriers, each entry placed by a binary search of the
+// run it merges with (log2(longest / 32) passes: m log m work for a bucket of
+// m); (E) one warp a bucket adds its messages in that order, its lanes
+// loading kAhead chunks of 32 ahead of the adds.  The integer atomics decide
+// only where an index is stored, never the order of a float add, and every
+// add is __dadd_rn in message order: the bits are np.add.at's and do not
+// depend on the launch.  Every push leaves each count zero.  A key's adds are
+// one dependent chain, as np.add.at's are: a hub of m messages costs at least
+// m float64 add latencies.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace cg = cooperative_groups;
+
+// Hooks for tools/k7_probe.py's `phases` build, which defines them to time
+// each phase; empty in the library.
+#ifndef K7_START
+#define K7_START(slot)
+#define K7_STAMP
+#endif
 
 namespace {
 
@@ -80,12 +91,13 @@ constexpr int kMaxDevices = 64;
 constexpr int kRow = 4;     // a key's row: the indices of its messages of rank 1..kRow
 constexpr int kHeld = kRow + 1;  // the most messages a key settles in phase B with
 constexpr int kUnroll = 4;  // messages a thread has in flight in phases A and B
-constexpr int kSmall = 32;      // longest bucket summed by one thread
+constexpr int kChunk = 32;      // a bucket's entries put in order by counting
+constexpr int kAhead = 8;       // chunks of 32 messages a warp loads ahead of its adds
 constexpr int kTile = 1024;     // messages a CTA expands at a time
 constexpr int kPerThread = kTile / kThreads;
 constexpr int kStage = 2048;    // nodes of a tile staged in shared memory
-// sim_push's scratch counters
-constexpr int kSmallKeys = 0, kLongKeys = 1, kSmallSlots = 2, kLongSlots = 3, kCounters = 4;
+// sim_push's scratch counters: buckets, their slots, the longest bucket
+constexpr int kKeys = 0, kSlots = 1, kLongest = 2, kCounters = 3;
 
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
 
@@ -151,6 +163,7 @@ sim_messages_kernel(const int64_t* __restrict__ sel, const int64_t* __restrict__
   const cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x;
   const int64_t n_ctas = gridDim.x, cta = blockIdx.x;
+  K7_START(8);
 
   // (1) each CTA's slice of the nodes: their out-degrees, kept, and their sum
   const int64_t chunk = (n_sel + n_ctas - 1) / n_ctas;
@@ -176,6 +189,7 @@ sim_messages_kernel(const int64_t* __restrict__ sel, const int64_t* __restrict__
   v = block_sum(v, red);
   if (tid == 0) partial[cta] = v;
   grid.sync();
+  K7_STAMP;
 
   // (2) the slice's exclusive prefix, after the CTAs before it, and the node
   // of each tile's first message
@@ -196,6 +210,7 @@ sim_messages_kernel(const int64_t* __restrict__ sel, const int64_t* __restrict__
   }
   if (cta == n_ctas - 1 && tid == 0) base[n_sel] = run;
   grid.sync();
+  K7_STAMP;
 
   // (3) the messages, a tile at a time
   const int64_t lim = min64(n, base[n_sel]);
@@ -276,16 +291,29 @@ __device__ __forceinline__ void sort_net(int32_t (&x)[N]) {
   }
 }
 
+// The number of entries of a[lo, hi) below y (a ascending, entries distinct).
+__device__ __forceinline__ int32_t count_below(const int32_t* a, int32_t lo, int32_t hi,
+                                               int32_t y) {
+  const int32_t lo0 = lo;
+  while (lo < hi) {
+    const int32_t mid = (lo + hi) >> 1;
+    if (a[mid] < y) lo = mid + 1; else hi = mid;
+  }
+  return lo - lo0;
+}
+
 // Arrays written by this kernel are read with plain loads (never __ldg): the
 // grid barriers order them, the read-only path would not.
 __global__ void __launch_bounds__(kThreads)
 sim_push_kernel(const int32_t* __restrict__ key, const double* __restrict__ msg, double* state,
                 int64_t n_state, int32_t e, int32_t* count, int32_t* rows, int32_t* ctr,
-                int32_t* rank, int32_t* slot, int32_t* ordered, int4* list, int32_t cap) {
+                int32_t* rank, int32_t* slot, int32_t* ordered, int4* list) {
   const cg::grid_group grid = cg::this_grid();
   const int32_t t0 = blockIdx.x * kThreads + threadIdx.x;
   const int32_t stride = gridDim.x * kThreads;
   const int32_t lane = threadIdx.x & 31;
+  __shared__ double chunk_stage[kWarps][32];  // phase E: a warp's chunk
+  K7_START(0);
 
   // (A) ranks; the indices of ranks 1..kRow into the key's row
   if (t0 < kCounters) ctr[t0] = 0;
@@ -309,6 +337,7 @@ sim_push_kernel(const int32_t* __restrict__ key, const double* __restrict__ msg,
     }
   }
   grid.sync();
+  K7_STAMP;
 
   // (B) each key settled by its first-ranked message when its row holds all
   // its messages; the others claim buckets: a warp's claims of list entries
@@ -362,40 +391,26 @@ sim_push_kernel(const int32_t* __restrict__ key, const double* __restrict__ msg,
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      const bool small = n[u] > 0 && n[u] <= kSmall, big = n[u] > kSmall;
-      const unsigned b_small = __ballot_sync(0xffffffffu, small);
-      const unsigned b_big = __ballot_sync(0xffffffffu, big);
-      if ((b_small | b_big) == 0) continue;
-      int32_t slots_small = small ? n[u] : 0, slots_big = big ? n[u] : 0;  // inclusive sums
+      const bool open = n[u] > 0;
+      const unsigned opening = __ballot_sync(0xffffffffu, open);
+      if (opening == 0) continue;
+      int32_t slots = open ? n[u] : 0;  // inclusive sum over the lanes
       for (int o = 1; o < 32; o <<= 1) {
-        const int32_t ys = __shfl_up_sync(0xffffffffu, slots_small, o);
-        const int32_t yb = __shfl_up_sync(0xffffffffu, slots_big, o);
-        if (lane >= o) {
-          slots_small += ys;
-          slots_big += yb;
-        }
+        const int32_t y = __shfl_up_sync(0xffffffffu, slots, o);
+        if (lane >= o) slots += y;
       }
-      int32_t at[4] = {0, 0, 0, 0};  // the cursors before this warp's claims
+      const unsigned most = __reduce_max_sync(0xffffffffu, (unsigned)n[u]);
+      int32_t at_key = 0, at_slot = 0;  // the cursors before this warp's claims
       if (lane == 31) {
-        if (b_small) {
-          at[0] = atomicAdd(ctr + kSmallKeys, __popc(b_small));
-          at[1] = atomicAdd(ctr + kSmallSlots, slots_small);
-        }
-        if (b_big) {
-          at[2] = atomicAdd(ctr + kLongKeys, __popc(b_big));
-          at[3] = atomicAdd(ctr + kLongSlots, slots_big);
-        }
+        at_key = atomicAdd(ctr + kKeys, __popc(opening));
+        at_slot = atomicAdd(ctr + kSlots, slots);
+        if (most > kChunk) atomicMax(ctr + kLongest, (int32_t)most);
       }
-      for (int q = 0; q < 4; ++q) at[q] = __shfl_sync(0xffffffffu, at[q], 31);
-      if (!small && !big) continue;
-      int32_t j, off;
-      if (small) {  // small keys and buckets from the front
-        j = at[0] + __popc(b_small & below);
-        off = at[1] + slots_small - n[u];
-      } else {  // long ones from the back
-        j = cap - 1 - (at[2] + __popc(b_big & below));
-        off = e - at[3] - slots_big;
-      }
+      at_key = __shfl_sync(0xffffffffu, at_key, 31);
+      at_slot = __shfl_sync(0xffffffffu, at_slot, 31);
+      if (!open) continue;
+      const int32_t j = at_key + __popc(opening & below);
+      const int32_t off = at_slot + slots - n[u];
       list[j] = make_int4(d[u], off, n[u], 0);
       count[d[u]] = -1 - j;
 #pragma unroll
@@ -403,6 +418,7 @@ sim_push_kernel(const int32_t* __restrict__ key, const double* __restrict__ msg,
     }
   }
   grid.sync();
+  K7_STAMP;
 
   // (C) the other messages of those keys into their buckets
   for (int32_t i = t0; i < e; i += stride) {
@@ -411,41 +427,77 @@ sim_push_kernel(const int32_t* __restrict__ key, const double* __restrict__ msg,
     slot[list[-1 - count[__ldg(key + i)]].y + r] = i;
   }
   grid.sync();
+  K7_STAMP;
 
-  // (D) small buckets summed in message order; long buckets' order found
-  const int32_t n_small = ctr[kSmallKeys];
-  for (int32_t j = t0; j < n_small; j += stride) {
-    const int4 b = list[j];
-    int32_t idx[kSmall];
-    for (int32_t u = 0; u < b.z; ++u) {  // insertion sort, ascending
-      const int32_t y = slot[b.y + u];
-      int32_t q = u;
-      for (; q > 0 && idx[q - 1] > y; --q) idx[q] = idx[q - 1];
-      idx[q] = y;
-    }
-    double acc = state[b.x];
-    for (int32_t u = 0; u < b.z; ++u) acc = __dadd_rn(acc, __ldg(msg + idx[u]));
-    state[b.x] = acc;
-    count[b.x] = 0;
-  }
-  for (int32_t s = e - ctr[kLongSlots] + t0; s < e; s += stride) {
+  // (D) each bucket's chunks of kChunk slots in message order (rank, no
+  // longer read, now keeps each slot's bucket)
+  const int32_t n_slots = ctr[kSlots];
+  for (int32_t s = t0; s < n_slots; s += stride) {
     const int32_t y = slot[s];
-    const int4 b = list[-1 - count[__ldg(key + y)]];
+    const int32_t j = -1 - count[__ldg(key + y)];
+    const int4 b = list[j];
+    const int32_t c0 = (s - b.y) & ~(kChunk - 1), c1 = min(c0 + kChunk, b.z);
     int32_t r = 0;
-    for (int32_t u = b.y; u < b.y + b.z; ++u) r += slot[u] < y;
-    ordered[b.y + r] = y;
+    for (int32_t u = c0; u < c1; ++u) r += slot[b.y + u] < y;
+    ordered[b.y + c0 + r] = y;
+    rank[s] = j;
   }
   grid.sync();
+  K7_STAMP;
 
-  // (E) long buckets summed in message order, a warp each
-  const int32_t n_long = ctr[kLongKeys];
-  for (int32_t w = t0 >> 5; w < n_long; w += stride >> 5) {
-    const int4 b = list[cap - 1 - w];
+  // (M) longer buckets merge-sorted: runs of w merged into runs of 2w
+  int32_t* src = ordered;
+  int32_t* dst = slot;
+  const int32_t longest = ctr[kLongest];
+  for (int32_t w = kChunk; w < longest; w <<= 1) {
+    for (int32_t s = t0; s < n_slots; s += stride) {
+      const int4 b = list[rank[s]];
+      const int32_t y = src[s], p = s - b.y, pair = p & ~(2 * w - 1);
+      const int32_t* run = src + b.y;
+      const int32_t at = p - pair < w
+          ? p + count_below(run, min(pair + w, b.z), min(pair + 2 * w, b.z), y)
+          : p - w + count_below(run, pair, pair + w, y);
+      dst[b.y + at] = y;
+    }
+    int32_t* t = src;
+    src = dst;
+    dst = t;
+    grid.sync();
+  }
+  K7_STAMP;
+
+  // (E) each bucket summed in message order, a warp each: the lanes load
+  // kAhead chunks of 32 ahead of the adds (a ring in registers) and stage
+  // each chunk in shared memory, where the loads of the adds' operands do
+  // not wait on the adds; so a long bucket's sum waits on its chain of adds
+  double* stage = chunk_stage[threadIdx.x >> 5];
+  const int32_t n_keys = ctr[kKeys];
+  for (int32_t w = t0 >> 5; w < n_keys; w += stride >> 5) {
+    const int4 b = list[w];
     double acc = state[b.x];
-    for (int32_t u0 = 0; u0 < b.z; u0 += 32) {
-      const int32_t m = min(32, b.z - u0);
-      const double val = lane < m ? __ldg(msg + ordered[b.y + u0 + lane]) : 0.0;
-      for (int32_t l = 0; l < m; ++l) acc = __dadd_rn(acc, __shfl_sync(0xffffffffu, val, l));
+    double val[kAhead];
+#pragma unroll
+    for (int q = 0; q < kAhead; ++q) {
+      const int32_t u = 32 * q + lane;
+      val[q] = u < b.z ? __ldg(msg + src[b.y + u]) : 0.0;
+    }
+    for (int32_t u0 = 0; u0 < b.z; u0 += 32 * kAhead) {
+#pragma unroll
+      for (int q = 0; q < kAhead; ++q) {
+        const int32_t c = u0 + 32 * q;  // this chunk's first entry
+        if (c >= b.z) break;
+        __syncwarp();  // the last chunk's adds have read the stage
+        stage[lane] = val[q];
+        __syncwarp();
+        const int32_t u = c + 32 * kAhead + lane;
+        val[q] = u < b.z ? __ldg(msg + src[b.y + u]) : 0.0;
+        if (b.z - c >= 32) {
+#pragma unroll
+          for (int l = 0; l < 32; ++l) acc = __dadd_rn(acc, stage[l]);
+        } else {
+          for (int32_t l = 0; l < b.z - c; ++l) acc = __dadd_rn(acc, stage[l]);
+        }
+      }
     }
     if (lane == 0) {
       state[b.x] = acc;
@@ -489,10 +541,10 @@ const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)
 // key, the indices of its messages of rank 1..kRow.
 int64_t sim_push_rows(int64_t n_state) { return kRow * n_state; }
 
-// int32 entries of sim_push's scratch for e messages: the key list (16-byte
-// entries, first), the counters, then a rank, a bucket slot and an ordered
-// slot a message.
-int64_t sim_push_scratch(int64_t e) { return 4 * (e / 2 + 1) + kCounters + 3 * e; }
+// int32 entries of sim_push's scratch for e messages: the bucket list
+// (16-byte entries, first; a bucket holds more than kHeld messages), the
+// counters, then a rank, a bucket slot and an ordered slot a message.
+int64_t sim_push_scratch(int64_t e) { return 4 * (e / (kHeld + 1) + 1) + kCounters + 3 * e; }
 
 // int64 entries of sim_messages' scratch for n_sel nodes and n messages: the
 // prefix, one partial a CTA, the first node of each tile.
@@ -512,9 +564,9 @@ int sim_push(const void* key, const void* msg, void* state, int64_t n_state, int
   cudaError_t err =
       cooperative_grid(sim_push_kernel, push_ctas, (e + kThreads - 1) / kThreads, &grid);
   if (err != cudaSuccess) return err;
-  int32_t e32 = (int32_t)e, cap = (int32_t)(e / 2 + 1);
+  int32_t e32 = (int32_t)e;
   int4* list = (int4*)scratch;
-  int32_t* ctr = (int32_t*)scratch + 4 * (int64_t)cap;
+  int32_t* ctr = (int32_t*)scratch + 4 * (e / (kHeld + 1) + 1);
   int32_t* rank = ctr + kCounters;
   int32_t* slot = rank + e;
   int32_t* ordered = slot + e;
@@ -523,7 +575,7 @@ int sim_push(const void* key, const void* msg, void* state, int64_t n_state, int
   double* s = (double*)state;
   int32_t* c = (int32_t*)count;
   int32_t* r = (int32_t*)rows;
-  void* args[] = {&k, &m, &s, &n_state, &e32, &c, &r, &ctr, &rank, &slot, &ordered, &list, &cap};
+  void* args[] = {&k, &m, &s, &n_state, &e32, &c, &r, &ctr, &rank, &slot, &ordered, &list};
   err = cudaLaunchCooperativeKernel((const void*)sim_push_kernel, grid, kThreads, args, 0,
                                     (cudaStream_t)stream);
   return err != cudaSuccess ? err : cudaGetLastError();

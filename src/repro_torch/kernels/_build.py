@@ -133,12 +133,9 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 def stream_handle(device) -> int:
     """The raw handle of ``device``'s current stream (torch's C accessor,
-    a tenth of ``torch.cuda.current_stream``'s host time, where the build
-    has it)."""
+    a tenth of ``torch.cuda.current_stream``'s host time)."""
     import torch
 
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is None:
-        return torch.cuda.current_stream(device).cuda_stream
-    return raw(device.index if device.index is not None
-               else torch.cuda.current_device())
+    return torch._C._cuda_getCurrentRawStream(
+        device.index if device.index is not None
+        else torch.cuda.current_device())

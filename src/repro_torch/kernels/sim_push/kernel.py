@@ -22,15 +22,19 @@ into the outbox, for every PID that diffuses in it.  :func:`sim_push_plain` is
 atomics in an order that changes from run to run: K7 ranks each message
 in its key's count with an integer atomic, gathers each key's message
 indices (in a row of 4 a key, or a bucket for longer keys), sorts them
-and adds the messages in that order with no float atomics, so a run
-replays bit for bit (``csrc/sim_push.cu`` says how).
+(a bucket by merges, m log m for m messages) and adds the messages in
+that order with no float atomics, so a run replays bit for bit
+(``csrc/sim_push.cu`` says how).
 
-Each kernel is one cooperative launch.  The scratch it needs lives in a
-workspace per device and stream (:func:`_workspace`), grown and never
-shrunk: sim_push's counts (an int32 a state entry, zero between pushes:
-each push leaves them so) and rows (4 int32 a state entry: the indices of
-the key's first messages, any values between pushes), and both kernels'
-scratch.
+Each kernel is one cooperative launch.  The scratch it needs lives in one
+workspace a device (:func:`_workspace`), grown and never shrunk:
+sim_push's counts (an int32 a state entry, zero between pushes: each push
+leaves them so) and rows (4 int32 a state entry: the indices of the key's
+first messages, any values between pushes), 20 bytes a state entry in
+all (377 MB for the simulator's 9·2²¹ + 1 entries at K=8), and both
+kernels' per-call scratch (a quarter over the largest call so far).  When
+a call comes on another stream than the last, that stream first waits for
+the last one's work, so two streams never share the workspace at once.
 
 Each wrapper launches its kernel for tensors on the card and runs its
 plain version for tensors on the CPU; each counts its launches apart
@@ -82,7 +86,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int64
 # a push's messages index int32 slots in the kernel
 MAX_MESSAGES = 2**30 - 1
-_WORKSPACES: Dict[Tuple[int, int], Dict[str, torch.Tensor]] = {}
+_WORKSPACES: Dict[int, Dict[str, object]] = {}
 
 
 def _lib() -> ctypes.CDLL:
@@ -101,23 +105,35 @@ def _lib() -> ctypes.CDLL:
 
 
 def _workspace(device: torch.device,
-               stream: Optional[int] = None) -> Dict[str, torch.Tensor]:
-    """K7's scratch on ``device`` for ``stream`` (its current stream when
-    omitted): ``count`` (int32, one a state entry, zero between pushes),
-    ``rows`` (int32, message indices), ``push`` (int32) and ``messages``
-    (int64); each as large as the largest call so far."""
+               stream: Optional[int] = None) -> Dict[str, object]:
+    """K7's scratch on ``device``: ``count`` (int32, one a state entry,
+    zero between pushes), ``rows`` (int32, four a state entry), ``push``
+    (int32) and ``messages`` (int64).  Given the raw ``stream`` a call
+    runs on, orders it after the stream of the call before."""
     index = (device.index if device.index is not None
              else torch.cuda.current_device())
-    if stream is None:
-        stream = stream_handle(device)
-    return _WORKSPACES.setdefault((index, stream), {})
+    ws = _WORKSPACES.setdefault(index, {})
+    last = ws.get("stream")
+    if stream is not None and stream != last:
+        if last is not None:
+            now = torch.cuda.ExternalStream(stream, device=index)
+            now.wait_stream(torch.cuda.ExternalStream(last, device=index))
+            for t in ws.values():
+                if torch.is_tensor(t):
+                    t.record_stream(now)
+        ws["stream"] = stream
+    return ws
 
 
-def _grown(ws: Dict[str, torch.Tensor], name: str, n: int, dtype,
-           device: torch.device, zero: bool = False) -> torch.Tensor:
+def _grown(ws: Dict[str, object], name: str, n: int, dtype,
+           device: torch.device, slack: bool = True,
+           zero: bool = False) -> torch.Tensor:
+    """``ws[name]``, reallocated when it holds fewer than ``n`` entries:
+    with a quarter more (``slack``) for per-call scratch, zeroed for
+    ``zero``."""
     t = ws.get(name)
     if t is None or t.numel() < n:
-        if not zero:  # scratch: room to grow in, fewer reallocations
+        if slack:  # room to grow in, fewer reallocations
             n += n // 4
         t = ws[name] = (torch.zeros if zero else torch.empty)(
             n, dtype=dtype, device=device)
@@ -203,9 +219,10 @@ def sim_push(state: torch.Tensor, key: torch.Tensor,
     lib, dev = _lib(), state.device
     stream = stream_handle(dev)
     ws = _workspace(dev, stream)
-    count = _grown(ws, "count", state.numel(), torch.int32, dev, zero=True)
+    count = _grown(ws, "count", state.numel(), torch.int32, dev, slack=False,
+                   zero=True)
     rows = _grown(ws, "rows", lib.sim_push_rows(state.numel()), torch.int32,
-                  dev)
+                  dev, slack=False)
     scratch = _grown(ws, "push", lib.sim_push_scratch(e), torch.int32, dev)
     err = lib.sim_push(key.data_ptr(), msg.data_ptr(), state.data_ptr(),
                        state.numel(), e, count.data_ptr(), rows.data_ptr(),

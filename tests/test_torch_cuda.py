@@ -1151,6 +1151,13 @@ def _bucket_case(case, rng):
             run = np.tile([1e16, 1.0, -1e16, 0.0], at.size // 4)
             run[3::4] = rng.standard_normal(at.size // 4)
             msg[at] = run
+    elif case == "long_buckets":  # merges of runs of every shape
+        state = rng.standard_normal(100_000)
+        lengths = [*range(6, 41), 63, 64, 65, 96, 127, 128, 129, 1000, 4097]
+        hubs = rng.permutation(100_000)[:len(lengths)]
+        key = np.concatenate([np.repeat(hubs, lengths),
+                              rng.integers(0, 100_000, 50_000)])
+        key = key[rng.permutation(key.size)]
     elif case == "one":
         state = rng.standard_normal(64)
         key = np.array([17])
@@ -1165,12 +1172,14 @@ def _bucket_case(case, rng):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["distinct", "hub", "above_2_24",
-                                  "random_1_4m", "order", "one", "empty"])
+                                  "random_1_4m", "order", "one", "empty",
+                                  "long_buckets"])
 def test_sim_push_buckets_match_plain(cuda_device, case):
     """K7's ordered buckets give the plain version's bits (np.add.at's) on
     every shape of push: distinct keys, a 10,000-message hub, keys above
     2**24, 1.4M random keys with repeats, sums that change with the add
-    order, one message, none (no launch).  Relaunched on a fresh copy the
+    order, one message, none (no launch), and buckets of 6 to 4,097
+    messages (merges of runs cut at every length).  Relaunched on a fresh copy the
     bits are the same, and every push leaves the counters all zero."""
     from repro_torch.kernels.sim_push import kernel as k7
 
@@ -1195,6 +1204,73 @@ def test_sim_push_buckets_match_plain(cuda_device, case):
         assert torch.equal(got.cpu(), want)
     count = k7._workspace(card[0].device).get("count")
     assert key.size == 0 or not bool(count.any())
+
+
+@pytest.mark.cuda
+def test_sim_push_hub_of_a_million(cuda_device):
+    """One key given 10**6 of 2·10**6 messages (a power-law hub): the
+    plain version's bits, in m log m ordering work (merges of sorted
+    runs), printed beside ``index_add_``'s time on the same push."""
+    from repro_torch.kernels.sim_push import kernel as k7
+
+    rng = np.random.default_rng(6)
+    e, n = 2 * 10**6, 2 * 10**6
+    key = rng.integers(0, n, e).astype(np.int32)
+    key[rng.permutation(e)[:10**6]] = 4321
+    msg = rng.standard_normal(e) * 10.0 ** rng.uniform(-9, 2, e)
+    state = rng.standard_normal(n)
+    want = torch.from_numpy(state.copy())
+    k7.sim_push_plain(want, torch.from_numpy(key), torch.from_numpy(msg))
+    card = [torch.as_tensor(a, device=cuda_device) for a in (state, key,
+                                                              msg)]
+    got = card[0].clone()
+    k7.sim_push(got, card[1], card[2])
+    assert torch.equal(got.cpu(), want)
+    assert not bool(k7._workspace(got.device)["count"].any())
+    times = {}
+    for name, fn in (("sim_push", k7.sim_push), ("index_add_", lambda
+                     st, k, m: st.index_add_(0, k, m))):
+        fn(got, card[1], card[2])  # loads the kernel's module
+        start, stop = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+        start.record()
+        for _ in range(3):
+            fn(got, card[1], card[2])
+        stop.record()
+        torch.cuda.synchronize()
+        times[name] = start.elapsed_time(stop) / 3
+    print(f"hub of 10**6 messages: sim_push {times['sim_push']:.4f} ms, "
+          f"index_add_ {times['index_add_']:.4f} ms")
+
+
+@pytest.mark.cuda
+def test_sim_push_on_two_streams_in_turn(cuda_device):
+    """Pushes on two streams in turn share the device's one workspace: each
+    stream waits for the other's pushes, so each state gets the plain
+    version's bits and the counts stay zero."""
+    from repro_torch.kernels.sim_push import kernel as k7
+
+    rng = np.random.default_rng(8)
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    wants, gots, pushes = [], [], []
+    for i in range(4):
+        state = rng.standard_normal(300_000)
+        key = rng.integers(0, 300_000, 700_000).astype(np.int32)
+        key[:3000] = 99  # and a long bucket
+        msg = rng.standard_normal(key.size)
+        want = torch.from_numpy(state.copy())
+        k7.sim_push_plain(want, torch.from_numpy(key), torch.from_numpy(msg))
+        wants.append(want)
+        pushes.append([torch.as_tensor(a, device=cuda_device)
+                       for a in (state, key, msg)])
+    torch.cuda.synchronize()
+    for i, (state, key, msg) in enumerate(pushes):
+        with torch.cuda.stream(streams[i % 2]):
+            k7.sim_push(state, key, msg)
+    torch.cuda.synchronize()
+    for (state, _, _), want in zip(pushes, wants):
+        assert torch.equal(state.cpu(), want)
+    assert not bool(k7._workspace(pushes[0][0].device)["count"].any())
 
 
 @pytest.mark.cuda

@@ -295,11 +295,13 @@ def test_node_move_executor_matches_reference(small_pagerank):
 # K7's plain version, the simulator's config and its front door
 # --------------------------------------------------------------------------- #
 @pytest.mark.parametrize("n,e,n_dst", [(1, 5, 1), (300, 4000, 40),
-                                       (5000, 200_000, 900)])
+                                       (5000, 200_000, 900), (1000, 4097, 1),
+                                       (5000, 100_000, 3)])
 def test_sim_push_plain_is_np_add_at(n, e, n_dst):
     """K7's plain version gives np.add.at's bits for a diffusion's two
     scatters, repeated destinations and all (the fluid and PID 1's outbox
-    as views of one state buffer), and launches nothing for CPU tensors."""
+    as views of one state buffer), hubs of thousands of messages among
+    them, and launches nothing for CPU tensors."""
     rng = np.random.default_rng(n + e)
     owner = rng.integers(0, 3, n).astype(np.int32)
     dst = rng.choice(n, n_dst)[rng.integers(0, n_dst, e)]
@@ -356,17 +358,24 @@ def _k7_probe():
     return mod
 
 
-@pytest.mark.parametrize("variant", list(_k7_probe().VARIANTS))
-def test_k7_probe_edits_find_their_text(variant):
-    """Every source edit of tools/k7_probe.py finds its text in
-    csrc/sim_push.cu (once, or at least once for an edit marked "*"), so
-    the probe cannot rot."""
+@pytest.mark.parametrize("kernel", ["sim_push", "sim_messages"])
+def test_k7_probe_phases_match_the_hooks(kernel):
+    """tools/k7_probe.py's `phases` build names the slots that each
+    kernel's hooks in csrc/sim_push.cu fill: the slot of its K7_START, then
+    one up at each K7_STAMP.  Its stamp header defines both hooks, which
+    the .cu declares empty, so the probe cannot rot."""
+    import re
+
     probe = _k7_probe()
-    src = probe.edited_source(variant, [])
-    got = probe.edited_source(variant, probe.VARIANTS[variant])
-    assert got != src
-    for old, new in probe.VARIANTS[variant]:
-        assert src.count(old.rstrip("*")) >= 1 and new in got
+    src = (probe.ROOT / "src" /
+           "repro_torch" / "csrc" / "sim_push.cu").read_text()
+    for hook in ("K7_START", "K7_STAMP"):
+        assert f"#define {hook}" in src and f"#define {hook}" in probe.STAMPS
+    body = src[src.index(f"\n{kernel}_kernel("):]
+    body = body[:body.index("\n}\n")]
+    first = int(re.search(r"K7_START\((\d+)\);", body).group(1))
+    stamps = body.count("K7_STAMP;")
+    assert set(probe.PHASES[kernel]) == set(range(first, first + stamps))
 
 
 def test_sim_push_takes_int32_keys_only():
