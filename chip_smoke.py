@@ -187,6 +187,37 @@ Phases, each printed on its own lines (any failure exits non-zero):
    bucket, a whole push's device kernels and copies and stream time);
    each bound counts each input read once and each output written once,
    flops over 34 TFLOP/s float64.
+14. Rank serving, on phase 4's problem and its GraphStore (mutated here,
+   after every other phase).  (a) K3's lane form ``edge_sum_lanes`` on
+   random fluid at C in {1, 3, 16} (a zero lane in each C > 1) against its
+   plain version: relative L1 <= 1e-5, a bit-identical relaunch, each lane
+   the bits of K3 launched on its row, a zero lane a zero row and a zero
+   input a zero output.  (b) ``SolverSession.solve_batch`` on 3 and 16
+   personalized columns (B drifted by 0.02, seeded): converged, the lane
+   form launched once per batched round, pad and no pad bit-equal x and
+   equal ``ops_per_column`` at C=3, and every column within |dx|_1 <=
+   1e-5 of a cold single-lane ``frontier:segment_sum`` solve of it, with
+   equal edge pushes.  (c) the continuous-batching ``Scheduler``
+   (max_lanes 16, 32 rounds a tick) serves 32 requests over 8 clusters
+   (each cluster twice cold, once warm from the pool, then a
+   ``rotation_churn`` delta of 0.1 % of the links through
+   ``submit_update``, applied at the drain barrier, then 4 clusters twice):
+   all served, none dropped, all converged, one update applied, pool hits,
+   the 4 requests after the update missing the stale pool, the lane form
+   launched once per scheduler round, and two requests before the update
+   and two after within 2·target_error of ``solo_reference``.  QPS on the
+   host wall, the virtual p50 / p99, occupancy, pool hit rate and rounds
+   printed.  (d) ``update_graph`` on a cold-solved ``frontier:pallas``
+   session (K1 over the patched tile pool), then on an ``engine:bsr``
+   session (k=4, K2 over the patched layout) seeded with the first
+   session's converged (F, H), each with its own 0.1 % rotation delta: the
+   warm re-solve converges within |dx|_1 <= 1e-5 (2·target_error below N =
+   2e5) of a cold ``frontier:segment_sum`` solve on a store rebuilt from
+   the spliced edges, with fewer pushes than that solve (and than the
+   cold one), its kernel launched once per round.  The lane form's row joins the kernels line at C=16
+   (``torch.sparse.mm`` over the destination CSR as the library call), with
+   its launches of (b) and (c), the launches a served request, and a
+   batched round's ms at C=16 split into the lane form and the rest.
 
 The line before the last is the card's name and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -245,6 +276,13 @@ GIN_SHAPE = "ogb_products"
 # expects 64.1M edge stubs, over it)
 GIN_ALPHA = 1.655
 LM_ARCH = "qwen1.5-0.5b"
+# phase 14: the lane widths K3's lane form is checked at, the personalized
+# columns' drift, the scheduler's clusters and the churn of each delta (a
+# share of the links)
+RANK_LANES = (1, 3, 16)
+RANK_DRIFT = 0.02
+RANK_CLUSTERS = 8
+RANK_CHURN = 0.001
 
 
 def fail(msg: str) -> None:
@@ -1224,6 +1262,299 @@ def simulator_phase(args, torch, dev, timer, g, problem, x_ref):
     return rows, summary
 
 
+def rank_serving_phase(args, torch, dev, timer, problem):
+    """Phase 14: rank serving on the card — K3's lane form, batched
+    multi-RHS solves, the continuous-batching scheduler with a graph
+    update at its drain barrier, and update_graph on frontier:pallas and
+    engine:bsr.  ``problem`` is phase 4's; its GraphStore is mutated here.
+    Returns ``(rows, summary)``."""
+    import repro_torch
+    from repro_torch.graph import GraphStore, rotation_churn
+    from repro_torch.interop import seed_session
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.edge_sum import (
+        csc_edges, edge_sum, edge_sum_lanes, edge_sum_lanes_plain)
+    from repro_torch.serving import Scheduler, solo_reference
+
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 14)
+    n = problem.n
+    store = problem.graph
+    src, dst, wgt = problem.p.edge_list()
+    edges = csc_edges(src, dst, wgt, n, dev)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # (a) the lane form against its plain version and against K3
+    lane_in = {}
+    for c in RANK_LANES:
+        x = torch.as_tensor(rng.standard_normal((c, n)) / n,
+                            dtype=torch.float32, device=dev)
+        if c > 1:
+            x[c // 2] = 0.0  # a zero lane
+        a, a2 = edge_sum_lanes(x, edges), edge_sum_lanes(x, edges)
+        p = edge_sum_lanes_plain(x, edges.indptr, edges.src, edges.wgt)
+        e = rel_l1(a, p)
+        same = torch.equal(a, a2)
+        k3 = all(torch.equal(a[lane], edge_sum(x[lane].contiguous(), edges))
+                 for lane in range(c))
+        zero_lane = c == 1 or bool((a[c // 2] == 0).all())
+        zero_in = bool((edge_sum_lanes(torch.zeros_like(x), edges) == 0)
+                       .all())
+        print(f"K3 lanes C={c}: rel L1 {e:.3e}, bit-identical relaunch "
+              f"{same}, each lane K3's bits {k3}, zero lane a zero row "
+              f"{zero_lane}, zero input a zero output {zero_in}")
+        if not (e <= REL_L1 and same and k3 and zero_lane and zero_in):
+            fail(f"K3 lane form C={c}")
+        lane_in[c] = (x, float((a - p).abs().max()))
+
+    # (b) batched solves of personalized columns
+    cols = np.abs(problem.b[:, None] * (
+        1.0 + RANK_DRIFT * rng.standard_normal((n, RANK_LANES[-1]))))
+    session = repro_torch.SolverSession(problem, "frontier:segment_sum",
+                                        device=args.device)
+    reset_launches()
+    rep3 = session.solve_batch(cols[:, :3])
+    lanes_3 = LAUNCHES["edge_sum_lanes"]
+    raw3 = session.solve_batch(cols[:, :3], pad=False)
+    lanes_raw = LAUNCHES["edge_sum_lanes"] - lanes_3
+    if on_card and (lanes_3, lanes_raw) != (rep3.n_rounds, raw3.n_rounds):
+        fail(f"K3's lane form launched {lanes_3} and {lanes_raw} times in "
+             f"{rep3.n_rounds} and {raw3.n_rounds} batched rounds")
+    pad_same = (np.array_equal(rep3.x, raw3.x) and rep3.extras[
+        "ops_per_column"] == raw3.extras["ops_per_column"])
+    print(f"solve_batch C=3: converged {rep3.converged} rounds "
+          f"{rep3.n_rounds} ops {rep3.extras['ops_per_column']} bucket "
+          f"{rep3.extras['bucket']} wall {rep3.wall_time_s:.3f} s (no pad "
+          f"{raw3.wall_time_s:.3f} s); pad and no pad bit-equal x and equal "
+          f"ops {pad_same}")
+    if not (rep3.converged and pad_same):
+        fail("solve_batch C=3 / padding")
+    rep16 = session.solve_batch(cols)
+    lanes_16 = LAUNCHES["edge_sum_lanes"] - lanes_3 - lanes_raw
+    lanes_b = LAUNCHES["edge_sum_lanes"]
+    round_ms = rep16.wall_time_s * 1e3 / max(rep16.n_rounds, 1)
+    print(f"solve_batch C=16: converged {rep16.converged} rounds "
+          f"{rep16.n_rounds} ops {rep16.n_ops} wall {rep16.wall_time_s:.3f} "
+          f"s ({round_ms:.4f} ms a batched round); lane-form launches "
+          f"{lanes_16}")
+    if not rep16.converged or (on_card and lanes_16 != rep16.n_rounds):
+        fail("solve_batch C=16")
+    # each column against a cold single-lane frontier:segment_sum solve
+    worst = 0.0
+    for c in range(cols.shape[1]):
+        session._driver.seed(cols[:, c])
+        one = session.solve()
+        for rep, width in ((rep16, 16), (rep3, 3)):
+            if c >= width:
+                continue
+            dx = float(np.abs(rep.x[:, c] - one.x).sum())
+            worst = max(worst, dx)
+            if dx > 1e-5 or rep.extras["ops_per_column"][c] != one.n_ops:
+                fail(f"column {c} of the C={width} batch: |dx|_1 {dx:.3e}, "
+                     f"pushes {rep.extras['ops_per_column'][c]} against the "
+                     f"single-lane solve's {one.n_ops}")
+    print(f"every column within |dx|_1 {worst:.3e} of its single-lane "
+          f"frontier:segment_sum solve, with equal edge pushes")
+    del session
+
+    # (c) the continuous-batching scheduler, one graph update midway
+    bases = cols[:, :RANK_CLUSTERS]
+
+    def request(cluster):
+        return np.abs(bases[:, cluster] * (
+            1.0 + RANK_DRIFT * rng.standard_normal(n)))
+
+    sch = Scheduler(problem, max_lanes=16, rounds_per_tick=32,
+                    device=args.device)
+    sent = {}  # request id -> (its RHS, the Problem snapshot it ran on)
+    wall = 0.0  # host wall of the scheduler's own calls
+
+    def serve(wave):
+        nonlocal wall
+        t1 = time.perf_counter()
+        for cluster in wave:
+            rid = len(sent)
+            sent[rid] = (request(cluster), sch.problem)
+            sch.submit(sent[rid][0], cluster=cluster, request_id=rid)
+        sch.run_until_idle()
+        sync()
+        wall += time.perf_counter() - t1
+
+    def held_to_solo(ids):
+        """|dx|_1 of the served requests ``ids`` from the sequential path
+        (one warm-started session over the same snapshot)."""
+        by_id = {r.request_id: r for r in sch.results}
+        xs, _, _ = solo_reference(sent[ids[0]][1], np.stack(
+            [sent[i][0] for i in ids], axis=1), device=args.device)
+        return [float(np.abs(by_id[rid].x - xs[:, j]).sum())
+                for j, rid in enumerate(ids)]
+
+    reset_launches()
+    serve(list(range(RANK_CLUSTERS)) * 2)  # cold: every cluster twice
+    serve(range(RANK_CLUSTERS))  # warm from the pool
+    lanes_c = LAUNCHES["edge_sum_lanes"]
+    before = (2 * RANK_CLUSTERS, 2 * RANK_CLUSTERS + 1)
+    dx_solo = held_to_solo(before)
+    # the update, applied at the drain barrier
+    n_rot = max(1, int(RANK_CHURN * sch.problem.n_edges) // 2)
+    delta = rotation_churn(sch.problem.graph, n_rot, seed=args.seed)
+    reset_launches()
+    t1 = time.perf_counter()
+    sch.submit_update(delta, store_version=sch.problem.store_version)
+    sch.run_until_idle()
+    t_update = time.perf_counter() - t1
+    wall += t_update
+    print(f"update: {delta.n_changes} changed edges "
+          f"({delta.n_changes / problem.n_edges:.4%} of the links) applied "
+          f"at the drain barrier in {t_update:.3f} s, store at version "
+          f"{sch.problem.store_version}")
+    stale = list(range(len(sent), len(sent) + 4))
+    serve(range(4))  # the same clusters: their pooled H is stale
+    after = (len(sent), len(sent) + 1)
+    serve(range(4))  # warm from the post-update pool
+    lanes_c += LAUNCHES["edge_sum_lanes"]
+    dx_solo += held_to_solo(after)
+    served = sch.results
+    lat = sch.latency_percentiles()
+    by_id = {r.request_id: r for r in served}
+    stale_miss = all(not by_id[i].pool_hit for i in stale)
+    print(f"scheduler: served {len(served)} dropped {sch.dropped} "
+          f"converged {sum(r.converged for r in served)} applied updates "
+          f"{sch.applied_updates} pool hits {sch.pool.hits} misses "
+          f"{sch.pool.misses} (hit rate {sch.pool.hit_rate:.4f}, "
+          f"invalidated {sch.pool.invalidations}), stale-version misses "
+          f"after the update {stale_miss}; rounds "
+          f"{sch.batcher.rounds_total} occupancy "
+          f"{sch.batcher.mean_occupancy:.4f} width {sch.batcher.width}; "
+          f"host wall {wall:.3f} s (QPS {len(served) / wall:.3f}); virtual "
+          f"latency p50 {lat['p50']:.3f} s p99 {lat['p99']:.3f} s; "
+          f"lane-form launches {lanes_c} ({lanes_c / len(served):.1f} a "
+          f"request)")
+    if not (len(served) == len(sent) == 32 and sch.dropped == 0
+            and all(r.converged for r in served)
+            and sch.applied_updates == 1 and sch.pool.hits > 0
+            and stale_miss):
+        fail("scheduler gates")
+    if on_card and lanes_c != sch.batcher.rounds_total:
+        fail("K3's lane form not launched once per scheduler round")
+    print(f"requests {before + after} within |dx|_1 "
+          f"{[f'{d:.3e}' for d in dx_solo]} of solo_reference (bound "
+          f"2·target_error {2 * problem.target_error:.3e})")
+    if max(dx_solo) > 2.0 * problem.target_error:
+        fail("scheduler results against solo_reference")
+
+    # (d) update_graph on frontier:pallas (K1) and engine:bsr (K2)
+    def delta_resolve(prob, method, kernel, opts, seed, seeded=None):
+        """A session of ``method`` on ``prob`` — solved cold, or seeded
+        with ``seeded``, another session's (method, F, H, T) — a rotation
+        delta through update_graph, the warm re-solve; gated against a
+        cold frontier:segment_sum solve on a store rebuilt from the
+        spliced edges.  Returns the session."""
+        t1 = time.perf_counter()
+        s = repro_torch.SolverSession(prob, method, device=args.device,
+                                      **opts)
+        if seeded is None:
+            cold = s.solve()
+            start = f"cold rounds {cold.n_rounds} pushes {cold.n_ops}"
+        else:
+            cold = None
+            seed_session(s, *seeded[1:])
+            start = (f"seeded with {seeded[0]}'s converged state "
+                     f"(|F|_1 {s.residual:.3e})")
+        n_rot = max(1, int(RANK_CHURN * s.problem.n_edges) // 2)
+        delta = rotation_churn(s.problem.graph, n_rot, seed=seed)
+        t2 = time.perf_counter()
+        resid0 = s.update_graph(delta)
+        t_upd = time.perf_counter() - t2
+        pool = getattr(getattr(s._driver, "engine", None), "pool", None)
+        if pool is None:
+            pool = s._driver.m.blocks
+        reset_launches()
+        warm = s.solve()
+        launched = LAUNCHES[kernel]
+        rebuilt = s.problem.with_graph(
+            GraphStore.from_csr(s.problem.graph.csr()))
+        ref = repro_torch.solve(rebuilt, method="frontier:segment_sum",
+                                device=args.device)
+        dx = float(np.abs(warm.x - ref.x).sum())
+        print(f"update_graph {method}: {start}; {delta.n_changes} changed "
+              f"edges, |F'|_1 {resid0:.3e}, update {t_upd:.3f} s (store "
+              f"version {s.problem.store_version}, its tile pool "
+              f"{pool.shape[0]} tiles, {pool.numel() * 4 / 1e9:.3f} GB); "
+              f"warm rounds "
+              f"{warm.n_rounds} pushes {warm.n_ops} wall "
+              f"{warm.wall_time_s:.3f} s, {kernel} launches {launched}; "
+              f"|x - x_rebuilt segment_sum|_1 {dx:.3e} (its pushes "
+              f"{ref.n_ops}); {time.perf_counter() - t1:.1f} s")
+        # two converged schedules may differ by 2·target_error, which is
+        # below 1e-5 from N = 2e5 on
+        if not (warm.converged and dx <= max(1e-5, 2.0 * prob.target_error)
+                and warm.n_ops < ref.n_ops
+                and (cold is None or warm.n_ops < cold.n_ops)):
+            fail(f"update_graph on {method}")
+        if on_card and launched != warm.n_rounds:
+            fail(f"{kernel} launched {launched} times in {warm.n_rounds} "
+                 f"rounds of the {method} delta re-solve")
+        return s
+
+    s_pallas = delta_resolve(sch.problem, "frontier:pallas",
+                             "frontier_round_bsr", {}, args.seed + 1)
+    # its converged state on the host, its device tables freed before the
+    # engine's tile pool (tens of GB after the deltas) is built
+    seeded = (s_pallas.method, *s_pallas._driver.fluid(),
+              s_pallas._driver.threshold())
+    prob = s_pallas.problem
+    del s_pallas
+    if on_card:
+        torch.cuda.empty_cache()
+    delta_resolve(prob, "engine:bsr", "bsr_spmm", ENGINE_OPTS,
+                  args.seed + 2, seeded=seeded)
+
+    # the lane form's row for the kernels line, at C=16
+    x16, err16 = lane_in[RANK_LANES[-1]]
+    c16, n_e = x16.shape[0], edges.n_edges
+    lane_bytes = edges.indptr.numel() * 8 + n_e * 8 + 2 * c16 * n * 4
+    b_ms, b_by = bound_ms(lane_bytes, 2.0 * n_e * c16)
+    lane_ms = timer(lambda: edge_sum_lanes(x16, edges), 20)
+    lib_ms = None
+    if on_card:
+        a_csr = torch.sparse_csr_tensor(edges.indptr, edges.src.long(),
+                                        edges.wgt, size=(n, n))
+        x16t = x16.T.contiguous()
+        lib_ms = timer(lambda: torch.sparse.mm(a_csr, x16t), 20)
+        lib_err = float((torch.sparse.mm(a_csr, x16t).T
+                         - edge_sum_lanes(x16, edges)).abs().max())
+        print(f"torch.sparse.mm (sparse_csr over the destination CSR) vs "
+              f"K3's lane form at C={c16}: max abs diff {lib_err:.3e}")
+    print(f"a batched round at C=16: {round_ms:.4f} ms, of which the lane "
+          f"form {lane_ms:.4f} ms and the rest {round_ms - lane_ms:.4f} ms")
+    row = {
+        "name": "edge_sum_lanes", "route": "cuda",
+        "source": "src/repro_torch/csrc/edge_sum.cu",
+        "replaces": "src/repro/api/session.py:114",
+        "launches": lanes_b + lanes_c,
+        "max_abs_err": err16,
+        "ms": lane_ms,
+        "plain_ms": timer(lambda: edge_sum_lanes_plain(
+            x16, edges.indptr, edges.src, edges.wgt), 3),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "lanes": c16,
+        "launches_per_request": lanes_c / len(served),
+        "round_ms": round_ms,
+        "round_rest_ms": round_ms - lane_ms,
+    }
+    summary = (f"rank serving: QPS {len(served) / wall:.3f} (host wall), "
+               f"virtual p50 {lat['p50']:.3f} s p99 {lat['p99']:.3f} s, "
+               f"occupancy {sch.batcher.mean_occupancy:.4f}, pool hit rate "
+               f"{sch.pool.hit_rate:.4f}, rounds {sch.batcher.rounds_total};"
+               f" phase wall {time.perf_counter() - t_phase:.1f} s")
+    return [row], summary
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=2**21,
@@ -1578,18 +1909,18 @@ def main() -> int:
     pool_tiles = eng.pool.shape[0]
     print(f"engine:bsr layout: k={k_e} R={r_e} rows (B_loc="
           f"{ecfg.buckets_per_dev}, headroom {ecfg.headroom}) S={s_e} "
-          f"T={pool_tiles // r_e}; tile pool {pool_tiles} tiles "
-          f"({pool_tiles * s_e * s_e * 4 / 1e9:.3f} GB), visits (real "
-          f"tiles) {visits.n_visits} = sum t_counts "
-          f"{int(ea.t_counts.sum())}; build wall {build_bsr_s:.3f} s")
+          f"T={ea.tile_dst.shape[1]}; tile pool {pool_tiles} real tiles "
+          f"({pool_tiles * s_e * s_e * 4 / 1e9:.3f} GB), visits "
+          f"{visits.n_visits} = sum t_counts {int(ea.t_counts.sum())}; "
+          f"build wall {build_bsr_s:.3f} s")
     edges_e = s_chk._driver.ex.table
     ca = s_chk._driver.engine.a
     print(f"engine:chunk layout: R={ca.n_rows} S={ca.bucket_size} "
           f"E={ca.edge_cap}: {ca.n_rows * ca.edge_cap} edge slots, "
           f"{edges_e.n_edges} real edges (links {g.n_edges}); build wall "
           f"{build_chk_s:.3f} s")
-    if visits.n_visits != int(ea.t_counts.sum()) or (
-            edges_e.n_edges != g.n_edges):
+    if not (visits.n_visits == pool_tiles == int(ea.t_counts.sum())
+            and edges_e.n_edges == g.n_edges):
         fail("the engine tables do not hold exactly the real tiles/edges")
     sent_e = torch.as_tensor(
         rng.standard_normal((r_e, s_e)) / g.n * (ea.w != 0),
@@ -2313,6 +2644,18 @@ def main() -> int:
     print(sim_summary)
     show(sim_rows)
     rows += sim_rows
+
+    # ---- 14. rank serving --------------------------------------------------
+    print("== phase 14: rank serving")
+    # the earlier phases' sessions and pools are done with
+    del s_bsr, eng, visits, session, m
+    if on_card:
+        torch.cuda.empty_cache()
+    rank_rows, rank_summary = rank_serving_phase(args, torch, dev, timer,
+                                                 problem)
+    print(rank_summary)
+    show(rank_rows)
+    rows += rank_rows
     print(f"total wall {time.perf_counter() - t_start:.1f} s")
     if not on_card:
         print("rehearsal on the CPU done: no device numbers, no result")

@@ -12,8 +12,9 @@ the card where the reference's is native on the TPU), the K-PID
 engine's ``engine:chunk`` (per-edge push over K3) and ``engine:bsr``
 (tile push over K2), and ``simulator``, the paper's faithful K-PID
 simulator (its push over K7; a fidelity choice, never auto's pick over an
-engine).  No backend takes a multi-RHS batch yet: ``solve_batch`` comes
-with the serving slice.
+engine).  A batched (multi-RHS) ``Problem`` runs on
+``frontier:segment_sum`` alone, through ``SolverSession.solve_batch``
+(K3's lane form), as in the reference.
 """
 from __future__ import annotations
 
@@ -41,8 +42,9 @@ def _downsample(records, cap: int = _TRACE_CAP):
 def _reject_batch(problem: Problem, method: str) -> None:
     if problem.is_batched:
         raise ValueError(
-            f"backend {method!r} has no multi-RHS path in this port yet; "
-            "solve the columns as separate problems"
+            f"backend {method!r} has no multi-RHS path; batched problems "
+            "run on frontier:segment_sum (or solve the columns as separate "
+            "problems)"
         )
 
 
@@ -88,13 +90,17 @@ def _solve_sequential(problem: Problem, options: SolverOptions
 # --------------------------------------------------------------------------- #
 def _session_solve(problem: Problem, options: SolverOptions,
                    method: str) -> SolveReport:
-    _reject_batch(problem, method)
-    return SolverSession(problem, method=method, options=options).solve()
+    session = SolverSession(problem, method=method, options=options)
+    if problem.is_batched:
+        return session.solve_batch(problem.b_batch)
+    return session.solve()
 
 
 @register_backend(
     "frontier:segment_sum",
-    BackendCapabilities(supports_warm_start=True, auto_priority=10),
+    BackendCapabilities(
+        supports_batch=True, supports_warm_start=True, auto_priority=10,
+    ),
 )
 def _solve_frontier_segment_sum(problem, options):
     return _session_solve(problem, options, "frontier:segment_sum")
@@ -111,6 +117,9 @@ def _solve_frontier_segment_sum(problem, options):
     ),
 )
 def _solve_frontier_pallas(problem, options):
+    # batch serving is frontier:segment_sum-native (the fused kernel has
+    # no per-column threshold operand)
+    _reject_batch(problem, "frontier:pallas")
     return _session_solve(problem, options, "frontier:pallas")
 
 
@@ -122,6 +131,7 @@ def _solve_frontier_pallas(problem, options):
     ),
 )
 def _solve_engine_chunk(problem, options):
+    _reject_batch(problem, "engine:chunk")
     return _session_solve(problem, options, "engine:chunk")
 
 
@@ -134,6 +144,7 @@ def _solve_engine_chunk(problem, options):
     ),
 )
 def _solve_engine_bsr(problem, options):
+    _reject_batch(problem, "engine:bsr")
     return _session_solve(problem, options, "engine:bsr")
 
 

@@ -61,7 +61,7 @@ class BackendCapabilities:
     """
 
     supports_dynamic_partition: bool = False
-    supports_batch: bool = False  # multi-RHS solve_batch via vmap
+    supports_batch: bool = False  # multi-RHS solve_batch ([C, N] lanes)
     supports_warm_start: bool = False  # SolverSession-resumable state
     configurable_k: bool = False  # honors SolverOptions.k > 1
     device_kinds: Tuple[str, ...] = ("cpu", "cuda")
@@ -168,7 +168,7 @@ def _auto_select(problem: Problem, options: SolverOptions) -> str:
     if best is None:
         raise ValueError(
             "no registered backend honors this request (multi-RHS "
-            "batches need the serving tier, not yet in this port); "
+            "batches run on frontier:segment_sum alone, with k unset); "
             f"registered: {sorted(_REGISTRY)}")
     return best.name
 

@@ -10,6 +10,12 @@ between *solves*:
   §2.2 residual identity ``X_exact − H = (I−P)^{-1} F`` applied to the
   new RHS).  A nearby B' leaves |F| tiny, so re-solving costs a small
   fraction of a cold solve.
+* ``solve_batch(B)`` — multi-RHS personalized PageRank: ``[C, N]`` lanes
+  with per-lane thresholds and convergence masks over the shared edge
+  list, each batched round one launch of K3's lane form.
+* ``update_graph(delta)`` — keep (H, F), mutate P: the GraphStore patches
+  its views incrementally and the fluid re-seeds via
+  ``F' = F + (P'−P)·H``, so a churned graph re-solves warm, not cold.
 
 Drivers adapt one warm-startable backend each behind a tiny protocol
 (``seed`` / ``advance`` / ``x`` / ``residual`` / ``ops`` / ``rounds`` /
@@ -26,8 +32,7 @@ The frontier drivers advance by rounds; the engine driver
 (``engine:chunk`` / ``engine:bsr``) advances one chunk per grain, with
 the balance control plane between chunks.
 
-``update_graph``, ``checkpoint``/``restore``, ``rescale`` and
-``solve_batch`` come with later slices.
+``checkpoint``/``restore`` and ``rescale`` come with later slices.
 """
 from __future__ import annotations
 
@@ -40,13 +45,15 @@ import torch
 
 from ..balance.executors import BucketMoveExecutor
 from ..balance.policies import make_rebalancer
+from ..balance.signals import LoadSignal
 from ..core.distributed import (
     DistributedEngine,
     EngineConfig,
     build_engine_arrays,
 )
+from ..graph import GraphDelta, invert_delta
 from ..kernels.diffusion import frontier_round_bsr
-from ..kernels.edge_sum import csc_edges, edge_sum
+from ..kernels.edge_sum import csc_edges, edge_sum, edge_sum_lanes
 from ..kernels.tune import resolved_config
 from .options import SolverOptions, engine_dtype
 from .problem import Problem
@@ -75,6 +82,109 @@ def _edges_of(problem: Problem, device):
 
 
 # --------------------------------------------------------------------------- #
+# the batched multi-RHS round (shared by solve_batch and repro_torch.serving)
+# --------------------------------------------------------------------------- #
+def _bucket_width(c: int, floor: int = 1) -> int:
+    """Smallest power of two >= max(c, floor): the lane-axis bucket.
+
+    Batched solves pad their lane axis to this width with zero lanes, as
+    the reference does to replay one compiled trace per bucket; the port
+    keeps the widths (and so the serving event sequences) the same."""
+    cp = max(int(floor), 1)
+    while cp < c:
+        cp *= 2
+    return cp
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchEdges:
+    """What every batched round reads, on one device: the destination-
+    sorted edges of the damped matrix (K3's table), the float32 selection
+    weights ``w [N]`` and the §2.3 charge of each node, ``max(out_degree,
+    1)`` (a dangling node absorbs and is charged one op)."""
+
+    edges: object  # CscEdges
+    w: torch.Tensor
+    charge: torch.Tensor  # [N] int32
+
+    @staticmethod
+    def of(problem: Problem, device) -> "BatchEdges":
+        g = problem.p
+        dev = torch.device(device)
+        charge = np.maximum(g.out_degree(), 1).astype(np.int32)
+        return BatchEdges(_edges_of(problem, dev),
+                          _f32(problem.node_weights(), dev),
+                          torch.as_tensor(charge, device=dev))
+
+
+def _round(f, h, t, ops, lane_rounds, active, be: BatchEdges, gamma):
+    """One batched frontier round over ``[C, N]`` lanes (the reference's
+    ``_batch_fns._round``).  Lanes are independent: a lane that is not
+    ``active`` (converged, or a zero padding lane) selects nothing, pushes
+    nothing and keeps its threshold; the push is one launch of K3's lane
+    form, whose lanes do not see each other."""
+    sel = ((f.abs() * be.w) > t[:, None]) & active[:, None]
+    sent = torch.where(sel, f, torch.zeros_like(f))
+    h = h + sent
+    f = f - sent
+    f = f + edge_sum_lanes(sent, be.edges)
+    dops = torch.where(sel, be.charge, 0).sum(dim=1, dtype=torch.int64)
+    t = torch.where(sel.any(dim=1) | ~active, t, t / gamma)
+    return f, h, t, ops + dops, lane_rounds + active.to(torch.int64)
+
+
+def _batch_run(f, h, t, ops, lane_rounds, tol_cols, budget: int,
+               be: BatchEdges, gamma):
+    """Batched rounds until no lane is above its tolerance or ``budget``
+    rounds ran: the reference's ``solve`` / ``tick`` while-loops, as a
+    Python loop with one host read a round (the any-lane-active flag).
+    Returns ``(f, h, t, ops, lane_rounds, rounds_run)``."""
+    rounds = 0
+    while rounds < budget:
+        active = f.abs().sum(dim=1) > tol_cols
+        if not bool(active.any()):
+            break
+        f, h, t, ops, lane_rounds = _round(f, h, t, ops, lane_rounds,
+                                           active, be, gamma)
+        rounds += 1
+    return f, h, t, ops, lane_rounds, rounds
+
+
+def _batch_warm(b_col: torch.Tensor, h_col: torch.Tensor, be: BatchEdges):
+    """``F' = B' − H + P·H`` (§2.2) for one lane, on the device (K3),
+    and its starting threshold."""
+    f_col = b_col - h_col + edge_sum(h_col, be.edges)
+    return f_col, (f_col * be.w).abs().max() * 2.0
+
+
+def _batch_place(f, h, t, ops, lane_rounds, lane: int, f_col, h_col,
+                 t_col) -> None:
+    """Seed lane ``lane`` in place: its fluid pair, threshold, counters."""
+    f[lane] = f_col
+    h[lane] = h_col
+    t[lane] = t_col
+    ops[lane] = 0
+    lane_rounds[lane] = 0
+
+
+def _batch_clear(f, h, lane: int) -> None:
+    """Zero lane ``lane`` in place: an empty lane is inert."""
+    f[lane] = 0.0
+    h[lane] = 0.0
+
+
+def _batch_fns() -> dict:
+    """The batched lane kernels by the reference's names: ``solve`` runs
+    to convergence, ``tick`` is the continuous-batching micro-step (both
+    :func:`_batch_run`, bounded by ``max_rounds`` or the tick budget),
+    ``warm`` / ``place`` / ``clear`` are the lane-lifecycle helpers
+    :mod:`repro_torch.serving` swaps converged lanes for queued requests
+    with.  All lane state is ``[C, N]`` (lane-major)."""
+    return {"solve": _batch_run, "tick": _batch_run, "warm": _batch_warm,
+            "place": _batch_place, "clear": _batch_clear}
+
+
+# --------------------------------------------------------------------------- #
 # frontier drivers
 # --------------------------------------------------------------------------- #
 class _SegmentSumDriver:
@@ -91,6 +201,7 @@ class _SegmentSumDriver:
         self.dang = torch.as_tensor(g.dangling_mask(), device=self.device)
         self.gamma = options.gamma
         self._state = None
+        self._batch = None  # BatchEdges, built at the first solve_batch
 
     def _zero_ops(self) -> torch.Tensor:
         return torch.zeros((), dtype=torch.int64, device=self.device)
@@ -162,6 +273,44 @@ class _SegmentSumDriver:
             # re-derived threshold — any schedule is valid
         f, h, _t, ops, rounds = self._state
         self._state = (f, h, _f32(t[0], self.device), ops, rounds)
+
+    # ---- batched multi-RHS loop (lanes over columns) ----------------------
+    def solve_batch(self, b_matrix: np.ndarray, tol: float,
+                    max_rounds: int, pad: bool = True):
+        """All columns at once: per-column thresholds + convergence masks.
+
+        Converged columns stop diffusing (their frontier is masked), so
+        ops accrue per column exactly as in the single-RHS loop.  The
+        lane axis is padded to a pow2 bucket (:func:`_bucket_width`) with
+        zero-RHS lanes, which never select and never push: the real lanes
+        are *bitwise* unaffected (``pad=False`` keeps the exact width).
+        Returns ``(x [N, C], ops [C], rounds, res_cols, stats)``.
+        """
+        c = b_matrix.shape[1]
+        cp = _bucket_width(c) if pad else c
+        be = self._batch_edges()
+        f0 = torch.zeros((cp, self.n), dtype=torch.float32,
+                         device=self.device)
+        f0[:c] = _f32(np.ascontiguousarray(b_matrix.T), self.device)
+        t0 = (f0 * be.w).abs().amax(dim=1) * 2.0
+        tol_cols = torch.full((cp,), tol, dtype=torch.float32,
+                              device=self.device)
+        zeros = torch.zeros(cp, dtype=torch.int64, device=self.device)
+        f, h, _t, ops, _lane_rounds, rounds = _batch_run(
+            f0, torch.zeros_like(f0), t0, zeros, zeros.clone(), tol_cols,
+            max_rounds, be, self.gamma)
+        res_cols = f.abs().sum(dim=1).double().cpu().numpy()[:c]
+        stats = {"bucket": cp, "padding_waste": float((cp - c) / cp)}
+        return (h[:c].T.double().cpu().numpy(), ops.cpu().numpy()[:c],
+                rounds, res_cols, stats)
+
+    def _batch_edges(self) -> BatchEdges:
+        """The batched round's operands, sharing this driver's K3 table."""
+        if self._batch is None:
+            charge = (torch.clamp(self.out_deg, min=1)
+                      .to(torch.int32))
+            self._batch = BatchEdges(self.edges, self.w, charge)
+        return self._batch
 
 
 class _BsrFrontierDriver:
@@ -488,6 +637,44 @@ class _EngineDriver:
         self.ex.state.t = torch.as_tensor(
             t, device=self.engine.device).to(self.cfg.dtype)
 
+    def note_graph_churn(self, churn_per_node: np.ndarray) -> None:
+        """Feed edge churn to the balance control plane.
+
+        The controller needs only a per-PID load magnitude, never the
+        structure: per-node changed-edge counts are mapped onto the PIDs
+        owning them through the current bucket layout and run through one
+        rebalancer pass as a ``graph-churn`` :class:`LoadSignal`, so a PID
+        absorbing the churn can shed buckets *before* the delta re-solve
+        starts.
+        """
+        eng = self.engine
+        if eng.rebalancer is None:
+            return
+        a = eng.a
+        churn = np.asarray(churn_per_node, dtype=np.int64)
+        valid = a.node_of_slot >= 0
+        rows = np.broadcast_to(np.arange(a.n_rows)[:, None],
+                               a.node_of_slot.shape)
+        row_churn = np.bincount(rows[valid],
+                                weights=churn[a.node_of_slot[valid]],
+                                minlength=a.n_rows)
+        # the node map lives at each bucket's home row, its data at the
+        # row it currently occupies
+        cur = np.asarray(self.ex.row_of_bucket, dtype=np.int64)
+        dev_churn = np.bincount(
+            cur // self.cfg.buckets_per_dev,
+            weights=row_churn[np.asarray(a.pos_of_bucket, dtype=np.int64)],
+            minlength=self.cfg.k)
+        if dev_churn.sum() == 0:
+            return
+        sig = LoadSignal.from_graph_churn(dev_churn, self.ex.sizes(),
+                                          step=self._chunks)
+        for plan in eng.rebalancer.propose(sig):
+            moved = self.ex.apply(plan)
+            if moved:
+                self._moves.append((self._chunks, plan.src, plan.dst,
+                                    moved))
+
 
 _DRIVERS = {
     "frontier:segment_sum": _SegmentSumDriver,
@@ -531,8 +718,12 @@ class SolverSession:
         self.method = method
         self._driver = _DRIVERS[method](problem, self.options)
         self._driver.seed(problem.b)
+        self._b = np.asarray(problem.b, dtype=np.float64)
+        # the frontier:segment_sum driver solve_batch runs on when the
+        # session's own method is another (built at first use)
+        self._batch_driver: Optional[_SegmentSumDriver] = None
         # lifetime §2.3 accounting: phase counters reset on every
-        # warm_start, so re-seeds bank them here first
+        # warm_start / update_graph, so re-seeds bank them here first
         self._ops_banked = 0
         self._rounds_banked = 0
 
@@ -650,5 +841,125 @@ class SolverSession:
             )
         self._bank_phase()
         resid = self._driver.warm_seed(b_new)
+        self._b = b_new
         self.problem = self.problem.with_b(b_new)
         return resid
+
+    # ---- graph delta (the F' = F + (P'−P)·H update) -----------------------
+    def _reseed_over(self, store, h: np.ndarray) -> float:
+        """Re-snapshot the Problem from ``store``, build a fresh driver
+        over its (patched) views and seed ``F = B − H + P·H`` with the
+        held H.  Returns |F|_1."""
+        self.problem = self.problem.with_graph(store)
+        src, dst, w = self.problem.p.edge_list()
+        ph = np.bincount(dst, weights=h[src] * w, minlength=self.problem.n)
+        f_new = self._b - h + ph
+        # the old driver's device tables go before the new ones come: the
+        # state is on the host, and an engine's tile pool is tens of GB
+        self._driver = None
+        self._driver = _DRIVERS[self.method](self.problem, self.options)
+        self._driver.seed(f_new, h)
+        self._batch_driver = None  # its edge list went stale
+        return float(np.abs(f_new).sum())
+
+    def update_graph(self, delta) -> float:
+        """Apply edge churn to the Problem's GraphStore and re-seed warm.
+
+        The fluid pair survives matrix drift: ``F' = F + (P'−P)·H``,
+        evaluated through the invariant ``F = B − (I−P)·H`` — i.e.
+        ``F' = B − H + P'·H`` over the *patched* matrix (float64 on the
+        host) — so the cost is the store's dirty-view patch, one O(L)
+        product and a fresh driver over the patched views (K1's pool,
+        K2's visit table, K3's edge table are rebuilt from them), and the
+        follow-up ``run``/``solve`` drains only the churn-injected fluid.
+        On engine backends the churn also feeds the balance control plane
+        as a ``graph-churn`` LoadSignal.  Phase counters reset (banked
+        into the lifetime totals); returns ``|F'|_1``.
+
+        **Transactional**: a malformed delta is rejected before any
+        mutation (the inverse delta is captured up front and checks that
+        every removed / reweighted edge exists; the splice checks the
+        rest); a failure *after* the store mutated (view patch, driver
+        rebuild, re-seed) rolls the store back through the inverse delta
+        and re-seeds the held state over a fresh driver, so the next
+        request serves the pre-delta graph.  The exception re-raises
+        either way.
+        """
+        if not isinstance(delta, GraphDelta):
+            raise TypeError(
+                f"update_graph wants a GraphDelta, got "
+                f"{type(delta).__name__}"
+            )
+        h = self._driver.x()
+        if delta.is_empty:
+            return self._driver.residual()
+        store = self.problem.graph
+        inverse = invert_delta(store, delta)  # raises before any mutation
+        self._bank_phase()
+        applied = False
+        try:
+            store.apply_delta(delta)  # patches every materialized view
+            applied = True
+            resid = self._reseed_over(store, h)
+        except Exception:
+            if applied:
+                store.apply_delta(inverse)
+            # even a failed apply_delta may have half patched a view the
+            # old driver captured (the store rolled its CSR back and
+            # dropped its view cache): rebuild over the restored store
+            self._reseed_over(store, h)
+            raise
+        if isinstance(self._driver, _EngineDriver):
+            self._driver.note_graph_churn(
+                delta.churn_per_node(self.problem.n))
+        return resid
+
+    # ---- batched multi-RHS ------------------------------------------------
+    def solve_batch(self, b_matrix: np.ndarray,
+                    until: Optional[float] = None,
+                    pad: bool = True) -> SolveReport:
+        """Solve every column of ``b_matrix`` ([N, C]) over the shared P.
+
+        Runs the batched frontier loop (per-column thresholds and
+        convergence masks, K3's lane form) whatever the session's method:
+        the batch serving path is frontier-native by design.  The
+        session's own (H, F) state is untouched.  The lane axis is padded
+        to a pow2 bucket (``pad=False`` opts out); the padding
+        bookkeeping lands in ``extras`` (``bucket``, ``padding_waste``).
+        """
+        self._check_fresh()
+        b_matrix = np.asarray(b_matrix, dtype=np.float64)
+        if b_matrix.ndim != 2 or b_matrix.shape[0] != self.problem.n:
+            raise ValueError(
+                f"b_matrix must be [N, C] with N={self.problem.n}, got "
+                f"{b_matrix.shape}"
+            )
+        if isinstance(self._driver, _SegmentSumDriver):
+            batch_driver = self._driver
+        else:
+            if self._batch_driver is None:
+                self._batch_driver = _SegmentSumDriver(self.problem,
+                                                       self.options)
+            batch_driver = self._batch_driver
+        t0 = time.perf_counter()
+        tol = self._tol(until)
+        x, ops, rounds, res_cols, stats = batch_driver.solve_batch(
+            b_matrix, _tol32(tol), self.options.max_rounds, pad=pad)
+        n_ops = int(ops.astype(np.int64).sum())
+        return SolveReport(
+            x=x,
+            residual=float(res_cols.max()),
+            n_ops=n_ops,
+            cost_iterations=n_ops / max(self.problem.n_edges, 1),
+            n_rounds=rounds,
+            converged=bool((res_cols <= tol).all()),
+            method="frontier:segment_sum",
+            trace=[RoundReport(rounds, float(res_cols.max()), n_ops)],
+            wall_time_s=time.perf_counter() - t0,
+            extras={"batch": b_matrix.shape[1],
+                    "bucket": stats["bucket"],
+                    "padding_waste": stats["padding_waste"],
+                    "ops_per_column": ops.tolist(),
+                    "residual_per_column": res_cols.tolist(),
+                    "device": str(self.options.device)},
+        )

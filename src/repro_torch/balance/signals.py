@@ -22,9 +22,10 @@ worker** (the paper's residual magnitude plays exactly this role in
 §2.5.2 — the PID with the largest remaining residual has the lagging
 slope and sheds load).
 
-The port produces the residual, edge-ops and graph-churn kinds; the
-step-time, expert-token, latency and queue-depth producers come with the
-runtime and serving slices that consume them.
+The port produces the residual, edge-ops, graph-churn and queue-depth
+kinds (the last for the serving scheduler); the step-time, expert-token
+and latency producers come with the runtime and supervisor slices that
+consume them.
 """
 from __future__ import annotations
 
@@ -104,3 +105,28 @@ class LoadSignal:
         if total > 0:
             churn = churn / total
         return cls(values=churn, sizes=sizes, kind="graph-churn", step=step)
+
+    @classmethod
+    def from_queue(cls, oldest_wait_s: float, deadline_s: float,
+                   queue_depth: int = 0, queue_cap: int = 8,
+                   step: int = 0) -> "LoadSignal":
+        """Continuous-batching backlog pressure (the scheduler's signal).
+
+        A batch scheduler needs the leading indicator — how long the
+        queue's HEAD has been waiting plus how deep the backlog is — so it
+        can shed quality before any request misses its deadline:
+
+            pressure = oldest_wait/deadline + queue_depth/queue_cap
+
+        NOT normalized (overload is absolute, not relative imbalance);
+        1.0 ≈ "head request at the deadline with an empty queue";
+        ``sizes[0]`` carries the raw depth for event logs.
+        """
+        if deadline_s <= 0:
+            raise ValueError(f"deadline_s must be positive, got "
+                             f"{deadline_s}")
+        pressure = (max(float(oldest_wait_s), 0.0) / float(deadline_s)
+                    + max(int(queue_depth), 0) / max(int(queue_cap), 1))
+        return cls(values=np.array([pressure]),
+                   sizes=np.array([max(int(queue_depth), 0)]),
+                   kind="queue-depth", step=step)

@@ -28,9 +28,10 @@ arithmetic the reference does per device is kept:
 A bucket move permutes only what is small — ``f``, ``h``, ``w`` and the
 per-slot edge counts, all ``[R, S]`` — and rebuilds the K2 visit table or
 the K3 edge table from the new bucket → row map, on the device.  The tile
-pool (``[R·T, S, S]``, 12.9 GB at N=2²¹, k=4) and the edge lists stay in
-their home rows; the reference's ``_repart`` gathers them through the
-move's permutation instead, which the sums do not notice.
+pool (the real tiles only, ``[V, S, S]``: 12.9 GB at N=2²¹, k=4) and the
+edge lists stay in their home rows; the reference's ``_repart`` gathers
+them through the move's permutation instead, which the sums do not
+notice.
 
 Determinism: no atomics, stable sorts for every table, a fixed K order in
 the exchange — a run replays bit for bit.  The round loop runs in Python
@@ -290,28 +291,35 @@ class DistributedEngine:
         if cfg.diffusion_backend == "bsr":
             _, _, t_of_edge = tile_groups(a.dst_bucket, a.wgt)
             t_cap = a.tile_dst.shape[1]
-            self.pool = torch.zeros((a.n_rows * t_cap, s * s),
+            # the pool holds the real tiles only, in (home row, slot)
+            # order: row r's tiles start at t_base[r].  The reference's
+            # [R, T] pool grows with the busiest row's T, which a graph
+            # delta can raise for every row at once (random rotations at
+            # N=2**21: T 3 -> 14, a 60 GB pool for 16k real tiles)
+            t_counts = np.asarray(a.t_counts, dtype=np.int64)
+            t_base = np.cumsum(t_counts) - t_counts
+            self.pool = torch.zeros((max(1, int(t_counts.sum())), s * s),
                                     dtype=cfg.dtype, device=dev)
-            # each (row, tile, dst slot, src slot) holds one edge of the
+            # each (tile, dst slot, src slot) holds one edge of the
             # canonical (deduplicated) graph, so the writes never collide;
             # rows go in chunks of at most 2**28 pool entries, which keeps
             # the index math small
-            tile = rows * t_cap + t_of_edge
+            tile = t_base[rows] + t_of_edge
             offset = a.dst_slot[rows, cols] * s + a.src_slot[rows, cols]
             val = a.wgt[rows, cols]
             per_chunk = max(1, (1 << 28) // (t_cap * s * s))
             bounds = np.searchsorted(
                 rows, np.arange(0, a.n_rows + per_chunk, per_chunk))
             for c, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])):
-                base = c * per_chunk * t_cap
+                if hi == lo:
+                    continue
+                base = int(t_base[c * per_chunk])
                 block = self.pool[base:]
                 block[lng(tile[lo:hi] - base), lng(offset[lo:hi])] = (
                     torch.as_tensor(val[lo:hi], device=dev).to(cfg.dtype))
             self.pool = self.pool.view(-1, s, s)
-            t_rows = np.repeat(np.arange(a.n_rows), a.t_counts)
-            t_slots = (np.arange(t_rows.size)
-                       - np.repeat(np.cumsum(a.t_counts) - a.t_counts,
-                                   a.t_counts))
+            t_rows = np.repeat(np.arange(a.n_rows), t_counts)
+            t_slots = np.arange(t_rows.size) - np.repeat(t_base, t_counts)
             self._tiles = (lng(t_rows), lng(t_slots),
                            lng(a.tile_dst[t_rows, t_slots]))
             self._t_cap = t_cap

@@ -68,7 +68,9 @@ import numpy as np
 import torch
 
 from ..balance.executors import NodeMoveExecutor
-from ..balance.policies import Rebalancer, make_rebalancer
+# the module, not its names: balance.policies imports core.partition, whose
+# package imports this module, so its names may not exist yet here
+from ..balance import policies as _policies
 from ..balance.signals import LoadSignal
 from ..kernels.sim_push import sim_messages, sim_push
 from .diteration import default_weights
@@ -267,7 +269,7 @@ class DistributedSimulator:
     """
 
     def __init__(self, g, b, cfg: SimulatorConfig,
-                 rebalancer: Optional[Rebalancer] = None):
+                 rebalancer: Optional[_policies.Rebalancer] = None):
         if hasattr(g, "csr"):
             g = g.csr()
         if cfg.signal not in ("residual", "edge-ops"):
@@ -336,9 +338,9 @@ class DistributedSimulator:
         # --- rebalancing control plane ---------------------------------------
         self._rebalancer_injected = rebalancer is not None
         if rebalancer is not None:
-            self.rebalancer: Optional[Rebalancer] = rebalancer
+            self.rebalancer: Optional[_policies.Rebalancer] = rebalancer
         elif cfg.policy or cfg.dynamic:
-            self.rebalancer = make_rebalancer(
+            self.rebalancer = _policies.make_rebalancer(
                 cfg.policy or "slope_ema", k=k,
                 target_error=cfg.target_error, eta=cfg.eta, z=cfg.z,
                 unit="node",
@@ -858,7 +860,7 @@ class DistributedSimulator:
                     " construct the simulator from cfg.policy, or swap "
                     "sim.rebalancer yourself before the rescale event"
                 )
-            self.rebalancer = make_rebalancer(
+            self.rebalancer = _policies.make_rebalancer(
                 self.cfg.policy or "slope_ema", k=k_new,
                 target_error=self.cfg.target_error, eta=self.cfg.eta,
                 z=self.cfg.z, unit="node",

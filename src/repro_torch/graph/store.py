@@ -11,9 +11,14 @@ cached **views**:
 ``engine_layout(…)``  engine arrays minus f0, optionally BSR-tiled
 ====================  ====================================================
 
-The port has the read side of ``repro.graph.GraphStore``, with the same
-view caching keys; ``apply_delta`` (and with it ``version`` ever moving
-past 0) comes with the graph-delta slice.
+:meth:`GraphStore.apply_delta` mutates the canonical CSR through an
+order-preserving splice and **patches every materialized view in place**
+(dirty BSR tiles, dirty buckets, dirty engine rows only), then bumps
+``version``.  Patched views are bit-identical to a rebuild
+(``tests/test_torch_graph_delta.py``).  The fluid state survives the
+mutation too: with ``F = B − (I−P)·H`` invariant, ``P → P'`` re-seeds
+``F' = F + (P'−P)·H`` — :meth:`repro_torch.api.SolverSession.update_graph`
+is the serving path's consumer.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from . import views as _views
-from .delta import edge_keys
+from .delta import GraphDelta, edge_keys
 
 __all__ = ["GraphStore"]
 
@@ -36,7 +41,7 @@ def _order_token(order: Optional[np.ndarray]):
 
 
 class GraphStore:
-    """Canonical sparse matrix + cached backend views."""
+    """Canonical sparse matrix + cached, delta-patchable backend views."""
 
     def __init__(self, indptr: np.ndarray, indices: np.ndarray,
                  weights: np.ndarray, n: int):
@@ -45,7 +50,8 @@ class GraphStore:
         self._weights = np.asarray(weights, dtype=np.float64)
         self.n = int(n)
         self.version = 0
-        self._views: Dict[tuple, object] = {}
+        # view cache: key -> (view, the node order it was built with)
+        self._views: Dict[tuple, tuple] = {}
         self._csr = None
 
     # ------------------------------------------------------------------ #
@@ -124,21 +130,23 @@ class GraphStore:
     # ------------------------------------------------------------------ #
     def bsr(self, bs: int = 128) -> "_views.BsrTiles":
         key = ("bsr", int(bs))
-        view = self._views.get(key)
-        if view is None:
+        hit = self._views.get(key)
+        if hit is None:
             view = _views.build_bsr(self._indptr, self._indices,
                                     self._weights, self.n, int(bs))
-            self._views[key] = view
-        return view
+            self._views[key] = (view, None)
+            return view
+        return hit[0]
 
     def bucketed(self, n_buckets: int, order: Optional[np.ndarray] = None):
         key = ("bucket", int(n_buckets), _order_token(order))
-        view = self._views.get(key)
-        if view is None:
+        hit = self._views.get(key)
+        if hit is None:
             view = _views.build_bucketed(self.csr(), int(n_buckets),
                                          order=order)
-            self._views[key] = view
-        return view
+            self._views[key] = (view, order)
+            return view
+        return hit[0]
 
     def engine_layout(
         self,
@@ -151,14 +159,74 @@ class GraphStore:
     ) -> "_views.EngineLayout":
         key = ("engine", int(k), int(buckets_per_dev), int(headroom),
                bool(tiled), np.dtype(dtype).str, _order_token(order))
-        view = self._views.get(key)
-        if view is None:
+        hit = self._views.get(key)
+        if hit is None:
             view = _views.build_engine_layout(
                 self, int(k), int(buckets_per_dev), int(headroom),
                 bool(tiled), np.dtype(dtype), order=order)
-            self._views[key] = view
-        return view
+            self._views[key] = (view, order)
+            return view
+        return hit[0]
 
     def materialized_views(self) -> Tuple[tuple, ...]:
         """Cache keys of the views currently materialized (testing aid)."""
         return tuple(sorted(self._views, key=repr))
+
+    # ------------------------------------------------------------------ #
+    # the delta layer
+    # ------------------------------------------------------------------ #
+    def apply_delta(self, delta: GraphDelta) -> "GraphStore":
+        """Mutate the canonical CSR and patch every materialized view.
+
+        CSR splice first (order-preserving, so the arrays equal a
+        canonical build over the mutated edge list), then each cached
+        view is patched touching only its dirty tiles / buckets / rows:
+        bucketed views before engine layouts (an engine layout derives
+        from its bucketed view).  Bumps ``version``; returns ``self``.
+
+        Bucketed views and engine layouts are patched **in place**: a
+        consumer that captured one before the delta sees the patched
+        arrays.  Problems pin the version they snapshot
+        (``Problem.store_version``) and ``SolverSession`` refuses to run
+        over a stale snapshot, so callers re-snapshot through
+        ``problem.with_graph(store)`` (``SolverSession.update_graph`` does
+        both steps at once).
+
+        Transactional: a failed view patch rolls the CSR back to its
+        pre-splice arrays and drops the whole view cache (a view may be
+        half patched), then re-raises; the version does not move.
+        """
+        if not isinstance(delta, GraphDelta):
+            raise TypeError(f"apply_delta wants a GraphDelta, got "
+                            f"{type(delta).__name__}")
+        if delta.is_empty:
+            return self
+        old_csr = (self._indptr, self._indices, self._weights, self._csr)
+        self._indptr, self._indices, self._weights = _views.splice_csr(
+            self._indptr, self._indices, self._weights, self.n, delta)
+        self._csr = None  # old CSRGraph wrappers keep the old arrays
+        try:
+            # bucketed views first: engine layouts read them while patching
+            for kind in ("bucket", "bsr", "engine"):
+                for key, (view, order) in list(self._views.items()):
+                    if key[0] != kind:
+                        continue
+                    if kind == "bucket":
+                        patched = _views.patch_bucketed(
+                            view, self._indptr, self._indices,
+                            self._weights, self.n_edges, delta)
+                    elif kind == "bsr":
+                        patched = _views.patch_bsr(
+                            view, self._indptr, self._indices,
+                            self._weights, self.n, delta)
+                    else:
+                        patched = _views.patch_engine_layout(
+                            view, self, delta, order=order)
+                    self._views[key] = (patched, order)
+        except Exception:
+            (self._indptr, self._indices,
+             self._weights, self._csr) = old_csr
+            self._views.clear()
+            raise
+        self.version += 1
+        return self

@@ -8,7 +8,9 @@ built at first use (:mod:`repro_torch.kernels._build`).
 * ``diffusion`` — block-sparse (BSR) fluid push: K1 the fused frontier
   round, K2 the BSR product (``csrc/diffusion.cu``).
 * ``edge_sum``  — K3, the deterministic per-destination edge reduction
-  of the per-edge frontier round and of warm starts (``csrc/edge_sum.cu``).
+  of the per-edge frontier round and of warm starts, and its lane form
+  ``edge_sum_lanes`` for the batched round of multi-RHS solves and
+  serving (``csrc/edge_sum.cu``).
 * ``fm``        — K4, the factorization-machine pairwise term of FM
   serving (``csrc/fm.cu``).
 * ``segment``   — K5, the sorted (optionally weighted, optionally

@@ -38,6 +38,7 @@ LAUNCHES: Dict[str, int] = {
     "frontier_round_bsr": 0,
     "bsr_spmm": 0,
     "edge_sum": 0,
+    "edge_sum_lanes": 0,
     "fm_interaction": 0,
     "segment_sum": 0,
     "segment_sum_carry": 0,

@@ -206,10 +206,12 @@ def engine_visit_table(
     Within a destination, visits run in (current source row, tile slot)
     order — the stable argsort of the reference's ``_tile_visit_order``
     over a device's row-major tile groups — so the f32 sums keep the
-    reference's order.  The tile pool stays in its home layout
-    (``visit_block = h·T + t``): a bucket move rebuilds this table, never
-    the pool.  Only real tiles are visited: the reference's all-zero
-    padding tiles all point at bucket 0 and would pile onto one block.
+    reference's order.  The tile pool holds the real tiles in the order
+    the ``tile_*`` arrays list them ((home row, slot) order), so a tile's
+    pool index is its index there: a bucket move rebuilds this table,
+    never the pool.  Only real tiles are visited: the reference's
+    all-zero padding tiles all point at bucket 0 and would pile onto one
+    block.  ``t_cap`` (the most tiles of a row) only orders the sort.
     """
     r = int(row_of_bucket.numel())
     cur = cur_of_home[tile_row]
@@ -220,8 +222,7 @@ def engine_visit_table(
     row_ptr = torch.searchsorted(
         dst, torch.arange(k * r + 1, device=dst.device))
     return EngineVisits(
-        visit_block=(tile_row[order] * t_cap
-                     + tile_slot[order]).to(torch.int32),
+        visit_block=order.to(torch.int32),
         visit_col=cur[order].to(torch.int32),
         row_ptr=row_ptr,
     )
@@ -231,8 +232,8 @@ def engine_tile_push(pool: torch.Tensor, visits: EngineVisits,
                      sent: torch.Tensor) -> torch.Tensor:
     """``out[p·R + row] = Σ tiles @ sent[src row]`` over PID ``p``'s tiles
     pushing into the bucket at ``row`` (K2 on the card, its plain twin on
-    the CPU).  ``pool`` is ``[R·T, S, S]``, ``sent`` the current-row
-    fluid ``[R, S]``; returns ``[K·R, S]``, rows without visits exactly 0.
+    the CPU).  ``pool`` holds the real tiles ``[V, S, S]``, ``sent`` the
+    current-row fluid ``[R, S]``; returns ``[K·R, S]``, rows without visits exactly 0.
     """
     out = bsr_spmm_kernel(pool, visits.visit_block, visits.visit_col,
                           visits.row_ptr, sent[:, :, None].contiguous())

@@ -15,6 +15,16 @@ different spaces (``x`` has ``n_src`` entries, the output ``n``).
 :func:`edge_sum` launches K3 for tensors on the card (one thread per
 destination, fixed sum order) and runs :func:`edge_sum_plain` for
 tensors on the CPU.
+
+K3's lane form :func:`edge_sum_lanes` takes ``C`` lanes at once
+(``x [C, x_len] -> [C, n]``): the batched frontier round of multi-RHS
+solves and continuous-batching serving, the reference's vmapped
+``segment_sum`` (``repro/api/session.py:114-116``).  One thread per
+(destination, lane) walks the edges in K3's order with K3's arithmetic,
+so each lane is bit-equal to K3 on that row and a zero lane stays zero:
+zero padding lanes never touch the real ones.  Its plain version
+:func:`edge_sum_lanes_plain` sums each destination's messages in the
+same order on the CPU (``torch.segment_reduce``).
 """
 from __future__ import annotations
 
@@ -27,8 +37,8 @@ import torch
 
 from .._build import LAUNCHES, check, library, stream_handle
 
-__all__ = ["CscEdges", "csc_edges", "edge_sum", "edge_sum_plain",
-           "engine_edge_table"]
+__all__ = ["CscEdges", "csc_edges", "edge_sum", "edge_sum_lanes",
+           "edge_sum_lanes_plain", "edge_sum_plain", "engine_edge_table"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +88,23 @@ def edge_sum_plain(x: torch.Tensor, indptr: torch.Tensor, src: torch.Tensor,
         0, dst, x[src.long()] * wgt)
 
 
+def edge_sum_lanes_plain(x: torch.Tensor, indptr: torch.Tensor,
+                         src: torch.Tensor, wgt: torch.Tensor) -> torch.Tensor:
+    """The lane form's contract in torch: ``out[c, j] = Σ_{e in in(j)}
+    x[c, src[e]]·wgt[e]`` for ``x [C, x_len]``, returned ``[C, n]``.
+
+    Each destination's messages are summed in CSC order, one after the
+    other, on the CPU (``segment_reduce``'s CPU loop), which is K3's
+    order: every lane is bit-equal to :func:`edge_sum_plain` on that row
+    there.  On the card ``segment_reduce`` sums in its own order; the
+    smoke and the card tests hold the kernel to it within a tolerance.
+    """
+    msg = (x[:, src.long()] * wgt).T.contiguous()  # [L, C]
+    out = torch.segment_reduce(msg, "sum", lengths=torch.diff(indptr),
+                               axis=0)  # [n, C]
+    return out.T.contiguous()
+
+
 _P = ctypes.c_void_p
 
 
@@ -86,18 +113,14 @@ def _lib() -> ctypes.CDLL:
     if lib.edge_sum.argtypes is None:
         lib.edge_sum.argtypes = [_P] * 5 + [ctypes.c_int64, _P]
         lib.edge_sum.restype = ctypes.c_int
+        lib.edge_sum_lanes.argtypes = [_P] * 5 + [ctypes.c_int64] * 3 + [_P]
+        lib.edge_sum_lanes.restype = ctypes.c_int
     return lib
 
 
-def edge_sum(x: torch.Tensor, edges: CscEdges) -> torch.Tensor:
-    """K3 over ``edges`` for ``x [edges.x_len]``; returns ``[edges.n]``."""
-    if x.device.type == "cpu":
-        return edge_sum_plain(x, edges.indptr, edges.src, edges.wgt)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
+def _check_edges(x: torch.Tensor, edges: CscEdges) -> None:
     n = edges.n
     for name, t, dtype, shape in (
-            ("x", x, torch.float32, (edges.x_len,)),
             ("indptr", edges.indptr, torch.int64, (n + 1,)),
             ("src", edges.src, torch.int32, (edges.n_edges,)),
             ("wgt", edges.wgt, torch.float32, (edges.n_edges,))):
@@ -107,6 +130,21 @@ def edge_sum(x: torch.Tensor, edges: CscEdges) -> torch.Tensor:
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def edge_sum(x: torch.Tensor, edges: CscEdges) -> torch.Tensor:
+    """K3 over ``edges`` for ``x [edges.x_len]``; returns ``[edges.n]``."""
+    if x.device.type == "cpu":
+        return edge_sum_plain(x, edges.indptr, edges.src, edges.wgt)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    n = edges.n
+    if x.dtype != torch.float32 or tuple(x.shape) != (edges.x_len,):
+        raise ValueError(f"x: expected torch.float32 ({edges.x_len},), got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    _check_edges(x, edges)
     out = torch.empty(n, dtype=torch.float32, device=x.device)
     lib = _lib()
     err = lib.edge_sum(edges.indptr.data_ptr(), edges.src.data_ptr(),
@@ -114,6 +152,33 @@ def edge_sum(x: torch.Tensor, edges: CscEdges) -> torch.Tensor:
                        stream_handle(x.device))
     check(lib, err, "edge_sum")
     LAUNCHES["edge_sum"] += 1
+    return out
+
+
+def edge_sum_lanes(x: torch.Tensor, edges: CscEdges) -> torch.Tensor:
+    """K3's lane form over ``edges`` for ``x [C, edges.x_len]``; returns
+    ``[C, edges.n]``.  Launches the kernel for a tensor on the card and
+    runs :func:`edge_sum_lanes_plain` for one on the CPU."""
+    if x.device.type == "cpu":
+        return edge_sum_lanes_plain(x, edges.indptr, edges.src, edges.wgt)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if (x.dtype != torch.float32 or x.dim() != 2
+            or x.shape[1] != edges.x_len):
+        raise ValueError(f"x: expected torch.float32 (C, {edges.x_len}), "
+                         f"got {x.dtype} {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    _check_edges(x, edges)
+    lanes, n = x.shape[0], edges.n
+    out = torch.empty((lanes, n), dtype=torch.float32, device=x.device)
+    lib = _lib()
+    err = lib.edge_sum_lanes(edges.indptr.data_ptr(), edges.src.data_ptr(),
+                             edges.wgt.data_ptr(), x.data_ptr(),
+                             out.data_ptr(), n, edges.x_len, lanes,
+                             stream_handle(x.device))
+    check(lib, err, "edge_sum_lanes")
+    LAUNCHES["edge_sum_lanes"] += 1
     return out
 
 

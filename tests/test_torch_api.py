@@ -98,13 +98,16 @@ def test_api_surface_and_registry():
     assert caps["frontier:pallas"].tune_key == "frontier_round_bsr"
     assert caps["frontier:segment_sum"].supports_warm_start
     assert not caps["sequential"].supports_warm_start
-    assert not any(c.supports_batch for c in caps.values())
+    # multi-RHS batches run on frontier:segment_sum alone, as there
+    assert [k for k, c in caps.items() if c.supports_batch] == [
+        "frontier:segment_sum"]
     assert [k for k, c in caps.items() if c.configurable_k] == list(
         ENGINES) + ["simulator"]
     ref_caps = repro.list_backends()
     for key, c in caps.items():  # same keys, same roles as the reference
         assert (c.supports_warm_start
                 == ref_caps[key].supports_warm_start)
+        assert c.supports_batch == ref_caps[key].supports_batch
     assert repro_torch.get_backend("simulator").name == "simulator"
     with pytest.raises(KeyError):
         repro_torch.get_backend("engine:nope")
@@ -146,8 +149,9 @@ def test_validation_raises():
     with pytest.raises(ValueError, match="dynamic partition"):
         repro_torch.solve(problem, method="frontier:segment_sum",
                           dynamic=True, device="cpu")
+    # a batch runs on frontier:segment_sum alone, which has no k
     with pytest.raises(ValueError, match="no registered backend"):
-        repro_torch.solve(batched_problem(g), device="cpu")
+        repro_torch.solve(batched_problem(g), device="cpu", k=2)
     with pytest.raises(ValueError, match="one-shot"):
         repro_torch.SolverSession(problem, "sequential", device="cpu")
     with pytest.raises(ValueError, match="device must be"):

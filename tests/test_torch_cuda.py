@@ -17,7 +17,11 @@ and exactly on integer-valued inputs, whose sums do not depend on the
 order.  K7 (sim_messages and sim_push, float64) is held bit-equal to
 its plain versions, the sum adding in message order as the reference's
 np.add.at does; the simulator on the card to its CPU run within
-|Δh|_1 <= 1e-10.
+|Δh|_1 <= 1e-10.  K3's lane form (edge_sum_lanes) is held bit-equal to K3
+launched on each lane's row, zero lanes to zero rows, and to its plain
+version within rtol/atol 1e-5; batched solves on the card to their CPU
+runs (|Δx|_1 <= 1e-6), the serving scheduler to its CPU run (edge
+pushes within 1 %, |Δx|_1 <= 2·target_error).
 """
 import numpy as np
 import pytest
@@ -26,7 +30,8 @@ import torch
 import repro_torch.kernels.diffusion as td
 from repro_torch.core import pagerank_system, power_law_graph
 from repro_torch.kernels import LAUNCHES
-from repro_torch.kernels.edge_sum import csc_edges, edge_sum
+from repro_torch.kernels.edge_sum import (csc_edges, edge_sum,
+                                         edge_sum_lanes, edge_sum_lanes_plain)
 
 # small tensors: one intra-op thread, so that parallel test workers do
 # not oversubscribe the cores with spinning OpenMP threads
@@ -390,6 +395,145 @@ def test_edge_sum_kernel_matches_plain(cuda_device, seed):
     plain = edge_sum(torch.from_numpy(x), csc_edges(src, dst, wgt, n, "cpu"))
     np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), rtol=1e-5,
                                atol=1e-5)
+
+
+def _lane_inputs(c, seed, n=5000, n_edges=60000):
+    """Random edges with an empty upper half of destinations and one hub
+    destination (node 7, a fifth of the edges), and ``[C, n]`` fluid
+    whose every third lane is zero."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n, n_edges)
+    dst = rng.integers(0, n // 2, n_edges)
+    dst[: n_edges // 5] = 7
+    wgt = rng.random(n_edges)
+    x = rng.standard_normal((c, n)).astype(np.float32)
+    x[2::3] = 0.0
+    return src, dst, wgt, x, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 2, 3, 8, 16, 64])
+def test_edge_sum_lanes_kernel_matches_plain(cuda_device, c):
+    src, dst, wgt, x, n = _lane_inputs(c, seed=c)
+    e_d = csc_edges(src, dst, wgt, n, cuda_device)
+    x_d = torch.from_numpy(x).to(cuda_device)
+    before = dict(LAUNCHES)
+    got = edge_sum_lanes(x_d, e_d)
+    again = edge_sum_lanes(x_d, e_d)
+    torch.cuda.synchronize()
+    assert LAUNCHES["edge_sum_lanes"] == before["edge_sum_lanes"] + 2
+    assert LAUNCHES["edge_sum"] == before["edge_sum"]
+    assert got.shape == (c, n) and torch.equal(got, again)
+    assert bool((got[:, n // 2:] == 0).all())  # empty destinations
+    assert bool((got[2::3] == 0).all())  # zero lanes give zero rows
+    for lane in range(c):  # each lane is K3 launched on its row
+        assert torch.equal(got[lane], edge_sum(x_d[lane].contiguous(), e_d))
+    plain = edge_sum_lanes_plain(x_d, e_d.indptr, e_d.src, e_d.wgt)
+    np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    cpu = edge_sum_lanes(torch.from_numpy(x),
+                         csc_edges(src, dst, wgt, n, "cpu"))
+    np.testing.assert_allclose(got.cpu().numpy(), cpu.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_edge_sum_lanes_on_two_streams_in_turn(cuda_device):
+    """Launches alternating between two streams give the default
+    stream's bits: the wrapper launches on the current stream."""
+    src, dst, wgt, x, n = _lane_inputs(5, seed=11)
+    e_d = csc_edges(src, dst, wgt, n, cuda_device)
+    x_d = torch.from_numpy(x).to(cuda_device)
+    want = edge_sum_lanes(x_d, e_d)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for i in range(6):
+        st = streams[i % 2]
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            outs.append(edge_sum_lanes(x_d, e_d))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs)
+
+
+@pytest.mark.cuda
+def test_edge_sum_lanes_refuses_bad_operands(cuda_device):
+    src, dst, wgt, x, n = _lane_inputs(2, seed=3)
+    e_d = csc_edges(src, dst, wgt, n, cuda_device)
+    x_d = torch.from_numpy(x).to(cuda_device)
+    with pytest.raises(ValueError, match="expected"):
+        edge_sum_lanes(x_d[:, :-1].contiguous(), e_d)
+    with pytest.raises(ValueError, match="contiguous"):
+        edge_sum_lanes(x_d.T.contiguous().T, e_d)
+    with pytest.raises(ValueError, match="expected"):
+        edge_sum_lanes(x_d.double(), e_d)
+
+
+@pytest.mark.cuda
+def test_solve_batch_on_the_card_matches_the_cpu(cuda_device):
+    """Batched solves on the card: the CPU run's op counts per column and
+    rounds, x within 1e-6, pad / no-pad bit parity, and one lane-form
+    launch a batched round."""
+    import repro_torch
+
+    problem = repro_torch.Problem.pagerank(
+        repro_torch.core.host_block_graph(8192, seed=2))
+    rng = np.random.default_rng(4)
+    bs = np.abs(problem.b[:, None]
+                * (1.0 + 0.05 * rng.standard_normal((problem.n, 3))))
+    before = LAUNCHES["edge_sum_lanes"]
+    card = repro_torch.SolverSession(problem).solve_batch(bs)
+    lanes = LAUNCHES["edge_sum_lanes"] - before
+    raw = repro_torch.SolverSession(problem).solve_batch(bs, pad=False)
+    cpu = repro_torch.SolverSession(problem, device="cpu").solve_batch(bs)
+    assert card.converged and cpu.converged
+    assert lanes == card.n_rounds
+    assert np.array_equal(card.x, raw.x)
+    assert card.extras["ops_per_column"] == raw.extras["ops_per_column"]
+    assert card.extras["ops_per_column"] == cpu.extras["ops_per_column"]
+    assert card.n_rounds == cpu.n_rounds
+    assert np.abs(card.x - cpu.x).sum() <= 1e-6
+
+
+@pytest.mark.cuda
+def test_scheduler_on_the_card_matches_the_cpu(cuda_device):
+    """The continuous-batching scheduler, one graph update midway, on the
+    card and on the CPU: the same requests served in the same order with
+    the same pool hits, each one's edge pushes within 1 % (the card's
+    threshold decay ``t / gamma`` multiplies by the reciprocal, a bit off
+    the CPU's division, as in every solve on the card) and |Δx|_1 <=
+    2·target_error."""
+    import repro_torch
+    from repro_torch.graph import rotation_churn
+    from repro_torch.serving import Scheduler
+
+    runs = []
+    for dev in ("cuda", "cpu"):
+        problem = repro_torch.Problem.pagerank(
+            repro_torch.core.webgraph_like(3000, seed=1))
+        sch = Scheduler(problem, max_lanes=4, rounds_per_tick=16,
+                        deadline_s=1e9, device=dev)
+        rng = np.random.default_rng(0)
+        b = problem.b
+        for i in range(8):
+            if i == 4:
+                sch.run_until_idle()
+                sch.submit_update(rotation_churn(sch.problem.graph, 10,
+                                                 seed=3))
+            b = np.abs(b * (1.0 + 0.02 * rng.standard_normal(problem.n)))
+            sch.submit(b, cluster=i % 3, request_id=i)
+        sch.run_until_idle()
+        assert sch.applied_updates == 1 and sch.dropped == 0
+        runs.append(sch.results)
+        te = problem.target_error
+    card, cpu = runs
+    assert [r.request_id for r in card] == [r.request_id for r in cpu]
+    for a, b in zip(card, cpu):
+        assert a.converged and a.pool_hit == b.pool_hit
+        assert a.ops == pytest.approx(b.ops, rel=0.01)
+        # two converged schedules: within 2·target_error, the bound of
+        # the reference's scheduler parity test
+        assert np.abs(a.x - b.x).sum() <= 2.0 * te
 
 
 @pytest.mark.cuda

@@ -105,6 +105,62 @@ print("ok")
     assert out.stdout.strip() == "ok"
 
 
+def test_serving_runs_with_jax_and_reference_blocked():
+    """Graph deltas, update_graph, solve_batch, the continuous-batching
+    scheduler (an update at its drain barrier, a poison request) and
+    ``serve rank`` on the CPU, with jax and the reference unimportable,
+    load no kernel library."""
+    code = """
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+sys.modules["repro"] = None
+import numpy as np
+import repro_torch
+from repro_torch.core import webgraph_like
+from repro_torch.graph import rotation_churn
+from repro_torch.kernels import _build
+from repro_torch.launch import serve
+from repro_torch.resilience import RequestRejected
+from repro_torch.serving import Scheduler, solo_reference
+
+p = repro_torch.Problem.pagerank(webgraph_like(300, seed=1))
+s = repro_torch.SolverSession(p, device="cpu")
+s.solve()
+s.update_graph(rotation_churn(s.problem.graph, 4, seed=0))
+assert s.solve().converged
+batch = s.solve_batch(np.stack([p.b, 2 * p.b], axis=1))
+assert batch.converged and batch.x.shape == (300, 2)
+p = repro_torch.Problem.pagerank(webgraph_like(300, seed=1))
+sch = Scheduler(p, max_lanes=2, device="cpu")
+sch.submit(p.b, request_id=0)
+sch.run_until_idle()
+sch.submit_update(rotation_churn(sch.problem.graph, 3, seed=1))
+try:
+    sch.submit(np.full(300, np.nan), request_id=1)
+except RequestRejected:
+    pass
+sch.submit(p.b, request_id=2)
+sch.run_until_idle()
+assert [r.request_id for r in sch.results] == [0, 2]
+assert sch.applied_updates == 1 and sch.quarantine.total == 1
+x, ops, _ = solo_reference(sch.problem, p.b[:, None], device="cpu")
+assert ops[0] > 0
+serve.main(["rank", "--device", "cpu", "--n", "200", "--requests", "3",
+            "--churn", "0.01"])
+assert not _build._LIBS, "a kernel library was loaded for a CPU run"
+assert not any(k.split(".")[0] in ("jax", "repro", "triton")
+               and sys.modules[k] is not None for k in sys.modules)
+print("ok")
+"""
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+           "OMP_NUM_THREADS": "1"}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
 def test_default_options_ask_for_the_card():
     import repro_torch
 
