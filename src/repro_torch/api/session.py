@@ -46,6 +46,7 @@ import torch
 from ..balance.executors import BucketMoveExecutor
 from ..balance.policies import make_rebalancer
 from ..balance.signals import LoadSignal
+from ..core.diteration import decay_divisor, threshold_decay
 from ..core.distributed import (
     DistributedEngine,
     EngineConfig,
@@ -122,14 +123,16 @@ def _round(f, h, t, ops, lane_rounds, active, be: BatchEdges, gamma):
     ``_batch_fns._round``).  Lanes are independent: a lane that is not
     ``active`` (converged, or a zero padding lane) selects nothing, pushes
     nothing and keeps its threshold; the push is one launch of K3's lane
-    form, whose lanes do not see each other."""
+    form, whose lanes do not see each other.  ``gamma`` is the caller's
+    :func:`decay_divisor` tensor."""
     sel = ((f.abs() * be.w) > t[:, None]) & active[:, None]
     sent = torch.where(sel, f, torch.zeros_like(f))
     h = h + sent
     f = f - sent
     f = f + edge_sum_lanes(sent, be.edges)
     dops = torch.where(sel, be.charge, 0).sum(dim=1, dtype=torch.int64)
-    t = torch.where(sel.any(dim=1) | ~active, t, t / gamma)
+    t = torch.where(sel.any(dim=1) | ~active, t,
+                    threshold_decay(t, gamma))
     return f, h, t, ops + dops, lane_rounds + active.to(torch.int64)
 
 
@@ -199,7 +202,8 @@ class _SegmentSumDriver:
         self.w = _f32(problem.node_weights(), self.device)
         self.out_deg = torch.as_tensor(g.out_degree(), device=self.device)
         self.dang = torch.as_tensor(g.dangling_mask(), device=self.device)
-        self.gamma = options.gamma
+        self.gamma = decay_divisor(options.gamma, torch.float32,
+                                   self.device)
         self._state = None
         self._batch = None  # BatchEdges, built at the first solve_batch
 
@@ -350,7 +354,8 @@ class _BsrFrontierDriver:
         self.w = pad(problem.node_weights(), torch.float32)
         self.out_deg = pad(g.out_degree(), torch.int64)
         self.dang = pad(g.dangling_mask(), torch.bool)
-        self.gamma = options.gamma
+        self.gamma = decay_divisor(options.gamma, torch.float32,
+                                   self.device)
         self.backend = ("kernel" if dev.type == "cuda" or options.interpret
                         else "block")
         self._n_pad = n_pad
@@ -400,7 +405,7 @@ class _BsrFrontierDriver:
             dops = torch.where(sel, self.out_deg,
                                torch.zeros_like(self.out_deg)).sum()
             dops = dops + (sel & self.dang).sum()
-            t = torch.where(sel.any(), t, t / self.gamma)
+            t = torch.where(sel.any(), t, threshold_decay(t, self.gamma))
             h = h + sent
             ops = ops + dops
             rounds += 1

@@ -55,6 +55,7 @@ from ..balance.signals import LoadSignal
 from ..graph.views import dense_tiles, tile_groups
 from ..kernels.diffusion import engine_tile_push, engine_visit_table
 from ..kernels.edge_sum import edge_sum, engine_edge_table
+from .diteration import decay_divisor, threshold_decay
 
 __all__ = [
     "EngineConfig",
@@ -256,6 +257,7 @@ class DistributedEngine:
         self.a = arrays
         self.cfg = cfg
         self.device = torch.device(cfg.device)
+        self._gamma = decay_divisor(cfg.gamma, cfg.dtype, self.device)
         if rebalancer is not None:
             self.rebalancer: Optional[Rebalancer] = rebalancer
         elif cfg.policy or cfg.dynamic:
@@ -430,7 +432,8 @@ class DistributedEngine:
         f = f + per_pid[diag, diag]  # the "mine" slices
         per_pid[diag, diag] = 0
         st.outbox = st.outbox + contrib
-        st.t = torch.where(any_sel, st.t, st.t / cfg.gamma)
+        st.t = torch.where(any_sel, st.t,
+                           threshold_decay(st.t, self._gamma))
         # every slot's real edges all fire when the slot is selected; the
         # counters are int64, so no wraparound to undo (the reference's
         # are int32)

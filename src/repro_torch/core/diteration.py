@@ -34,10 +34,33 @@ __all__ = [
     "jacobi_solve",
     "residual_l1",
     "default_weights",
+    "decay_divisor",
+    "threshold_decay",
     "GAMMA",
 ]
 
 GAMMA = 1.2  # paper default threshold decay
+
+
+def decay_divisor(gamma: float, dtype: torch.dtype, device) -> torch.Tensor:
+    """γ as a 0-dim tensor of the threshold's dtype on its device, made once
+    per driver, batcher or engine for :func:`threshold_decay`."""
+    return torch.tensor(gamma, dtype=dtype, device=device)
+
+
+def threshold_decay(t: torch.Tensor, gamma) -> torch.Tensor:
+    """``t / γ`` rounded as the reference's ``t / gamma`` is: an IEEE
+    division in ``t``'s dtype, on either device.
+
+    PyTorch on the card turns a division by a Python scalar into a product
+    with its reciprocal (computed on the host), a bit off the quotient in
+    about a quarter of the values; a division by a tensor on the card
+    divides.  ``gamma`` is :func:`decay_divisor`'s tensor; a Python float
+    is made into one here (one small upload a call).
+    """
+    if not isinstance(gamma, torch.Tensor):
+        gamma = decay_divisor(gamma, t.dtype, t.device)
+    return t / gamma
 
 
 @dataclasses.dataclass
@@ -143,7 +166,7 @@ def frontier_step(
     weights: torch.Tensor,
     out_deg: torch.Tensor,
     dangling: torch.Tensor,
-    gamma: float = GAMMA,
+    gamma=GAMMA,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One frontier round: diffuse every node with |F_i| w_i > T simultaneously.
 
@@ -151,8 +174,10 @@ def frontier_step(
     per *dangling* selected node (absorb-and-charge, matching
     :func:`run_sequential`'s §2.3 accounting exactly: a diffused node costs
     ``max(out_degree, 1)``).  Zero selected nodes -> threshold decays by
-    gamma, matching the sweep semantics.  ``edges`` is the destination-
-    sorted edge list the ``edge_sum`` kernel walks; ``out_deg`` [N] int64
+    gamma (:func:`threshold_decay`; ``gamma`` a float or its
+    :func:`decay_divisor` tensor), matching the sweep semantics.  ``edges``
+    is the destination-sorted edge list the ``edge_sum`` kernel walks;
+    ``out_deg`` [N] int64
     and ``dangling`` [N] bool describe the same edges by source, so
     ``sum(out_deg[sel])`` counts exactly the reference's ``sum(sel[src])``.
     ``ops`` is int64: at N=2**21 a solve pushes more than 2**31 edges.
@@ -164,7 +189,7 @@ def frontier_step(
     f = f + edge_sum(sent, edges)
     ops = torch.where(sel, out_deg, torch.zeros_like(out_deg)).sum()
     ops = ops + (sel & dangling).sum()
-    t_new = torch.where(sel.any(), t_k, t_k / gamma)
+    t_new = torch.where(sel.any(), t_k, threshold_decay(t_k, gamma))
     return f, h, t_new, ops
 
 

@@ -30,17 +30,37 @@
 // Zero padding lanes must leave the real lanes bit for bit as they are, and
 // serving replays must be bit-exact, so again no atomics.
 //
-// What bounds it: the edge bytes read once (12 bytes an edge with the gather)
-// and the lanes' x read and out written once, 8·C bytes a node; one
-// multiply-add an edge and lane is far below the flop/byte balance.
+// What bounds it: the edge bytes read once (8 bytes an edge) and the lanes'
+// x read and out written once, 8·C bytes a node; one multiply-add an edge
+// and lane is far below the flop/byte balance.  What holds it back on the
+// card is not those bytes: the x gathers are 4-byte loads scattered over
+// C rows, several 32-byte sectors a warp's load, and their trips through
+// L1 and L2 (on an H100, builds of this file without the gathers took
+// under half the time, and with a quarter of the rows or of the loads two
+// thirds: PERF.md holds the measurements).  The first design, a thread a
+// (destination, lane), also walked every edge once a lane: each lane's
+// warp loaded the edge list again, one dependent load pair at a time.
 //
-// What the design does about it: one thread owns one (destination, lane) and
-// walks the destination's in-edges in K3's order with K3's arithmetic, so lane
-// c is bit-equal to K3 launched on row c, a zero lane gives a zero row, and the
-// result does not depend on C.  A warp takes 32 neighbouring destinations of
-// one lane; the warps of a block take the same destinations for up to 8 lanes,
-// so the edge list each block reads is fetched from memory once and served to
-// the other lanes' warps from L1.
+// What the design does about it: a block owns a tile of consecutive
+// destinations (256 / G of them for G groups of kLanes lanes), stages the
+// tile's edges [indptr[j0], indptr[j0 + T]) in shared memory with coalesced
+// cp.async copies, and reads each edge from memory once a launch (once a
+// kLaneBlock lanes).  Blocks are persistent: while a block sums tile i, the
+// copies of tile i + 1's edges and tile i + 2's indptr are in flight; a
+// tile of more than kEdgeStage edges (a hub) streams the rest through in
+// chunks.  A thread carries kLanes lanes' sums in registers for one
+// destination and walks its edges from shared memory in CSC order, kUnroll
+// edges' gathers issued together, then added in edge order with K3's
+// arithmetic (__fmul_rn, then __fadd_rn): lane c is bit-equal to K3
+// launched on row c, a zero lane gives a zero row, and the result does not
+// depend on C.  A warp takes 32 neighbouring destinations of one lane
+// group, so its gathers fall on one row of x and its stores on one row of
+// out.  The gathers read x lane-major as the caller holds it; with
+// K3L_NODE_MAJOR a first kernel stages a node-major copy [x_len, C4] (C
+// rounded up to 4) through a shared-memory transpose so that an edge's four
+// lanes arrive as one 16-byte load: slower on host-ordered graphs, whose
+// sources lie near their destinations, and ten times faster where the node
+// order has no locality (the probe measures both).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -61,22 +81,210 @@ edge_sum_kernel(const int64_t* __restrict__ indptr, const int32_t* __restrict__ 
   out[j] = acc;
 }
 
-constexpr int kLaneTile = 32;  // destinations of one lane per warp
-constexpr int kLaneRows = 8;   // lanes per block at most
+// K3L_NODE_MAJOR=1 builds the lane form with node-major gathers
+// (tools/k3_lanes_probe.py times both layouts)
+#ifndef K3L_NODE_MAJOR
+#define K3L_NODE_MAJOR 0
+#endif
+constexpr int kLaneThreads = 256;  // threads a block of the lane form
+constexpr int kLaneBlocks = 4;     // its blocks an SM (64 registers a thread)
+constexpr int kLanes = 4;          // lanes a thread sums
+constexpr int kLaneBlock = 64;     // lanes a block at most (gridDim.y above)
+constexpr int kEdgeStage = 2048;   // edges a stage holds
+constexpr int kUnroll = 2;         // edges whose gathers a thread issues together
+constexpr bool kNodeMajor = K3L_NODE_MAJOR;
 
-__global__ void __launch_bounds__(kLaneTile * kLaneRows)
-edge_sum_lanes_kernel(const int64_t* __restrict__ indptr, const int32_t* __restrict__ src,
-                      const float* __restrict__ wgt, const float* __restrict__ x,
-                      float* __restrict__ out, int64_t n, int64_t x_len, int64_t lanes) {
-  const int64_t j = (int64_t)blockIdx.x * kLaneTile + threadIdx.x;
-  const int64_t c = (int64_t)blockIdx.y * blockDim.y + threadIdx.y;
-  if (j >= n || c >= lanes) return;
-  const float* __restrict__ xc = x + c * x_len;
-  const int64_t lo = indptr[j], hi = indptr[j + 1];
-  float acc = 0.0f;
-  for (int64_t e = lo; e < hi; ++e)
-    acc = __fadd_rn(acc, __fmul_rn(__ldg(xc + __ldg(src + e)), __ldg(wgt + e)));
-  out[c * n + j] = acc;
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const uint32_t saddr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(saddr), "l"(src));
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const uint32_t saddr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(saddr), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n"); }
+
+// x [lanes, x_len] -> xt [x_len, c4] (c4 = lanes rounded up to 4, the pad
+// lanes zero): a block moves 64 nodes by up to kLaneBlock lanes through a
+// padded shared tile, reading rows and writing node records whole.
+__global__ void __launch_bounds__(256)
+lanes_to_nodes_kernel(const float* __restrict__ x, float* __restrict__ xt, int64_t x_len,
+                      int64_t lanes, int64_t c4) {
+  __shared__ float tile[kLaneBlock][65];
+  const int64_t j0 = (int64_t)blockIdx.x * 64, c0 = (int64_t)blockIdx.y * kLaneBlock;
+  const int cw = (int)min((int64_t)kLaneBlock, c4 - c0);  // lanes of this tile
+  for (int q = threadIdx.x; q < 64 * cw; q += 256) {
+    const int r = q >> 6, jj = q & 63;
+    const int64_t c = c0 + r, j = j0 + jj;
+    tile[r][jj] = (c < lanes && j < x_len) ? __ldg(x + c * x_len + j) : 0.0f;
+  }
+  __syncthreads();
+  for (int q = threadIdx.x; q < 64 * cw; q += 256) {
+    const int jj = q / cw, r = q - jj * cw;
+    if (j0 + jj < x_len) xt[(j0 + jj) * c4 + c0 + r] = tile[r][jj];
+  }
+}
+
+struct LaneArgs {
+  const int64_t* __restrict__ indptr;
+  const int32_t* __restrict__ src;
+  const float* __restrict__ wgt;
+  const float* __restrict__ xs;  // x [lanes, x_len], or xt [x_len, c4]
+  float* __restrict__ out;
+  int64_t n, x_len, lanes, c4, n_tiles;
+  int tile;    // destinations a tile
+  int groups;  // lane groups of kLanes a block
+};
+
+struct LaneStage {
+  int64_t ptr[3][kLaneThreads + 1];  // indptr of three tiles (a ring)
+  int32_t src[2][kEdgeStage];        // edges of two tiles (a ring)
+  float wgt[2][kEdgeStage];
+};
+
+// starts the copy of tile t's indptr [j0, j0 + tn] into ptr
+__device__ __forceinline__ void fetch_ptr(const LaneArgs& a, int64_t* ptr, int64_t t) {
+  const int64_t j0 = t * a.tile;
+  const int tn = (int)min((int64_t)a.tile, a.n - j0);
+  for (int i = threadIdx.x; i <= tn; i += kLaneThreads) cp_async8(ptr + i, a.indptr + j0 + i);
+}
+
+// starts the copy of the first kEdgeStage edges of the tile whose indptr
+// is ptr (already in shared memory)
+__device__ __forceinline__ void fetch_edges(const LaneArgs& a, const int64_t* ptr, int64_t t,
+                                            int32_t* s_src, float* s_wgt) {
+  const int tn = (int)min((int64_t)a.tile, a.n - t * a.tile);
+  const int64_t e0 = ptr[0];
+  const int len = (int)min((int64_t)kEdgeStage, ptr[tn] - e0);
+  for (int i = threadIdx.x; i < len; i += kLaneThreads) {
+    cp_async4(s_src + i, a.src + e0 + i);
+    cp_async4(s_wgt + i, a.wgt + e0 + i);
+  }
+}
+
+// source s's kLanes lanes of this thread's group (zeros past the last lane)
+template <bool kNodeMajorGather>
+__device__ __forceinline__ void gather(const float* const* xl, const float* xn, int64_t c4,
+                                       int nl, int64_t s, float* v) {
+  if (kNodeMajorGather) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(xn + s * c4));
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int l = 0; l < kLanes; ++l) v[l] = l < nl ? __ldg(xl[l] + s) : 0.0f;
+  }
+}
+
+// adds edges [k, end) of a staged chunk into acc, kUnroll edges' gathers
+// issued together, each edge's lanes added in edge order (K3's arithmetic)
+template <bool kNodeMajorGather>
+__device__ __forceinline__ void walk(const int32_t* s_src, const float* s_wgt, int k, int end,
+                                     const float* const* xl, const float* xn, int64_t c4,
+                                     int nl, float* acc) {
+  for (; k + kUnroll <= end; k += kUnroll) {
+    float v[kUnroll][kLanes];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) gather<kNodeMajorGather>(xl, xn, c4, nl, s_src[k + u], v[u]);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+      for (int l = 0; l < kLanes; ++l)
+        acc[l] = __fadd_rn(acc[l], __fmul_rn(v[u][l], s_wgt[k + u]));
+  }
+  for (; k < end; ++k) {
+    float v[kLanes];
+    gather<kNodeMajorGather>(xl, xn, c4, nl, s_src[k], v);
+#pragma unroll
+    for (int l = 0; l < kLanes; ++l) acc[l] = __fadd_rn(acc[l], __fmul_rn(v[l], s_wgt[k]));
+  }
+}
+
+// Persistent blocks: block (bx, by) takes tiles bx, bx + gridDim.x, ... of
+// a.tile destinations each, lanes [by·kLaneBlock, +4·groups); thread (d, g)
+// sums lanes 4g.. of destination d of the tile.  While it sums tile i, the
+// copies of tile i + 1's edges and tile i + 2's indptr are in flight
+// (cp.async); a tile with more than kEdgeStage edges loads the rest in
+// chunks after its first.
+template <bool kNodeMajorGather>
+__global__ void __launch_bounds__(kLaneThreads, kLaneBlocks)
+edge_sum_lanes_kernel(const LaneArgs a) {
+  __shared__ LaneStage st;
+  const int tid = threadIdx.x;
+  // lane-major gathers: a warp takes neighbouring destinations of one lane
+  // group (its loads and stores fall on one row); node-major: neighbouring
+  // threads take one destination's lane groups (its 16-byte loads are
+  // contiguous)
+  const int d = kNodeMajorGather ? tid / a.groups : tid % a.tile;
+  const int g = kNodeMajorGather ? tid % a.groups : tid / a.tile;
+  const int64_t c0 = (int64_t)blockIdx.y * kLaneBlock + g * kLanes;
+  const int nl = (int)min((int64_t)kLanes, a.lanes - c0);  // <= 0: no lanes
+  const bool has_lanes = d < a.tile && g < a.groups && nl > 0;
+  const float* xl[kLanes];  // lane-major: each lane's row, clamped to a real lane
+#pragma unroll
+  for (int l = 0; l < kLanes; ++l) xl[l] = a.xs + (c0 + (l < nl ? l : 0)) * a.x_len;
+  const float* xn = a.xs + c0;  // node-major: this group's lanes of a node
+  const int64_t step = gridDim.x;
+  int64_t t = blockIdx.x;
+  if (t >= a.n_tiles) return;
+  fetch_ptr(a, st.ptr[0], t);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  fetch_edges(a, st.ptr[0], t, st.src[0], st.wgt[0]);
+  if (t + step < a.n_tiles) fetch_ptr(a, st.ptr[1], t + step);
+  cp_async_commit();
+  for (int i = 0; t < a.n_tiles; ++i, t += step) {
+    const int pb = i % 3, eb = i & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile t's edges and tile t + step's indptr are in
+    if (t + step < a.n_tiles)
+      fetch_edges(a, st.ptr[(i + 1) % 3], t + step, st.src[eb ^ 1], st.wgt[eb ^ 1]);
+    if (t + 2 * step < a.n_tiles) fetch_ptr(a, st.ptr[(i + 2) % 3], t + 2 * step);
+    cp_async_commit();
+    const int64_t* ptr = st.ptr[pb];
+    const int64_t j0 = t * a.tile;
+    const int tn = (int)min((int64_t)a.tile, a.n - j0);
+    const bool mine = has_lanes && d < tn;
+    const int64_t e0 = ptr[0], e1 = ptr[tn];
+    const int64_t lo = mine ? ptr[d] : 0, hi = mine ? ptr[d + 1] : 0;
+    float acc[kLanes];
+#pragma unroll
+    for (int l = 0; l < kLanes; ++l) acc[l] = 0.0f;
+    for (int64_t cs = e0; cs < e1; cs += kEdgeStage) {
+      const int len = (int)min((int64_t)kEdgeStage, e1 - cs);
+      if (cs != e0) {  // a long tile: the next chunk, loaded here
+        __syncthreads();
+        for (int q = tid; q < len; q += kLaneThreads) {
+          st.src[eb][q] = __ldg(a.src + cs + q);
+          st.wgt[eb][q] = __ldg(a.wgt + cs + q);
+        }
+        __syncthreads();
+      }
+      if (mine)
+        walk<kNodeMajorGather>(st.src[eb], st.wgt[eb], (int)(max(lo, cs) - cs),
+                               (int)(min(hi, cs + len) - cs), xl, xn, a.c4, nl, acc);
+    }
+    if (mine) {
+#pragma unroll
+      for (int l = 0; l < kLanes; ++l)
+        if (l < nl) a.out[(c0 + l) * a.n + j0 + d] = acc[l];
+    }
+  }
+}
+
+// persistent blocks: as many as stay resident on the card, no more than
+// there are tiles
+cudaError_t lane_grid(int64_t n_tiles, int64_t* grid_x) {
+  auto kernel = edge_sum_lanes_kernel<kNodeMajor>;
+  int dev = 0, n_sm = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kLaneThreads, 0);
+  const int64_t blocks = (int64_t)(per_sm < 1 ? 1 : per_sm) * n_sm;
+  *grid_x = n_tiles < blocks ? n_tiles : blocks;
+  return err;
 }
 
 }  // namespace
@@ -98,18 +306,43 @@ int edge_sum(const void* indptr, const void* src, const void* wgt, const void* x
 }
 
 // indptr: [n + 1]; src, wgt: [n_edges]; x: [lanes, x_len] (row-major); out:
-// [lanes, n].
+// [lanes, n]; scratch: edge_sum_lanes_scratch(x_len, lanes) floats, the
+// node-major copy of x [x_len, c4] (none, and may be null, when the gathers
+// read x lane-major).
+int64_t edge_sum_lanes_scratch(int64_t x_len, int64_t lanes) {
+  return kNodeMajor ? x_len * ((lanes + 3) / 4 * 4) : 0;
+}
+
 int edge_sum_lanes(const void* indptr, const void* src, const void* wgt, const void* x,
-                   void* out, int64_t n, int64_t x_len, int64_t lanes, void* stream) {
+                   void* out, void* scratch, int64_t n, int64_t x_len, int64_t lanes,
+                   void* stream) {
   if (n == 0 || lanes == 0) return cudaSuccess;
-  const int rows = lanes < kLaneRows ? (int)lanes : kLaneRows;
-  const int64_t grid_x = (n + kLaneTile - 1) / kLaneTile;
-  const int64_t grid_y = (lanes + rows - 1) / rows;
-  if (grid_x > 0x7fffffff || grid_y > 65535) return cudaErrorInvalidConfiguration;
-  edge_sum_lanes_kernel<<<dim3((unsigned)grid_x, (unsigned)grid_y), dim3(kLaneTile, rows), 0,
-                          (cudaStream_t)stream>>>(
-      (const int64_t*)indptr, (const int32_t*)src, (const float*)wgt, (const float*)x,
-      (float*)out, n, x_len, lanes);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int64_t c4 = (lanes + 3) / 4 * 4;
+  const int groups = (int)((lanes < kLaneBlock ? c4 : kLaneBlock) / kLanes);
+  const int tile = kLaneThreads / groups;
+  const int64_t n_tiles = (n + tile - 1) / tile;
+  const int64_t grid_y = (lanes + kLaneBlock - 1) / kLaneBlock;
+  int64_t grid_x = 0;
+  cudaError_t err = lane_grid(n_tiles, &grid_x);
+  if (err != cudaSuccess) return err;
+  if (grid_y > 65535) return cudaErrorInvalidConfiguration;
+  const float* xs = (const float*)x;
+  if (kNodeMajor) {
+    const int64_t bx = (x_len + 63) / 64, by = (c4 + kLaneBlock - 1) / kLaneBlock;
+    if (bx > 0x7fffffff || by > 65535) return cudaErrorInvalidConfiguration;
+    if (x_len > 0) {
+      lanes_to_nodes_kernel<<<dim3((unsigned)bx, (unsigned)by), 256, 0, st>>>(
+          (const float*)x, (float*)scratch, x_len, lanes, c4);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+    xs = (const float*)scratch;
+  }
+  const LaneArgs a{(const int64_t*)indptr, (const int32_t*)src, (const float*)wgt, xs,
+                   (float*)out, n, x_len, lanes, c4, n_tiles, tile, groups};
+  edge_sum_lanes_kernel<kNodeMajor><<<dim3((unsigned)grid_x, (unsigned)grid_y), kLaneThreads, 0,
+                                      st>>>(a);
   return cudaGetLastError();
 }
 

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..api.session import BatchEdges, _batch_fns, _bucket_width
+from ..core.diteration import decay_divisor
 
 from .queue import Request
 
@@ -88,6 +89,7 @@ class ContinuousBatcher:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' but torch sees no CUDA device; "
                                "pass device='cpu' to serve on the CPU")
+        self._gamma = decay_divisor(self.gamma, torch.float32, self.device)
         self.max_lanes = _bucket_width(max_lanes)
         self.min_lanes = min(_bucket_width(min_lanes), self.max_lanes)
         self.graph_switches = 0
@@ -203,7 +205,7 @@ class ContinuousBatcher:
         (self.f, self.h, self.t, self.ops, self.lane_rounds,
          rounds_run) = fns["tick"](
             self.f, self.h, self.t, self.ops, self.lane_rounds, tol_dev,
-            budget, self.be, self.gamma)
+            budget, self.be, self._gamma)
         resid = self.f.abs().sum(dim=1).double().cpu().numpy()
         self._ops_host = self.ops.cpu().numpy()
         lane_rounds = self.lane_rounds.cpu().numpy()

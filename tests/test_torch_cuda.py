@@ -20,8 +20,10 @@ np.add.at does; the simulator on the card to its CPU run within
 |Δh|_1 <= 1e-10.  K3's lane form (edge_sum_lanes) is held bit-equal to K3
 launched on each lane's row, zero lanes to zero rows, and to its plain
 version within rtol/atol 1e-5; batched solves on the card to their CPU
-runs (|Δx|_1 <= 1e-6), the serving scheduler to its CPU run (edge
-pushes within 1 %, |Δx|_1 <= 2·target_error).
+runs (|Δx|_1 <= 1e-6), the serving scheduler to its CPU run (equal edge
+pushes, |Δx|_1 <= 2·target_error).  The threshold decay divides on the
+card as numpy's float32 division does, so card and CPU solves push the
+same edges.
 """
 import numpy as np
 import pytest
@@ -469,6 +471,158 @@ def test_edge_sum_lanes_refuses_bad_operands(cuda_device):
         edge_sum_lanes(x_d.double(), e_d)
 
 
+def _check_lanes(x_d, e_d):
+    """K3's lane form on ``x_d``: every lane the bits of K3 launched on its
+    row, a relaunch the same bits, a zero lane a zero row, and the plain
+    version within rtol/atol 1e-5.  Returns the result."""
+    before = LAUNCHES["edge_sum_lanes"]
+    got = edge_sum_lanes(x_d, e_d)
+    again = edge_sum_lanes(x_d, e_d)
+    torch.cuda.synchronize()
+    assert LAUNCHES["edge_sum_lanes"] == before + 2
+    assert got.shape == (x_d.shape[0], e_d.n) and torch.equal(got, again)
+    for lane in range(x_d.shape[0]):
+        row = x_d[lane].contiguous()
+        assert torch.equal(got[lane], edge_sum(row, e_d))
+        if not bool(row.any()):
+            assert bool((got[lane] == 0).all())
+    plain = edge_sum_lanes_plain(x_d, e_d.indptr, e_d.src, e_d.wgt)
+    np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    return got
+
+
+def _lane_fluid(rng, c, n):
+    """``[C, n]`` float32 fluid on the card, every third lane zero."""
+    x = rng.standard_normal((c, n)).astype(np.float32)
+    x[2::3] = 0.0
+    return torch.from_numpy(x).to("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [4, 5, 17, 32, 70])
+def test_edge_sum_lanes_ragged_and_wide_lane_groups(cuda_device, c):
+    """Lane counts that fill four-lane groups, leave one ragged, take
+    several groups a destination, or more lanes than a block holds."""
+    src, dst, wgt, x, n = _lane_inputs(c, seed=100 + c)
+    _check_lanes(torch.from_numpy(x).to(cuda_device),
+                 csc_edges(src, dst, wgt, n, cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 16])
+def test_edge_sum_lanes_hub_spans_many_chunks(cuda_device, c):
+    """One destination with 10**5 in-edges, far more than a block stages
+    at once, beside ordinary ones."""
+    rng = np.random.default_rng(21)
+    n, hub = 3000, 1234
+    src = rng.integers(0, n, 120_000)
+    dst = rng.integers(0, n, 120_000)
+    dst[:100_000] = hub
+    wgt = rng.random(120_000)
+    e_d = csc_edges(src, dst, wgt, n, cuda_device)
+    assert int(e_d.indptr[hub + 1] - e_d.indptr[hub]) >= 100_000
+    _check_lanes(_lane_fluid(rng, c, n), e_d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 3, 16])
+def test_edge_sum_lanes_empty_tiles(cuda_device, c):
+    """Whole tiles of destinations with no in-edge, between and after
+    tiles that have some, and a graph with no edge at all."""
+    rng = np.random.default_rng(22)
+    n = 4096
+    dst = np.concatenate([rng.integers(0, 200, 3000),
+                          rng.integers(2500, 2600, 3000)])
+    src = rng.integers(0, n, dst.size)
+    wgt = rng.random(dst.size)
+    got = _check_lanes(_lane_fluid(rng, c, n),
+                       csc_edges(src, dst, wgt, n, cuda_device))
+    assert bool((got[:, 200:2500] == 0).all())
+    assert bool((got[:, 2600:] == 0).all())
+    none = csc_edges(np.zeros(0, np.int64), np.zeros(0, np.int64),
+                     np.zeros(0), n, cuda_device)
+    assert bool((_check_lanes(_lane_fluid(rng, c, n), none) == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 5, 16, 17, 64])
+@pytest.mark.parametrize("n", [1, 37, 1013])
+def test_edge_sum_lanes_ragged_last_tile(cuda_device, c, n):
+    """Destination counts that are no multiple of any tile width."""
+    rng = np.random.default_rng(n * 100 + c)
+    m = 12 * n
+    _check_lanes(_lane_fluid(rng, c, n), csc_edges(
+        rng.integers(0, n, m), rng.integers(0, n, m), rng.random(m), n,
+        cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_src,n", [(700, 1300), (2000, 500)])
+@pytest.mark.parametrize("c", [3, 16])
+def test_edge_sum_lanes_x_len_differs_from_n(cuda_device, n_src, n, c):
+    """Sources and destinations in two spaces (the engine's table):
+    ``x [C, n_src]`` -> ``[C, n]``."""
+    import dataclasses
+
+    rng = np.random.default_rng(n_src + n + c)
+    m = 10 * n
+    e_d = dataclasses.replace(csc_edges(
+        rng.integers(0, n_src, m), rng.integers(0, n, m), rng.random(m), n,
+        cuda_device), n_src=n_src)
+    assert e_d.x_len == n_src
+    _check_lanes(_lane_fluid(rng, c, n_src), e_d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [4, 16])
+def test_edge_sum_lanes_permuted_node_order(cuda_device, c):
+    """A host-ordered graph under a random node permutation: every
+    gather lands far from its destination."""
+    from repro_torch.core import host_block_graph
+
+    g = host_block_graph(8192, seed=3)
+    perm = np.random.default_rng(23).permutation(g.n)
+    src = np.repeat(np.arange(g.n), np.diff(g.indptr))
+    rng = np.random.default_rng(24)
+    _check_lanes(_lane_fluid(rng, c, g.n), csc_edges(
+        perm[src], perm[g.indices], g.weights, g.n, cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["threshold_decay", "frontier_step"])
+@pytest.mark.parametrize("gamma", [1.2, 1.5, 2.0, 10 / 9])
+def test_threshold_decay_on_the_card_divides_as_the_reference(cuda_device,
+                                                              gamma, path):
+    """``t / γ`` on the card, by the helper and by a frontier round that
+    selects nothing (zero fluid, so every threshold decays), equals
+    numpy's float32 division, as the reference's ``t / gamma`` divides."""
+    from repro_torch.core.diteration import frontier_step
+
+    rng = np.random.default_rng(int(gamma * 1000))
+    n = 100_000
+    t = (rng.random(n) * 10.0 ** rng.uniform(-12, 2, n)).astype(np.float32)
+    want = t / np.float32(gamma)
+    t_d = torch.from_numpy(t).to(cuda_device)
+    if path == "threshold_decay":
+        from repro_torch.core.diteration import (decay_divisor,
+                                                 threshold_decay)
+
+        got = threshold_decay(t_d, decay_divisor(gamma, torch.float32,
+                                                 cuda_device))
+    else:
+        none = csc_edges(np.zeros(0, np.int64), np.zeros(0, np.int64),
+                         np.zeros(0), n, cuda_device)
+        zeros = torch.zeros(n, device=cuda_device)
+        _f, _h, got, _ops = frontier_step(
+            zeros, zeros, t_d, none, torch.ones(n, device=cuda_device),
+            torch.zeros(n, dtype=torch.int64, device=cuda_device),
+            torch.zeros(n, dtype=torch.bool, device=cuda_device), gamma)
+    got = got.cpu().numpy()
+    assert got.dtype == np.float32
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
 @pytest.mark.cuda
 def test_solve_batch_on_the_card_matches_the_cpu(cuda_device):
     """Batched solves on the card: the CPU run's op counts per column and
@@ -499,10 +653,8 @@ def test_solve_batch_on_the_card_matches_the_cpu(cuda_device):
 def test_scheduler_on_the_card_matches_the_cpu(cuda_device):
     """The continuous-batching scheduler, one graph update midway, on the
     card and on the CPU: the same requests served in the same order with
-    the same pool hits, each one's edge pushes within 1 % (the card's
-    threshold decay ``t / gamma`` multiplies by the reciprocal, a bit off
-    the CPU's division, as in every solve on the card) and |Δx|_1 <=
-    2·target_error."""
+    the same pool hits, each one's edge pushes equal (the threshold decay
+    divides on both devices alike) and |Δx|_1 <= 2·target_error."""
     import repro_torch
     from repro_torch.graph import rotation_churn
     from repro_torch.serving import Scheduler
@@ -530,7 +682,7 @@ def test_scheduler_on_the_card_matches_the_cpu(cuda_device):
     assert [r.request_id for r in card] == [r.request_id for r in cpu]
     for a, b in zip(card, cpu):
         assert a.converged and a.pool_hit == b.pool_hit
-        assert a.ops == pytest.approx(b.ops, rel=0.01)
+        assert a.ops == b.ops
         # two converged schedules: within 2·target_error, the bound of
         # the reference's scheduler parity test
         assert np.abs(a.x - b.x).sum() <= 2.0 * te
@@ -550,8 +702,7 @@ def test_solve_on_the_card_matches_the_cpu(cuda_device, method):
                             interpret=True)
     assert card.converged and cpu.converged
     assert np.abs(card.x - cpu.x).sum() <= 1e-6
-    assert card.cost_iterations == pytest.approx(cpu.cost_iterations,
-                                                 rel=0.01)
+    assert card.cost_iterations == cpu.cost_iterations
     kernel = ("frontier_round_bsr" if method == "frontier:pallas"
               else "edge_sum")
     assert LAUNCHES[kernel] - before[kernel] == card.n_rounds

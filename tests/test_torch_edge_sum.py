@@ -103,3 +103,19 @@ def test_edge_sum_counts_nothing_on_cpu():
     before = dict(LAUNCHES)
     edge_sum(torch.from_numpy(x), csc_edges(src, dst, wgt, n, "cpu"))
     assert LAUNCHES == before
+
+
+def test_k3_lanes_probe_sets_only_knobs_the_source_declares():
+    """Every ``-D`` that tools/k3_lanes_probe.py builds K3's lane form with
+    names a knob csrc/edge_sum.cu declares (``#ifndef NAME``), so that no
+    variant of the probe silently builds the base."""
+    import pathlib
+    import re
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    probe = (root / "tools" / "k3_lanes_probe.py").read_text()
+    source = (root / "src" / "repro_torch" / "csrc" / "edge_sum.cu").read_text()
+    names = set(re.findall(r"-D(K3L_\w+)=", probe))
+    assert "K3L_NODE_MAJOR" in names
+    for name in sorted(names):
+        assert f"#ifndef {name}" in source, name
