@@ -46,7 +46,7 @@ import torch
 from ..balance.executors import BucketMoveExecutor
 from ..balance.policies import make_rebalancer
 from ..balance.signals import LoadSignal
-from ..core.diteration import decay_divisor, threshold_decay
+from ..core.diteration import threshold_decay
 from ..core.distributed import (
     DistributedEngine,
     EngineConfig,
@@ -123,8 +123,8 @@ def _round(f, h, t, ops, lane_rounds, active, be: BatchEdges, gamma):
     ``_batch_fns._round``).  Lanes are independent: a lane that is not
     ``active`` (converged, or a zero padding lane) selects nothing, pushes
     nothing and keeps its threshold; the push is one launch of K3's lane
-    form, whose lanes do not see each other.  ``gamma`` is the caller's
-    :func:`decay_divisor` tensor."""
+    form, whose lanes do not see each other.  ``gamma`` is a 0-dim tensor
+    on the lanes' device (:func:`threshold_decay`)."""
     sel = ((f.abs() * be.w) > t[:, None]) & active[:, None]
     sent = torch.where(sel, f, torch.zeros_like(f))
     h = h + sent
@@ -202,8 +202,8 @@ class _SegmentSumDriver:
         self.w = _f32(problem.node_weights(), self.device)
         self.out_deg = torch.as_tensor(g.out_degree(), device=self.device)
         self.dang = torch.as_tensor(g.dangling_mask(), device=self.device)
-        self.gamma = decay_divisor(options.gamma, torch.float32,
-                                   self.device)
+        self.gamma = torch.tensor(options.gamma, dtype=torch.float32,
+                                  device=self.device)
         self._state = None
         self._batch = None  # BatchEdges, built at the first solve_batch
 
@@ -354,8 +354,8 @@ class _BsrFrontierDriver:
         self.w = pad(problem.node_weights(), torch.float32)
         self.out_deg = pad(g.out_degree(), torch.int64)
         self.dang = pad(g.dangling_mask(), torch.bool)
-        self.gamma = decay_divisor(options.gamma, torch.float32,
-                                   self.device)
+        self.gamma = torch.tensor(options.gamma, dtype=torch.float32,
+                                  device=self.device)
         self.backend = ("kernel" if dev.type == "cuda" or options.interpret
                         else "block")
         self._n_pad = n_pad

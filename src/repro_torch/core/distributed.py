@@ -55,7 +55,7 @@ from ..balance.signals import LoadSignal
 from ..graph.views import dense_tiles, tile_groups
 from ..kernels.diffusion import engine_tile_push, engine_visit_table
 from ..kernels.edge_sum import edge_sum, engine_edge_table
-from .diteration import decay_divisor, threshold_decay
+from .diteration import threshold_decay
 
 __all__ = [
     "EngineConfig",
@@ -257,7 +257,7 @@ class DistributedEngine:
         self.a = arrays
         self.cfg = cfg
         self.device = torch.device(cfg.device)
-        self._gamma = decay_divisor(cfg.gamma, cfg.dtype, self.device)
+        self._gamma = torch.tensor(cfg.gamma, dtype=cfg.dtype, device=self.device)
         if rebalancer is not None:
             self.rebalancer: Optional[Rebalancer] = rebalancer
         elif cfg.policy or cfg.dynamic:

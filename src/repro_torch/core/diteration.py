@@ -34,7 +34,6 @@ __all__ = [
     "jacobi_solve",
     "residual_l1",
     "default_weights",
-    "decay_divisor",
     "threshold_decay",
     "GAMMA",
 ]
@@ -42,24 +41,16 @@ __all__ = [
 GAMMA = 1.2  # paper default threshold decay
 
 
-def decay_divisor(gamma: float, dtype: torch.dtype, device) -> torch.Tensor:
-    """γ as a 0-dim tensor of the threshold's dtype on its device, made once
-    per driver, batcher or engine for :func:`threshold_decay`."""
-    return torch.tensor(gamma, dtype=dtype, device=device)
-
-
-def threshold_decay(t: torch.Tensor, gamma) -> torch.Tensor:
+def threshold_decay(t: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
     """``t / γ`` rounded as the reference's ``t / gamma`` is: an IEEE
     division in ``t``'s dtype, on either device.
 
-    PyTorch on the card turns a division by a Python scalar into a product
-    with its reciprocal (computed on the host), a bit off the quotient in
-    about a quarter of the values; a division by a tensor on the card
-    divides.  ``gamma`` is :func:`decay_divisor`'s tensor; a Python float
-    is made into one here (one small upload a call).
+    ``gamma`` is γ as a 0-dim tensor of ``t``'s dtype on its device, made
+    once by the caller (driver, batcher or engine).  PyTorch on the card
+    turns a division by a Python scalar into a product with its reciprocal
+    (computed on the host), a bit off the quotient in about a quarter of
+    the values; a division by a tensor on the card divides.
     """
-    if not isinstance(gamma, torch.Tensor):
-        gamma = decay_divisor(gamma, t.dtype, t.device)
     return t / gamma
 
 
@@ -166,7 +157,7 @@ def frontier_step(
     weights: torch.Tensor,
     out_deg: torch.Tensor,
     dangling: torch.Tensor,
-    gamma=GAMMA,
+    gamma: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One frontier round: diffuse every node with |F_i| w_i > T simultaneously.
 
@@ -174,8 +165,8 @@ def frontier_step(
     per *dangling* selected node (absorb-and-charge, matching
     :func:`run_sequential`'s §2.3 accounting exactly: a diffused node costs
     ``max(out_degree, 1)``).  Zero selected nodes -> threshold decays by
-    gamma (:func:`threshold_decay`; ``gamma`` a float or its
-    :func:`decay_divisor` tensor), matching the sweep semantics.  ``edges``
+    gamma (:func:`threshold_decay`; ``gamma`` a 0-dim tensor on ``t_k``'s
+    device), matching the sweep semantics.  ``edges``
     is the destination-sorted edge list the ``edge_sum`` kernel walks;
     ``out_deg`` [N] int64
     and ``dangling`` [N] bool describe the same edges by source, so

@@ -55,14 +55,14 @@
 // launched on row c, a zero lane gives a zero row, and the result does not
 // depend on C.  A warp takes 32 neighbouring destinations of one lane
 // group, so its gathers fall on one row of x and its stores on one row of
-// out.  The gathers read x lane-major as the caller holds it; with
-// K3L_NODE_MAJOR a first kernel stages a node-major copy [x_len, C4] (C
-// rounded up to 4) through a shared-memory transpose so that an edge's four
-// lanes arrive as one 16-byte load: slower on host-ordered graphs, whose
-// sources lie near their destinations, and ten times faster where the node
-// order has no locality (the probe measures both).
+// out.  The gathers read x lane-major as the caller holds it: on
+// host-ordered graphs, whose sources lie near their destinations, that beat
+// a node-major copy of x staged by a first kernel, which was faster only
+// where the node order has no locality (PERF.md holds both).
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -81,18 +81,13 @@ edge_sum_kernel(const int64_t* __restrict__ indptr, const int32_t* __restrict__ 
   out[j] = acc;
 }
 
-// K3L_NODE_MAJOR=1 builds the lane form with node-major gathers
-// (tools/k3_lanes_probe.py times both layouts)
-#ifndef K3L_NODE_MAJOR
-#define K3L_NODE_MAJOR 0
-#endif
 constexpr int kLaneThreads = 256;  // threads a block of the lane form
 constexpr int kLaneBlocks = 4;     // its blocks an SM (64 registers a thread)
 constexpr int kLanes = 4;          // lanes a thread sums
 constexpr int kLaneBlock = 64;     // lanes a block at most (gridDim.y above)
 constexpr int kEdgeStage = 2048;   // edges a stage holds
 constexpr int kUnroll = 2;         // edges whose gathers a thread issues together
-constexpr bool kNodeMajor = K3L_NODE_MAJOR;
+constexpr int kMaxDevices = 64;    // devices whose resident block count is kept
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const uint32_t saddr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
@@ -105,34 +100,13 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n"); }
 
-// x [lanes, x_len] -> xt [x_len, c4] (c4 = lanes rounded up to 4, the pad
-// lanes zero): a block moves 64 nodes by up to kLaneBlock lanes through a
-// padded shared tile, reading rows and writing node records whole.
-__global__ void __launch_bounds__(256)
-lanes_to_nodes_kernel(const float* __restrict__ x, float* __restrict__ xt, int64_t x_len,
-                      int64_t lanes, int64_t c4) {
-  __shared__ float tile[kLaneBlock][65];
-  const int64_t j0 = (int64_t)blockIdx.x * 64, c0 = (int64_t)blockIdx.y * kLaneBlock;
-  const int cw = (int)min((int64_t)kLaneBlock, c4 - c0);  // lanes of this tile
-  for (int q = threadIdx.x; q < 64 * cw; q += 256) {
-    const int r = q >> 6, jj = q & 63;
-    const int64_t c = c0 + r, j = j0 + jj;
-    tile[r][jj] = (c < lanes && j < x_len) ? __ldg(x + c * x_len + j) : 0.0f;
-  }
-  __syncthreads();
-  for (int q = threadIdx.x; q < 64 * cw; q += 256) {
-    const int jj = q / cw, r = q - jj * cw;
-    if (j0 + jj < x_len) xt[(j0 + jj) * c4 + c0 + r] = tile[r][jj];
-  }
-}
-
 struct LaneArgs {
   const int64_t* __restrict__ indptr;
   const int32_t* __restrict__ src;
   const float* __restrict__ wgt;
-  const float* __restrict__ xs;  // x [lanes, x_len], or xt [x_len, c4]
+  const float* __restrict__ x;  // [lanes, x_len]
   float* __restrict__ out;
-  int64_t n, x_len, lanes, c4, n_tiles;
+  int64_t n, x_len, lanes, n_tiles;
   int tile;    // destinations a tile
   int groups;  // lane groups of kLanes a block
 };
@@ -164,28 +138,19 @@ __device__ __forceinline__ void fetch_edges(const LaneArgs& a, const int64_t* pt
 }
 
 // source s's kLanes lanes of this thread's group (zeros past the last lane)
-template <bool kNodeMajorGather>
-__device__ __forceinline__ void gather(const float* const* xl, const float* xn, int64_t c4,
-                                       int nl, int64_t s, float* v) {
-  if (kNodeMajorGather) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(xn + s * c4));
-    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-  } else {
+__device__ __forceinline__ void gather(const float* const* xl, int nl, int64_t s, float* v) {
 #pragma unroll
-    for (int l = 0; l < kLanes; ++l) v[l] = l < nl ? __ldg(xl[l] + s) : 0.0f;
-  }
+  for (int l = 0; l < kLanes; ++l) v[l] = l < nl ? __ldg(xl[l] + s) : 0.0f;
 }
 
 // adds edges [k, end) of a staged chunk into acc, kUnroll edges' gathers
 // issued together, each edge's lanes added in edge order (K3's arithmetic)
-template <bool kNodeMajorGather>
 __device__ __forceinline__ void walk(const int32_t* s_src, const float* s_wgt, int k, int end,
-                                     const float* const* xl, const float* xn, int64_t c4,
-                                     int nl, float* acc) {
+                                     const float* const* xl, int nl, float* acc) {
   for (; k + kUnroll <= end; k += kUnroll) {
     float v[kUnroll][kLanes];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) gather<kNodeMajorGather>(xl, xn, c4, nl, s_src[k + u], v[u]);
+    for (int u = 0; u < kUnroll; ++u) gather(xl, nl, s_src[k + u], v[u]);
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
 #pragma unroll
@@ -194,7 +159,7 @@ __device__ __forceinline__ void walk(const int32_t* s_src, const float* s_wgt, i
   }
   for (; k < end; ++k) {
     float v[kLanes];
-    gather<kNodeMajorGather>(xl, xn, c4, nl, s_src[k], v);
+    gather(xl, nl, s_src[k], v);
 #pragma unroll
     for (int l = 0; l < kLanes; ++l) acc[l] = __fadd_rn(acc[l], __fmul_rn(v[l], s_wgt[k]));
   }
@@ -206,24 +171,19 @@ __device__ __forceinline__ void walk(const int32_t* s_src, const float* s_wgt, i
 // copies of tile i + 1's edges and tile i + 2's indptr are in flight
 // (cp.async); a tile with more than kEdgeStage edges loads the rest in
 // chunks after its first.
-template <bool kNodeMajorGather>
 __global__ void __launch_bounds__(kLaneThreads, kLaneBlocks)
 edge_sum_lanes_kernel(const LaneArgs a) {
   __shared__ LaneStage st;
   const int tid = threadIdx.x;
-  // lane-major gathers: a warp takes neighbouring destinations of one lane
-  // group (its loads and stores fall on one row); node-major: neighbouring
-  // threads take one destination's lane groups (its 16-byte loads are
-  // contiguous)
-  const int d = kNodeMajorGather ? tid / a.groups : tid % a.tile;
-  const int g = kNodeMajorGather ? tid % a.groups : tid / a.tile;
+  // a warp takes neighbouring destinations of one lane group: its gathers
+  // fall on one row of x and its stores on one row of out
+  const int d = tid % a.tile, g = tid / a.tile;
   const int64_t c0 = (int64_t)blockIdx.y * kLaneBlock + g * kLanes;
   const int nl = (int)min((int64_t)kLanes, a.lanes - c0);  // <= 0: no lanes
   const bool has_lanes = d < a.tile && g < a.groups && nl > 0;
-  const float* xl[kLanes];  // lane-major: each lane's row, clamped to a real lane
+  const float* xl[kLanes];  // each lane's row of x, clamped to a real lane
 #pragma unroll
-  for (int l = 0; l < kLanes; ++l) xl[l] = a.xs + (c0 + (l < nl ? l : 0)) * a.x_len;
-  const float* xn = a.xs + c0;  // node-major: this group's lanes of a node
+  for (int l = 0; l < kLanes; ++l) xl[l] = a.x + (c0 + (l < nl ? l : 0)) * a.x_len;
   const int64_t step = gridDim.x;
   int64_t t = blockIdx.x;
   if (t >= a.n_tiles) return;
@@ -262,8 +222,8 @@ edge_sum_lanes_kernel(const LaneArgs a) {
         __syncthreads();
       }
       if (mine)
-        walk<kNodeMajorGather>(st.src[eb], st.wgt[eb], (int)(max(lo, cs) - cs),
-                               (int)(min(hi, cs + len) - cs), xl, xn, a.c4, nl, acc);
+        walk(st.src[eb], st.wgt[eb], (int)(max(lo, cs) - cs), (int)(min(hi, cs + len) - cs), xl,
+             nl, acc);
     }
     if (mine) {
 #pragma unroll
@@ -274,17 +234,26 @@ edge_sum_lanes_kernel(const LaneArgs a) {
 }
 
 // persistent blocks: as many as stay resident on the card, no more than
-// there are tiles
+// there are tiles.  The resident count is asked of the runtime once a
+// device and kept (a launch costs a cudaGetDevice, no attribute query).
 cudaError_t lane_grid(int64_t n_tiles, int64_t* grid_x) {
-  auto kernel = edge_sum_lanes_kernel<kNodeMajor>;
-  int dev = 0, n_sm = 0, per_sm = 0;
+  static std::atomic<int64_t> resident[kMaxDevices];
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kLaneThreads, 0);
-  const int64_t blocks = (int64_t)(per_sm < 1 ? 1 : per_sm) * n_sm;
+  if (err != cudaSuccess) return err;
+  int64_t blocks = dev < kMaxDevices ? resident[dev].load(std::memory_order_relaxed) : 0;
+  if (blocks == 0) {
+    int n_sm = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, edge_sum_lanes_kernel,
+                                                          kLaneThreads, 0);
+    if (err != cudaSuccess) return err;
+    blocks = (int64_t)(per_sm < 1 ? 1 : per_sm) * n_sm;
+    if (dev < kMaxDevices) resident[dev].store(blocks, std::memory_order_relaxed);
+  }
   *grid_x = n_tiles < blocks ? n_tiles : blocks;
-  return err;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -306,43 +275,23 @@ int edge_sum(const void* indptr, const void* src, const void* wgt, const void* x
 }
 
 // indptr: [n + 1]; src, wgt: [n_edges]; x: [lanes, x_len] (row-major); out:
-// [lanes, n]; scratch: edge_sum_lanes_scratch(x_len, lanes) floats, the
-// node-major copy of x [x_len, c4] (none, and may be null, when the gathers
-// read x lane-major).
-int64_t edge_sum_lanes_scratch(int64_t x_len, int64_t lanes) {
-  return kNodeMajor ? x_len * ((lanes + 3) / 4 * 4) : 0;
-}
-
+// [lanes, n].
 int edge_sum_lanes(const void* indptr, const void* src, const void* wgt, const void* x,
-                   void* out, void* scratch, int64_t n, int64_t x_len, int64_t lanes,
-                   void* stream) {
+                   void* out, int64_t n, int64_t x_len, int64_t lanes, void* stream) {
   if (n == 0 || lanes == 0) return cudaSuccess;
-  const cudaStream_t st = (cudaStream_t)stream;
   const int64_t c4 = (lanes + 3) / 4 * 4;
   const int groups = (int)((lanes < kLaneBlock ? c4 : kLaneBlock) / kLanes);
   const int tile = kLaneThreads / groups;
   const int64_t n_tiles = (n + tile - 1) / tile;
   const int64_t grid_y = (lanes + kLaneBlock - 1) / kLaneBlock;
-  int64_t grid_x = 0;
-  cudaError_t err = lane_grid(n_tiles, &grid_x);
-  if (err != cudaSuccess) return err;
   if (grid_y > 65535) return cudaErrorInvalidConfiguration;
-  const float* xs = (const float*)x;
-  if (kNodeMajor) {
-    const int64_t bx = (x_len + 63) / 64, by = (c4 + kLaneBlock - 1) / kLaneBlock;
-    if (bx > 0x7fffffff || by > 65535) return cudaErrorInvalidConfiguration;
-    if (x_len > 0) {
-      lanes_to_nodes_kernel<<<dim3((unsigned)bx, (unsigned)by), 256, 0, st>>>(
-          (const float*)x, (float*)scratch, x_len, lanes, c4);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return err;
-    }
-    xs = (const float*)scratch;
-  }
-  const LaneArgs a{(const int64_t*)indptr, (const int32_t*)src, (const float*)wgt, xs,
-                   (float*)out, n, x_len, lanes, c4, n_tiles, tile, groups};
-  edge_sum_lanes_kernel<kNodeMajor><<<dim3((unsigned)grid_x, (unsigned)grid_y), kLaneThreads, 0,
-                                      st>>>(a);
+  int64_t grid_x = 0;
+  const cudaError_t err = lane_grid(n_tiles, &grid_x);
+  if (err != cudaSuccess) return err;
+  const LaneArgs a{(const int64_t*)indptr, (const int32_t*)src, (const float*)wgt,
+                   (const float*)x, (float*)out, n, x_len, lanes, n_tiles, tile, groups};
+  edge_sum_lanes_kernel<<<dim3((unsigned)grid_x, (unsigned)grid_y), kLaneThreads, 0,
+                          (cudaStream_t)stream>>>(a);
   return cudaGetLastError();
 }
 

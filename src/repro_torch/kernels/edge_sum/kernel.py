@@ -25,10 +25,7 @@ memory (read once a launch, the next tile's copies in flight while a tile
 sums), and a thread sums four lanes of one destination, walking its edges
 in K3's order with K3's arithmetic: each lane is bit-equal to K3 on that
 row and a zero lane stays zero, so zero padding lanes never touch the
-real ones.  ``csrc/edge_sum.cu`` says what bounds it.  The wrapper hands
-the kernel a scratch buffer whose size the library names
-(``edge_sum_lanes_scratch``; none for the default build, a node-major
-copy of ``x`` for a build with ``K3L_NODE_MAJOR``).  Its plain version
+real ones.  ``csrc/edge_sum.cu`` says what bounds it.  Its plain version
 :func:`edge_sum_lanes_plain` sums each destination's messages in the
 same order on the CPU (``torch.segment_reduce``).
 """
@@ -119,10 +116,8 @@ def _lib() -> ctypes.CDLL:
     if lib.edge_sum.argtypes is None:
         lib.edge_sum.argtypes = [_P] * 5 + [ctypes.c_int64, _P]
         lib.edge_sum.restype = ctypes.c_int
-        lib.edge_sum_lanes.argtypes = [_P] * 6 + [ctypes.c_int64] * 3 + [_P]
+        lib.edge_sum_lanes.argtypes = [_P] * 5 + [ctypes.c_int64] * 3 + [_P]
         lib.edge_sum_lanes.restype = ctypes.c_int
-        lib.edge_sum_lanes_scratch.argtypes = [ctypes.c_int64] * 2
-        lib.edge_sum_lanes_scratch.restype = ctypes.c_int64
     return lib
 
 
@@ -181,12 +176,10 @@ def edge_sum_lanes(x: torch.Tensor, edges: CscEdges) -> torch.Tensor:
     lanes, n = x.shape[0], edges.n
     out = torch.empty((lanes, n), dtype=torch.float32, device=x.device)
     lib = _lib()
-    scratch = torch.empty(lib.edge_sum_lanes_scratch(edges.x_len, lanes),
-                          dtype=torch.float32, device=x.device)
     err = lib.edge_sum_lanes(edges.indptr.data_ptr(), edges.src.data_ptr(),
                              edges.wgt.data_ptr(), x.data_ptr(),
-                             out.data_ptr(), scratch.data_ptr(), n,
-                             edges.x_len, lanes, stream_handle(x.device))
+                             out.data_ptr(), n, edges.x_len, lanes,
+                             stream_handle(x.device))
     check(lib, err, "edge_sum_lanes")
     LAUNCHES["edge_sum_lanes"] += 1
     return out

@@ -27,7 +27,6 @@ import numpy as np
 import torch
 
 from ..api.session import BatchEdges, _batch_fns, _bucket_width
-from ..core.diteration import decay_divisor
 
 from .queue import Request
 
@@ -89,7 +88,8 @@ class ContinuousBatcher:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' but torch sees no CUDA device; "
                                "pass device='cpu' to serve on the CPU")
-        self._gamma = decay_divisor(self.gamma, torch.float32, self.device)
+        self._gamma = torch.tensor(self.gamma, dtype=torch.float32,
+                                   device=self.device)
         self.max_lanes = _bucket_width(max_lanes)
         self.min_lanes = min(_bucket_width(min_lanes), self.max_lanes)
         self.graph_switches = 0

@@ -605,11 +605,10 @@ def test_threshold_decay_on_the_card_divides_as_the_reference(cuda_device,
     want = t / np.float32(gamma)
     t_d = torch.from_numpy(t).to(cuda_device)
     if path == "threshold_decay":
-        from repro_torch.core.diteration import (decay_divisor,
-                                                 threshold_decay)
+        from repro_torch.core.diteration import threshold_decay
 
-        got = threshold_decay(t_d, decay_divisor(gamma, torch.float32,
-                                                 cuda_device))
+        got = threshold_decay(t_d, torch.tensor(gamma, dtype=torch.float32,
+                                                device=cuda_device))
     else:
         none = csc_edges(np.zeros(0, np.int64), np.zeros(0, np.int64),
                          np.zeros(0), n, cuda_device)
@@ -617,7 +616,8 @@ def test_threshold_decay_on_the_card_divides_as_the_reference(cuda_device,
         _f, _h, got, _ops = frontier_step(
             zeros, zeros, t_d, none, torch.ones(n, device=cuda_device),
             torch.zeros(n, dtype=torch.int64, device=cuda_device),
-            torch.zeros(n, dtype=torch.bool, device=cuda_device), gamma)
+            torch.zeros(n, dtype=torch.bool, device=cuda_device),
+            torch.tensor(gamma, dtype=torch.float32, device=cuda_device))
     got = got.cpu().numpy()
     assert got.dtype == np.float32
     assert np.array_equal(got.view(np.int32), want.view(np.int32))

@@ -9,8 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.diteration import (GAMMA, decay_divisor,
-                                         threshold_decay)
+from repro_torch.core.diteration import GAMMA, threshold_decay
 
 torch.set_num_threads(1)
 
@@ -29,21 +28,19 @@ def _thresholds(seed, n=100_000):
 def test_threshold_decay_divides_as_numpy_and_the_reference(gamma):
     t = _thresholds(seed=int(gamma * 1000))
     want = t / np.float32(gamma)
-    got = threshold_decay(torch.from_numpy(t), decay_divisor(
-        gamma, torch.float32, "cpu")).numpy()
+    got = threshold_decay(torch.from_numpy(t),
+                          torch.tensor(gamma, dtype=torch.float32)).numpy()
     assert got.dtype == np.float32
     assert np.array_equal(got.view(np.int32), want.view(np.int32))
     ref = np.asarray(jnp.asarray(t) / gamma)
     assert np.array_equal(got.view(np.int32), ref.view(np.int32))
-    # a Python float gives the same bits
-    by_float = threshold_decay(torch.from_numpy(t), gamma).numpy()
-    assert np.array_equal(by_float.view(np.int32), want.view(np.int32))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_decay_divisor_takes_the_thresholds_dtype(dtype):
-    d = decay_divisor(GAMMA, dtype, "cpu")
-    assert d.dtype == dtype and d.dim() == 0
+    """A divisor of the thresholds' dtype keeps that dtype and divides in
+    it, float64 as the engine's float64 runs hold their thresholds."""
+    d = torch.tensor(GAMMA, dtype=dtype)
     t = torch.tensor([3.0, 1e-30], dtype=dtype)
     got = threshold_decay(t, d)
     assert got.dtype == dtype

@@ -86,7 +86,8 @@ def test_frontier_step_matches_reference(seed, t_quantile):
     f_p, h_p, t_p, ops_p = tc.frontier_step(
         torch.from_numpy(f), torch.zeros(p.n), torch.tensor(t),
         csc_edges(src, dst, wgt, p.n, "cpu"), torch.from_numpy(w),
-        torch.as_tensor(p.out_degree()), torch.as_tensor(dang))
+        torch.as_tensor(p.out_degree()), torch.as_tensor(dang),
+        torch.tensor(tc.GAMMA, dtype=torch.float32))
     # selection: h starts at 0, so h == sent marks exactly the fired nodes
     assert np.array_equal(h_p.numpy() != 0, np.asarray(h_r) != 0)
     assert int(ops_p) == int(ops_r)
@@ -105,17 +106,23 @@ def test_edge_sum_counts_nothing_on_cpu():
     assert LAUNCHES == before
 
 
-def test_k3_lanes_probe_sets_only_knobs_the_source_declares():
-    """Every ``-D`` that tools/k3_lanes_probe.py builds K3's lane form with
-    names a knob csrc/edge_sum.cu declares (``#ifndef NAME``), so that no
-    variant of the probe silently builds the base."""
+def test_k3_lanes_probe_serve_rehearses_on_the_cpu():
+    """tools/k3_lanes_probe.py's ``--serve`` runs the batched solve and the
+    scheduler in turns on the package's library and another; on the CPU
+    (plain versions) every run gives the first run's rounds and pushes, and
+    the package's library is put back afterwards."""
+    import importlib.util
     import pathlib
-    import re
+    import types
 
-    root = pathlib.Path(__file__).resolve().parents[1]
-    probe = (root / "tools" / "k3_lanes_probe.py").read_text()
-    source = (root / "src" / "repro_torch" / "csrc" / "edge_sum.cu").read_text()
-    names = set(re.findall(r"-D(K3L_\w+)=", probe))
-    assert "K3L_NODE_MAJOR" in names
-    for name in sorted(names):
-        assert f"#ifndef {name}" in source, name
+    from repro_torch.kernels.edge_sum import kernel as k3
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / (
+        "k3_lanes_probe.py")
+    spec = importlib.util.spec_from_file_location("k3_lanes_probe", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    package_lib = k3._lib
+    args = types.SimpleNamespace(n=512, serve=1)
+    assert probe.serve(torch, args, None, device="cpu") == 0
+    assert k3._lib is package_lib

@@ -7,14 +7,13 @@ card.
                                     [--graphs host,permuted]
                                     [--serve RUNS]
 
-Builds ``src/repro_torch/csrc/edge_sum.cu`` as it is ("base"), once more
-with its gathers reading a node-major copy of ``x`` that a first kernel
-stages (``-DK3L_NODE_MAJOR=1``, "node_major"), and each ``--against``
-file (another ``edge_sum.cu``, with this C interface or the one before
-the scratch argument, such as a parent commit's: ``git show
-HEAD~1:src/repro_torch/csrc/edge_sum.cu``), all nvcc runs in parallel;
-prints each build's registers and shared memory and the blocks an SM
-that they allow.  Then, on the batched round's graph
+Builds ``src/repro_torch/csrc/edge_sum.cu`` as it is ("base") and each
+``--against`` file (another ``edge_sum.cu`` with the same C interface,
+such as a parent commit's: ``git show
+HEAD~1:src/repro_torch/csrc/edge_sum.cu``, or a variant of the base with
+another layout of its gathers), all nvcc runs in parallel; prints each
+build's registers and shared memory and the blocks an SM that they
+allow.  Then, on the batched round's graph
 (``host_block_graph(N, seed=0)``'s PageRank edges, as ``chip_smoke.py``
 phase 14 builds them) and on the same graph under a random node
 permutation (no locality left between a destination and its sources),
@@ -27,9 +26,9 @@ for each lane count C:
   dense) timed by CUDA events in turns: the least of two ``--iters``-call
   means, the second round in reverse order, the greatest in brackets;
   beside the bound (each input byte read once, each output byte written
-  once, over 3.35 TB/s);
-- for each build with a staging kernel (node-major): the device time of
-  each phase (the staging, the gather) under torch.profiler.
+  once, over 3.35 TB/s).  The base's one phase is its gather kernel: the
+  launch's time is that phase, and the wrapper's time beside it adds the
+  host's checks and allocation.
 
 With ``--serve RUNS``, then times what the lane form serves, on the
 host-ordered graph's PageRank problem, with the package's build and with
@@ -38,8 +37,9 @@ package, ... RUNS pairs): ``SolverSession.solve_batch`` on 16 columns
 (the smoke's phase 14 (b): B drifted 2 %) and the continuous-batching
 ``Scheduler`` (16 lanes, 32 rounds a tick) serving 24 requests over 8
 clusters in three waves (phase 14 (c) without its graph update), each
-held to the other build's rounds and pushes.  It prints each run's
-walls, ms a batched round, rounds and QPS on the host wall.
+held to the first run's rounds and pushes.  It prints each run's walls,
+ms a batched round, rounds and QPS on the host wall, and exits non-zero
+if a run's counts differ.
 
 Prints the card's name and power limit first and last; exits non-zero
 without a card.
@@ -59,8 +59,6 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 OUT = ROOT / "build" / "k3_lanes_probe"
-# the kernels of a call, by a piece of their names in a profiler trace
-PHASES = {"staging": "lanes_to_nodes", "gather": "edge_sum_lanes_kernel"}
 SM_REGS, SM_SMEM, SM_THREADS = 65536, 233472, 2048  # an H100 SM
 
 
@@ -101,17 +99,14 @@ def blocks_an_sm(ptxas_line, threads=256):
 
 def launcher(lib, torch):
     """A function ``(x, edges) -> out`` launching ``lib``'s lane form on
-    the current stream, for either C interface."""
+    the current stream; also types ``lib``'s K3 as the package's wrapper
+    does, so that ``lib`` can stand in for the package's library."""
     from repro_torch.kernels import _build
 
     p = ctypes.c_void_p
-    scratch_of = getattr(lib, "edge_sum_lanes_scratch", None)
-    if scratch_of is not None:
-        scratch_of.argtypes = [ctypes.c_int64] * 2
-        scratch_of.restype = ctypes.c_int64
-        lib.edge_sum_lanes.argtypes = [p] * 6 + [ctypes.c_int64] * 3 + [p]
-    else:
-        lib.edge_sum_lanes.argtypes = [p] * 5 + [ctypes.c_int64] * 3 + [p]
+    lib.edge_sum.argtypes = [p] * 5 + [ctypes.c_int64, p]
+    lib.edge_sum.restype = ctypes.c_int
+    lib.edge_sum_lanes.argtypes = [p] * 5 + [ctypes.c_int64] * 3 + [p]
     lib.edge_sum_lanes.restype = ctypes.c_int
     lib.cuda_error_string.argtypes = [ctypes.c_int]
     lib.cuda_error_string.restype = ctypes.c_char_p
@@ -119,43 +114,21 @@ def launcher(lib, torch):
     def run(x, e):
         lanes = x.shape[0]
         out = torch.empty((lanes, e.n), dtype=torch.float32, device=x.device)
-        head = (e.indptr.data_ptr(), e.src.data_ptr(), e.wgt.data_ptr(),
-                x.data_ptr(), out.data_ptr())
-        tail = (e.n, e.x_len, lanes, _build.stream_handle(x.device))
-        if scratch_of is None:
-            err = lib.edge_sum_lanes(*head, *tail)
-        else:
-            scratch = torch.empty(scratch_of(e.x_len, lanes),
-                                  dtype=torch.float32, device=x.device)
-            err = lib.edge_sum_lanes(*head, scratch.data_ptr(), *tail)
+        err = lib.edge_sum_lanes(e.indptr.data_ptr(), e.src.data_ptr(),
+                                 e.wgt.data_ptr(), x.data_ptr(),
+                                 out.data_ptr(), e.n, e.x_len, lanes,
+                                 _build.stream_handle(x.device))
         _build.check(lib, err, "edge_sum_lanes")
         return out
 
-    return run, scratch_of is not None and scratch_of(1, 4) > 0
-
-
-class _OldInterface:
-    """A library with the lane form's C interface before the scratch
-    argument, as the package's wrapper calls it; K3 stays the package's."""
-
-    def __init__(self, lib, own):
-        self._lib = lib
-        self.edge_sum = own.edge_sum
-        self.cuda_error_string = lib.cuda_error_string
-
-    def edge_sum_lanes_scratch(self, x_len, lanes):
-        return 0
-
-    def edge_sum_lanes(self, indptr, src, wgt, x, out, scratch, n, x_len,
-                       lanes, stream):
-        return self._lib.edge_sum_lanes(indptr, src, wgt, x, out, n, x_len,
-                                        lanes, stream)
+    return run
 
 
 def serve(torch, args, against_lib, device="cuda"):
     """``--serve``: the batched solve and the scheduler on the package's
     lane form and on ``against_lib``'s, in turns (``device="cpu"``
-    rehearses the control flow on the plain versions)."""
+    rehearses the control flow on the plain versions).  Returns 0 when
+    every run's counts equal the first run's, else 1."""
     import numpy as np
 
     import repro_torch
@@ -173,9 +146,9 @@ def serve(torch, args, against_lib, device="cuda"):
              for c in wave] for wave in waves]
     on_card = device == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    own = k3._lib() if on_card else None
-    libs = {"package": own, "against0": _OldInterface(against_lib, own)
-            if on_card else None}
+    package_lib = k3._lib
+    libs = {"package": k3._lib() if on_card else None,
+            "against0": against_lib}
     counts = {}
     order = ["package", "against0", "against0", "package"] * args.serve
     try:
@@ -203,6 +176,7 @@ def serve(torch, args, against_lib, device="cuda"):
             got = (rep.n_rounds, rep.n_ops, sch.batcher.rounds_total,
                    sch.batcher.ops_total, len(sch.results))
             same = counts.setdefault("counts", got) == got
+            counts["differ"] = counts.get("differ", False) or not same
             print(f"{name}: solve_batch C=16 {solve_s:.3f} s, "
                   f"{rep.n_rounds} rounds ({solve_s * 1e3 / rep.n_rounds:.4f} "
                   f"ms a batched round); scheduler {sch_s:.3f} s, "
@@ -212,28 +186,8 @@ def serve(torch, args, against_lib, device="cuda"):
                   f"the first run's {same}", flush=True)
             del sch
     finally:
-        k3._lib = lambda: own
-    return 0
-
-
-def phase_ms(torch, fn, calls):
-    """Device ms a call of each phase's kernel, under torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    got = {k: 0.0 for k in PHASES}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total",
-                    getattr(e, "self_cuda_time_total", 0))
-        for k, piece in PHASES.items():
-            if piece in e.key:
-                got[k] += t / 1e3 / calls
-    return got
+        k3._lib = package_lib
+    return 1 if counts.get("differ") else 0
 
 
 def main() -> int:
@@ -263,7 +217,6 @@ def main() -> int:
     print(smi)
     base = _build.CSRC / "edge_sum.cu"
     builds = {"base": (base, ()),
-              "node_major": (base, ("-DK3L_NODE_MAJOR=1",)),
               **{f"against{i}": (f, ()) for i, f in enumerate(args.against)}}
     with cf.ThreadPoolExecutor(len(builds)) as ex:
         built = list(ex.map(lambda n: build(n, *builds[n]), builds))
@@ -295,6 +248,7 @@ def main() -> int:
     print(f"set-up {time.perf_counter() - t0:.1f} s: N {n}, "
           f"{src.size} edges")
     rng = np.random.default_rng(14)
+    rc = 0
     for gname, e in graphs.items():
         a_csr = torch.sparse_csr_tensor(e.indptr, e.src.long(), e.wgt,
                                         size=(n, n))
@@ -302,13 +256,11 @@ def main() -> int:
             x = torch.as_tensor(rng.standard_normal((c, n)) / n,
                                 dtype=torch.float32, device=dev)
             xt = x.T.contiguous()
-            want = runs["base"][0](x, e)
+            want = runs["base"](x, e)
             k3 = all(torch.equal(want[lane], edge_sum(x[lane].contiguous(), e))
                      for lane in range(c))
-            same = {k: torch.equal(run(x, e), want)
-                    for k, (run, _) in runs.items()}
-            fns = {k: (lambda run=run: run(x, e))
-                   for k, (run, _) in runs.items()}
+            same = {k: torch.equal(run(x, e), want) for k, run in runs.items()}
+            fns = {k: (lambda run=run: run(x, e)) for k, run in runs.items()}
             fns["wrapper"] = lambda: edge_sum_lanes(x, e)
             fns["sparse.mm"] = lambda: torch.sparse.mm(a_csr, xt)
             t = chip_smoke.least(timer, fns, args.iters)
@@ -318,16 +270,12 @@ def main() -> int:
                   f"base {same}; bound {b_ms:.4f} ms ({b_by}); " + ", ".join(
                       f"{k} {lo:.4f} [{hi:.4f}]" for k, (lo, hi) in t.items())
                   + " ms")
-            for k, (run, staged) in runs.items():
-                if staged:
-                    ph = phase_ms(torch, lambda run=run: run(x, e), args.iters)
-                    print(f"  {k} phases under torch.profiler: " + ", ".join(
-                        f"{p} {ms:.4f} ms" for p, ms in ph.items()))
+            rc |= not k3
             del x, xt, want
     if args.serve and args.against:
-        serve(torch, args, libs["against0"])
+        rc = serve(torch, args, libs["against0"])
     print(f"on {smi}")
-    return 0
+    return rc
 
 
 if __name__ == "__main__":
