@@ -218,6 +218,33 @@ Phases, each printed on its own lines (any failure exits non-zero):
    (``torch.sparse.mm`` over the destination CSR as the library call), with
    its launches of (b) and (c), the launches a served request, and a
    batched round's ms at C=16 split into the lane form and the rest.
+15. Resilience, run before phase 14 (which mutates phase 4's store), on
+   fresh GraphStores built from phase 3's graph, after the earlier phases'
+   sessions and pools are freed.  (a) A ``frontier:pallas`` session
+   (K1) solved to round 2,000 is checkpointed, a second checkpoint is
+   torn (``tear_checkpoint``: its H leaf zeroed), and
+   ``SolverSession.restore`` must reject the torn step by its invariant
+   and restore the intact one; the restored solve's rounds and pushes
+   plus the checkpoint's must be ``RECORDED["frontier:pallas"]`` and its x
+   bit-equal to phase 4's.  The checkpoint's bytes, its write time and the
+   restore's (load and the float64 host invariant check timed apart)
+   printed.  (b) ``ChaosRunner.measure`` on ``frontier:pallas`` (grains of
+   an eighth of phase 4's rounds, a checkpoint every 2, a torn checkpoint
+   at grain 2, a kill at grain 6): converged, one kill, x_err_l1 <= 1e-6; overhead and wasted
+   pushes printed.  (c) The supervised stream
+   (``launch.stream_bench.run_stream``) on ``engine:chunk`` at k=4 (K3's
+   engine edge table): 16 requests drifted 0.3 % each, a graph update of
+   1,000 link rotations and a stale-version one, one poison request, kills
+   at requests 2 and 9 (PID k-1 at grain 2), planned rescales 4 -> 3 at
+   request 5 and 3 -> 4 at 12, a straggler window on PID 1 (requests
+   3-5), a checkpoint at every request boundary; then
+   ``replay_reference``'s undisturbed twin on the card.  Gates: 0 dropped,
+   every served request within |dx|_1 <= 1e-6 of the twin, log counts
+   fault >= 2, restore >= 2, rescale >= 2, update_applied >= 1, the
+   quarantine exactly one non-finite and one stale-store-version, the
+   4 -> 3 drain 6 buckets, K1 and K3 launched.  Pushes (total, undisturbed,
+   wasted), each rescale's host wall and its drain, the host walls and
+   K3's launches printed.  No kernel joins the kernels line here.
 
 The line before the last is the card's name and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -287,6 +314,9 @@ RANK_LANES = (1, 3, 16)
 RANK_DRIFT = 0.02
 RANK_CLUSTERS = 8
 RANK_CHURN = 0.001
+# phase 15: the supervised stream's length (16 requests: one applied
+# update, one stale one, one poison, two kills, a 4 -> 3 -> 4 rescale)
+STREAM_REQUESTS = 16
 
 
 def fail(msg: str) -> None:
@@ -1266,6 +1296,202 @@ def simulator_phase(args, torch, dev, timer, g, problem, x_ref):
     return rows, summary
 
 
+def resilience_phase(args, torch, dev, root, g, x_pallas, pallas_rounds):
+    """Phase 15: checkpoint, chaos and the supervised serving loop on the
+    card, on fresh GraphStores built from phase 3's graph ``g`` (phase 4's
+    store is left alone).  ``x_pallas`` / ``pallas_rounds`` are phase 4's
+    uninterrupted ``frontier:pallas`` solve.  Returns the summary line."""
+    import shutil
+
+    import repro_torch
+    from repro_torch.api.session import _invariant_violation
+    from repro_torch.chaos import ChaosPlan, ChaosRunner, tear_checkpoint
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.core.distributed import DistributedEngine
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.stream_bench import (
+        StreamSpec, replay_reference, run_stream, stream_row)
+
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    work = os.path.join(root, "build", "chip_smoke_phase15")
+    shutil.rmtree(work, ignore_errors=True)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # (a) checkpoint, tear, verified restore on K1 ---------------------------
+    problem = repro_torch.Problem.pagerank(g)
+    target_error = problem.target_error
+    opts = repro_torch.SolverOptions(device=args.device)
+    cut = 2000 if pallas_rounds > 2000 else pallas_rounds // 2
+    ckpt = os.path.join(work, "frontier")
+    reset_launches()
+    session = repro_torch.SolverSession(problem, "frontier:pallas",
+                                        options=opts)
+    session.solve(max_rounds=cut)
+    t0 = time.perf_counter()
+    path = session.checkpoint(ckpt)
+    write_s = time.perf_counter() - t0
+    n_bytes = sum(os.path.getsize(os.path.join(path, f))
+                  for f in os.listdir(path))
+    tear_checkpoint(session.checkpoint(ckpt))
+    del session
+    t0 = time.perf_counter()
+    restored = repro_torch.SolverSession.restore(ckpt, problem, options=opts)
+    sync()
+    restore_s = time.perf_counter() - t0
+    info = restored.restored_from
+    # the restore's two host parts, timed apart on the same step
+    like = {"b": np.zeros(g.n), "f": np.zeros(g.n), "h": np.zeros(g.n),
+            "t": np.zeros(())}
+    t0 = time.perf_counter()
+    tree, _, _ = load_checkpoint(ckpt, like, 1)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    viol = _invariant_violation(problem, tree["b"], tree["h"], tree["f"])
+    check_s = time.perf_counter() - t0
+    rep = restored.solve()
+    k1 = LAUNCHES["frontier_round_bsr"]
+    rounds = info["rounds"] + rep.n_rounds
+    pushes = info["ops"] + rep.n_ops
+    same_x = bool(np.array_equal(rep.x, x_pallas))
+    rejected = info["rejected"]
+    print(f"checkpoint of frontier:pallas at round {info['rounds']}: "
+          f"{n_bytes} bytes written in {write_s:.3f} s; the torn step "
+          f"rejected: {rejected}; restored step {info['step']} in "
+          f"{restore_s:.3f} s (load {load_s:.3f} s, host float64 invariant "
+          f"check {check_s:.3f} s, |B-(I-P)H-F|_1 {viol:.3e})")
+    print(f"restored frontier:pallas: converged {rep.converged} rounds "
+          f"{info['rounds']} + {rep.n_rounds} = {rounds} pushes "
+          f"{info['ops']} + {rep.n_ops} = {pushes}; x bit-equal to phase "
+          f"4's uninterrupted solve {same_x}; K1 launches {k1}")
+    if not (info["step"] == 1 and len(rejected) == 1 and rejected[0][0] == 2
+            and rejected[0][1].startswith("invariant violated")):
+        fail(f"the torn checkpoint was not rejected by its invariant: "
+             f"{info}")
+    if not rep.converged or not same_x:
+        fail("the restored frontier:pallas solve left the uninterrupted one")
+    if (args.n == 2**21 and args.seed == 0
+            and (rounds, pushes) != RECORDED["frontier:pallas"]):
+        fail(f"restored frontier:pallas at {(rounds, pushes)}, recorded "
+             f"{RECORDED['frontier:pallas']}")
+    if on_card and k1 != rounds:
+        fail(f"K1 launched {k1} times in {rounds} rounds")
+    del restored
+
+    # (b) ChaosRunner.measure on K1: a torn checkpoint, then a kill; grains
+    # of an eighth of the solve ---------------------------------------------
+    grain = -(-pallas_rounds // 8)
+    reset_launches()
+    t0 = time.perf_counter()
+    runner = ChaosRunner(
+        problem, "frontier:pallas",
+        ChaosPlan(seed=args.seed).checkpoint_crash(round=2).kill(0, round=6),
+        ckpt_dir=os.path.join(work, "runner"),
+        options=repro_torch.SolverOptions(device=args.device,
+                                          trace_every=grain),
+        checkpoint_every=2)
+    m = runner.measure()
+    runner_s = time.perf_counter() - t0
+    print(f"ChaosRunner frontier:pallas (checkpoint_crash at grain 2, kill "
+          f"at grain 6, grains of {grain} rounds, checkpoint every 2): "
+          f"converged {m['converged']} kills {m['kills']} x_err_l1 "
+          f"{m['x_err_l1']:.3e} undisturbed_ops {m['undisturbed_ops']} "
+          f"disturbed_ops {m['disturbed_ops']} overhead_ops "
+          f"{m['overhead_ops']} ({m['overhead_frac']:.4f}) wasted_ops "
+          f"{m['wasted_ops']} chaos_log {m['chaos_log']}; K1 launches "
+          f"{LAUNCHES['frontier_round_bsr']}; {runner_s:.1f} s")
+    if not (m["converged"] and m["kills"] == 1 and m["x_err_l1"] <= 1e-6):
+        fail(f"ChaosRunner on frontier:pallas: {m}")
+    if on_card and LAUNCHES["frontier_round_bsr"] == 0:
+        fail("ChaosRunner ran no K1 launch")
+    del runner, problem
+
+    # (c) the supervised stream on engine:chunk, k=4 (K3's edge table).  No
+    # deadline: the first request from the seeded state is a cold solve,
+    # which the reference soak's 50 ms at 2e6 pushes a second would cut
+    # (and a cut request is served unconverged, off its twin) ------------
+    spec = StreamSpec(
+        n=g.n, k=4, method="engine:chunk", requests=STREAM_REQUESTS,
+        drift=0.003, churn_every=8, churn_rot=1000, stale_update_at=15,
+        poison_every=11, kill_at=(2, 9), rescale_at={5: 3, 12: 4},
+        straggler=(3, 6, 6.0), deadline_s=None, sample_every=1,
+        seed=args.seed)
+    # the twin runs at k=3 where the supervisor restored at k=4 (request 9
+    # to the 3 -> 4 rescale): two converged solves, each within
+    # target_error of x
+    dx_bound = max(1e-6, 2.0 * target_error)
+    drain_s = []
+    real_drain = DistributedEngine.drain_for_shrink
+
+    def timed_drain(self, ex, k_new):
+        t0 = time.perf_counter()
+        out = real_drain(self, ex, k_new)
+        sync()
+        drain_s.append(time.perf_counter() - t0)
+        return out
+
+    reset_launches()
+    t0 = time.perf_counter()
+    DistributedEngine.drain_for_shrink = timed_drain
+    try:
+        run = run_stream(spec, os.path.join(work, "stream"),
+                         device=args.device, graph=lambda: g)
+    finally:
+        DistributedEngine.drain_for_shrink = real_drain
+    stream_s = time.perf_counter() - t0
+    k3 = LAUNCHES["edge_sum"]
+    t0 = time.perf_counter()
+    ref = replay_reference(spec, run, device=args.device, graph=lambda: g)
+    twin_s = time.perf_counter() - t0
+    row = stream_row("soak", spec, run, ref)
+    sup = run["sup"]
+    counts = sup.log.counts()
+    q = sup.quarantine.by_reason
+    drains = [e.detail["drains"] for e in sup.log.of_kind("rescale")]
+    dxs = {i: float(np.abs(run["samples"][i] - ref["samples"][i]).sum())
+           for i in run["samples"]}
+    print(f"stream engine:chunk k=4, N={g.n}: {row['served']} served, "
+          f"{row['dropped']} dropped, {row['rejected']} rejected, "
+          f"{row['applied_updates']} updates applied; pushes total "
+          f"{row['total_ops']} undisturbed {row['undisturbed_ops']} wasted "
+          f"{row['wasted_ops']}; log counts {json.dumps(counts)}; "
+          f"quarantine {json.dumps(q)}; effective schedule "
+          f"{run['effective']}")
+    print(f"stream: |dx|_1 against the undisturbed twin at every served "
+          f"request {json.dumps({i: f'{v:.3e}' for i, v in dxs.items()})}, "
+          f"max {row['max_dx_l1']:.3e} (bound {dx_bound:.1e})")
+    print(f"stream: rescales (request, k_new, host wall s) "
+          f"{run['rescale_s']}, drained buckets {drains}, the shrink's "
+          f"drain {[round(v, 4) for v in drain_s]} s of it; host wall "
+          f"{stream_s:.1f} s (the twin {twin_s:.1f} s); K3 launches "
+          f"{k3}; restores {sup.restores}")
+    if row["dropped"] != 0 or not row["converged"]:
+        fail(f"stream dropped or did not converge: {row}")
+    if not row["max_dx_l1"] <= dx_bound:
+        fail(f"stream left its undisturbed twin by {row['max_dx_l1']:.3e} "
+             f"(bound {dx_bound:.1e})")
+    if not (counts.get("fault", 0) >= 2 and counts.get("restore", 0) >= 2
+            and counts.get("rescale", 0) >= 2
+            and counts.get("update_applied", 0) >= 1):
+        fail(f"stream log counts {counts}")
+    if q != {"non-finite": 1, "stale-store-version": 1}:
+        fail(f"stream quarantine {q}")
+    if not drains or drains[0] != 6:
+        fail(f"the 4 -> 3 shrink drained {drains} buckets, not 6")
+    if on_card and k3 == 0:
+        fail("the stream ran no K3 launch")
+    del run, ref, sup
+    shutil.rmtree(work, ignore_errors=True)
+    return (f"resilience: restore at the recorded {rounds} rounds / "
+            f"{pushes} pushes, ChaosRunner overhead {m['overhead_ops']} "
+            f"pushes, stream {row['served']} served 0 dropped max |dx|_1 "
+            f"{row['max_dx_l1']:.3e}; phase wall "
+            f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def rank_serving_phase(args, torch, dev, timer, problem):
     """Phase 14: rank serving on the card — K3's lane form, batched
     multi-RHS solves, the continuous-batching scheduler with a graph
@@ -1817,6 +2043,7 @@ def main() -> int:
     if on_card and k1_solve != rep.n_rounds:
         fail(f"K1 launched {k1_solve} times in {rep.n_rounds} rounds")
     recorded("frontier:pallas", rep)
+    x_pallas, pallas_rounds = rep.x, rep.n_rounds
     reset_launches()
     rep_ss = repro_torch.solve(problem, method="frontier:segment_sum",
                                device=args.device)
@@ -2649,12 +2876,20 @@ def main() -> int:
     show(sim_rows)
     rows += sim_rows
 
-    # ---- 14. rank serving --------------------------------------------------
-    print("== phase 14: rank serving")
     # the earlier phases' sessions and pools are done with
     del s_bsr, eng, visits, session, m
     if on_card:
         torch.cuda.empty_cache()
+
+    # ---- 15. resilience (before 14, which mutates phase 4's store) --------
+    print("== phase 15: resilience")
+    print(resilience_phase(args, torch, dev, root, g, x_pallas,
+                           pallas_rounds))
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- 14. rank serving --------------------------------------------------
+    print("== phase 14: rank serving")
     rank_rows, rank_summary = rank_serving_phase(args, torch, dev, timer,
                                                  problem)
     print(rank_summary)

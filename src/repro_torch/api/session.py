@@ -32,11 +32,23 @@ The frontier drivers advance by rounds; the engine driver
 (``engine:chunk`` / ``engine:bsr``) advances one chunk per grain, with
 the balance control plane between chunks.
 
-``checkpoint``/``restore`` and ``rescale`` come with later slices.
+* ``checkpoint(root)`` / ``SolverSession.restore(root, problem)`` —
+  atomic node-space checkpoints of ``(B, F, H)`` and the thresholds; a
+  restore takes the newest step that passes the §2.2 invariant
+  ``B = (I−P)H + F`` (checked in float64 on the host) and rejects torn
+  or stale ones.  The float32 state survives the float64 round trip
+  exactly, so a restored session replays the rounds and pushes of one
+  that never stopped, bit for bit.
+* ``rescale(k_new)`` — elastic K on the engine backends: the PID axis
+  grows or shrinks mid-solve (a shrink drains through the bucket-move
+  executor), H is never recomputed.
+* ``run(chaos=injector)`` — a :class:`repro_torch.chaos.SessionInjector`
+  fires its plan's events before each grain.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Iterator, List, Optional, Tuple
 
@@ -46,6 +58,7 @@ import torch
 from ..balance.executors import BucketMoveExecutor
 from ..balance.policies import make_rebalancer
 from ..balance.signals import LoadSignal
+from ..checkpoint import list_steps, load_checkpoint, save_checkpoint
 from ..core.diteration import threshold_decay
 from ..core.distributed import (
     DistributedEngine,
@@ -503,6 +516,7 @@ class _EngineDriver:
                                           self.cfg)
         self.engine = DistributedEngine(self.arrays, self.cfg)
         self.problem = problem
+        self.options = options
         self.verbose = options.verbose
         self.l = max(problem.n_edges, 1)
         self._warm = None  # device maps of warm_seed, built at first use
@@ -518,6 +532,10 @@ class _EngineDriver:
         self._chunks = 0
         self._moves: List[Tuple[int, int, int, int]] = []
         self._prev_ops = np.zeros(self.cfg.k, dtype=np.int64)
+        # rescale carry-over: a rescale re-inits the counters at the new
+        # width, so phase totals accumulate into host offsets
+        self._ops_offset = 0
+        self._rounds_offset = 0
 
     def _fresh_rebalancer(self) -> None:
         if self.engine.rebalancer is not None:
@@ -529,8 +547,8 @@ class _EngineDriver:
 
     def _warm_maps(self) -> dict:
         """Node ↔ home-slot maps and the node-space edges (K3), built
-        once per driver: the layout never changes, only the bucket →
-        row map, which is read per call."""
+        once per layout (a rescale drops them): moves change only the
+        bucket → row map, which is read per call."""
         if self._warm is None:
             a, dev = self.arrays, self.engine.device
             nos = a.node_of_slot  # [R, S], home-row indexed
@@ -584,6 +602,8 @@ class _EngineDriver:
         self._chunks = 0
         self._moves = []
         self._prev_ops = np.zeros(cfg.k, dtype=np.int64)
+        self._ops_offset = 0
+        self._rounds_offset = 0
         return self._resid
 
     def advance(self, tol: float, round_limit: int) -> None:
@@ -610,10 +630,10 @@ class _EngineDriver:
         return self._resid
 
     def ops(self) -> int:
-        return int(self.ex.state.ops.sum())
+        return self._ops_offset + int(self.ex.state.ops.sum())
 
     def rounds(self) -> int:
-        return self.ex.state.rounds
+        return self._rounds_offset + self.ex.state.rounds
 
     def chunks(self) -> int:
         return self._chunks
@@ -641,6 +661,54 @@ class _EngineDriver:
             # thresholds (any schedule is a valid D-iteration)
         self.ex.state.t = torch.as_tensor(
             t, device=self.engine.device).to(self.cfg.dtype)
+
+    # ---- elasticity -------------------------------------------------------
+    def note_straggler(self, pid: int, slowdown: float) -> None:
+        """Signal-level straggler injection: the control plane sees the
+        PID's load inflated by ``slowdown`` (a straggling PID cannot be
+        slowed from the host, but the controller's view can — it then
+        sheds buckets as in production)."""
+        scale = (self.engine.load_scale if self.engine.load_scale
+                 is not None else np.ones(self.cfg.k))
+        scale = np.asarray(scale, dtype=np.float64).copy()
+        scale[pid] = slowdown
+        self.engine.load_scale = scale
+
+    def rescale(self, k_new: int,
+                strict: bool = False) -> List[Tuple[int, int, int]]:
+        """Grow/shrink the PID axis mid-solve (H and F travel in node
+        space; a shrink drains through the BucketMoveExecutor path when
+        the surviving headroom can absorb it).  The new engine builds its
+        K3 edge table or K2 visit table for ``k_new`` on the device from
+        the store's cached engine-layout view.  Returns the executed
+        drain triples; they are also appended to the move log as
+        ``(chunk, src, dst, units)``."""
+        if k_new == self.cfg.k:
+            return []
+        prev_ops, prev_rounds = self.ops(), self.rounds()
+        bpd = (_bsr_buckets_per_dev(self.problem.n, k_new, self.options)
+               if self.cfg.diffusion_backend == "bsr"
+               else self.options.buckets_per_dev)
+        old_scale = self.engine.load_scale
+        self.engine, self.ex, drains = self.engine.rescale(
+            self.ex, k_new, self.problem.graph, self.problem.b,
+            buckets_per_dev=bpd, strict=strict)
+        if old_scale is not None:
+            # surviving stragglers stay stragglers across the rebuild;
+            # dropped/grown slots are fresh (healthy) capacity
+            scale = np.ones(k_new, dtype=np.float64)
+            m = min(k_new, old_scale.shape[0])
+            scale[:m] = old_scale[:m]
+            self.engine.load_scale = scale
+        self.cfg = self.engine.cfg
+        self.arrays = self.engine.a
+        self._warm = None  # the warm start's maps follow the layout
+        for src, dst, moved in drains:
+            self._moves.append((self._chunks, src, dst, moved))
+        self._prev_ops = np.zeros(k_new, dtype=np.int64)
+        self._ops_offset = prev_ops
+        self._rounds_offset = prev_rounds
+        return drains
 
     def note_graph_churn(self, churn_per_node: np.ndarray) -> None:
         """Feed edge churn to the balance control plane.
@@ -689,6 +757,23 @@ _DRIVERS = {
 }
 
 
+def _invariant_violation(problem: Problem, b: np.ndarray, h: np.ndarray,
+                         f: np.ndarray, edges=None) -> float:
+    """|B − (I−P)·H − F|_1 against the problem's *current* matrix, in
+    float64 on the host.
+
+    Zero (up to accumulation rounding) along any valid D-iteration
+    schedule — the checkpoint-integrity oracle: a torn write, a corrupted
+    leaf, or a checkpoint taken against a different P all violate it by a
+    macroscopic margin.  ``edges`` optionally supplies a pre-materialized
+    ``(src, dst, w)`` edge list so repeated checks (restore's candidate
+    walk) pay the O(L) materialization once.
+    """
+    src, dst, w = edges if edges is not None else problem.p.edge_list()
+    ph = np.bincount(dst, weights=h[src] * w, minlength=problem.n)
+    return float(np.abs(b - h + ph - f).sum())
+
+
 # --------------------------------------------------------------------------- #
 # the session
 # --------------------------------------------------------------------------- #
@@ -727,8 +812,11 @@ class SolverSession:
         # the frontier:segment_sum driver solve_batch runs on when the
         # session's own method is another (built at first use)
         self._batch_driver: Optional[_SegmentSumDriver] = None
+        self._ckpt_step = 0
+        self.restored_from: Optional[dict] = None
         # lifetime §2.3 accounting: phase counters reset on every
         # warm_start / update_graph, so re-seeds bank them here first
+        # (``lifetime_ops`` is the one rule recovery-cost consumers sum)
         self._ops_banked = 0
         self._rounds_banked = 0
 
@@ -754,8 +842,8 @@ class SolverSession:
     @property
     def lifetime_ops(self) -> int:
         """Edge pushes charged across the session's whole life (§2.3):
-        every solve phase since construction, including work banked by
-        warm_start re-seeds."""
+        every solve phase since construction or restore, including work
+        banked by warm_start / update_graph re-seeds."""
         return self._ops_banked + self._driver.ops()
 
     @property
@@ -781,20 +869,32 @@ class SolverSession:
 
     # ---- streaming solve --------------------------------------------------
     def run(self, until: Optional[float] = None,
-            max_rounds: Optional[int] = None) -> Iterator[RoundReport]:
+            max_rounds: Optional[int] = None,
+            chaos=None) -> Iterator[RoundReport]:
         """Drain F toward ``until`` (a target_error), streaming one
         :class:`RoundReport` per trace grain (``options.trace_every``
         frontier rounds / one engine chunk).  The final yielded report is
-        the converged (or budget-exhausted) state."""
+        the converged (or budget-exhausted) state.
+
+        ``chaos`` is an optional :class:`repro_torch.chaos.SessionInjector`:
+        its plan's events fire *before* each grain (rounds = grain
+        indices, starting at 1).  A ``kill`` event raises
+        :class:`repro_torch.chaos.ChaosKill` — recovery is the caller's
+        restore + rescale flow."""
         self._check_fresh()
+        if chaos is not None:
+            chaos.bind(self)
         tol = self._tol(until)
         cap = max_rounds if max_rounds is not None else (
             self.options.max_rounds)
-        d = self._driver
         while True:
+            d = self._driver
             if d.residual() <= tol or d.rounds() >= cap or d.exhausted():
                 yield RoundReport(d.rounds(), d.residual(), d.ops())
                 return
+            if chaos is not None:
+                chaos.before_grain(self)
+                d = self._driver  # chaos may have rebuilt the driver
             if isinstance(d, _EngineDriver):
                 d.advance(tol, cap)
             else:
@@ -803,10 +903,12 @@ class SolverSession:
             yield RoundReport(d.rounds(), d.residual(), d.ops())
 
     def solve(self, until: Optional[float] = None,
-              max_rounds: Optional[int] = None) -> SolveReport:
+              max_rounds: Optional[int] = None,
+              chaos=None) -> SolveReport:
         """Run to convergence and return the unified report."""
         t0 = time.perf_counter()
-        trace = list(self.run(until=until, max_rounds=max_rounds))
+        trace = list(self.run(until=until, max_rounds=max_rounds,
+                              chaos=chaos))
         d = self._driver
         extras = {"session": True, "device": str(self.options.device)}
         if isinstance(d, _EngineDriver):
@@ -918,6 +1020,177 @@ class SolverSession:
             self._driver.note_graph_churn(
                 delta.churn_per_node(self.problem.n))
         return resid
+
+    # ---- elasticity: mid-solve PID rescale --------------------------------
+    def rescale(self, k_new: int,
+                strict: bool = False) -> List[Tuple[int, int, int]]:
+        """Grow/shrink the engine's PID axis mid-solve.
+
+        Shrink drains the dying PIDs' buckets through the
+        :class:`~repro_torch.balance.executors.BucketMoveExecutor` path
+        (survivors' headroom rows absorb the moves, logged in the move
+        log; with insufficient headroom the drain is skipped — or raises
+        under ``strict=True``), then the axis is rebuilt at ``k_new`` over
+        the store's cached engine-layout view; grow rebuilds directly.
+        The accumulated (H, F) fluid pair travels in node space — H is
+        never recomputed.  The K PIDs share one device, so ``k_new`` is not
+        bounded by the cards present.  Returns the executed drain triples
+        ``(src, dst, units)``.
+        """
+        self._check_fresh()
+        d = self._driver
+        if not isinstance(d, _EngineDriver):
+            raise ValueError(
+                f"rescale needs an engine backend (engine:chunk | "
+                f"engine:bsr); {self.method!r} has no pid axis"
+            )
+        d.problem = self.problem  # warm starts may have re-snapshotted
+        drains = d.rescale(k_new, strict=strict)
+        self.options = dataclasses.replace(self.options, k=k_new)
+        return drains
+
+    # ---- fault tolerance: atomic checkpoint / verified restore ------------
+    def checkpoint(self, root: str) -> str:
+        """Persist the session's fluid state under ``root`` atomically.
+
+        One step directory per call (monotonic step counter, atomic
+        ``os.replace`` commit via :mod:`repro_torch.checkpoint.store`):
+        node-space ``(B, F, H)`` + thresholds as float64 leaves, plus a
+        manifest extra carrying method, counters, the move log, and the
+        GraphStore version the state was built against.  Returns the
+        committed directory path.
+        """
+        self._check_fresh()
+        d = self._driver
+        f, h = d.fluid()
+        self._ckpt_step += 1
+        tree = {"b": self._b, "f": f, "h": h, "t": d.threshold()}
+        extra = {
+            "method": self.method,
+            "n": self.problem.n,
+            "n_edges": self.problem.n_edges,
+            "store_version": self.problem.store_version,
+            "ops": d.ops(),
+            "rounds": d.rounds(),
+            "lifetime_ops": self.lifetime_ops,
+            "lifetime_rounds": self.lifetime_rounds,
+            "residual": d.residual(),
+            "move_log": [list(m) for m in d.move_log()],
+        }
+        return save_checkpoint(root, self._ckpt_step, tree, extra)
+
+    @staticmethod
+    def _reject_reason(problem: Problem, b: np.ndarray, f: np.ndarray,
+                       h: np.ndarray, extra: dict, rtol: float,
+                       edges=None) -> Optional[str]:
+        """Why a loaded checkpoint cannot resume against ``problem``
+        (None = accept).  The decisive oracle is the §2.2 invariant
+        ``B = (I−P)H + F`` evaluated against the problem's CURRENT
+        matrix: a torn/corrupted leaf or a checkpoint taken before a
+        graph delta both violate it macroscopically."""
+        if b.shape != (problem.n,):
+            return (f"shape mismatch: checkpoint N={b.shape[0]}, "
+                    f"problem N={problem.n}")
+        if extra.get("n") not in (None, problem.n):
+            return f"stale: checkpoint N={extra['n']} != {problem.n}"
+        if extra.get("n_edges") not in (None, problem.n_edges):
+            return (f"stale: checkpoint graph had {extra['n_edges']} "
+                    f"edges, problem has {problem.n_edges}")
+        sv = extra.get("store_version")
+        if (sv is not None and problem.store is not None
+                and problem.graph.version != sv):
+            return (f"stale: GraphStore advanced to version "
+                    f"{problem.graph.version}, checkpoint captured {sv}")
+        viol = _invariant_violation(problem, b, h, f, edges=edges)
+        scale = max(1.0, float(np.abs(b).sum() + np.abs(h).sum()))
+        if viol > rtol * scale:
+            return (f"invariant violated: |B−(I−P)H−F|₁ = {viol:.3e} > "
+                    f"{rtol * scale:.3e} (torn or stale checkpoint)")
+        return None
+
+    @classmethod
+    def restore(cls, root: str, problem: Problem,
+                method: Optional[str] = None,
+                options: Optional[SolverOptions] = None,
+                step: Optional[int] = None,
+                invariant_rtol: float = 1e-4, **kw) -> "SolverSession":
+        """Resume a session from the newest checkpoint that *verifies*.
+
+        Every candidate step (newest first; exactly ``step`` when given)
+        is loaded and checked — ``B − (I−P)H − F ≈ 0`` against
+        ``problem``'s current matrix, N/edge-count/store-version
+        agreement — and a failing checkpoint is **rejected rather than
+        silently resumed**, falling back to the next older complete step.
+        Raises with the per-step rejection reasons when nothing survives.
+        The restored session keeps the checkpoint's RHS
+        (``problem.with_b``), re-seeds ``(F, H)`` and then the thresholds
+        (the float32 state comes back exactly from its float64 leaves),
+        and records provenance in ``session.restored_from``.
+        """
+        steps = list_steps(root)
+        # adversarial directories: step-like dirs that list_steps refused
+        # (torn manifest mid-write, permission-denied, unparsable JSON)
+        # surface as rejection provenance instead of disappearing silently
+        rejected: List[Tuple[int, str]] = []
+        complete = {f"step_{s:09d}" for s in steps}
+        try:
+            entries = sorted(os.listdir(root))
+        except OSError:
+            entries = []
+        for name in entries:
+            if (name.startswith("step_") and not name.endswith(".tmp")
+                    and name not in complete):
+                try:
+                    s_bad = int(name.split("_", 1)[1])
+                except ValueError:
+                    s_bad = -1
+                rejected.append(
+                    (s_bad, "incomplete or unreadable manifest"))
+        if step is not None:
+            if step not in steps:
+                raise FileNotFoundError(
+                    f"no complete checkpoint for step {step} under {root}"
+                )
+            candidates = [step]
+        else:
+            candidates = steps[::-1]
+        if not candidates:
+            raise FileNotFoundError(f"no complete checkpoint under {root}")
+        tree_like = {
+            "b": np.zeros(problem.n), "f": np.zeros(problem.n),
+            "h": np.zeros(problem.n), "t": np.zeros(()),
+        }
+        edges = problem.p.edge_list()  # once, not per candidate (O(L))
+        for s in candidates:
+            try:
+                tree, _, extra = load_checkpoint(root, tree_like, s)
+            except Exception as e:  # noqa: BLE001 - provenance, not fatal
+                rejected.append((s, f"unreadable: {e}"))
+                continue
+            b, f, h = tree["b"], tree["f"], tree["h"]
+            reason = cls._reject_reason(problem, b, f, h, extra,
+                                        invariant_rtol, edges=edges)
+            if reason is not None:
+                rejected.append((s, reason))
+                continue
+            session = cls(problem.with_b(b),
+                          method=method or extra["method"],
+                          options=options, **kw)
+            session._driver.seed(f, h)
+            session._driver.set_threshold(tree["t"])
+            session._ckpt_step = s
+            session.restored_from = {
+                "step": s,
+                "ops": extra.get("ops", 0),
+                "rounds": extra.get("rounds", 0),
+                "lifetime_ops": extra.get("lifetime_ops",
+                                          extra.get("ops", 0)),
+                "move_log": [tuple(m) for m in extra.get("move_log", [])],
+                "rejected": rejected,
+            }
+            return session
+        detail = "; ".join(f"step {s}: {r}" for s, r in rejected)
+        raise ValueError(f"no valid checkpoint under {root}: {detail}")
 
     # ---- batched multi-RHS ------------------------------------------------
     def solve_batch(self, b_matrix: np.ndarray,

@@ -33,10 +33,10 @@ time step / session run grain) — so a plan replays bit-identically from
 a failure log: ``ChaosPlan.random(seed=...)`` is pure in its arguments
 and every derived randomness (churn seeds) is folded from the plan seed.
 
-The port's consumer so far is the simulator (``SIM_KINDS``:
-``DistributedSimulator.run(chaos=plan)``); the session-level injector and
-the ``churn_burst`` / ``checkpoint_crash`` consumers come with the
-checkpoint and resilience slice.
+Two consumers: the simulator takes a plan directly (``SIM_KINDS``:
+``DistributedSimulator.run(chaos=plan)``), and a session takes a
+:class:`~repro_torch.chaos.inject.SessionInjector`
+(``SolverSession.run(chaos=injector)``), which fires every kind.
 """
 from __future__ import annotations
 

@@ -38,8 +38,12 @@ the exchange — a run replays bit for bit.  The round loop runs in Python
 and reads the any-PID fire flag once per inner round from the device (the
 reference keeps it in a ``lax.while_loop``).
 
-``rescale`` / ``drain_for_shrink`` (elastic K) and a ``torch.distributed``
-path across cards come with later slices.
+Elastic K: :meth:`DistributedEngine.rescale` grows or shrinks the PID
+axis mid-solve; a shrink first drains the dying PIDs' buckets onto the
+survivors' headroom rows through the executor
+(:meth:`~DistributedEngine.drain_for_shrink`).  The PIDs share one
+device, so K is not bounded by the cards present.  A ``torch.distributed``
+path across cards comes with a later slice.
 """
 from __future__ import annotations
 
@@ -50,6 +54,7 @@ import numpy as np
 import torch
 
 from ..balance.executors import BucketMoveExecutor
+from ..balance.plan import MovePlan
 from ..balance.policies import Rebalancer, make_rebalancer
 from ..balance.signals import LoadSignal
 from ..graph.views import dense_tiles, tile_groups
@@ -268,6 +273,12 @@ class DistributedEngine:
             )
         else:
             self.rebalancer = None
+        # straggler injection hook: a [K] factor multiplying the load
+        # signal the control plane sees (None = healthy).  A straggling
+        # PID cannot be slowed from here, but its *signal* can — the
+        # controller then sheds load as it would in production
+        # (repro_torch.chaos.SessionInjector sets this)
+        self.load_scale: Optional[np.ndarray] = None
         self._upload_static()
 
     # ------------------------------------------------------------------ #
@@ -561,15 +572,19 @@ class DistributedEngine:
         if self.rebalancer is None:
             return prev_ops
         sizes = ex.sizes()
+        scale = (self.load_scale if self.load_scale is not None
+                 else np.ones(self.cfg.k))
         if self.cfg.signal == "edge-ops":
             ops = ex.state.ops.cpu().numpy()
             # the counters are int64 and cumulative over the solve: the
             # chunk's ops are a plain difference (the reference's int32
             # counters need a wraparound mask here)
-            sig = LoadSignal.from_edge_ops(ops - prev_ops, sizes, step=step)
+            sig = LoadSignal.from_edge_ops((ops - prev_ops) * scale, sizes,
+                                           step=step)
             prev_ops = ops
         else:
-            sig = LoadSignal.from_residuals(r + s_, sizes, step=step)
+            sig = LoadSignal.from_residuals((r + s_) * scale, sizes,
+                                            step=step)
         for plan in self.rebalancer.propose(sig):
             moved = ex.apply(plan)
             if moved:
@@ -602,8 +617,9 @@ class DistributedEngine:
         """Plan a row permutation moving up to ``n_move`` real buckets from
         PID ``src_dev`` to free (inert) rows of PID ``dst_dev``.
 
-        ``keep_min`` is the floor of real buckets left on the source — a
-        PID never empties itself by a rebalancing move.
+        ``keep_min`` is the floor of real buckets left on the source —
+        1 for rebalancing moves (a PID never empties itself), 0 for the
+        rescale drain (a dying PID hands everything over).
 
         Returns ``(perm, new_row_of_bucket, moved)`` with
         ``perm[i] = old row whose contents land in new row i``.
@@ -626,3 +642,95 @@ class DistributedEngine:
             perm[q_row], perm[p_row] = p_row, q_row
             new_map[bid], new_map[q] = q_row, p_row
         return perm, new_map, moved
+
+    # ------------------------------------------------------------------ #
+    # mid-solve PID rescale (elastic scale-up / PID loss)
+    # ------------------------------------------------------------------ #
+    def _free_rows_per_device(self, row_of_bucket: np.ndarray) -> np.ndarray:
+        """Inert (landing-capable) bucket rows currently on each PID."""
+        cfg = self.cfg
+        n_real = cfg.k * (cfg.buckets_per_dev - cfg.headroom)
+        dev_of_bucket = np.asarray(row_of_bucket) // cfg.buckets_per_dev
+        return np.bincount(dev_of_bucket[n_real:], minlength=cfg.k)
+
+    def drain_for_shrink(self, ex, k_new: int):
+        """Evacuate every real bucket owned by PIDs >= ``k_new`` onto the
+        survivors' inert headroom rows, one bucket at a time to the
+        survivor with the most free rows (deterministic, load-levelling).
+
+        Runs through the :class:`~repro_torch.balance.executors.
+        BucketMoveExecutor` path — the same permutation the dynamic
+        partition uses — so the drain IS a sequence of executed
+        ``MovePlan``\\ s, returned as ``(src, dst, moved)`` triples.
+        Raises when the surviving headroom cannot absorb the evacuation.
+        """
+        cfg = self.cfg
+        sizes = ex.sizes()
+        need = int(sizes[k_new:].sum())
+        free = self._free_rows_per_device(ex.row_of_bucket)
+        have = int(free[:k_new].sum())
+        if need > have:
+            raise ValueError(
+                f"cannot shrink to k={k_new}: {need} real buckets must "
+                f"evacuate but survivors have only {have} free headroom "
+                f"rows (raise EngineConfig.headroom)"
+            )
+        drains = []
+        for d in range(k_new, cfg.k):
+            while ex.sizes()[d] > 0:
+                free = self._free_rows_per_device(ex.row_of_bucket)
+                free[k_new:] = -1  # dying PIDs never receive
+                dst = int(np.argmax(free))
+                moved = ex.apply(
+                    MovePlan(src=d, dst=dst, units=1, kind="bucket"),
+                    keep_min=0)
+                assert moved == 1, (d, dst, moved)
+                drains.append((d, dst, moved))
+        return drains
+
+    def rescale(self, ex, k_new: int, g, b: np.ndarray,
+                buckets_per_dev: Optional[int] = None,
+                strict: bool = False):
+        """Grow/shrink the PID axis mid-solve without recomputing H.
+
+        Shrink first *drains* the dying PIDs through the executor path
+        (:meth:`drain_for_shrink` — headroom rows absorb the moves); then
+        the axis is rebuilt at ``k_new`` over the store's cached
+        engine-layout view (K3's edge table or K2's visit table built
+        anew on the device) and the fluid pair ``(F, H)`` is carried
+        over in node space (the invariant ``B = (I−P)H + F`` travels with
+        it).  Grow is the same rebuild without a drain.
+
+        When the survivors' headroom cannot absorb the evacuation the
+        drain is skipped and the state rides the node-space carry alone
+        (``strict=True`` raises instead).  The PIDs share this engine's
+        device, so ``k_new`` is not bounded by the cards present.
+
+        Returns ``(engine, executor, drains)`` — a NEW engine at
+        ``k_new`` PIDs with a freshly seeded policy, its executor in the
+        cold-start bucket layout of ``k_new``, and the executed drain
+        triples.
+        """
+        cfg = self.cfg
+        if k_new == cfg.k:
+            return self, ex, []
+        if k_new < 1:
+            raise ValueError(f"k_new must be >= 1, got {k_new}")
+        drains = []
+        if k_new < cfg.k:
+            need = int(ex.sizes()[k_new:].sum())
+            have = int(self._free_rows_per_device(
+                ex.row_of_bucket)[:k_new].sum())
+            if need <= have or strict:
+                drains = self.drain_for_shrink(ex, k_new)
+        f_nodes = self.gather_nodes(ex.state.f, ex.row_of_bucket)
+        h_nodes = self.gather_nodes(ex.state.h, ex.row_of_bucket)
+        new_cfg = dataclasses.replace(
+            cfg, k=k_new,
+            buckets_per_dev=(buckets_per_dev if buckets_per_dev is not None
+                             else cfg.buckets_per_dev))
+        arrays = build_engine_arrays(g, b, new_cfg)
+        engine = DistributedEngine(arrays, new_cfg)
+        new_ex = BucketMoveExecutor(engine,
+                                    engine.init_state(f_nodes, h_nodes))
+        return engine, new_ex, drains

@@ -20,9 +20,14 @@ serves on the card unless the CPU is asked for).
   ``update_graph``) and ends with one ``solve_batch`` of ``--batch``
   personalized columns.  Poison requests (``--poison-every``) and bad
   deltas are rejected into a quarantine without stopping the stream.
-  ``--ckpt-dir``, ``--resume``, ``--rescale-at`` and ``--rescale-k`` wait
-  for the checkpoint and elastic-K slices (ROADMAP §1, items 5 and 6)
-  and stop with an error.
+  The sequential path is also elastic and fault tolerant:
+  ``--ckpt-dir`` cuts an atomic checkpoint of the (H, F) fluid state
+  after every request; ``--resume`` restores the newest checkpoint that
+  passes the ``B = (I−P)H + F`` invariant check instead of solving cold
+  (torn or stale steps are rejected and skipped); ``--rescale-at R
+  --rescale-k K`` grows or shrinks the engine's PID axis mid-stream
+  without recomputing H (engine methods only).  Any of these flags
+  selects the sequential path.
 
   PYTHONPATH=src python -m repro_torch.launch.serve lm --arch qwen1.5-0.5b
   PYTHONPATH=src python -m repro_torch.launch.serve lm --arch qwen1.5-0.5b \
@@ -30,6 +35,8 @@ serves on the card unless the CPU is asked for).
   PYTHONPATH=src python -m repro_torch.launch.serve rank --n 20000
   PYTHONPATH=src python -m repro_torch.launch.serve rank --device cpu \
       --n 2000 --churn 0.01 --churn-every 3 [--no-batching]
+  PYTHONPATH=src python -m repro_torch.launch.serve rank --ckpt-dir D \
+      --method engine:chunk --k 4 --rescale-at 2 --rescale-k 3 [--resume]
 """
 import argparse
 import sys
@@ -125,13 +132,16 @@ def rank_main(argv):
     ap.add_argument("--k", type=int, default=None,
                     help="engine methods: PIDs on the pid axis")
     ap.add_argument("--ckpt-dir", default=None,
-                    help="not ported yet (ROADMAP §1, item 5)")
+                    help="atomic fluid-state checkpoint after every "
+                    "served request")
     ap.add_argument("--resume", action="store_true",
-                    help="not ported yet (ROADMAP §1, item 5)")
+                    help="restore the newest VALID checkpoint from "
+                    "--ckpt-dir instead of a cold solve")
     ap.add_argument("--rescale-at", type=int, default=None,
-                    help="not ported yet (ROADMAP §1, item 6)")
+                    help="request index at which to rescale the pid "
+                    "axis (engine methods)")
     ap.add_argument("--rescale-k", type=int, default=None,
-                    help="not ported yet (ROADMAP §1, item 6)")
+                    help="pid-axis width to rescale to at --rescale-at")
     ap.add_argument("--no-batching", action="store_true",
                     help="serve the stream strictly sequentially on one "
                     "warm-started session")
@@ -145,21 +155,22 @@ def rank_main(argv):
     args = ap.parse_args(argv)
     if args.churn > 0 and args.churn_every < 1:
         ap.error("--churn-every must be >= 1 when --churn is set")
-    if args.ckpt_dir or args.resume:
-        ap.error("--ckpt-dir / --resume: checkpointed serving is not "
-                 "ported yet (ROADMAP §1, item 5)")
-    if args.rescale_at is not None or args.rescale_k is not None:
-        ap.error("--rescale-at / --rescale-k: elastic K is not ported yet "
-                 "(ROADMAP §1, item 6)")
+    if (args.rescale_at is None) != (args.rescale_k is None):
+        ap.error("--rescale-at and --rescale-k go together")
+    if args.resume and not args.ckpt_dir:
+        ap.error("--resume needs --ckpt-dir")
     import torch
 
     if torch.device(args.device).type == "cuda" and (
             not torch.cuda.is_available()):
         raise RuntimeError("no CUDA device: pass --device cpu to serve on "
                            "the CPU")
-    # the scheduler is frontier-native: other methods keep the
-    # sequential session path
-    if args.no_batching or args.method != "frontier:segment_sum":
+    # the scheduler is frontier-native and stateless across processes:
+    # session-exclusive features (checkpoint/resume, pid-axis rescale,
+    # engine backends) keep the sequential session path
+    if (args.no_batching or args.ckpt_dir or args.resume
+            or args.rescale_at is not None
+            or args.method != "frontier:segment_sum"):
         return _rank_sequential(args)
     return _rank_batched(args)
 
@@ -246,7 +257,9 @@ def _rank_batched(args):
 
 def _rank_sequential(args):
     """The sequential rank loop: one warm-started session, strictly one
-    request at a time; graph updates through ``update_graph``."""
+    request at a time; graph updates through ``update_graph``, a
+    checkpoint after every request with ``--ckpt-dir``, a verified
+    restore with ``--resume``, a PID-axis rescale at ``--rescale-at``."""
     import repro_torch
     from repro_torch.core import webgraph_like
     from repro_torch.graph import rotation_churn
@@ -259,17 +272,56 @@ def _rank_sequential(args):
     options = repro_torch.SolverOptions(k=args.k, device=args.device)
     print(f"N={g.n} L={g.n_edges} method={args.method} "
           f"target_error={problem.target_error:.2e} device={args.device}")
-    session = repro_torch.SolverSession(problem, method=args.method,
-                                        options=options)
-    t0 = time.perf_counter()
-    cold = session.solve()
-    baseline_ops = cold.n_ops
-    print(f"[cold ] {cold.n_ops} edge pushes, {cold.n_rounds} "
-          f"rounds, {time.perf_counter() - t0:.2f}s — the serving baseline")
+    session = None
+    if args.resume:
+        try:
+            t0 = time.perf_counter()
+            session = repro_torch.SolverSession.restore(
+                args.ckpt_dir, problem, method=args.method,
+                options=options)
+            info = session.restored_from
+            print(f"[resume] step {info['step']} "
+                  f"({len(info['rejected'])} rejected), residual="
+                  f"{session.residual:.2e}, "
+                  f"{time.perf_counter() - t0:.2f}s — "
+                  "H carried over, no cold solve")
+            session.solve()  # drain whatever fluid remains
+            # no cold baseline this process: savings are not reported
+            baseline_ops = None
+        except FileNotFoundError:
+            print("[resume] no checkpoint yet — starting cold")
+            session = None
+        except ValueError as e:
+            # checkpoints exist but every step was rejected (torn /
+            # stale / wrong graph): serving must come up cold, not die
+            print(f"[resume] no VALID checkpoint ({e}) — starting cold")
+            session = None
+    if session is None:
+        session = repro_torch.SolverSession(problem, method=args.method,
+                                            options=options)
+        t0 = time.perf_counter()
+        cold = session.solve()
+        baseline_ops = cold.n_ops
+        print(f"[cold ] {cold.n_ops} edge pushes, {cold.n_rounds} "
+              f"rounds, {time.perf_counter() - t0:.2f}s — the serving "
+              "baseline")
+    if args.ckpt_dir:
+        print(f"[ckpt ] {session.checkpoint(args.ckpt_dir)}")
+
+    def saved(n_ops):
+        return (f"{1.0 - n_ops / max(baseline_ops, 1):.0%}"
+                if baseline_ops else "n/a")
 
     quarantine = Quarantine()
     b = problem.b
     for req in range(args.requests):
+        if args.rescale_at is not None and req == args.rescale_at:
+            t0 = time.perf_counter()
+            drains = session.rescale(args.rescale_k)
+            print(f"[rescale {req}] pid axis -> k={args.rescale_k} "
+                  f"({len(drains)} buckets drained through the executor "
+                  f"path), {time.perf_counter() - t0:.2f}s — H not "
+                  "recomputed")
         if args.churn > 0 and req % args.churn_every == args.churn_every - 1:
             # a graph-update request: the crawl delivered link churn
             n_rot = max(1, int(args.churn * session.problem.n_edges) // 2)
@@ -298,9 +350,10 @@ def _rank_sequential(args):
             rep = session.solve()
             print(f"[update {req}] {delta.n_changes} changed edges "
                   f"|F0|={resid0:.2e} {rep.n_ops} ops "
-                  f"({1.0 - rep.n_ops / max(baseline_ops, 1):.0%} saved "
-                  f"vs cold), {rep.n_rounds} rounds, "
-                  f"{time.perf_counter() - t0:.2f}s")
+                  f"({saved(rep.n_ops)} saved vs cold), {rep.n_rounds} "
+                  f"rounds, {time.perf_counter() - t0:.2f}s")
+            if args.ckpt_dir:
+                session.checkpoint(args.ckpt_dir)
             continue
         # a drifting teleport vector: what a freshness-weighted or
         # user-conditioned ranking update looks like between requests
@@ -320,9 +373,10 @@ def _rank_sequential(args):
         resid0 = session.warm_start(b_ok)
         rep = session.solve()
         print(f"[warm {req}] |F0|={resid0:.2e} {rep.n_ops} ops "
-              f"({1.0 - rep.n_ops / max(baseline_ops, 1):.0%} saved vs "
-              f"cold), {rep.n_rounds} rounds, "
-              f"{time.perf_counter() - t0:.2f}s")
+              f"({saved(rep.n_ops)} saved vs cold), {rep.n_rounds} "
+              f"rounds, {time.perf_counter() - t0:.2f}s")
+        if args.ckpt_dir:
+            session.checkpoint(args.ckpt_dir)
     if quarantine.total:
         print(f"[quarantine] {quarantine.total} rejected: "
               f"{quarantine.to_jsonable()['by_reason']}")

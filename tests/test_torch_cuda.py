@@ -1731,3 +1731,121 @@ def test_simulator_replays_on_the_card(cuda_device):
     assert (a.n_steps, a.n_edge_ops, a.n_exchanges, a.move_log) == (
         b.n_steps, b.n_edge_ops, b.n_exchanges, b.move_log)
     assert np.array_equal(a.count_active, b.count_active)
+
+
+# --------------------------------------------------------------------------- #
+# checkpoint / restore, elastic K and the supervisor on the card
+# --------------------------------------------------------------------------- #
+def _web_problem(n=2048):
+    import repro_torch
+    from repro_torch.core import webgraph_like
+    from repro_torch.graph import GraphStore
+
+    return repro_torch.Problem.pagerank(
+        GraphStore.from_csr(webgraph_like(n, seed=1)))
+
+
+def _state(session):
+    """The driver's device state: (F, H) in node order as float32 tensors
+    on the card (no host round trip)."""
+    d = session._driver
+    if hasattr(d, "ex"):  # the engine: home-row order of the layout
+        cur = d.engine.cur_of_home(d.ex.row_of_bucket)
+        return d.ex.state.f[cur], d.ex.state.h[cur]
+    st = d._state
+    return st[0][: d.n], (st[2] if len(st) == 6 else st[1])[: d.n]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,k", [("frontier:pallas", None),
+                                      ("engine:chunk", 4)])
+def test_restore_on_the_card_replays_the_uninterrupted_solve(
+        cuda_device, tmp_path, method, k):
+    """Checkpointed mid-solve and restored on the card: the restored
+    rounds and pushes plus the checkpoint's equal an uninterrupted run's,
+    and the device state is torch.equal to it."""
+    import repro_torch
+
+    problem = _web_problem()
+    opts = repro_torch.SolverOptions(device="cuda", k=k)
+    full = repro_torch.SolverSession(problem, method=method, options=opts)
+    rep_full = full.solve()
+    session = repro_torch.SolverSession(problem, method=method, options=opts)
+    for i, _ in enumerate(session.run()):
+        if i >= 3:
+            break
+    session.checkpoint(str(tmp_path))
+    restored = repro_torch.SolverSession.restore(str(tmp_path), problem,
+                                                 options=opts)
+    info = restored.restored_from
+    rep = restored.solve()
+    assert rep.converged and rep_full.converged
+    assert info["rounds"] + rep.n_rounds == rep_full.n_rounds
+    assert info["ops"] + rep.n_ops == rep_full.n_ops
+    for a, b in zip(_state(restored), _state(full)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_rescale_on_the_card_matches_the_cpu(cuda_device):
+    """engine:chunk at k=4, rescaled 4 -> 3 -> 4 mid-solve on the card:
+    the CPU port's drain list, move log and pushes, |Δx|_1 <= 1e-6."""
+    import repro_torch
+
+    problem = _web_problem()
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        s = repro_torch.SolverSession(
+            problem, method="engine:chunk", device=dev, k=4,
+            buckets_per_dev=12, headroom=4)
+        for i, _ in enumerate(s.run()):
+            if i >= 1:
+                break
+        drains = s.rescale(3, strict=True)
+        for i, _ in enumerate(s.run()):
+            if i >= 1:
+                break
+        grow = s.rescale(4)
+        rep = s.solve()
+        runs[dev] = (drains, grow, rep)
+    (d_cpu, g_cpu, cpu), (d_gpu, g_gpu, gpu) = runs["cpu"], runs["cuda"]
+    assert len(d_gpu) == 8 and d_gpu == d_cpu and g_gpu == g_cpu == []
+    assert gpu.converged and gpu.move_log == cpu.move_log
+    assert (gpu.n_rounds, gpu.n_ops) == (cpu.n_rounds, cpu.n_ops)
+    assert np.abs(gpu.x - cpu.x).sum() <= 1e-6
+
+
+@pytest.mark.cuda
+def test_supervised_kill_retry_on_the_card_is_exact(cuda_device, tmp_path):
+    """A supervised stream on engine:chunk k=4 on the card, a kill in the
+    third request: every served x is bit-equal to a plain card session's
+    on the same requests."""
+    import repro_torch
+    from repro_torch.chaos import ChaosPlan, SessionInjector
+    from repro_torch.resilience import RetryPolicy, SupervisedSession
+
+    problem = _web_problem()
+    opts = repro_torch.SolverOptions(device="cuda", k=4, chunk_rounds=1)
+    sup = SupervisedSession(problem, method="engine:chunk", options=opts,
+                            ckpt_dir=str(tmp_path), sleep=lambda s: None,
+                            retry=RetryPolicy(base_delay_s=1e-4,
+                                              max_delay_s=1e-3))
+    plain = repro_torch.SolverSession(_web_problem(), method="engine:chunk",
+                                      options=opts)
+    rng = np.random.default_rng(0)
+    b = np.asarray(problem.b)
+    for i in range(4):
+        b = np.abs(b * (1 + 0.01 * rng.standard_normal(b.shape[0])))
+        chaos = (SessionInjector(ChaosPlan().kill(3, round=2)) if i == 2
+                 else None)
+        out = sup.serve_rank(b, request_id=i, chaos=chaos)
+        plain.warm_start(b)
+        rep = plain.solve()
+        assert out.ok and out.converged
+        assert out.attempts == (2 if i == 2 else 1)
+        assert np.array_equal(out.x, rep.x), i
+        for a, c in zip(_state(sup.session), _state(plain)):
+            assert torch.equal(a, c)
+    counts = sup.log.counts()
+    assert counts["fault"] == counts["restore"] == 1
+    assert sup.wasted_ops > 0

@@ -411,16 +411,58 @@ def test_serve_rank_cli_matches_reference(mode):
     assert want and _numbers(got, tags) == want
 
 
-def test_serve_rank_refuses_unported_flags():
-    for flags in (["--ckpt-dir", "x"], ["--resume"],
-                  ["--rescale-at", "1", "--rescale-k", "2"]):
+@pytest.mark.parametrize("flags,error", [
+    (["--rescale-at", "1"], "--rescale-at and --rescale-k go together"),
+    (["--rescale-k", "2"], "--rescale-at and --rescale-k go together"),
+    (["--resume"], "--resume needs --ckpt-dir"),
+])
+def test_serve_rank_argument_errors_match_reference(flags, error):
+    """The reference CLI's own argument errors, in both packages: usage
+    error exit code 2 and the same message."""
+    for module, extra in (("repro.launch.serve", []),
+                          ("repro_torch.launch.serve", ["--device", "cpu"])):
         r = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.serve", "rank",
-             "--device", "cpu", *flags],
+            [sys.executable, "-m", module, "rank", *extra, *flags],
             capture_output=True, text=True, timeout=120, cwd=ROOT,
-            env={**os.environ, "PYTHONPATH": SRC})
-        assert r.returncode == 2, r.stdout
-        assert re.search(r"ROADMAP §1, item [56]", r.stderr), r.stderr
+            env={**os.environ, "PYTHONPATH": SRC, "JAX_PLATFORMS": "cpu"})
+        assert r.returncode == 2, (module, r.stdout)
+        assert f"error: {error}" in r.stderr, (module, r.stderr)
+
+
+def test_serve_rank_checkpoint_resume_rescale_match_reference(tmp_path):
+    """``--ckpt-dir`` on engine:chunk at k=4 with a rescale to 3 at
+    request 2, then ``--resume`` from that directory: both runs print the
+    reference CLI's numbers line for line (the reference on 4 fake XLA
+    devices; the checkpoint paths and walls taken out)."""
+    args = ["--requests", "5", "--batch", "2", "--churn", "0.01",
+            "--churn-every", "3", "--poison-every", "4", "--no-batching",
+            "--method", "engine:chunk", "--k", "4", "--rescale-at", "2",
+            "--rescale-k", "3"]
+    tags = ("[cold", "[resume", "[ckpt", "[rescale", "[warm", "[update",
+            "[quarantine", "  persona")
+    outs = {}
+    for module, extra in (("repro.launch.serve", []),
+                          ("repro_torch.launch.serve", ["--device", "cpu"])):
+        ckpt = str(tmp_path / module)
+        env = {**os.environ, "PYTHONPATH": SRC, "JAX_PLATFORMS": "cpu",
+               "OMP_NUM_THREADS": "1",
+               "XLA_FLAGS": "--xla_force_host_platform_device_count=4"}
+        for resume in ([], ["--resume"]):
+            r = subprocess.run(
+                [sys.executable, "-m", module, "rank", "--n", "300", *args,
+                 "--ckpt-dir", ckpt, *resume, *extra],
+                capture_output=True, text=True, timeout=300, cwd=ROOT,
+                env=env)
+            assert r.returncode == 0, r.stderr[-4000:]
+            outs[module, bool(resume)] = r.stdout.replace(ckpt, "D")
+    for resume in (False, True):
+        got = outs["repro_torch.launch.serve", resume]
+        want = _numbers(outs["repro.launch.serve", resume], tags)
+        assert want and _numbers(got, tags) == want
+        assert "[rescale 2] pid axis -> k=3 (6 buckets drained" in got
+        assert "[ckpt ] D/step_" in got
+    assert "[resume] step 3 (2 rejected)" in outs[
+        "repro_torch.launch.serve", True]
 
 
 def test_rank_request_validation():
