@@ -153,6 +153,44 @@ Phases, each printed on its own lines (any failure exits non-zero):
    library call timed by CUDA graph replay as well (``graph_ms``,
    ``library_graph_ms``: without the host's cost per call, which is of the
    kernels' order); ``ms`` and ``library_ms`` are eager in every row.
+16. MoE serving, after phase 13 and the release of the engine's and the
+   frontier's pools (its weights need the room): (a) qwen2-moe-a2.7b
+   at full width and depth (24 layers, 60 routed experts padded to 64,
+   top-4, 4 shared; 15,146,207,232 parameters with the padded experts,
+   30.29 GB bf16, drawn on the card; the count gated at ``n_params`` plus
+   the dead experts) through ``launch.steps``, counters zeroed just
+   before: phase 12's requests A and B, each prefilled once and decoded
+   once on the bf16 cache (greedy) and once on the int8 cache quantised
+   from the same prefill (``quantize_cache``; fed the bf16 decode's
+   tokens), then one step of each with the expert-load tap on (a host
+   read a layer: the capacity drops by layer and the routed counts, which
+   must sum to ``2 x 24 x B x top_k``).  Gates: finite logits; K5's bf16
+   form (``segment_sum_bf16``) launched 24 times a prefill and 24 a
+   decode step; K6 24 times a prefill and a bf16 decode step; K6's int8
+   form (``flash_attention_int8``) 24 times an int8 step and never
+   elsewhere.  Prints the prefill walls (cold, and warm once more), the
+   wall a decode step and tok/s on each cache, the int8 decode's largest
+   relative distance to the bf16 one (printed beside the reference test's
+   0.05, not gated), the device memory peak and a torch.profiler trace of
+   one decode step on each cache.  (b) K5's bf16 form on layer 0's
+   combine at A's prefill and decode against its plain version, relative
+   L1 <= 1e-5 and a bit-identical relaunch; K6's int8 form on layer 0's
+   int8 decode at A and B: max abs err <= 3e-2 in bf16, a bit-identical
+   relaunch, the bits of K6 over a dequantised copy printed, and with q
+   cast to float32 within rtol 1e-5 / atol 1e-6.  (c) granite-moe-1b-a400m
+   at full width in float32: A's prefill (8 x 2,048) and 8 teacher-forced
+   decode steps on the float cache and on the int8 cache, with the kernels
+   and with the plain versions (``attention=``, ``combine=``): logits
+   within relative L1 1e-4 on each; the routing decisions of the two runs
+   compared dispatch by dispatch, those that differ printed with their
+   top-k margin.  (d) Rows for the kernels line: ``segment_sum_bf16`` (A's
+   prefill combine) and ``segment_sum_bf16_decode`` (A's decode combine),
+   ``torch.sparse.mm`` of a sparse_csr of the gate weights as the library
+   call; ``flash_attention_int8`` (A's decode) and
+   ``flash_attention_int8_32k`` (B's), also timed by CUDA graph replay,
+   ``scaled_dot_product_attention`` over a dequantised copy as the library
+   call; each with the launches counted in this phase.  Only layer 0 of
+   each request's caches is kept past its serving, for the checks.
 13. Simulator: the paper's K-PID simulator (``repro_torch.core.
    DistributedSimulator``) on the card, its push on K7 (sim_messages, the
    messages; sim_push, their sum), at N, K=8, the batch schedule, target
@@ -307,6 +345,10 @@ GIN_SHAPE = "ogb_products"
 # expects 64.1M edge stubs, over it)
 GIN_ALPHA = 1.655
 LM_ARCH = "qwen1.5-0.5b"
+# phase 16: the MoE model served in bf16, and the one whose float32 whole
+# path is held to the plain versions
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_CHECK_ARCH = "granite-moe-1b-a400m"
 # phase 14: the lane widths K3's lane form is checked at, the personalized
 # columns' drift, the scheduler's clusters and the churn of each delta (a
 # share of the links)
@@ -516,12 +558,12 @@ class _Captured(Exception):
 
 def first_attention(run):
     """The inputs of the first attention call of ``run(attention)``: layer
-    0's q, k, v (views, as the model hands them to K6) and masks.  The
-    forward stops there."""
+    0's q, k, v (views, as the model hands them to K6), masks and, over the
+    int8 cache, scales.  The forward stops there."""
     got = {}
 
-    def capture(q, k, v, *, causal, kv_len=None):
-        got.update(q=q, k=k, v=v, causal=causal, kv_len=kv_len)
+    def capture(q, k, v, *, causal, kv_len=None, **scales):
+        got.update(q=q, k=k, v=v, causal=causal, kv_len=kv_len, **scales)
         raise _Captured
 
     try:
@@ -882,6 +924,486 @@ def lm_serving(args, torch, dev, timer, sync):
     if on_card:
         torch.cuda.empty_cache()
     return rows, f"LM ({cfg.name}): {summary}"
+
+
+class _Combined(Exception):
+    """Stops a forward at its first MoE combine (``first_combine``)."""
+
+
+def first_combine(run):
+    """The operands of the first MoE combine of ``run(combine)``: layer 0's
+    expert outputs, token ids, token count, gate weights and rows, as the
+    model hands them to K5.  The forward stops there."""
+    got = {}
+
+    def capture(data, seg, n, *, weights=None, rows=None):
+        got.update(data=data, seg=seg, n=n, weights=weights, rows=rows)
+        raise _Combined
+
+    try:
+        run(capture)
+    except _Combined:
+        return got
+    fail("the forward never called its MoE combine")
+
+
+def moe_serving(args, torch, dev, timer, sync):
+    """Phase 16: qwen2-moe-a2.7b served in bf16 through ``launch.steps``
+    (requests A and B, each decoded on the bf16 cache and on the int8 cache
+    quantised from the same prefill), K5's bf16-row form and K6's int8
+    decode form held to their plain versions on layer 0's operands,
+    granite-moe-1b-a400m's float32 whole path with the kernels against the
+    plain versions, and the two forms' rows for the kernels line.  Returns
+    ``(rows, summary)``."""
+    import torch.nn.functional as fn
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.smoke import lm_shrink
+    from repro_torch.data import lm_token_batch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.attention import (
+        attention_plain, dequantize, flash_attention)
+    from repro_torch.kernels.attention.kernel import (
+        decode_geometry, split_count)
+    from repro_torch.kernels.segment import segment_sum_ref, segment_sum_sorted
+    from repro_torch.launch.steps import build_cell_step
+    from repro_torch.models import transformer
+
+    on_card = dev.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 stays float32
+    torch.backends.cudnn.allow_tf32 = False
+    spec = get_arch(MOE_ARCH)
+    cfg = lm_shrink(spec.model_cfg) if args.lm_reduced else spec.model_cfg
+    m = cfg.moe
+    # phase 12's requests: (lm_token_batch step, batch, prompt, decode steps)
+    requests = {"A": (0, 8, 64 if args.lm_reduced else 2048, 32),
+                "B": (1, 1, 512 if args.lm_reduced else 32768, 16)}
+    t0 = time.perf_counter()
+    model = transformer.init_params(cfg, seed=args.seed, device=dev)
+    sync()
+    n_par = sum(p.numel() for p in model.parameters())
+    dead = cfg.n_layers * (m.e_pad - m.n_experts) * 3 * cfg.d_model * \
+        m.d_ff_expert
+    print(f"{cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, "
+          f"{m.n_experts} experts (padded to {m.e_pad}) top-{m.top_k} of "
+          f"d_ff {m.d_ff_expert} + {m.n_shared} shared, vocab {cfg.vocab}, "
+          f"{model.embed.dtype}: {n_par} parameters ({cfg.n_params} counted "
+          f"+ {dead} in the padded experts; {cfg.n_active_params} active a "
+          f"token; {n_par * model.embed.element_size() / 1e9:.3f} GB), "
+          f"drawn on the device in {time.perf_counter() - t0:.3f} s")
+    if n_par != cfg.n_params + dead:
+        fail(f"{n_par} parameters where the config counts {cfg.n_params} "
+             f"+ {dead} padded")
+    prefill = build_cell_step(spec, spec.cells["prefill_32k"], model)
+    decode = build_cell_step(spec, spec.cells["decode_32k"], model)
+    names = ("segment_sum_bf16", "segment_sum_carry", "flash_attention",
+             "flash_attention_int8")
+
+    def counted():
+        return {k: LAUNCHES[k] for k in names}
+
+    def since(before):
+        return {k: LAUNCHES[k] - v for k, v in before.items()}
+
+    def step_batch(tokens, cache):
+        batch = {"tokens": tokens, "cache_k": cache["k"],
+                 "cache_v": cache["v"], "pos": cache["pos"]}
+        if "k_scale" in cache:
+            batch.update(cache_k_scale=cache["k_scale"],
+                         cache_v_scale=cache["v_scale"])
+        return batch
+
+    def serve(name, step, b, s, n_steps):
+        tokens = lm_token_batch(step, b, s, cfg.vocab, seed=args.seed)["tokens"]
+        held = torch.cuda.memory_allocated() if on_card else 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        before = counted()
+        t0 = time.perf_counter()
+        cache, logits = prefill({"tokens": tokens,
+                                 "max_seq": s + n_steps + 1})
+        sync()
+        t_pre = time.perf_counter() - t0
+        pre = since(before)
+        q8 = transformer.quantize_cache(cache)
+        finite = bool(logits.isfinite().all())
+        first = logits.argmax(-1)
+        out = {}
+        for kind, c in (("bf16", cache), ("int8", q8)):
+            toks, walls, lgs, gen = first, [], [], [first]
+            before = counted()
+            for i in range(n_steps):
+                last = (toks, c["pos"])
+                t0 = time.perf_counter()
+                lg, c = decode(step_batch(toks, c))
+                sync()
+                walls.append(time.perf_counter() - t0)
+                lgs.append(lg)
+                # the bf16 decode is greedy; the int8 one is fed its tokens
+                toks = lg.argmax(-1) if kind == "bf16" else out["bf16"][
+                    "gen"][:, i + 1]
+                gen.append(toks)
+            finite &= bool(torch.stack(lgs).isfinite().all())
+            step_ms = 1e3 * sum(walls) / len(walls)
+            out[kind] = {"cache": c, "last": last, "logits": lgs,
+                         "gen": torch.stack(gen, 1), "step_ms": step_ms,
+                         "walls": walls, "launches": since(before)}
+        dist = max(float((a - w).abs().max() / w.abs().max())
+                   for a, w in zip(out["int8"]["logits"],
+                                   out["bf16"]["logits"]))
+        for o in out.values():
+            del o["logits"]
+        # one more step of each with the expert-load tap on (a host read a
+        # layer): the capacity drops of a decode step and the routed counts
+        taps = []
+        transformer.set_expert_load_sink(taps.append)
+        try:
+            for kind in ("bf16", "int8"):
+                o = out[kind]
+                decode(step_batch(o["gen"][:, -1], o["cache"]))
+        finally:
+            transformer.set_expert_load_sink(None)
+        cap = transformer._capacity(b, m)
+        drops = [int(np.maximum(c - cap, 0).sum()) for c in taps]
+        routed = np.sum(taps, axis=0)
+        peak = ((torch.cuda.max_memory_allocated() - held) / 1e9 if on_card
+                else 0.0)
+        kv_gb = cache["k"].numel() * 2 * cache["k"].element_size() / 1e9
+        kv8_gb = (q8["k"].numel() * 2 + q8["k_scale"].numel() * 8) / 1e9
+        print(f"request {name}: {b} x {s} tokens, prefill wall "
+              f"{t_pre * 1e3:.3f} ms (launches {pre}); {n_steps} decode "
+              f"steps over a {s + n_steps + 1}-slot cache: bf16 cache "
+              f"({kv_gb:.3f} GB) {out['bf16']['step_ms']:.3f} ms a step "
+              f"(first {out['bf16']['walls'][0] * 1e3:.3f}, min "
+              f"{min(out['bf16']['walls']) * 1e3:.3f}), "
+              f"{b * 1e3 / out['bf16']['step_ms']:.1f} tok/s, launches "
+              f"{out['bf16']['launches']}; int8 cache ({kv8_gb:.3f} GB with "
+              f"its scales) {out['int8']['step_ms']:.3f} ms a step (min "
+              f"{min(out['int8']['walls']) * 1e3:.3f}), "
+              f"{b * 1e3 / out['int8']['step_ms']:.1f} tok/s, launches "
+              f"{out['int8']['launches']}; logits finite {finite}, int8 "
+              f"against bf16 decode (teacher-forced on the bf16 tokens): max "
+              f"relative distance {dist:.4e} (the reference's test bounds "
+              f"its tiny model at 0.05); device memory peak {peak:.3f} GB "
+              f"above the {held / 1e9:.3f} GB held")
+        print(f"request {name}: a decode step at capacity {cap} a routed "
+              f"expert: {drops[:cfg.n_layers]} slots dropped by layer (bf16 "
+              f"cache), {sum(drops[cfg.n_layers:])} in all on the int8 "
+              f"cache; the tap's counts summed over both steps' "
+              f"{len(taps)} dispatches: {routed.tolist()} "
+              f"({int(routed.sum())} routed slots, "
+              f"{2 * cfg.n_layers * b * m.top_k} expected)")
+        if not finite:
+            fail(f"request {name}: logits not finite")
+        if int(routed.sum()) != 2 * cfg.n_layers * b * m.top_k:
+            fail(f"request {name}: the tap saw {int(routed.sum())} routed "
+                 "slots")
+        if on_card:
+            want_pre = {"segment_sum_bf16": cfg.n_layers,
+                        "flash_attention": cfg.n_layers,
+                        "flash_attention_int8": 0}
+            got_pre = {k: pre[k] for k in want_pre}
+            want = {"bf16": {"segment_sum_bf16": cfg.n_layers * n_steps,
+                             "flash_attention": cfg.n_layers * n_steps,
+                             "flash_attention_int8": 0},
+                    "int8": {"segment_sum_bf16": cfg.n_layers * n_steps,
+                             "flash_attention": 0,
+                             "flash_attention_int8": cfg.n_layers * n_steps}}
+            got = {k: {n: out[k]["launches"][n] for n in want[k]}
+                   for k in want}
+            if got_pre != want_pre or got != want:
+                fail(f"request {name}: launches (prefill, decode) "
+                     f"{got_pre}, {got}, not {want_pre}, {want}")
+        # the checks below read layer 0 only: keep a copy of it, free the
+        # rest
+        for o in out.values():
+            o["cache"] = {k: (t[:1].clone() if torch.is_tensor(t) else t)
+                          for k, t in o["cache"].items()}
+        del cache, q8, c
+        return {"tokens": tokens, "out": out, "prefill_s": t_pre, "b": b,
+                "s": s, "pre": pre, "peak_gb": peak, "dist": dist,
+                "drops": drops}
+
+    reset_launches()
+    with torch.inference_mode():
+        served = {name: serve(name, *shape)
+                  for name, shape in requests.items()}
+    path = counted()
+    print(f"MoE path launches (phase 16, both requests): {path}")
+    if on_card and not (path["segment_sum_bf16"] and path["flash_attention"]
+                        and path["flash_attention_int8"]):
+        fail("the MoE path did not launch K5's bf16 form and both K6 forms")
+    with torch.inference_mode():
+        for name, r in served.items():
+            t0 = time.perf_counter()
+            cache, logits = prefill({"tokens": r["tokens"],
+                                     "max_seq": r["s"] + 1})
+            sync()
+            r["warm_prefill_s"] = time.perf_counter() - t0
+            print(f"request {name}: prefill again, warm: "
+                  f"{r['warm_prefill_s'] * 1e3:.3f} ms")
+            if on_card:
+                device_share(torch, f"request {name} prefill (warm)",
+                             lambda: prefill({"tokens": r["tokens"],
+                                              "max_seq": r["s"] + 1}),
+                             r["warm_prefill_s"] * 1e3)
+                q8 = transformer.quantize_cache(cache)
+                for kind, c in (("bf16", cache), ("int8", q8)):
+                    device_share(torch, f"request {name} decode step, {kind} "
+                                 "cache", lambda: decode(step_batch(
+                                     logits.argmax(-1), dict(c))),
+                                 r["out"][kind]["step_ms"])
+                del q8
+            del cache, logits
+
+        # ---- (b) the two forms against their plain versions ------------
+        caps, errs = {}, {}
+        ra, rb = served["A"], served["B"]
+        caps["A prefill"] = first_combine(lambda comb: transformer.prefill_step(
+            model, ra["tokens"], combine=comb))
+        toks, pos = ra["out"]["bf16"]["last"]
+        c16 = ra["out"]["bf16"]["cache"]
+        caps["A decode"] = first_combine(lambda comb: transformer.decode_step(
+            model, {"k": c16["k"], "v": c16["v"], "pos": pos}, toks,
+            combine=comb))
+        for tag in ("A prefill", "A decode"):
+            ins = caps[tag]
+            kw = {"weights": ins["weights"], "rows": ins["rows"]}
+            got = segment_sum_sorted(ins["data"], ins["seg"], ins["n"], **kw)
+            again = segment_sum_sorted(ins["data"], ins["seg"], ins["n"], **kw)
+            plain = segment_sum_ref(ins["data"], ins["seg"], ins["n"], **kw)
+            e, same = rel_l1(got, plain), torch.equal(got, again)
+            errs[tag] = float((got - plain).abs().max())
+            print(f"K5 bf16 rows ({tag}, layer 0's combine): eo "
+                  f"{tuple(ins['data'].shape)} {str(ins['data'].dtype)[6:]}, "
+                  f"{ins['seg'].numel()} slots into {ins['n']} tokens "
+                  f"({int((ins['weights'] == 0).sum())} of weight 0): "
+                  f"relative L1 {e:.3e} (bound 1e-5), max abs err "
+                  f"{errs[tag]:.3e}, bit-identical relaunch {same}")
+            if not (e <= REL_L1 and same):
+                fail(f"K5's bf16-row form against its plain version at {tag}")
+        for name, r in served.items():
+            toks, pos = r["out"]["int8"]["last"]
+            c8 = r["out"]["int8"]["cache"]
+            caps[name + " int8"] = first_attention(
+                lambda att: transformer.decode_step(
+                    model, {**c8, "pos": pos}, toks, attention=att))
+            ins = caps[name + " int8"]
+            q, k, v = ins["q"], ins["k"], ins["v"]
+            kw = {"causal": ins["causal"], "kv_len": ins["kv_len"],
+                  "k_scale": ins["k_scale"], "v_scale": ins["v_scale"]}
+            got, again = flash_attention(q, k, v, **kw), flash_attention(
+                q, k, v, **kw)
+            plain = attention_plain(q, k, v, **kw)
+            err = float((got.float() - plain.float()).abs().max())
+            same = torch.equal(got, again)
+            dq = {"causal": ins["causal"], "kv_len": ins["kv_len"]}
+            kd = dequantize(k, ins["k_scale"], q.dtype)
+            vd = dequantize(v, ins["v_scale"], q.dtype)
+            t_form = torch.equal(got, flash_attention(q, kd, vd, **dq))
+            del kd, vd
+            got32 = flash_attention(q.float(), k, v, **kw)
+            plain32 = attention_plain(q.float(), k, v, **kw)
+            over = int(((got32 - plain32).abs()
+                        > 1e-6 + 1e-5 * plain32.abs()).sum())
+            errs[name + " int8"] = err
+            print(f"K6 int8 {name} decode (layer 0): q {tuple(q.shape)} "
+                  f"{str(q.dtype)[6:]}, int8 k {tuple(k.shape)} kv_len "
+                  f"{kw['kv_len']}: max abs err {err:.3e} (bound 3e-2) at "
+                  f"max |plain| {float(plain.float().abs().max()):.3e}, "
+                  f"bit-identical relaunch {same}, the bits of K6 over a "
+                  f"dequantised copy {t_form}; with float32 q: max abs err "
+                  f"{float((got32 - plain32).abs().max()):.3e}, {over} of "
+                  f"{plain32.numel()} outside rtol 1e-5 / atol 1e-6")
+            if not (err <= 3e-2 and same and over == 0):
+                fail(f"K6's int8 form against its plain version at {name}")
+            del got, again, plain, got32, plain32
+
+        # ---- (d) the rows --------------------------------------------------
+        rows = []
+        n_sm = (torch.cuda.get_device_properties(dev).multi_processor_count
+                if on_card else 0)
+        for tag, name, launches in (
+                ("A prefill", "segment_sum_bf16", ra["pre"]["segment_sum_bf16"]),
+                ("A decode", "segment_sum_bf16_decode",
+                 ra["out"]["bf16"]["launches"]["segment_sum_bf16"]
+                 + ra["out"]["int8"]["launches"]["segment_sum_bf16"])):
+            ins = caps[tag]
+            data, seg, n = ins["data"], ins["seg"], ins["n"]
+            kw = {"weights": ins["weights"], "rows": ins["rows"]}
+            e, d = seg.numel(), data.shape[1]
+            # each slot's row read once (the dropped ones read row 0), its
+            # weight, row index and id; each token's sum written once
+            n_bytes = e * d * 2 + e * (4 + 8 + 4) + n * d * 4
+            b_ms, b_by = bound_ms(n_bytes, 2.0 * e * d)
+            lib_ms = None
+            if on_card:
+                ptr = torch.arange(n + 1, device=dev) * (e // n)
+                dense = data
+                try:  # bf16 values over the bf16 rows, where cuSPARSE has it
+                    csr = torch.sparse_csr_tensor(
+                        ptr, ins["rows"], ins["weights"].to(data.dtype),
+                        size=(n, data.shape[0]))
+                    torch.sparse.mm(csr, dense)
+                    how = "bf16"
+                except RuntimeError:  # else over a float32 copy of the rows
+                    dense = data.float()
+                    csr = torch.sparse_csr_tensor(ptr, ins["rows"],
+                                                  ins["weights"],
+                                                  size=(n, data.shape[0]))
+                    how = "float32 (a copy of the rows, made before timing)"
+                lib_ms = timer(lambda: torch.sparse.mm(csr, dense), 10)
+                lib_err = float((torch.sparse.mm(csr, dense).float()
+                                 - segment_sum_sorted(data, seg, n, **kw))
+                                .abs().max())
+                print(f"torch.sparse.mm (sparse_csr of the gate weights over "
+                      f"the expert outputs, in {how}) vs K5 at {tag}: max "
+                      f"abs diff {lib_err:.3e}")
+                del csr, dense
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": "src/repro_torch/csrc/segment_sum.cu",
+                "replaces": "src/repro/kernels/segment/kernel.py:50",
+                "computes": "src/repro/models/transformer.py:541",
+                "form": "gather, bf16 rows", "launches": launches,
+                "max_abs_err": errs[tag],
+                "ms": timer(lambda: segment_sum_sorted(data, seg, n, **kw),
+                            20),
+                # the wrapper's own few launches (its row ranges and work
+                # plan) without the host's cost a call
+                "graph_ms": timer.graphed(
+                    lambda: segment_sum_sorted(data, seg, n, **kw), 20),
+                "plain_ms": timer(lambda: segment_sum_ref(data, seg, n, **kw),
+                                  5),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                "shape": [e, d, n]})
+        for tag, name, r in (("A int8", "flash_attention_int8", ra),
+                             ("B int8", "flash_attention_int8_32k", rb)):
+            ins = caps[tag]
+            q, k, v = ins["q"], ins["k"], ins["v"]
+            kw = {"causal": ins["causal"], "kv_len": ins["kv_len"],
+                  "k_scale": ins["k_scale"], "v_scale": ins["v_scale"]}
+            b, hq, sq, dh = q.shape
+            hkv, sk = k.shape[1], ins["kv_len"]
+            n_bytes = (2 * b * hkv * sk * dh + 2 * b * hkv * sk * 4
+                       + 2 * q.numel() * q.element_size())
+            b_ms, b_by = bound_ms(n_bytes, 4.0 * b * hq * dh * sk,
+                                  BF16_FLOPS_PER_S)
+            kd = dequantize(k[:, :, :sk], ins["k_scale"][:, :, :sk], q.dtype)
+            vd = dequantize(v[:, :, :sk], ins["v_scale"][:, :, :sk], q.dtype)
+
+            def k6_fn():
+                return flash_attention(q, k, v, **kw)
+
+            def lib_fn():
+                return fn.scaled_dot_product_attention(q, kd, vd)
+
+            splits = split_count(b, hq, hkv, sq, sk, n_sm,
+                                 decode_geometry(q.dtype, dh, True)
+                                 ) if on_card else 1
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": "src/repro_torch/csrc/attention.cu",
+                "replaces": "src/repro/kernels/attention/kernel.py:75",
+                "computes": "src/repro/models/transformer.py:601",
+                "kernel": "decode, int8 K/V",
+                "launches": r["out"]["int8"]["launches"][
+                    "flash_attention_int8"],
+                "max_abs_err": errs[tag],
+                "ms": timer(k6_fn, 50), "plain_ms": timer(
+                    lambda: attention_plain(q, k, v, **kw), 10, warmup=1),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": timer(lib_fn, 50), "splits": splits,
+                "graph_ms": timer.graphed(k6_fn, 50),
+                "library_graph_ms": timer.graphed(lib_fn, 50),
+                "shape": [b, hq, sq, sk, dh], "dtype": str(q.dtype)[6:]})
+            del kd, vd
+    summary = "; ".join(
+        f"request {n}: {r['b']} x {r['s']} prefill {r['prefill_s']:.3f} s "
+        f"(warm {r['warm_prefill_s']:.3f} s), "
+        f"{r['out']['bf16']['step_ms']:.3f} ms a decode step on the bf16 "
+        f"cache ({r['b'] * 1e3 / r['out']['bf16']['step_ms']:.1f} tok/s), "
+        f"{r['out']['int8']['step_ms']:.3f} ms on the int8 cache, int8 vs "
+        f"bf16 {r['dist']:.3e}, peak {r['peak_gb']:.3f} GB"
+        for n, r in served.items())
+    del caps, served, model, prefill, decode
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- (c) granite-moe-1b-a400m, float32, kernels against plain -------
+    gspec = get_arch(MOE_CHECK_ARCH)
+    gcfg = lm_shrink(gspec.model_cfg) if args.lm_reduced else gspec.model_cfg
+    gcfg = dataclasses.replace(gcfg, dtype=torch.float32)
+    t0 = time.perf_counter()
+    g = transformer.init_params(gcfg, seed=args.seed, device=dev)
+    b, s, n = 8, requests["A"][2], 8
+    tokens = lm_token_batch(0, b, s + n, gcfg.vocab, seed=args.seed)["tokens"]
+    routes = []
+    route = transformer._route
+
+    def recording(router, xf, moe):
+        probs, gate_w, gate_i = route(router, xf, moe)
+        routes[-1].append((probs, gate_i))
+        return probs, gate_w, gate_i
+
+    def teacher_forced(attention, combine):
+        out = {}
+        cache, lg = transformer.prefill_step(
+            g, tokens[:, :s], max_seq=s + n, attention=attention,
+            combine=combine)
+        for kind, c in (("float", cache),
+                        ("int8", transformer.quantize_cache(cache))):
+            c = {k: (v.clone() if torch.is_tensor(v) else v)
+                 for k, v in c.items()}
+            lgs = [lg]
+            for i in range(n):
+                lgi, c = transformer.decode_step(
+                    g, c, tokens[:, s + i], attention=attention,
+                    combine=combine)
+                lgs.append(lgi)
+            out[kind] = torch.stack(lgs)
+        return out
+
+    transformer._route = recording
+    try:
+        with torch.inference_mode():
+            routes.append([])
+            got = teacher_forced(flash_attention, segment_sum_sorted)
+            routes.append([])
+            plain = teacher_forced(attention_plain, segment_sum_ref)
+    finally:
+        transformer._route = route
+    sync()
+    differ, shown = 0, []
+    for call, ((pk, ik), (pp, ip)) in enumerate(zip(*routes)):
+        bad = (ik.sort(-1).values != ip.sort(-1).values).any(-1)
+        if bool(bad.any()):
+            top = pp.topk(gcfg.moe.top_k + 1, dim=-1).values
+            margin = (top[:, -2] - top[:, -1])[bad]
+            differ += int(bad.sum())
+            shown += [(call, int(t), float(mg)) for t, mg in zip(
+                bad.nonzero()[:, 0][:3].tolist(), margin[:3].tolist())]
+    e_float = rel_l1(got["float"], plain["float"])
+    e_int8 = rel_l1(got["int8"], plain["int8"])
+    finite = bool(got["float"].isfinite().all() and
+                  got["int8"].isfinite().all())
+    print(f"{gcfg.name} in float32 ({sum(p.numel() for p in g.parameters())} "
+          f"parameters): request A's prefill ({b} x {s}) and {n} "
+          f"teacher-forced decode steps, kernels against plain versions: "
+          f"logits {tuple(got['float'].shape)} finite {finite}, relative L1 "
+          f"{e_float:.3e} on the float cache, {e_int8:.3e} on the int8 cache "
+          f"(bound 1e-4); routing compared over {len(routes[0])} dispatches: "
+          f"{differ} (token, dispatch) pairs routed otherwise"
+          + (f", e.g. (dispatch, token, top-k margin) {shown[:6]}"
+             if shown else "") + f"; {time.perf_counter() - t0:.1f} s")
+    if not (finite and e_float <= 1e-4 and e_int8 <= 1e-4):
+        fail(f"{gcfg.name}'s float32 logits with the kernels disagree with "
+             "the plain versions")
+    del g, got, plain, routes
+    if on_card:
+        torch.cuda.empty_cache()
+    return rows, f"MoE ({cfg.name}): {summary}"
 
 
 def simulator_phase(args, torch, dev, timer, g, problem, x_ref):
@@ -2845,8 +3367,10 @@ def main() -> int:
             print(f"{r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} "
                   f"ms by {r['bound_by']}, plain {r['plain_ms']:.4f} ms, "
                   f"library {r['library_ms']}) launches {r['launches']}"
-                  + (f"; by CUDA graph replay {r['graph_ms']:.4f} ms, library "
-                     f"{r['library_graph_ms']:.4f} ms, {r['splits']} split(s)"
+                  + (f"; by CUDA graph replay {r['graph_ms']:.4f} ms"
+                     + (f", library {r['library_graph_ms']:.4f} ms"
+                        if r.get("library_graph_ms") is not None else "")
+                     + (f", {r['splits']} split(s)" if "splits" in r else "")
                      if "graph_ms" in r else "")
                   + (f"; {r['kernel']} body, {r['tb_per_s']:.3f} TB/s"
                      if "tb_per_s" in r else "")
@@ -2880,6 +3404,17 @@ def main() -> int:
     del s_bsr, eng, visits, session, m
     if on_card:
         torch.cuda.empty_cache()
+
+    # ---- 16. MoE serving (after 12, whose model is freed, and after the
+    # engine's and the frontier's pools are: its 30 GB of weights need the
+    # room) --------------------------------------------------------------
+    print("== phase 16: MoE serving")
+    t0 = time.perf_counter()
+    moe_rows, moe_summary = moe_serving(args, torch, dev, timer, sync)
+    print(moe_summary)
+    show(moe_rows)
+    rows += moe_rows
+    print(f"phase 16 wall {time.perf_counter() - t0:.1f} s")
 
     # ---- 15. resilience (before 14, which mutates phase 4's store) --------
     print("== phase 15: resilience")

@@ -23,13 +23,17 @@ worker** (the paper's residual magnitude plays exactly this role in
 slope and sheds load).
 
 The port produces the residual, edge-ops, graph-churn, latency (the
-supervisor's per-request pressure) and queue-depth (the serving
-scheduler's) kinds; the step-time and expert-token producers come with
-the runtime slice that consumes them.
+supervisor's per-request pressure), queue-depth (the serving
+scheduler's) and expert-tokens (:meth:`LoadSignal.from_expert_counts`,
+fed by the MoE model's ``set_expert_load_sink`` tap) kinds; the step-time
+producer and the expert monitor that consumes expert-tokens come with the
+runtime slice.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
+
 import numpy as np
 
 __all__ = ["LoadSignal", "SIGNAL_KINDS"]
@@ -152,3 +156,20 @@ class LoadSignal:
         return cls(values=np.array([pressure]),
                    sizes=np.array([max(int(queue_depth), 0)]),
                    kind="queue-depth", step=step)
+
+    @classmethod
+    def from_expert_counts(cls, token_counts: np.ndarray,
+                           shards_per_expert: Optional[np.ndarray] = None,
+                           step: int = 0) -> "LoadSignal":
+        """Per-expert routed-token counts (a hot expert is a hot Ω_k).
+
+        Counts are normalized to routing fractions (see
+        :meth:`from_step_times` in the reference for why).
+        """
+        token_counts = np.maximum(
+            np.asarray(token_counts, np.float64), 1e-12)
+        return cls(values=token_counts / token_counts.sum(),
+                   sizes=(shards_per_expert if shards_per_expert is not None
+                          else np.ones(token_counts.shape[0],
+                                       dtype=np.int64)),
+                   kind="expert-tokens", step=step)

@@ -11,7 +11,11 @@ Layout::
 
 Flattening follows the reference's tree order: dict keys sorted, lists
 and tuples in order, ``None`` holds no leaf.  Tensors are written through
-``.detach().cpu().numpy()``.
+``.detach().cpu().numpy()``, except bfloat16 ones, which numpy has no
+type for: their raw 16 bits are written as the reference writes a
+bfloat16 leaf, an ``.npy`` whose descr is ``<V2``, and read back bit for
+bit into a bfloat16 tensor (a ``V2`` file holds bfloat16 bits here, the
+reference's or the port's; ``ml_dtypes`` is not needed).
 
 Atomicity: write into ``step_X.tmp`` then ``os.replace`` to ``step_X``; a
 crash mid-write leaves only a tmp dir that restore ignores and the next
@@ -81,10 +85,40 @@ def _unflatten(tree_like: Any, leaves: List[Any]) -> Any:
     return build(tree_like)
 
 
+# the descr of a bfloat16 leaf in the reference's files (ml_dtypes'
+# bfloat16 has no numpy type code: numpy writes it as 2-byte void)
+_BF16_DESCR = "<V2"
+
+
 def _to_host(leaf: Any) -> np.ndarray:
     if torch.is_tensor(leaf):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:  # its bits, as 2-byte void
+            return leaf.view(torch.int16).numpy().view("V2")
+        return leaf.numpy()
     return np.asarray(leaf)
+
+
+def _save_npy(path: str, arr: np.ndarray) -> None:
+    if arr.dtype != np.dtype("V2"):
+        np.save(path, arr)
+        return
+    # np.save would write descr "|V2": write the reference's "<V2" header
+    arr = np.ascontiguousarray(arr)
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": _BF16_DESCR, "fortran_order": False,
+                "shape": arr.shape})
+        f.write(arr.tobytes())
+
+
+def _from_host(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    if arr.dtype == np.dtype("V2"):  # bfloat16 bits
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16))
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.as_tensor(arr)
+    return t.to(device=like.device, dtype=like.dtype)
 
 
 def _map_leaves(fn: Callable[[Any], Any], tree: Any) -> Any:
@@ -104,7 +138,7 @@ def save_checkpoint(root: str, step: int, tree: Any,
     paths = []
     for i, leaf in enumerate(leaves):
         p = f"arr_{i:05d}.npy"
-        np.save(os.path.join(tmp, p), _to_host(leaf))
+        _save_npy(os.path.join(tmp, p), _to_host(leaf))
         paths.append(p)
     manifest = {
         "step": step,
@@ -152,8 +186,8 @@ def latest_step(root: str) -> Optional[int]:
 def load_checkpoint(root: str, tree_like: Any,
                     step: Optional[int] = None) -> Tuple[Any, int, Dict]:
     """Restore into the structure of ``tree_like``: a tensor leaf comes
-    back as a tensor of its dtype on its device, any other leaf as the
-    stored numpy array."""
+    back as a tensor of its dtype on its device (a stored bfloat16 leaf
+    bit for bit), any other leaf as the stored numpy array."""
     if step is None:
         step = latest_step(root)
         if step is None:
@@ -168,10 +202,8 @@ def load_checkpoint(root: str, tree_like: Any,
     new_leaves = []
     for leaf, p in zip(leaves_like, manifest["leaves"]):
         arr = np.load(os.path.join(d, p))
-        if torch.is_tensor(leaf):
-            arr = torch.as_tensor(arr).to(device=leaf.device,
-                                          dtype=leaf.dtype)
-        new_leaves.append(arr)
+        new_leaves.append(_from_host(arr, leaf) if torch.is_tensor(leaf)
+                          else arr)
     return (
         _unflatten(tree_like, new_leaves),
         step,

@@ -4,6 +4,9 @@
 * ``gin_tu``       — GIN at the shared GNN shapes (``gnn_common.SHAPE_DIMS``).
 * ``qwen1_5_0_5b`` — the dense LM qwen1.5-0.5b and its serving cells
   (``common.lm_cells``); ``smoke.lm_shrink`` reduces it for the CPU.
+* ``qwen2_moe_a2_7b``, ``granite_moe_1b_a400m`` — the MoE LMs (60 routed
+  experts top-4 + 4 shared, padded to 64; 32 experts top-8) and their
+  serving cells.
 
 ``get_arch(arch_id)`` -> ArchSpec for the ids in ``ARCH_IDS``.
 """
@@ -13,7 +16,9 @@ import importlib
 
 from .common import ArchSpec
 
-_MODULES = {"qwen1.5-0.5b": "qwen1_5_0_5b", "fm": "fm"}
+_MODULES = {"qwen1.5-0.5b": "qwen1_5_0_5b",
+            "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+            "granite-moe-1b-a400m": "granite_moe_1b_a400m", "fm": "fm"}
 
 ARCH_IDS = list(_MODULES)
 

@@ -3,8 +3,9 @@
 :func:`lm_shrink` narrows an LM config the way the reference's
 ``configs.smoke._lm_shrink`` does (2 layers, d=64, heads / 8, Dh 16,
 vocab 128, float32; the training knobs wait with training): the GQA
-ratio and the QKV bias survive, so the reduced model runs the same code
-paths as the published one.
+ratio and the QKV bias survive, and a MoE stays a MoE with its shared
+experts (at most 8 experts, top 2, ``d_ff_expert`` 16, padded to 8), so
+the reduced model runs the same code paths as the published one.
 """
 from __future__ import annotations
 
@@ -16,6 +17,11 @@ __all__ = ["lm_shrink"]
 
 
 def lm_shrink(cfg):
+    moe = cfg.moe
+    if moe is not None:
+        moe = dataclasses.replace(
+            moe, n_experts=min(moe.n_experts, 8), top_k=min(moe.top_k, 2),
+            d_ff_expert=16, pad_experts_to=8)
     return dataclasses.replace(
         cfg,
         n_layers=2,
@@ -25,5 +31,6 @@ def lm_shrink(cfg):
         d_head=16,
         d_ff=96,
         vocab=128,
+        moe=moe,
         dtype=torch.float32,
     )

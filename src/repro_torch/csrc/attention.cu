@@ -62,6 +62,22 @@
 // so the caller pads nothing.  The GQA head map h / group is in the K/V
 // offsets: no KV copy.  Keys are visited in one fixed order and every sum
 // runs in a fixed order, so a relaunch is bit-identical.
+//
+// The int8 decode form (flash_attention_int8) is the decode kernel over the
+// reference's int8 KV cache: k and v int8, with one float32 scale a (batch
+// row, token, kv head) for each.  It replaces the reference's dequantise-
+// then-attend (src/repro/models/transformer.py:601-611), which makes a
+// float copy of the whole cache; here each lane's ring holds the int8
+// pieces it reads (8 bytes a lane with bf16 q, 4 with float32: the lane map
+// of the T form, so the same lanes score the same columns), and the two
+// scales of each of its warp's 16 keys ride in the same ring stage (copied
+// by the key's first lane, read by all of them after a __syncwarp).  Each
+// element is dequantised as it is read from shared memory, as the
+// reference does (k . k_scale in float32, rounded to q's dtype), so the
+// result is the bits of the T form over a dequantised copy of the cache.
+// Its bound is half the bf16 cache's bytes: 68.2 MB of int8 and 2.1 MB of
+// scales a layer at 8 x 2,080 keys of qwen2-moe-a2.7b (Dh 128, 16 kv
+// heads), 0.021 ms at 3.35 TB/s; 134.3 + 4.2 MB at 1 x 32,784, 0.041 ms.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -132,6 +148,20 @@ __device__ __forceinline__ void load16(const T* src, float* dst) {
 template <typename T>
 __device__ __forceinline__ void lds16(const T* src, float* dst) {
   unpack16(*reinterpret_cast<const typename Vec16<T>::type*>(src), dst);
+}
+
+// 8 or 4 int8 from shared memory -> float dst[N]
+template <int N>
+__device__ __forceinline__ void lds_i8(const int8_t* src, float* dst) {
+  static_assert(N == 4 || N == 8, "a lane's int8 piece is 4 or 8 bytes");
+#pragma unroll
+  for (int h = 0; h < N / 4; ++h) {
+    const char4 c = reinterpret_cast<const char4*>(src)[h];
+    dst[4 * h] = c.x;
+    dst[4 * h + 1] = c.y;
+    dst[4 * h + 2] = c.z;
+    dst[4 * h + 3] = c.w;
+  }
 }
 
 // 4 floats at dst (16-byte aligned)
@@ -381,6 +411,19 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) 
   const uint32_t saddr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr),
                "l"(src), "r"(ok ? 16 : 0));
+}
+
+// The same for BYTES of 16, 8 or 4 (through L1 below 16: cp.async.cg takes
+// 16 bytes only).
+template <int BYTES>
+__device__ __forceinline__ void cp_async_n(void* dst, const void* src, bool ok) {
+  if constexpr (BYTES == 16) {
+    cp_async16(dst, src, ok);
+  } else {
+    const uint32_t saddr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(saddr), "l"(src),
+                 "n"(BYTES), "r"(ok ? BYTES : 0));
+  }
 }
 
 // Starts the copy of rows [row0, row0 + ROWS) of a bf16 [rows, DH] operand
@@ -1139,18 +1182,23 @@ int launch_prefill_wgmma(const void* q, const void* k, const void* v, void* o, i
 // row spans LPK lanes, KPP keys are scored per pass, and lane (ks, dc) scores
 // keys ks, ks + KPP, ... of its warp's 16.  It also fetches exactly the K and
 // V pieces it reads, so each lane's ring is its own: no barrier in the walk.
+// KV is the cache's element type: T, or int8_t for the int8 form, whose
+// stage also holds its 16 keys' k and v scales (a warp barrier a tile).
 constexpr int kWarpKeys = 16;  // a warp's keys of each tile
 constexpr int kDecMaxSq = 64;  // the decode kernel takes Sq <= 64
 constexpr int kDecRows = 4;    // query rows per CTA when more than 1
 
-template <typename T, int DH>
+template <typename T, int DH, typename KV = T>
 struct Dec {
+  static constexpr bool kInt8 = std::is_same<KV, int8_t>::value;
   static constexpr int kEpl = 16 / (int)sizeof(T);     // elements per lane slice
   static constexpr int kLpk = DH / kEpl;               // lanes per key row
   static constexpr int kKpp = 32 / kLpk;               // keys per pass
   static constexpr int kPasses = kWarpKeys / kKpp;     // passes per tile
-  static constexpr int kStage = 2 * kWarpKeys * DH;    // one warp's K and V, elements
-  static constexpr int kStageBytes = kStage * (int)sizeof(T);
+  static constexpr int kKV = 2 * kWarpKeys * DH;       // one warp's K and V, elements
+  // ... then, int8, their k and v scales (float32, 16 each): elements of KV
+  static constexpr int kStage = kKV + (kInt8 ? 2 * kWarpKeys * 4 : 0);
+  static constexpr int kStageBytes = kStage * (int)sizeof(KV);
   // about 16 KB of ring per warp: 4 stages of 4 KB at Dh 64 in bf16 (8 and
   // 12 KB measured within 2 % of it, one CTA an SM)
   static constexpr int kStages =
@@ -1162,21 +1210,24 @@ struct Dec {
   static_assert(kLpk <= 32 && 32 % kLpk == 0 && kWarpKeys % kKpp == 0, "lane map");
 };
 
-template <typename T, int DH, int ROWS>
+template <typename T, int DH, int ROWS, typename KV = T>
 constexpr int dec_smem_bytes() {  // the warps' rings, then their (m, l, acc)
-  using D = Dec<T, DH>;
+  using D = Dec<T, DH, KV>;
   return D::kWarps * D::kStages * D::kStageBytes +
          D::kWarps * ROWS * (DH + 2) * (int)sizeof(float);
 }
 
-template <typename T, int DH, int ROWS>
-__global__ void __launch_bounds__(Dec<T, DH>::kThreads)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ o, Strides sq, Strides sk,
+// ksc / vsc (the int8 form's scales, null otherwise) are addressed through
+// sks / svs: (b, h, s) element strides of [B, Hkv, Sk] views.
+template <typename T, int DH, int ROWS, typename KV = T>
+__global__ void __launch_bounds__(Dec<T, DH, KV>::kThreads)
+flash_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k,
+                    const KV* __restrict__ v, T* __restrict__ o, Strides sq, Strides sk,
                     Strides sv, Strides so, int hkv, int group, int seq_q, int seq_k,
                     int kv_len, int causal, float scale, int n_split, int n_chunks,
-                    float* __restrict__ part) {
-  using D = Dec<T, DH>;
+                    float* __restrict__ part, const float* __restrict__ ksc,
+                    const float* __restrict__ vsc, Strides sks, Strides svs) {
+  using D = Dec<T, DH, KV>;
   constexpr int EPL = D::kEpl, LPK = D::kLpk, KPP = D::kKpp, NP = D::kPasses;
   constexpr int NS = D::kStages, W = D::kWarps, TILE = D::kTile;
   constexpr int NC = (DH + 31) / 32;  // head-dim columns per lane in the combine
@@ -1185,8 +1236,9 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lane = threadIdx.x & 31;
   const int ks = lane / LPK;          // this lane's first key of a warp tile
   const int dc = (lane % LPK) * EPL;  // its first head-dim column
-  T* ring = reinterpret_cast<T*>(smem_dec) + warp * NS * D::kStage + ks * DH + dc;
-  float* sm_m = reinterpret_cast<float*>(reinterpret_cast<T*>(smem_dec) +
+  KV* const stages = reinterpret_cast<KV*>(smem_dec) + warp * NS * D::kStage;
+  KV* ring = stages + ks * DH + dc;
+  float* sm_m = reinterpret_cast<float*>(reinterpret_cast<KV*>(smem_dec) +
                                          W * NS * D::kStage);
   float* sm_l = sm_m + W * ROWS;
   float* sm_acc = sm_l + W * ROWS;
@@ -1225,23 +1277,36 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int per_split = (n_tiles + n_split - 1) / n_split;
   const int t_begin = min(n_tiles, split * per_split);
   const int t_end = min(n_tiles, t_begin + per_split);
-  const T* kp = k + b * sk.b + (int64_t)kvh * sk.h + dc;  // this lane's column
-  const T* vp = v + b * sv.b + (int64_t)kvh * sv.h + dc;
+  const KV* kp = k + b * sk.b + (int64_t)kvh * sk.h + dc;  // this lane's column
+  const KV* vp = v + b * sv.b + (int64_t)kvh * sv.h + dc;
+  const float* kscp = D::kInt8 ? ksc + b * sks.b + (int64_t)kvh * sks.h : nullptr;
+  const float* vscp = D::kInt8 ? vsc + b * svs.b + (int64_t)kvh * svs.h : nullptr;
 
   // this lane's pieces of tile t (keys ks + KPP.p of the warp's 16, K and V)
   // into stage (t - t_begin) % NS; keys at or past kv_lim are zero-filled
-  // without a read
+  // without a read.  int8: a key's first lane also copies its two scales
+  // to the stage's scale slots.
   auto fetch = [&](int t) {
-    T* dst = ring + ((t - t_begin) % NS) * D::kStage;
+    KV* dst = ring + ((t - t_begin) % NS) * D::kStage;
     const int key = t * TILE + warp * kWarpKeys + ks;
-    const T* kg = kp + (int64_t)key * sk.s;
-    const T* vg = vp + (int64_t)key * sv.s;
+    const KV* kg = kp + (int64_t)key * sk.s;
+    const KV* vg = vp + (int64_t)key * sv.s;
 #pragma unroll
     for (int p = 0; p < NP; ++p) {
       const bool ok = key + p * KPP < kv_lim;
-      cp_async16(dst + p * KPP * DH, ok ? kg + (int64_t)(p * KPP) * sk.s : kp, ok);
-      cp_async16(dst + (kWarpKeys + p * KPP) * DH, ok ? vg + (int64_t)(p * KPP) * sv.s : vp,
-                 ok);
+      constexpr int kBytes = EPL * (int)sizeof(KV);
+      cp_async_n<kBytes>(dst + p * KPP * DH, ok ? kg + (int64_t)(p * KPP) * sk.s : kp, ok);
+      cp_async_n<kBytes>(dst + (kWarpKeys + p * KPP) * DH,
+                         ok ? vg + (int64_t)(p * KPP) * sv.s : vp, ok);
+      if constexpr (D::kInt8) {
+        if (dc == 0) {
+          float* sc = reinterpret_cast<float*>(stages + ((t - t_begin) % NS) * D::kStage +
+                                               D::kKV);
+          const int64_t kj = key + p * KPP;
+          cp_async_n<4>(sc + ks + p * KPP, ok ? kscp + kj * sks.s : kscp, ok);
+          cp_async_n<4>(sc + kWarpKeys + ks + p * KPP, ok ? vscp + kj * svs.s : vscp, ok);
+        }
+      }
     }
   };
 
@@ -1261,19 +1326,31 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   for (int t = t_begin; t < t_end; ++t) {
     cp_async_wait<NS - 2>();  // this lane's pieces of tile t have landed
+    // int8: the scales other lanes copied have landed too, and every lane
+    // is done with tile t - 1's stage before it is refilled
+    if constexpr (D::kInt8) __syncwarp();
     // refill the stage this lane read tile t - 1 from; the last groups are
     // empty, which keeps the wait above uniform
     if (t + NS - 1 < t_end) fetch(t + NS - 1);
     cp_async_commit();
-    const T* sK = ring + ((t - t_begin) % NS) * D::kStage;
-    const T* sV = sK + kWarpKeys * DH;
+    const KV* sK = ring + ((t - t_begin) % NS) * D::kStage;
+    const KV* sV = sK + kWarpKeys * DH;
+    const float* sS = reinterpret_cast<const float*>(stages + ((t - t_begin) % NS) * D::kStage +
+                                                     D::kKV);
     const int key0 = t * TILE + warp * kWarpKeys + ks;  // this lane's key, pass 0
 
     float s[ROWS][NP];
 #pragma unroll
     for (int p = 0; p < NP; ++p) {
       float kf[EPL];
-      lds16(sK + p * KPP * DH, kf);
+      if constexpr (D::kInt8) {
+        lds_i8<EPL>(sK + p * KPP * DH, kf);
+        const float sc = sS[ks + p * KPP];
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) kf[e] = round_to(__fmul_rn(kf[e], sc), T());
+      } else {
+        lds16(sK + p * KPP * DH, kf);
+      }
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
         float d = 0.0f;
@@ -1318,7 +1395,14 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int p = 0; p < NP; ++p) {
       float vf[EPL];
-      lds16(sV + p * KPP * DH, vf);
+      if constexpr (D::kInt8) {
+        lds_i8<EPL>(sV + p * KPP * DH, vf);
+        const float sc = sS[kWarpKeys + ks + p * KPP];
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) vf[e] = round_to(__fmul_rn(vf[e], sc), T());
+      } else {
+        lds16(sV + p * KPP * DH, vf);
+      }
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
         const float pr = round_to(s[r][p], T());  // p in v's dtype
@@ -1446,13 +1530,16 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DH, int ROWS>
+// st: the 12 strides of q, k, v, o, then (the int8 form) the 6 of the
+// scales ksc, vsc
+template <typename T, int DH, int ROWS, typename KV = T>
 int launch_decode(const void* q, const void* k, const void* v, void* o, int batch,
                   int hkv, int group, int seq_q, int seq_k, int kv_len, int causal,
                   float scale, const int64_t* st, int n_split, float* part,
-                  cudaStream_t stream) {
-  const int smem = dec_smem_bytes<T, DH, ROWS>();
-  auto kern = flash_decode_kernel<T, DH, ROWS>;
+                  cudaStream_t stream, const void* ksc = nullptr, const void* vsc = nullptr) {
+  constexpr bool int8 = std::is_same<KV, int8_t>::value;
+  const int smem = dec_smem_bytes<T, DH, ROWS, KV>();
+  auto kern = flash_decode_kernel<T, DH, ROWS, KV>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -1466,12 +1553,30 @@ int launch_decode(const void* q, const void* k, const void* v, void* o, int batc
                           units * sizeof(unsigned), stream);
     if (err != cudaSuccess) return err;
   }
-  kern<<<(unsigned)blocks, Dec<T, DH>::kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, Strides{st[0], st[1], st[2]},
+  kern<<<(unsigned)blocks, Dec<T, DH, KV>::kThreads, smem, stream>>>(
+      (const T*)q, (const KV*)k, (const KV*)v, (T*)o, Strides{st[0], st[1], st[2]},
       Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]},
       Strides{st[9], st[10], st[11]}, hkv, group, seq_q, seq_k, kv_len, causal, scale,
-      n_split, n_chunks, part);
+      n_split, n_chunks, part, (const float*)ksc, (const float*)vsc,
+      int8 ? Strides{st[12], st[13], st[14]} : Strides{0, 0, 0},
+      int8 ? Strides{st[15], st[16], st[17]} : Strides{0, 0, 0});
   return cudaGetLastError();
+}
+
+// The int8 form at head dim DH: decode only (seq_q <= kDecMaxSq)
+template <typename T, int DH>
+int launch_int8(const void* q, const void* k, const void* v, const void* ksc,
+                const void* vsc, void* o, int batch, int hq, int hkv, int seq_q, int seq_k,
+                int kv_len, int causal, float scale, const int64_t* st, int n_split,
+                float* part, cudaStream_t stream) {
+  const int group = hq / hkv;
+  if (seq_q * group == 1)
+    return launch_decode<T, DH, 1, int8_t>(q, k, v, o, batch, hkv, group, seq_q, seq_k,
+                                           kv_len, causal, scale, st, n_split, part, stream,
+                                           ksc, vsc);
+  return launch_decode<T, DH, kDecRows, int8_t>(q, k, v, o, batch, hkv, group, seq_q, seq_k,
+                                                kv_len, causal, scale, st, n_split, part,
+                                                stream, ksc, vsc);
 }
 
 template <typename T, int DH>
@@ -1543,12 +1648,35 @@ int dispatch_dh(int dh, const void* q, const void* k, const void* v, void* o, in
 }
 
 template <typename T>
+int dispatch_int8(int dh, const void* q, const void* k, const void* v, const void* ksc,
+                  const void* vsc, void* o, int batch, int hq, int hkv, int seq_q, int seq_k,
+                  int kv_len, int causal, float scale, const int64_t* st, int n_split,
+                  float* part, cudaStream_t stream) {
+  switch (dh) {
+    case 16:
+      return launch_int8<T, 16>(q, k, v, ksc, vsc, o, batch, hq, hkv, seq_q, seq_k, kv_len,
+                                causal, scale, st, n_split, part, stream);
+    case 32:
+      return launch_int8<T, 32>(q, k, v, ksc, vsc, o, batch, hq, hkv, seq_q, seq_k, kv_len,
+                                causal, scale, st, n_split, part, stream);
+    case 64:
+      return launch_int8<T, 64>(q, k, v, ksc, vsc, o, batch, hq, hkv, seq_q, seq_k, kv_len,
+                                causal, scale, st, n_split, part, stream);
+    case 128:
+      return launch_int8<T, 128>(q, k, v, ksc, vsc, o, batch, hq, hkv, seq_q, seq_k, kv_len,
+                                 causal, scale, st, n_split, part, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, typename KV = T>
 int dec_tile(int dh, int* tile) {
   switch (dh) {
-    case 16: *tile = Dec<T, 16>::kTile; return cudaSuccess;
-    case 32: *tile = Dec<T, 32>::kTile; return cudaSuccess;
-    case 64: *tile = Dec<T, 64>::kTile; return cudaSuccess;
-    case 128: *tile = Dec<T, 128>::kTile; return cudaSuccess;
+    case 16: *tile = Dec<T, 16, KV>::kTile; return cudaSuccess;
+    case 32: *tile = Dec<T, 32, KV>::kTile; return cudaSuccess;
+    case 64: *tile = Dec<T, 64, KV>::kTile; return cudaSuccess;
+    case 128: *tile = Dec<T, 128, KV>::kTile; return cudaSuccess;
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1559,17 +1687,22 @@ extern "C" {
 
 const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// The decode kernel's geometry for dtype (0 float32, 1 bfloat16) and dh, in
-// out[0..2]: the largest seq_q it takes, the query rows a CTA holds (when a
-// kv head serves more than one; with one, its CTA holds that one, in the
-// same number of chunks) and the keys of a tile.  The wrapper's split policy
-// and its sizing of `part` read them.
+// The decode kernel's geometry for dtype (0 float32, 1 bfloat16; 2 and 3:
+// the same q over an int8 K/V cache, the int8 form) and dh, in out[0..2]:
+// the largest seq_q it takes, the query rows a CTA holds (when a kv head
+// serves more than one; with one, its CTA holds that one, in the same
+// number of chunks) and the keys of a tile.  The wrapper's split policy and
+// its sizing of `part` read them.
 int flash_decode_geometry(int dtype, int dh, int* out) {
   out[0] = kDecMaxSq;
   out[1] = kDecRows;
-  if (dtype == 0) return dec_tile<float>(dh, out + 2);
-  if (dtype == 1) return dec_tile<__nv_bfloat16>(dh, out + 2);
-  return cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: return dec_tile<float>(dh, out + 2);
+    case 1: return dec_tile<__nv_bfloat16>(dh, out + 2);
+    case 2: return dec_tile<float, int8_t>(dh, out + 2);
+    case 3: return dec_tile<__nv_bfloat16, int8_t>(dh, out + 2);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // The kernel that runs a prefill (seq_q > 64) of dtype (0 float32, 1
@@ -1607,6 +1740,32 @@ int flash_attention(const void* q, const void* k, const void* v, void* o, int dt
     return dispatch_dh<__nv_bfloat16>(dh, q, k, v, o, batch, hq, hkv, seq_q, seq_k,
                                       kv_len, causal, scale, strides, n_split,
                                       (float*)part, (cudaStream_t)stream);
+  return cudaErrorInvalidValue;
+}
+
+// The int8 decode form: q and o of dtype (0 float32, 1 bfloat16), k and v
+// int8, ksc and vsc their float32 scales, one a (batch row, kv head, key).
+// strides: 18 element strides, (b, h, s) of q, k, v, o, ksc and vsc in that
+// order (the scales' any multiple of 1; the rest as flash_attention's, in
+// elements of their own types); seq_q <= 64; n_split and part as
+// flash_attention's decode (geometry from flash_decode_geometry(dtype + 2)).
+int flash_attention_int8(const void* q, const void* k, const void* v, const void* ksc,
+                         const void* vsc, void* o, int dtype, int dh, int batch, int hq,
+                         int hkv, int seq_q, int seq_k, int kv_len, int causal, float scale,
+                         const int64_t* strides, int n_split, void* part, void* stream) {
+  if (batch == 0 || hq == 0 || seq_q == 0) return cudaSuccess;
+  if (hkv <= 0 || hq % hkv != 0 || kv_len < 1 || seq_k < 1 || n_split < 1 ||
+      seq_q > kDecMaxSq || (n_split > 1 && part == nullptr) || ksc == nullptr ||
+      vsc == nullptr)
+    return cudaErrorInvalidValue;
+  if (dtype == 0)
+    return dispatch_int8<float>(dh, q, k, v, ksc, vsc, o, batch, hq, hkv, seq_q, seq_k,
+                                kv_len, causal, scale, strides, n_split, (float*)part,
+                                (cudaStream_t)stream);
+  if (dtype == 1)
+    return dispatch_int8<__nv_bfloat16>(dh, q, k, v, ksc, vsc, o, batch, hq, hkv, seq_q,
+                                        seq_k, kv_len, causal, scale, strides, n_split,
+                                        (float*)part, (cudaStream_t)stream);
   return cudaErrorInvalidValue;
 }
 

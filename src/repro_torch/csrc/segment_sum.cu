@@ -7,6 +7,11 @@
 // where r(e) = e (the contiguous form) or rows[e] (the gather form: with
 // rows = a graph's sources and data = the node states it is one GIN
 // aggregation, h[src] never made), and w is optional (absent: 1).
+// segment_sum_bf16, the bf16-row form, takes data in bfloat16 (the MoE
+// combine: rows = e * cap + pos into the experts' outputs [E_pad * cap, D],
+// seg = the token, w = the gate weight), reads each row as it is, 16 bytes
+// a lane, and converts it to float32 as it adds it; weights, sums and out
+// stay float32, in the same fixed order.
 // Segments that receive no row are 0; rows whose id lies outside [0, n)
 // contribute nothing (the 2**30 sentinel of padded edges); a rows[e]
 // outside [0, n_data) reads as a zero row.  The product is rounded before
@@ -24,6 +29,10 @@
 // contiguous form reads 15.8 GB, about 5 ms at 3.35 TB/s; the gather form
 // reads the same 15.8 GB of rows from the 0.63 GB node table, as much of
 // it from L2 as the sources repeat.
+//
+// For the MoE combine of qwen2-moe-a2.7b at 8 x 2048 tokens (65,536 rows of
+// D = 2,048 in bf16, 16,384 tokens out in float32) that is 0.40 GB, about
+// 0.12 ms a layer.
 //
 // What the design does about it:
 // * Edge-balanced work.  A CTA takes a fixed chunk of kChunk sorted rows,
@@ -55,6 +64,7 @@
 // kChunk and kStages are what tools/k5_probe.py found fastest at GIN's
 // ogb_products layer (the gather form runs best at four CTAs an SM); the
 // probe builds this file with other values to time them.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -73,12 +83,35 @@ struct alignas(4 * VEC) Vec {
   float v[VEC];
 };
 
+// VEC elements of a row as they lie in memory (float or bfloat16): a lane's
+// ring slot
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) Raw {
+  T v[VEC];
+};
+
+template <int VEC>
+__device__ __forceinline__ Vec<VEC> to_float(const Raw<float, VEC>& x) {
+  Vec<VEC> y;
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) y.v[i] = x.v[i];
+  return y;
+}
+
+template <int VEC>
+__device__ __forceinline__ Vec<VEC> to_float(const Raw<__nv_bfloat16, VEC>& x) {
+  Vec<VEC> y;
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) y.v[i] = __bfloat162float(x.v[i]);
+  return y;
+}
+
 struct Args {
   const int64_t* ptr;  // [n + 1] row ranges of the sorted ids
   const int* plan;     // [n_chunks + 1] segment of each chunk's first row
   const int* seg;      // [E] sorted ids
   const void* rows;    // [E] int32 / int64 row of data, or null
-  const float* data;   // [n_data, d]
+  const void* data;    // [n_data, d] float or bfloat16
   const float* w;      // [E] or null
   float* out;          // [n, d]
   float* carry;        // [n_chunks, d]
@@ -179,21 +212,26 @@ __device__ void emit(const Args& a, int s, const Vec<VEC>& v, bool last, int64_t
 
 // Shared memory of a CTA: the chunk's ids, weights and row indices (one
 // table, read by every lane), then the rows' ring, per thread and
-// slot-major (ring[slot][kThreads]).
+// slot-major (ring[slot][kThreads]); after the walk the walkers' float
+// pieces (two a thread, pieces[p][kThreads]) lie over the ring.
 __host__ __device__ constexpr int table_bytes(bool weighted, bool gather) {
   return kChunk * 4 * (1 + (weighted ? 1 : 0) + (gather ? 1 : 0));
 }
 
-template <int VEC, int IDX>
+template <int VEC, int IDX, typename T>
 __global__ void __launch_bounds__(kThreads) segment_sum_kernel(const Args a) {
   using V = Vec<VEC>;
+  using R = Raw<T, VEC>;
+  static_assert(kStages * kRows * sizeof(T) >= 2 * sizeof(float), "pieces fit the ring");
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int piece_seg[3][kThreads];  // a walker's first / last id, count
   const bool weighted = a.w != nullptr;
   int* t_seg = reinterpret_cast<int*>(smem);
   float* t_w = reinterpret_cast<float*>(t_seg + kChunk);
   int* t_row = reinterpret_cast<int*>(t_seg + kChunk * (weighted ? 2 : 1));
-  V* ring = reinterpret_cast<V*>(smem + table_bytes(weighted, IDX != 0));
+  R* ring = reinterpret_cast<R*>(smem + table_bytes(weighted, IDX != 0));
+  V* pieces = reinterpret_cast<V*>(ring);
+  const T* data = static_cast<const T*>(a.data);
   const int tid = threadIdx.x;
   const int G = a.lanes, walkers = kThreads / G;
   const int walker = tid / G, lane = tid % G;
@@ -218,6 +256,8 @@ __global__ void __launch_bounds__(kThreads) segment_sum_kernel(const Args a) {
   }
   __syncthreads();
 
+  int cur = kNone, n_closed = 0, head_seg = kNone;
+  V acc = zero<VEC>(), head = zero<VEC>();
   if (active) {
     const int n_steps = (hi - lo + kRows - 1) / kRows;
     auto fetch = [&](int step) {
@@ -227,16 +267,14 @@ __global__ void __launch_bounds__(kThreads) segment_sum_kernel(const Args a) {
         const int i = lo + step * kRows + u;
         if (step < n_steps && i < hi) {
           const int64_t r = IDX == 0 ? r0 + i : t_row[i];
-          cp_async<4 * VEC>(ring + (base + u) * kThreads + tid,
-                            r >= 0 ? a.data + r * a.d + col : a.data, r >= 0);
+          cp_async<sizeof(R)>(ring + (base + u) * kThreads + tid,
+                              r >= 0 ? data + r * a.d + col : data, r >= 0);
         }
       }
       cp_commit();  // an empty group past the end keeps the count uniform
     };
     for (int st = 0; st < kStages - 1; ++st) fetch(st);
 
-    int cur = kNone, n_closed = 0, head_seg = kNone;
-    V acc = zero<VEC>(), head = zero<VEC>();
     for (int k = 0; k < n_steps; ++k) {
       fetch(k + kStages - 1);
       cp_wait<kStages - 1>();  // stage k has landed for this thread
@@ -247,7 +285,7 @@ __global__ void __launch_bounds__(kThreads) segment_sum_kernel(const Args a) {
         if (i >= hi) break;
         const int s = t_seg[i];
         const float wt = weighted ? t_w[i] : 1.0f;
-        const V x = ring[(base + u) * kThreads + tid];
+        const V x = to_float(ring[(base + u) * kThreads + tid]);
         if (s != cur) {
           if (cur != kNone) {
             if (n_closed++ == 0) {
@@ -266,16 +304,22 @@ __global__ void __launch_bounds__(kThreads) segment_sum_kernel(const Args a) {
       }
     }
     cp_wait<0>();
-    // the walker's pieces: values in this thread's own ring slots 0 and 1
+  }
+  // a bf16 ring slot is half a float piece: the pieces lie over other
+  // threads' slots, so all must be done reading them
+  if constexpr (sizeof(T) != sizeof(float)) __syncthreads();
+  if (active) {
+    // the walker's pieces (float rows: in this thread's own ring slots 0
+    // and 1)
     const int count = cur == kNone ? 0 : n_closed == 0 ? 1 : 2;
     piece_seg[2][tid] = count;
     if (count == 1) {
-      ring[tid] = acc;
+      pieces[tid] = acc;
       piece_seg[0][tid] = cur;
     } else if (count == 2) {
-      ring[tid] = head;
+      pieces[tid] = head;
       piece_seg[0][tid] = head_seg;
-      ring[kThreads + tid] = acc;
+      pieces[kThreads + tid] = acc;
       piece_seg[1][tid] = cur;
     }
   }
@@ -290,7 +334,7 @@ __global__ void __launch_bounds__(kThreads) segment_sum_kernel(const Args a) {
     const int count = piece_seg[2][t];
     for (int p = 0; p < count; ++p) {
       const int s = piece_seg[p][t];
-      const V v = ring[p * kThreads + t];
+      const V v = pieces[p * kThreads + t];
       if (s == run) {
         add(racc, v);
         continue;
@@ -328,10 +372,11 @@ __global__ void __launch_bounds__(kThreads) segment_carry_kernel(const Args a,
   combine<VEC>(a, s, begin / kChunk, c, unit * VEC);
 }
 
-template <int VEC, int IDX>
+template <int VEC, int IDX, typename T>
 int launch_main(const Args& a, int64_t n_chunks, int tiles, cudaStream_t stream) {
-  const int smem = table_bytes(a.w != nullptr, IDX != 0) + kStages * kRows * kThreads * 4 * VEC;
-  auto kern = segment_sum_kernel<VEC, IDX>;
+  const int smem = table_bytes(a.w != nullptr, IDX != 0) +
+                   kStages * kRows * kThreads * (int)sizeof(Raw<T, VEC>);
+  auto kern = segment_sum_kernel<VEC, IDX, T>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -339,12 +384,12 @@ int launch_main(const Args& a, int64_t n_chunks, int tiles, cudaStream_t stream)
   return cudaGetLastError();
 }
 
-template <int VEC>
+template <int VEC, typename T = float>
 int by_index(const Args& a, int idx_bytes, int64_t n_chunks, int tiles, cudaStream_t stream) {
   switch (idx_bytes) {
-    case 0: return launch_main<VEC, 0>(a, n_chunks, tiles, stream);
-    case 4: return launch_main<VEC, 4>(a, n_chunks, tiles, stream);
-    case 8: return launch_main<VEC, 8>(a, n_chunks, tiles, stream);
+    case 0: return launch_main<VEC, 0, T>(a, n_chunks, tiles, stream);
+    case 4: return launch_main<VEC, 4, T>(a, n_chunks, tiles, stream);
+    case 8: return launch_main<VEC, 8, T>(a, n_chunks, tiles, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -354,11 +399,11 @@ int make_args(Args& a, const void* ptr, const void* plan, const void* seg, const
               const void* data, const void* w, void* out, void* carry, int64_t n,
               int64_t n_rows, int64_t n_data, int d, int vec, int chunk, int lanes) {
   if (n <= 0 || n >= INT_MAX || d <= 0 || n_rows <= 0 || chunk != kChunk || lanes <= 0 ||
-      lanes > 32 || kThreads % lanes != 0 || (vec != 1 && vec != 2 && vec != 4) ||
+      lanes > 32 || kThreads % lanes != 0 || (vec != 1 && vec != 2 && vec != 4 && vec != 8) ||
       d % vec != 0 || (rows != nullptr && n_data > INT_MAX))
     return cudaErrorInvalidValue;
   a = Args{(const int64_t*)ptr, (const int*)plan, (const int*)seg, rows,
-           (const float*)data,  (const float*)w, (float*)out,     (float*)carry,
+           data,                (const float*)w, (float*)out,     (float*)carry,
            n_rows,              n_data,          (int)n,          d,
            lanes,               d / vec};
   return cudaSuccess;
@@ -374,8 +419,8 @@ const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)
 // plan: [n_chunks + 1] int32, made for chunk rows a chunk (chunk must be
 // kChunk); seg: [n_rows] int32 sorted; rows: [n_rows] of idx_bytes (4 or
 // 8) or null (idx_bytes 0); data: [n_data, d] float32, aligned to 4 * vec
-// bytes; w: [n_rows] float32 or null; out: [n, d]; carry: [n_chunks, d]
-// float32 scratch.  lanes: G, a power of two <= 32; tiles =
+// bytes (vec 1, 2 or 4); w: [n_rows] float32 or null; out: [n, d]; carry:
+// [n_chunks, d] float32 scratch.  lanes: G, a power of two <= 32; tiles =
 // ceil(d / vec / lanes).
 int segment_sum(const void* ptr, const void* plan, const void* seg, const void* rows,
                 int idx_bytes, const void* data, const void* w, void* out, void* carry,
@@ -385,6 +430,7 @@ int segment_sum(const void* ptr, const void* plan, const void* seg, const void* 
   int err = make_args(a, ptr, plan, seg, rows, data, w, out, carry, n, n_rows, n_data, d, vec,
                       chunk, lanes);
   if (err != cudaSuccess) return err;
+  if (vec == 8) return cudaErrorInvalidValue;
   const int64_t n_chunks = (n_rows + kChunk - 1) / kChunk;
   const int tiles = (a.units + lanes - 1) / lanes;
   if (n_chunks > 0x7fffffff || tiles > 65535) return cudaErrorInvalidValue;
@@ -396,8 +442,31 @@ int segment_sum(const void* ptr, const void* plan, const void* seg, const void* 
   }
 }
 
-// The carry pass, after segment_sum when there is more than one chunk, with
-// the same arguments.
+// The bf16-row form: as segment_sum, with data [n_data, d] bfloat16 aligned
+// to 2 * vec bytes (vec 8, 4 or 2: 16, 8 or 4 bytes a lane); w, out and
+// carry float32.
+int segment_sum_bf16(const void* ptr, const void* plan, const void* seg, const void* rows,
+                     int idx_bytes, const void* data, const void* w, void* out, void* carry,
+                     int64_t n, int64_t n_rows, int64_t n_data, int d, int vec, int chunk,
+                     int lanes, void* stream) {
+  Args a;
+  int err = make_args(a, ptr, plan, seg, rows, data, w, out, carry, n, n_rows, n_data, d, vec,
+                      chunk, lanes);
+  if (err != cudaSuccess) return err;
+  if (vec == 1) return cudaErrorInvalidValue;
+  const int64_t n_chunks = (n_rows + kChunk - 1) / kChunk;
+  const int tiles = (a.units + lanes - 1) / lanes;
+  if (n_chunks > 0x7fffffff || tiles > 65535) return cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (vec) {
+    case 8: return by_index<8, __nv_bfloat16>(a, idx_bytes, n_chunks, tiles, st);
+    case 4: return by_index<4, __nv_bfloat16>(a, idx_bytes, n_chunks, tiles, st);
+    default: return by_index<2, __nv_bfloat16>(a, idx_bytes, n_chunks, tiles, st);
+  }
+}
+
+// The carry pass, after segment_sum (or segment_sum_bf16) when there is more
+// than one chunk, with the same arguments.
 int segment_sum_carry(const void* ptr, const void* plan, void* out, void* carry, int64_t n,
                       int64_t n_rows, int d, int vec, int chunk, int lanes, void* stream) {
   Args a;
@@ -409,6 +478,10 @@ int segment_sum_carry(const void* ptr, const void* plan, void* out, void* carry,
   const int64_t blocks = (n_chunks + kThreads / lanes - 1) / (kThreads / lanes);
   cudaStream_t st = (cudaStream_t)stream;
   switch (vec) {
+    case 8:
+      segment_carry_kernel<8><<<dim3((unsigned)blocks, (unsigned)tiles), kThreads, 0, st>>>(
+          a, n_chunks);
+      break;
     case 4:
       segment_carry_kernel<4><<<dim3((unsigned)blocks, (unsigned)tiles), kThreads, 0, st>>>(
           a, n_chunks);

@@ -171,7 +171,9 @@ def lm_params_from_numpy(params: Mapping, cfg: TransformerConfig,
     """The port's transformer holding the reference's ``embed``,
     ``final_norm``, ``lm_head`` and stacked ``layers`` (``ln1``, ``ln2``,
     ``wq``, ``wk``, ``wv``, ``wo``, the QKV biases, ``w1``, ``w3``,
-    ``w2``), cast to ``cfg.dtype``."""
+    ``w2``; a MoE config's ``router``, ``ew1``, ``ew3``, ``ew2``, the
+    padded experts included, and the shared experts' ``sw1``, ``sw3``,
+    ``sw2``), cast to ``cfg.dtype``."""
     model = init_lm(cfg, device=device)
     for name in ("embed", "final_norm", "lm_head"):
         _fill(getattr(model, name), params[name])

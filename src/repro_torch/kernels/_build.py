@@ -41,8 +41,10 @@ LAUNCHES: Dict[str, int] = {
     "edge_sum_lanes": 0,
     "fm_interaction": 0,
     "segment_sum": 0,
+    "segment_sum_bf16": 0,
     "segment_sum_carry": 0,
     "flash_attention": 0,
+    "flash_attention_int8": 0,
     "sim_messages": 0,
     "sim_push": 0,
 }

@@ -25,6 +25,16 @@ at Dh 64 and 128), ``mma_sync`` (bf16 at Dh 16 and 32) or ``fma``
 (float32).  Every route takes strides below 2**40 bytes and extents below
 2**31 (the wgmma route's TMA maps and 32-bit coordinates): the wrapper
 refuses the rest on any device.
+
+With ``k_scale`` / ``v_scale`` (float32 ``[B, Hkv, Sk]``, any strides) k
+and v are an int8 cache with one scale a (row, head, token), the
+reference's int8 KV cache: K6's int8 decode form (``Sq <= 64`` only)
+streams the int8 tiles, half the bytes, and dequantises each element as
+it loads it, as the reference does before it attends (``k · k_scale`` in
+float32, rounded to q's dtype), so its result is the bits of K6's decode
+over a dequantised copy, which is never made.  Its launches count under
+``LAUNCHES["flash_attention_int8"]`` and its splits under
+``SPLITS["flash_attention_int8"]``, not K6's.
 """
 from __future__ import annotations
 
@@ -45,10 +55,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+INT8_KV = 2  # added to q's dtype code for an int8 K/V cache
 CTAS_PER_SM = 1  # one decode CTA per SM (128 KB of cp.async ring at Dh 64)
 MIN_TILES = 4  # tiles a split walks at least: enough to fill its ring
 # split CTAs per (batch row, kv head, row chunk), summed over decode launches
-SPLITS = {"flash_attention": 0}
+SPLITS = {"flash_attention": 0, "flash_attention_int8": 0}
 # prefill launches by the kernel that ran them; csrc/attention.cu's route
 # codes index _ROUTE_NAMES
 ROUTES = {"wgmma": 0, "mma_sync": 0, "fma": 0}
@@ -62,6 +73,9 @@ def _lib() -> ctypes.CDLL:
                                         _I, _I, _I, _I, ctypes.c_float, _P,
                                         _I, _P, _P]
         lib.flash_attention.restype = ctypes.c_int
+        lib.flash_attention_int8.argtypes = [_P] * 6 + [_I] * 9 + [
+            ctypes.c_float, _P, _I, _P, _P]
+        lib.flash_attention_int8.restype = ctypes.c_int
         lib.flash_decode_geometry.argtypes = [_I, _I, _P]
         lib.flash_decode_geometry.restype = ctypes.c_int
         lib.flash_prefill_route.argtypes = [_I, _I, _P]
@@ -69,7 +83,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(q, k, v, kv_len):
+def _check(q, k, v, kv_len, k_scale=None, v_scale=None):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"expected q [B, Hq, Sq, Dh] and k, v [B, Hkv, Sk, "
                          f"Dh], got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -78,9 +92,19 @@ def _check(q, k, v, kv_len):
     if k.shape[0] != b or k.shape[3] != dh or hq % k.shape[1]:
         raise ValueError(f"k / v {tuple(k.shape)} do not fit q "
                          f"{tuple(q.shape)} (batch, Dh, Hq % Hkv == 0)")
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    kv_dtype = q.dtype if k_scale is None else torch.int8
+    if q.dtype not in DTYPES or k.dtype != kv_dtype or v.dtype != kv_dtype:
         raise ValueError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: K6 takes "
-                         "float32 or bfloat16, the same for q, k and v")
+                         "float32 or bfloat16, the same for q, k and v, or "
+                         "int8 k and v with their scales")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale come together")
+    if k_scale is not None:
+        want = tuple(k.shape[:3])
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.dtype != torch.float32 or tuple(t.shape) != want:
+                raise ValueError(f"{name}: expected float32 {want}, got "
+                                 f"{t.dtype} {tuple(t.shape)}")
     if dh not in HEAD_DIMS:
         raise ValueError(f"head dim {dh}: K6 takes {HEAD_DIMS}")
     if kv_len is not None and not 1 <= kv_len <= k.shape[2]:
@@ -112,13 +136,15 @@ def split_count(b: int, hq: int, hkv: int, sq: int, kv_len: int, n_sm: int,
 
 
 @functools.lru_cache(maxsize=None)
-def decode_geometry(dtype: torch.dtype, dh: int) -> tuple:
+def decode_geometry(dtype: torch.dtype, dh: int, int8: bool = False) -> tuple:
     """(largest Sq, query rows a CTA, keys a tile) of K6's decode kernel for
-    ``dtype`` and head dim ``dh``, as ``csrc/attention.cu`` reports them
-    (builds the kernel library)."""
+    q's ``dtype`` and head dim ``dh`` (over an int8 K/V cache with
+    ``int8``), as ``csrc/attention.cu`` reports them (builds the kernel
+    library)."""
     lib = _lib()
     out = (ctypes.c_int * 3)()
-    check(lib, lib.flash_decode_geometry(DTYPES[dtype], dh, out),
+    code = DTYPES[dtype] + (INT8_KV if int8 else 0)
+    check(lib, lib.flash_decode_geometry(code, dh, out),
           "flash_decode_geometry")
     return tuple(out)
 
@@ -154,14 +180,27 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def _scale_strides(t: torch.Tensor, name: str):
+    """(b, h, s) element strides of a float32 ``[B, Hkv, Sk]`` scale view
+    on the card."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} on {t.device}, not the card")
+    return t.stride()
+
+
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            *, causal: bool, kv_len: Optional[int] = None,
-                           out: Optional[torch.Tensor] = None
+                           out: Optional[torch.Tensor] = None,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
-    """K6; returns ``out`` (allocated ``[B, Hq, Sq, Dh]`` when None)."""
-    _check(q, k, v, kv_len)
+    """K6; returns ``out`` (allocated ``[B, Hq, Sq, Dh]`` when None).  With
+    ``k_scale`` / ``v_scale`` its int8 decode form."""
+    _check(q, k, v, kv_len, k_scale, v_scale)
+    int8 = k_scale is not None
     if q.device.type == "cpu":
-        res = attention_plain(q, k, v, causal=causal, kv_len=kv_len)
+        res = attention_plain(q, k, v, causal=causal, kv_len=kv_len,
+                              k_scale=k_scale, v_scale=v_scale)
         return res if out is None else out.copy_(res)
     if q.device.type != "cuda" or k.device != q.device or (
             v.device != q.device):
@@ -175,11 +214,17 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"q {q.dtype} {tuple(q.shape)}")
     b, hq, sq, dh = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    strides = (ctypes.c_int64 * 12)(
-        *_strides(q, "q"), *_strides(k, "k"), *_strides(v, "v"),
-        *_strides(out, "out"))
+    st = [*_strides(q, "q"), *_strides(k, "k"), *_strides(v, "v"),
+          *_strides(out, "out")]
     kv_len = sk if kv_len is None else kv_len
-    geometry = decode_geometry(q.dtype, dh)
+    geometry = decode_geometry(q.dtype, dh, int8)
+    if int8:
+        if sq > geometry[0]:
+            raise ValueError(f"Sq {sq}: K6's int8 form is a decode form "
+                             f"(Sq <= {geometry[0]})")
+        st += [*_scale_strides(k_scale, "k_scale"),
+               *_scale_strides(v_scale, "v_scale")]
+    strides = (ctypes.c_int64 * len(st))(*st)
     n_split = split_count(b, hq, hkv, sq, kv_len, _sm_count(q.device),
                           geometry)
     part = None
@@ -188,11 +233,22 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         part = torch.empty(n_split * b * hq * sq * (dh + 2) + b * hkv * chunks,
                            dtype=torch.float32, device=q.device)
     lib = _lib()
+    part_ptr = None if part is None else part.data_ptr()
+    if int8:
+        err = lib.flash_attention_int8(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), out.data_ptr(), DTYPES[q.dtype], dh, b, hq,
+            hkv, sq, sk, kv_len, int(causal), 1.0 / math.sqrt(dh), strides,
+            n_split, part_ptr, stream_handle(q.device))
+        check(lib, err, "flash_attention_int8")
+        LAUNCHES["flash_attention_int8"] += 1
+        SPLITS["flash_attention_int8"] += n_split
+        return out
     err = lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         DTYPES[q.dtype], dh, b, hq, hkv, sq, sk, kv_len, int(causal),
-        1.0 / math.sqrt(dh), strides, n_split,
-        None if part is None else part.data_ptr(), stream_handle(q.device))
+        1.0 / math.sqrt(dh), strides, n_split, part_ptr,
+        stream_handle(q.device))
     check(lib, err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     if sq <= geometry[0]:

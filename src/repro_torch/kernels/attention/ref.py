@@ -7,7 +7,10 @@ v's dtype before the product; the output in q's dtype) and its masks:
 keys at index ``>= kv_len`` are masked, and ``causal`` keeps the keys
 with ``q_pos >= k_pos``, positions counted from 0 on both sides
 (``q_start`` shifts the queries: ``q`` holds rows ``q_start, q_start +
-1, ...`` of the full query sequence).
+1, ...`` of the full query sequence).  Over an int8 K/V cache (with
+``k_scale`` / ``v_scale``, one float32 scale a (row, head, token)) it
+dequantises first, as the reference's int8 decode step does: ``(k ·
+k_scale)`` in float32, rounded to q's dtype.
 """
 from __future__ import annotations
 
@@ -16,16 +19,28 @@ from typing import Optional
 
 import torch
 
-__all__ = ["attention_plain"]
+__all__ = ["attention_plain", "dequantize"]
 
 NEG_INF = -1.0e30
 
 
+def dequantize(x: torch.Tensor, scale: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """int8 ``x [..., Dh]`` times its float32 ``scale [...]``, in float32,
+    then rounded to ``dtype``."""
+    return (x.float() * scale[..., None]).to(dtype)
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, kv_len: Optional[int] = None,
-                    q_start: int = 0) -> torch.Tensor:
+                    q_start: int = 0, k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q ``[B, Hq, Sq, Dh]``, k / v ``[B, Hkv, Sk, Dh]`` -> ``[B, Hq, Sq,
-    Dh]``; materialises the ``[B, Hq, Sq, Sk]`` float32 scores."""
+    Dh]``; materialises the ``[B, Hq, Sq, Sk]`` float32 scores.  k / v
+    int8 with their scales ``[B, Hkv, Sk]`` are dequantised first."""
+    if k_scale is not None:
+        k, v = dequantize(k, k_scale, q.dtype), dequantize(v, v_scale,
+                                                           q.dtype)
     _, hq, sq, dh = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     group = hq // hkv

@@ -1,10 +1,14 @@
 """Wrapper of the sorted segment-sum kernel K5 (``csrc/segment_sum.cu``).
 
 ``segment_sum_kernel(data, seg_ids, n)[s] = Σ_{e: seg[e] = s} w[e]·data[r(e)]``
-for ids sorted ascending, ``data [*, D]`` float32 and optional per-row
-weights ``w [E]``; ``r(e) = e`` (the contiguous form) or ``rows[e]`` (the
-gather form: ``rows = src`` and ``data = h`` is one GIN aggregation with
-no ``[E, D]`` message buffer).  Segments that receive nothing are 0; ids
+for ids sorted ascending, ``data [*, D]`` float32 or bfloat16 and
+optional per-row float32 weights ``w [E]``; ``r(e) = e`` (the contiguous
+form) or ``rows[e]`` (the gather form: ``rows = src`` and ``data = h`` is
+one GIN aggregation with no ``[E, D]`` message buffer; ``rows = e·cap +
+pos`` into the expert outputs ``[E_pad·cap, D]`` is the MoE combine).
+bfloat16 rows (an even D) run K5's bf16-row form, which reads them as
+they are, 16 bytes a lane, multiplies by the weight and sums in float32:
+the output is float32 either way.  Segments that receive nothing are 0; ids
 outside ``[0, n)`` (the ``2**30`` sentinel of :func:`pad_sorted_edges`)
 contribute nothing.  Replaces
 ``repro.kernels.segment.kernel.segment_sum_tiles`` and the stage-2
@@ -19,7 +23,8 @@ sums of segments that cross a chunk boundary are added in chunk order
 by a second kernel, counted under ``LAUNCHES["segment_sum_carry"]``.
 For CPU tensors the wrapper runs the plain version
 :func:`segment_sum_ref`; for CUDA tensors it launches K5 or raises, and
-adds one to ``LAUNCHES["segment_sum"]`` per launch and to
+adds one to ``LAUNCHES["segment_sum"]`` per launch
+(``LAUNCHES["segment_sum_bf16"]`` for bfloat16 rows) and to
 ``FORMS["gather"]`` or ``FORMS["contiguous"]`` by the form it ran.
 """
 from __future__ import annotations
@@ -70,9 +75,10 @@ def chunk_plan(ptr: torch.Tensor, n_rows: int,
 def _lib() -> ctypes.CDLL:
     lib = library("segment_sum")
     if lib.segment_sum.argtypes is None:
-        lib.segment_sum.argtypes = ([_P] * 4 + [_I] + [_P] * 4
-                                    + [_I64] * 3 + [_I] * 4 + [_P])
-        lib.segment_sum.restype = _I
+        for name in ("segment_sum", "segment_sum_bf16"):
+            getattr(lib, name).argtypes = ([_P] * 4 + [_I] + [_P] * 4
+                                           + [_I64] * 3 + [_I] * 4 + [_P])
+            getattr(lib, name).restype = _I
         lib.segment_sum_carry.argtypes = ([_P] * 4 + [_I64] * 2 + [_I] * 4
                                           + [_P])
         lib.segment_sum_carry.restype = _I
@@ -103,9 +109,9 @@ def segment_sum_kernel(data: torch.Tensor, seg_ids: torch.Tensor,
         return segment_sum_ref(data, seg_ids, n_segments, weights, rows)
     if data.device.type != "cuda":
         raise ValueError(f"no kernel for device {data.device}")
-    if data.dtype != torch.float32 or data.dim() != 2:
-        raise ValueError(f"data: expected float32 [*, D], got {data.dtype} "
-                         f"{tuple(data.shape)}")
+    if data.dtype not in (torch.float32, torch.bfloat16) or data.dim() != 2:
+        raise ValueError(f"data: expected float32 or bfloat16 [*, D], got "
+                         f"{data.dtype} {tuple(data.shape)}")
     dev = data.device
     n_data, d = data.shape
     e = seg_ids.shape[0] if seg_ids.dim() == 1 else -1
@@ -115,7 +121,7 @@ def segment_sum_kernel(data: torch.Tensor, seg_ids: torch.Tensor,
         raise ValueError(f"seg_ids: expected [{n_data}] for data "
                          f"{tuple(data.shape)}, got {tuple(seg_ids.shape)}")
     _check("seg_ids", seg_ids, (torch.int32, torch.int64), (e,), dev)
-    _check("data", data, (torch.float32,), (n_data, d), dev)
+    _check("data", data, (torch.float32, torch.bfloat16), (n_data, d), dev)
     if weights is not None:
         _check("weights", weights, (torch.float32,), (e,), dev)
     if ptr is None:
@@ -130,22 +136,30 @@ def segment_sum_kernel(data: torch.Tensor, seg_ids: torch.Tensor,
         return torch.zeros((n_segments, d), dtype=torch.float32, device=dev)
     if seg_ids.dtype == torch.int64:  # the kernel reads int32 ids
         seg_ids = seg_ids.clamp(-1, n_segments).to(torch.int32)
-    vec = next(v for v in (4, 2, 1)
-               if d % v == 0 and data.data_ptr() % (4 * v) == 0)
+    bf16 = data.dtype == torch.bfloat16
+    # elements a lane reads at once: the widest whose bytes (16, 8 or 4 in
+    # bf16, where cp.async copies no 2 bytes) D and the base divide
+    size = data.element_size()
+    vec = next((v for v in ((8, 4, 2) if bf16 else (4, 2, 1))
+                if d % v == 0 and data.data_ptr() % (size * v) == 0), None)
+    if vec is None:
+        raise ValueError(f"data: bfloat16 rows need an even D ({d}) and a "
+                         "4-byte aligned base")
     units = d // vec
     lanes = min(32, 1 << (units - 1).bit_length())
     out = torch.empty((n_segments, d), dtype=torch.float32, device=dev)
     carry = torch.empty((n_chunks, d), dtype=torch.float32, device=dev)
     lib = _lib()
     stream = stream_handle(dev)
-    err = lib.segment_sum(
+    name = "segment_sum_bf16" if bf16 else "segment_sum"
+    err = getattr(lib, name)(
         ptr.data_ptr(), plan.data_ptr(), seg_ids.data_ptr(),
         None if rows is None else rows.data_ptr(),
         0 if rows is None else rows.element_size(), data.data_ptr(),
         None if weights is None else weights.data_ptr(), out.data_ptr(),
         carry.data_ptr(), n_segments, e, n_data, d, vec, chunk, lanes, stream)
-    check(lib, err, "segment_sum")
-    LAUNCHES["segment_sum"] += 1
+    check(lib, err, name)
+    LAUNCHES[name] += 1
     FORMS["contiguous" if rows is None else "gather"] += 1
     if n_chunks > 1:
         err = lib.segment_sum_carry(ptr.data_ptr(), plan.data_ptr(),

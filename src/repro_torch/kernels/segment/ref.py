@@ -16,9 +16,12 @@ def segment_sum_ref(data: torch.Tensor, seg_ids: torch.Tensor,
     ``rows[e]`` when ``rows`` (``[E]``) is given: the rows are gathered
     first.  Ids outside ``[0, n_segments)`` are dropped, as
     ``jax.ops.segment_sum`` drops them.  ``weights`` (``[E]``, optional)
-    multiply the rows before the sum."""
+    multiply the rows before the sum.  bfloat16 rows are summed in
+    float32, as K5's bf16-row form sums them."""
     if rows is not None:
         data = data.index_select(0, rows)
+    if data.dtype == torch.bfloat16:
+        data = data.float()
     if weights is not None:
         data = data * weights[:, None]
     # out-of-range rows land in a spare last row, dropped after the sum (no

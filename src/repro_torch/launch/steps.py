@@ -11,7 +11,9 @@
   returns ``(cache, logits)``; ``decode`` runs one ``decode_step`` on
   ``batch["tokens"]`` over ``batch["cache_k"]`` / ``batch["cache_v"]`` at
   ``batch["pos"]`` (the reference's keys), writing the cache in place, and
-  returns ``(logits, cache)``.
+  returns ``(logits, cache)``; with ``batch["cache_k_scale"]`` /
+  ``batch["cache_v_scale"]`` (the reference's int8 cell keys) the cache is
+  the int8 KV cache.
 
 Steps run under ``torch.inference_mode`` on the model's device.  The
 train kinds wait (ROADMAP).
@@ -59,6 +61,9 @@ def build_cell_step(spec: ArchSpec, cell: ShapeCell,
         def step(batch):
             cache = {"k": batch["cache_k"], "v": batch["cache_v"],
                      "pos": batch["pos"]}
+            if "cache_k_scale" in batch:
+                cache["k_scale"] = batch["cache_k_scale"]
+                cache["v_scale"] = batch["cache_v_scale"]
             return transformer.decode_step(model, cache, batch["tokens"])
 
         return step

@@ -91,6 +91,61 @@ def test_load_into_tensor_leaves(tmp_path):
     assert int(got["n"]) == 3
 
 
+def _bf16_values():
+    """bfloat16 values with every kind of bit pattern: signs, a zero of
+    each sign, subnormals, the largest finite, inf and a NaN."""
+    rng = np.random.default_rng(5)
+    x = np.concatenate([rng.standard_normal(40) * 10.0 ** rng.integers(
+        -30, 30, 40), [0.0, -0.0, 1e-40, -3e38, np.inf, np.nan, 1.5, -2.0]])
+    return torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+
+
+def test_reference_bf16_leaf_loads_bit_for_bit(tmp_path):
+    """A bfloat16 leaf the reference writes (an ``.npy`` that numpy reads
+    as ``|V2``, the raw bits) loads into a bfloat16 tensor with those bits
+    (the reference's own load_checkpoint cannot read it back)."""
+    import jax.numpy as jnp
+
+    want = _bf16_values()
+    bits = want.view(torch.int16).numpy().view(np.uint16)
+    leaf = jnp.asarray(bits.view(jnp.bfloat16)).reshape(3, -1)
+    step = ref_store.save_checkpoint(str(tmp_path), 4, {"w": leaf})
+    raw = np.load(os.path.join(step, "arr_00000.npy"))
+    assert raw.dtype == np.dtype("V2")
+    like = {"w": torch.zeros(leaf.shape, dtype=torch.bfloat16)}
+    got, s, _ = load_checkpoint(str(tmp_path), like)
+    assert s == 4 and got["w"].dtype == torch.bfloat16
+    assert got["w"].shape == leaf.shape
+    np.testing.assert_array_equal(
+        got["w"].view(torch.int16).numpy().view(np.uint16).ravel(), bits)
+
+
+def test_port_bf16_leaf_is_the_reference_file(tmp_path):
+    """The port writes a bfloat16 leaf as the reference does: the same
+    bytes (descr ``<V2``, numpy reads ``|V2`` holding the uint16 bits),
+    and loads it back bit for bit, also beside float leaves."""
+    import jax.numpy as jnp
+
+    t = _bf16_values().reshape(3, -1)
+    bits = t.view(torch.int16).numpy().view(np.uint16)
+    mine = save_checkpoint(str(tmp_path / "port"), 2,
+                           {"w": t, "x": torch.ones(2)})
+    ref = ref_store.save_checkpoint(
+        str(tmp_path / "ref"), 2,
+        {"w": jnp.asarray(bits.view(jnp.bfloat16)), "x": jnp.ones(2)})
+    a, b = (os.path.join(d, "arr_00000.npy") for d in (mine, ref))
+    raw = np.load(a)
+    assert raw.dtype == np.dtype("V2") and raw.shape == t.shape
+    np.testing.assert_array_equal(raw.view(np.uint16), bits)
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        assert fa.read() == fb.read()
+    like = {"w": torch.zeros(t.shape, dtype=torch.bfloat16),
+            "x": torch.zeros(2)}
+    got, _, _ = load_checkpoint(str(tmp_path / "port"), like)
+    assert torch.equal(got["w"].view(torch.int16), t.view(torch.int16))
+    assert torch.equal(got["x"], torch.ones(2))
+
+
 def test_atomic_commit_torn_and_tmp_steps_skipped(tmp_path):
     """Both list_steps skip a .tmp directory, a torn manifest, a missing
     manifest and an incomplete one; a save over an existing step and a

@@ -12,9 +12,11 @@ values of order 1: rtol 1e-5 with atol 1e-6 (1e-5 for the products, whose
 sums run over more terms); relaunches must be bit-identical (no atomics).
 K1's and K2's bulk routes are held bit-equal to their simt bodies.
 K4 (fm_interaction) is held to 1e-5 of the magnitude of its cancelling
-terms, K5 (segment_sum, contiguous and gather forms) to rtol/atol 1e-5,
-and exactly on integer-valued inputs, whose sums do not depend on the
-order.  K7 (sim_messages and sim_push, float64) is held bit-equal to
+terms, K5 (segment_sum, contiguous and gather forms, and the bf16-row
+form of the MoE combine) to rtol/atol 1e-5, and exactly on integer-valued
+inputs, whose sums do not depend on the order.  K6's int8 decode form is
+held to its plain version (dequantise, then attend) at K6's decode
+tolerances, and in bf16 to the bits of K6 over a dequantised copy.  K7 (sim_messages and sim_push, float64) is held bit-equal to
 its plain versions, the sum adding in message order as the reference's
 np.add.at does; the simulator on the card to its CPU run within
 |Δh|_1 <= 1e-10.  K3's lane form (edge_sum_lanes) is held bit-equal to K3
@@ -959,6 +961,61 @@ def test_segment_sum_kernel_refuses_bad_rows(cuda_device):
     assert LAUNCHES["segment_sum"] == before
 
 
+def _combine_case(rng, t, k, e_pad, cap, d):
+    """The MoE combine's operands: ``k`` slots a token over expert outputs
+    ``[e_pad·cap, d]`` in bf16, rows ``e·cap + pos``, gate weights with
+    the dropped slots at 0 and every slot of token 3 dropped."""
+    eo = torch.from_numpy(rng.standard_normal((e_pad * cap, d)).astype(
+        np.float32)).to(torch.bfloat16)
+    rows = torch.from_numpy(rng.integers(0, e_pad * cap, t * k))
+    w = torch.from_numpy(rng.random(t * k).astype(np.float32))
+    w[rng.random(t * k) < 0.2] = 0.0
+    w[3 * k:4 * k] = 0.0
+    seg = torch.arange(t, dtype=torch.int32).repeat_interleave(k)
+    return eo, seg, w, rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,k,d", [(8, 4, 2048), (3000, 4, 64),
+                                   (700, 8, 130), (50, 2, 2), (9, 1, 12)])
+def test_segment_sum_bf16_rows_match_plain(cuda_device, t, k, d):
+    """K5's bf16-row form (the MoE combine) against its plain version, which
+    sums the rows in float32 too: within rtol / atol 1e-5 (float32 sums in
+    another order), float32 out, a token whose weights are all zero a zero
+    row, a relaunch bit-identical, and a launch counted under
+    ``segment_sum_bf16``; D = 2,048 reads 16 bytes a lane, 130 and 2 four,
+    12 eight, and 3,000 x 4 rows cross chunks."""
+    from repro_torch.kernels.segment import segment_sum_ref, segment_sum_sorted
+
+    rng = np.random.default_rng(t + d)
+    eo, seg, w, rows = _combine_case(rng, t, k, 64, 5, d)
+    dev = [x.to(cuda_device) for x in (eo, seg, w, rows)]
+    before = dict(LAUNCHES)
+    got = segment_sum_sorted(dev[0], dev[1], t, weights=dev[2], rows=dev[3])
+    again = segment_sum_sorted(dev[0], dev[1], t, weights=dev[2],
+                               rows=dev[3])
+    torch.cuda.synchronize()
+    assert LAUNCHES["segment_sum_bf16"] - before["segment_sum_bf16"] == 2
+    assert LAUNCHES["segment_sum"] == before["segment_sum"]
+    assert got.dtype == torch.float32 and got.shape == (t, d)
+    assert torch.equal(got, again)
+    assert bool((got[3] == 0).all())
+    plain = segment_sum_ref(eo, seg, t, w, rows)
+    assert plain.dtype == torch.float32
+    np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_segment_sum_bf16_rows_refuse_an_odd_width(cuda_device):
+    from repro_torch.kernels.segment import segment_sum_kernel
+
+    data = torch.zeros((10, 7), dtype=torch.bfloat16, device=cuda_device)
+    seg = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="even D"):
+        segment_sum_kernel(data, seg, 2, rows=seg.long())
+
+
 @pytest.mark.cuda
 def test_fm_and_gin_forward_on_the_card_match_the_cpu(cuda_device):
     from repro_torch.data import criteo_like_batch, make_gnn_batch
@@ -1224,6 +1281,92 @@ def test_flash_attention_split_kv_matches_plain(cuda_device, sq, group, dh,
                 out.float().cpu().numpy(),
                 attention_plain(q, k, v, causal=c, kv_len=kv_len).float()
                 .cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq", [1, 5])
+@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+def test_flash_attention_int8_decode_matches_plain(cuda_device, sq, group, dh,
+                                                   dtype):
+    """K6's int8 decode form over an int8 ``[B, Smax, Hkv, Dh]`` cache and
+    its ``[B, Smax, Hkv]`` scales (quantised from a random float cache by
+    the model's ``quantize_kv``), through the model's transposed views, at
+    ragged kv_len: equal to the plain version (dequantise, then attend)
+    within rtol 1e-5 / atol 1e-6 in float32 and 3e-2 in bf16, bit-identical
+    on relaunch and with the cache and scales past kv_len poisoned (NaN
+    scales); one launch a call under ``flash_attention_int8``, with the
+    split count the policy gives for the form's geometry.  Where that
+    geometry is the T form's, the bits are K6's decode over a dequantised
+    copy."""
+    from repro_torch.kernels.attention import (
+        attention_plain, dequantize, flash_attention)
+    from repro_torch.kernels.attention.kernel import (
+        SPLITS, decode_geometry, split_count)
+    from repro_torch.models.transformer import quantize_kv
+
+    dt = getattr(torch, dtype)
+    b, hkv, smax = 2, 2, 4224
+    hq = hkv * group
+    rng = np.random.default_rng(1000 * sq + 10 * group + dh + 7)
+    cache = torch.from_numpy(rng.standard_normal(
+        (2, b, smax, hkv, dh)).astype(np.float32)).to(cuda_device, dt)
+    c8, scales = quantize_kv(cache)
+    q = torch.from_numpy(rng.standard_normal(
+        (b, sq, hq, dh)).astype(np.float32) * 0.2).to(cuda_device,
+                                                      dt).transpose(1, 2)
+    k, v = c8[0].transpose(1, 2), c8[1].transpose(1, 2)
+    ks, vs = scales[0].transpose(1, 2), scales[1].transpose(1, 2)
+    kd, vd = dequantize(k, ks, dt), dequantize(v, vs, dt)
+    tol = dict(rtol=1e-5, atol=1e-6) if dt == torch.float32 else dict(
+        rtol=3e-2, atol=3e-2)
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    geometry = decode_geometry(dt, dh, True)
+    same_geometry = geometry == decode_geometry(dt, dh)
+    for kv_len in (1, 63, 129, 4095, 4224):
+        n_split = split_count(b, hq, hkv, sq, kv_len, n_sm, geometry)
+        pc8, psc = c8.clone(), scales.clone()
+        pc8[:, :, kv_len:] = 127
+        psc[:, :, kv_len:] = float("nan")
+        before = dict(LAUNCHES)
+        splits_before = SPLITS["flash_attention_int8"]
+        kw = dict(causal=False, kv_len=kv_len)
+        got = flash_attention(q, k, v, k_scale=ks, v_scale=vs, **kw)
+        again = flash_attention(q, k, v, k_scale=ks, v_scale=vs, **kw)
+        tail = flash_attention(q, pc8[0].transpose(1, 2),
+                               pc8[1].transpose(1, 2),
+                               k_scale=psc[0].transpose(1, 2),
+                               v_scale=psc[1].transpose(1, 2), **kw)
+        torch.cuda.synchronize()
+        assert LAUNCHES["flash_attention_int8"] - before[
+            "flash_attention_int8"] == 3
+        assert LAUNCHES["flash_attention"] == before["flash_attention"]
+        assert SPLITS["flash_attention_int8"] - splits_before == 3 * n_split
+        assert torch.equal(got, again) and torch.equal(got, tail)
+        np.testing.assert_allclose(
+            got.float().cpu().numpy(),
+            attention_plain(q, k, v, k_scale=ks, v_scale=vs, **kw)
+            .float().cpu().numpy(), **tol)
+        if same_geometry:
+            assert torch.equal(got, flash_attention(q, kd, vd, **kw))
+
+
+@pytest.mark.cuda
+def test_flash_attention_int8_refuses_prefill_and_bad_scales(cuda_device):
+    from repro_torch.kernels.attention import flash_attention
+
+    q = torch.zeros((1, 2, 65, 64), device=cuda_device)
+    k = torch.zeros((1, 2, 100, 64), dtype=torch.int8, device=cuda_device)
+    sc = torch.ones((1, 2, 100), device=cuda_device)
+    with pytest.raises(ValueError, match="decode form"):
+        flash_attention(q, k, k, causal=True, k_scale=sc, v_scale=sc)
+    with pytest.raises(ValueError, match="k_scale"):
+        flash_attention(q[:, :, :1], k, k, k_scale=sc[:, :, :99],
+                        v_scale=sc)
+    with pytest.raises(ValueError, match="int8"):
+        flash_attention(q[:, :, :1], k.float(), k.float(), k_scale=sc,
+                        v_scale=sc)
 
 
 @pytest.mark.cuda

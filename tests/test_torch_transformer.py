@@ -222,14 +222,31 @@ def test_n_params_matches_reference_formula_and_module(pair):
 
 
 def test_cache_shapes_and_moe_refused():
+    """The cache's shapes; a MoE config (once refused) builds, counts its
+    parameters as the reference's formula does, and its int8 cache has
+    the shapes of the reference's int8 cell (``k`` / ``v`` int8, float32
+    scales without the head dim)."""
     cfg = lm.TransformerConfig(name="tiny", n_layers=2, d_model=32,
                                n_heads=4, n_kv_heads=2, d_ff=64, vocab=61,
                                qkv_bias=True, dtype=torch.float32)
     c = lm.init_cache(cfg, batch=3, max_seq=64, device="cpu")
     assert c["k"].shape == c["v"].shape == (2, 3, 64, 2, 8)
     assert c["pos"] == 0
-    with pytest.raises(NotImplementedError, match="MoE"):
-        dataclasses.replace(cfg, moe=object())
+    moe = dict(n_experts=6, top_k=2, d_ff_expert=16, n_shared=1,
+               pad_experts_to=8)
+    ours = dataclasses.replace(cfg, moe=lm.MoEConfig(**moe))
+    ref = ref_lm.TransformerConfig(
+        name="tiny", n_layers=2, d_model=32, n_heads=4, n_kv_heads=2,
+        d_ff=64, vocab=61, qkv_bias=True, dtype=jnp.float32,
+        moe=ref_lm.MoEConfig(**moe))
+    assert ours.n_params == ref.n_params
+    assert ours.n_active_params == ref.n_active_params < ours.n_params
+    c8 = lm.init_cache(ours, batch=3, max_seq=64, dtype=torch.int8,
+                       device="cpu")
+    assert c8["k"].shape == c8["v"].shape == (2, 3, 64, 2, 8)
+    assert c8["k"].dtype == c8["v"].dtype == torch.int8
+    assert c8["k_scale"].shape == c8["v_scale"].shape == (2, 3, 64, 2)
+    assert c8["k_scale"].dtype == torch.float32
 
 
 def test_rope_and_rmsnorm_match_reference():
