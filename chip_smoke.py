@@ -1233,9 +1233,11 @@ def moe_serving(args, torch, dev, timer, sync):
             data, seg, n = ins["data"], ins["seg"], ins["n"]
             kw = {"weights": ins["weights"], "rows": ins["rows"]}
             e, d = seg.numel(), data.shape[1]
-            # each slot's row read once (the dropped ones read row 0), its
-            # weight, row index and id; each token's sum written once
-            n_bytes = e * d * 2 + e * (4 + 8 + 4) + n * d * 4
+            # each row the slots name read once (every dropped slot names
+            # row 0), each slot's weight, row index and id; each token's
+            # sum written once
+            n_read = int(torch.unique(ins["rows"]).numel())
+            n_bytes = n_read * d * 2 + e * (4 + 8 + 4) + n * d * 4
             b_ms, b_by = bound_ms(n_bytes, 2.0 * e * d)
             lib_ms = None
             if on_card:
@@ -1270,14 +1272,14 @@ def moe_serving(args, torch, dev, timer, sync):
                 "max_abs_err": errs[tag],
                 "ms": timer(lambda: segment_sum_sorted(data, seg, n, **kw),
                             20),
-                # the wrapper's own few launches (its row ranges and work
-                # plan) without the host's cost a call
+                # the launches (K5 and, past one chunk, its carry pass)
+                # without the host's cost a call
                 "graph_ms": timer.graphed(
                     lambda: segment_sum_sorted(data, seg, n, **kw), 20),
                 "plain_ms": timer(lambda: segment_sum_ref(data, seg, n, **kw),
                                   5),
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                "shape": [e, d, n]})
+                "shape": [e, d, n], "rows_read": n_read})
         for tag, name, r in (("A int8", "flash_attention_int8", ra),
                              ("B int8", "flash_attention_int8_32k", rb)):
             ins = caps[tag]
@@ -2991,10 +2993,13 @@ def main() -> int:
           f"d_hidden={gin_cfg.d_hidden} layers={gin_cfg.n_layers} classes="
           f"{gin_cfg.n_classes}; host build graph {graph_s:.1f} s, batch "
           f"{batch_s:.1f} s; upload + destination sort {prep_s:.1f} s")
-    src_s, seg_s, w_s, ptr_s, plan_s = (
-        prepared["agg_src"], prepared["agg_dst"], prepared["agg_w"],
-        prepared["agg_ptr"], prepared["agg_plan"])
-    print(f"K5 plan: {plan_s.numel() - 1} chunks of {CHUNK_ROWS} rows; "
+    src_s, seg_s, w_s = (prepared["agg_src"], prepared["agg_dst"],
+                         prepared["agg_w"])
+    # the row ranges of the sorted ids, for the library calls (K5 plans its
+    # own work from the ids)
+    ptr_s = torch.searchsorted(seg_s, torch.arange(
+        gin_n + 1, dtype=seg_s.dtype, device=dev))
+    print(f"K5: {-(-gin_e // CHUNK_ROWS)} chunks of {CHUNK_ROWS} rows; "
           f"longest segment {int(torch.diff(ptr_s).max())} rows")
     held = torch.cuda.memory_allocated() / 1e9 if on_card else 0.0
     if on_card:
@@ -3034,8 +3039,7 @@ def main() -> int:
         fail(f"the GIN forward's memory peak {peak:.3f} GB holds an [E, d] "
              "message buffer")
 
-    def plain_agg(data, seg, n, weights=None, ptr=None, rows=None,
-                  plan=None):
+    def plain_agg(data, seg, n, weights=None, rows=None):
         return segment_sum_ref(data, seg, n, weights, rows)
 
     out_plain = gnn.forward(gin, prepared, segment_sum=plain_agg)
@@ -3049,8 +3053,8 @@ def main() -> int:
     # the contiguous form on layer 0's messages, weighted as GIN weights
     # them and unweighted as torch.segment_reduce sums them
     msgs = h0.index_select(0, src_s)
-    a5, a5b = (segment_sum_sorted(msgs, seg_s, gin_n, weights=w_s, ptr=ptr_s,
-                                  plan=plan_s) for _ in range(2))
+    a5, a5b = (segment_sum_sorted(msgs, seg_s, gin_n, weights=w_s)
+               for _ in range(2))
     p5 = segment_sum_ref(msgs, seg_s, gin_n, w_s)
     e5, same5 = rel_l1(a5, p5), torch.equal(a5, a5b)
     print(f"K5 on layer 0's messages {tuple(msgs.shape)}: rel L1 {e5:.3e}, "
@@ -3078,10 +3082,11 @@ def main() -> int:
           f"equal to the plain version {exact}, gather form {exact_g}")
     if not (exact and exact_g):
         fail("K5 on sentinel / mask-0 rows")
-    b_ms, b_by = bound_ms(msgs.numel() * 4 + ptr_s.numel() * 8
-                          + gin_n * dh * 4, msgs.numel())
-    bw_ms, _ = bound_ms(msgs.numel() * 4 + n_e * 4 + ptr_s.numel() * 8
-                        + gin_n * dh * 4, 2.0 * msgs.numel())
+    # the rows, the int32 ids (and weights), the output
+    b_ms, b_by = bound_ms(msgs.numel() * 4 + n_e * 4 + gin_n * dh * 4,
+                          msgs.numel())
+    bw_ms, _ = bound_ms(msgs.numel() * 4 + n_e * 4 * 2 + gin_n * dh * 4,
+                        2.0 * msgs.numel())
     print(f"contiguous form bound: {b_ms:.4f} ms unweighted, {bw_ms:.4f} ms "
           "weighted")
     lib_ms = idx_ms = None
@@ -3092,8 +3097,8 @@ def main() -> int:
             msgs[lo:hi], "sum", lengths=lengths), 5)
         lib_err = float((torch.segment_reduce(msgs[lo:hi], "sum",
                                               lengths=lengths)
-                         - segment_sum_sorted(msgs, seg_s, gin_n, ptr=ptr_s,
-                                              plan=plan_s)).abs().max())
+                         - segment_sum_sorted(msgs, seg_s, gin_n))
+                        .abs().max())
         print(f"torch.segment_reduce vs K5 (unweighted): max abs diff "
               f"{lib_err:.3e}")
         seg_l = seg_s.long()
@@ -3108,13 +3113,12 @@ def main() -> int:
         "launches": gin_forms["contiguous"], "form": "contiguous",
         "max_abs_err": err5,
         # unweighted, like the library call
-        "ms": timer(lambda: segment_sum_sorted(msgs, seg_s, gin_n, ptr=ptr_s,
-                                               plan=plan_s), 10),
+        "ms": timer(lambda: segment_sum_sorted(msgs, seg_s, gin_n), 10),
         "plain_ms": timer(lambda: segment_sum_ref(msgs, seg_s, gin_n), 3),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
         # weighted by the edge mask, as the forward weights its messages
         "weighted_ms": timer(lambda: segment_sum_sorted(
-            msgs, seg_s, gin_n, weights=w_s, ptr=ptr_s, plan=plan_s), 10),
+            msgs, seg_s, gin_n, weights=w_s), 10),
         "index_add_ms": idx_ms,
         "gather_ms": timer(lambda: h0.index_select(0, src_s), 5),
         "shape": [n_e, dh, gin_n],
@@ -3123,8 +3127,8 @@ def main() -> int:
     if on_card:
         torch.cuda.empty_cache()
     # the gather form: one GIN layer's aggregation, as the forward runs it
-    g5, g5b = (segment_sum_sorted(h0, seg_s, gin_n, weights=w_s, ptr=ptr_s,
-                                  rows=src_s, plan=plan_s) for _ in range(2))
+    g5, g5b = (segment_sum_sorted(h0, seg_s, gin_n, weights=w_s, rows=src_s)
+               for _ in range(2))
     pg = segment_sum_ref(h0, seg_s, gin_n, w_s, src_s)
     eg, sameg = rel_l1(g5, pg), torch.equal(g5, g5b)
     print(f"K5 gather form on layer 0 (h {tuple(h0.shape)}, rows = src): "
@@ -3133,8 +3137,10 @@ def main() -> int:
         fail("K5's gather form against its plain version")
     errg = float((g5 - pg).abs().max())
     del g5b, pg
-    gb_ms, gb_by = bound_ms(h0.numel() * 4 * 2 + n_e * 4 * 2
-                            + ptr_s.numel() * 8, 2.0 * n_e * dh)
+    # the node states read and the output written once; the ids, the
+    # sources and the weights
+    gb_ms, gb_by = bound_ms(h0.numel() * 4 * 2 + n_e * 4 * 3,
+                            2.0 * n_e * dh)
     rows_ms = n_e * dh * 4 / HBM_BYTES_PER_S * 1e3
     print(f"gather form bound: {gb_ms:.4f} ms counting each input byte once; "
           f"its {n_e * dh * 4 / 1e9:.3f} GB of rows at 3.35 TB/s, none "
@@ -3157,8 +3163,7 @@ def main() -> int:
         "form": "gather",
         "max_abs_err": errg,
         "ms": timer(lambda: segment_sum_sorted(
-            h0, seg_s, gin_n, weights=w_s, ptr=ptr_s, rows=src_s,
-            plan=plan_s), 10),
+            h0, seg_s, gin_n, weights=w_s, rows=src_s), 10),
         "plain_ms": timer(lambda: segment_sum_ref(h0, seg_s, gin_n, w_s,
                                                   src_s), 3),
         "bound_ms": gb_ms, "bound_by": gb_by, "library_ms": lib_g,
@@ -3168,7 +3173,7 @@ def main() -> int:
                    f"({e_real} real) forward walls "
                    f"{[round(w, 4) for w in gin_walls]} s, peak {peak:.3f} GB "
                    f"above the earlier phases' {held:.3f} GB")
-    del h0, g5, prepared, gin, small, table
+    del h0, g5, prepared, gin, small, table, ptr_s
     if on_card:
         torch.cuda.empty_cache()
 

@@ -67,17 +67,29 @@
 // reference's int8 KV cache: k and v int8, with one float32 scale a (batch
 // row, token, kv head) for each.  It replaces the reference's dequantise-
 // then-attend (src/repro/models/transformer.py:601-611), which makes a
-// float copy of the whole cache; here each lane's ring holds the int8
-// pieces it reads (8 bytes a lane with bf16 q, 4 with float32: the lane map
-// of the T form, so the same lanes score the same columns), and the two
-// scales of each of its warp's 16 keys ride in the same ring stage (copied
-// by the key's first lane, read by all of them after a __syncwarp).  Each
-// element is dequantised as it is read from shared memory, as the
-// reference does (k . k_scale in float32, rounded to q's dtype), so the
-// result is the bits of the T form over a dequantised copy of the cache.
+// float copy of the whole cache; here each lane reads the int8 pieces of
+// the T form's lane map (8 int8 a lane with bf16 q, 4 with float32, so the
+// same lanes score the same columns) and each element is dequantised as it
+// is read from shared memory, as the reference does (k . k_scale in
+// float32, rounded to q's dtype), so the result is the bits of the T form
+// over a dequantised copy of the cache.
 // Its bound is half the bf16 cache's bytes: 68.2 MB of int8 and 2.1 MB of
 // scales a layer at 8 x 2,080 keys of qwen2-moe-a2.7b (Dh 128, 16 kv
 // heads), 0.021 ms at 3.35 TB/s; 134.3 + 4.2 MB at 1 x 32,784, 0.041 ms.
+// With the bytes halved, instructions bound it next: the cvt.rn.f32.s8
+// that made an int8 a float and the cvt.rn.bf16.f32 that rounded its
+// product issue at 16 a clock an SM, and a lane copying its own 8- or
+// 4-byte pieces issues two or four times the copies and address work of
+// the bf16 form's 16-byte ones.  So:
+// * an int8 becomes a float by integer and FP32 work: the sign bits of
+//   four bytes flipped by one LOP3, each byte put under the exponent of
+//   2^23 by a PRMT, 2^23 + 128 taken off by an FADD (exact);
+// * products are rounded to bf16 two at a time by one packed
+//   cvt.rn.bf16x2.f32 (F2FP) and widened back by a shift and a mask;
+// * a warp copies its tile's K and V rows in 16-byte pieces spread over
+//   its lanes, whichever lane reads them, and each lane one scale; the
+//   __syncwarp each tile already takes orders the copies before the reads.
+// The arithmetic, element by element, is the reference's.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -150,17 +162,44 @@ __device__ __forceinline__ void lds16(const T* src, float* dst) {
   unpack16(*reinterpret_cast<const typename Vec16<T>::type*>(src), dst);
 }
 
-// 8 or 4 int8 from shared memory -> float dst[N]
-template <int N>
-__device__ __forceinline__ void lds_i8(const int8_t* src, float* dst) {
+// The four int8 of w -> float dst[4], exactly and without the convert
+// instruction (16 a clock an SM): each byte's sign bit flipped (b + 128, in
+// [0, 255]) and the byte put in the low mantissa byte of 2^23 (PRMT), so
+// the word is the float 2^23 + b + 128, from which 2^23 + 128 is taken.
+__device__ __forceinline__ void i8x4_to_float(uint32_t w, float* dst) {
+  const uint32_t u = w ^ 0x80808080u;
+  dst[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - 8388736.0f;
+  dst[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - 8388736.0f;
+  dst[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - 8388736.0f;
+  dst[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - 8388736.0f;
+}
+
+// a and b rounded to T and widened back: bf16 two at a time (one packed
+// cvt.rn.bf16x2.f32), float as they are
+__device__ __forceinline__ void round_pair(float& a, float& b, __nv_bfloat16) {
+  const float2 f = __bfloat1622float2(__floats2bfloat162_rn(a, b));
+  a = f.x;
+  b = f.y;
+}
+__device__ __forceinline__ void round_pair(float&, float&, float) {}
+
+// A lane's N (8 or 4) int8 from shared memory dequantised as the reference
+// does: each element times the key's scale in float32, rounded to T
+template <typename T, int N>
+__device__ __forceinline__ void dequant_i8(const int8_t* src, float scale, float* dst) {
   static_assert(N == 4 || N == 8, "a lane's int8 piece is 4 or 8 bytes");
+  if constexpr (N == 8) {
+    const uint2 w = *reinterpret_cast<const uint2*>(src);
+    i8x4_to_float(w.x, dst);
+    i8x4_to_float(w.y, dst + 4);
+  } else {
+    i8x4_to_float(*reinterpret_cast<const uint32_t*>(src), dst);
+  }
 #pragma unroll
-  for (int h = 0; h < N / 4; ++h) {
-    const char4 c = reinterpret_cast<const char4*>(src)[h];
-    dst[4 * h] = c.x;
-    dst[4 * h + 1] = c.y;
-    dst[4 * h + 2] = c.z;
-    dst[4 * h + 3] = c.w;
+  for (int e = 0; e < N; e += 2) {
+    dst[e] = __fmul_rn(dst[e], scale);
+    dst[e + 1] = __fmul_rn(dst[e + 1], scale);
+    round_pair(dst[e], dst[e + 1], T());
   }
 }
 
@@ -1277,35 +1316,54 @@ flash_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k,
   const int per_split = (n_tiles + n_split - 1) / n_split;
   const int t_begin = min(n_tiles, split * per_split);
   const int t_end = min(n_tiles, t_begin + per_split);
-  const KV* kp = k + b * sk.b + (int64_t)kvh * sk.h + dc;  // this lane's column
-  const KV* vp = v + b * sv.b + (int64_t)kvh * sv.h + dc;
+  const KV* kb = k + b * sk.b + (int64_t)kvh * sk.h;  // the kv head's rows
+  const KV* vb = v + b * sv.b + (int64_t)kvh * sv.h;
+  const KV* kp = kb + dc;  // this lane's column
+  const KV* vp = vb + dc;
   const float* kscp = D::kInt8 ? ksc + b * sks.b + (int64_t)kvh * sks.h : nullptr;
   const float* vscp = D::kInt8 ? vsc + b * svs.b + (int64_t)kvh * svs.h : nullptr;
 
-  // this lane's pieces of tile t (keys ks + KPP.p of the warp's 16, K and V)
-  // into stage (t - t_begin) % NS; keys at or past kv_lim are zero-filled
-  // without a read.  int8: a key's first lane also copies its two scales
-  // to the stage's scale slots.
+  // tile t's K and V into stage (t - t_begin) % NS; keys at or past kv_lim
+  // are zero-filled without a read.  T: each lane copies the pieces it
+  // reads (keys ks + KPP.p of the warp's 16).  int8: the warp's 16 rows of
+  // K and of V go in 16-byte pieces spread over its lanes, whichever lane
+  // reads them, and lane j copies the k (j < 16) or v scale of key j % 16
+  // to the stage's scale slots; the __syncwarp of each tile orders the
+  // copies before the reads.
   auto fetch = [&](int t) {
-    KV* dst = ring + ((t - t_begin) % NS) * D::kStage;
-    const int key = t * TILE + warp * kWarpKeys + ks;
-    const KV* kg = kp + (int64_t)key * sk.s;
-    const KV* vg = vp + (int64_t)key * sv.s;
+    if constexpr (D::kInt8) {
+      KV* dst = stages + ((t - t_begin) % NS) * D::kStage;
+      const int key0 = t * TILE + warp * kWarpKeys;
+      constexpr int kRow = DH / 16;  // 16-byte pieces a key row
+      static_assert(2 * kWarpKeys == 32 && DH % 16 == 0 && 2 * kWarpKeys * kRow % 32 == 0,
+                    "a lane a scale; the warp's pieces a whole number of rounds");
 #pragma unroll
-    for (int p = 0; p < NP; ++p) {
-      const bool ok = key + p * KPP < kv_lim;
-      constexpr int kBytes = EPL * (int)sizeof(KV);
-      cp_async_n<kBytes>(dst + p * KPP * DH, ok ? kg + (int64_t)(p * KPP) * sk.s : kp, ok);
-      cp_async_n<kBytes>(dst + (kWarpKeys + p * KPP) * DH,
-                         ok ? vg + (int64_t)(p * KPP) * sv.s : vp, ok);
-      if constexpr (D::kInt8) {
-        if (dc == 0) {
-          float* sc = reinterpret_cast<float*>(stages + ((t - t_begin) % NS) * D::kStage +
-                                               D::kKV);
-          const int64_t kj = key + p * KPP;
-          cp_async_n<4>(sc + ks + p * KPP, ok ? kscp + kj * sks.s : kscp, ok);
-          cp_async_n<4>(sc + kWarpKeys + ks + p * KPP, ok ? vscp + kj * svs.s : vscp, ok);
-        }
+      for (int i = 0; i < 2 * kWarpKeys * kRow / 32; ++i) {
+        const int c = lane + 32 * i;
+        const bool is_v = c >= kWarpKeys * kRow;
+        const int piece = is_v ? c - kWarpKeys * kRow : c;
+        const int row = piece / kRow, col = (piece % kRow) * 16;
+        const bool ok = key0 + row < kv_lim;
+        const KV* src = is_v ? vb + (int64_t)(key0 + row) * sv.s + col
+                             : kb + (int64_t)(key0 + row) * sk.s + col;
+        cp_async_n<16>(dst + (is_v ? kWarpKeys * DH : 0) + row * DH + col, ok ? src : kb, ok);
+      }
+      const int key = key0 + (lane & (kWarpKeys - 1));
+      const bool ok = key < kv_lim;
+      const float* sc = lane < kWarpKeys ? kscp + (int64_t)key * sks.s
+                                         : vscp + (int64_t)key * svs.s;
+      cp_async_n<4>(reinterpret_cast<float*>(dst + D::kKV) + lane, ok ? sc : kscp, ok);
+    } else {
+      KV* dst = ring + ((t - t_begin) % NS) * D::kStage;
+      const int key = t * TILE + warp * kWarpKeys + ks;
+      const KV* kg = kp + (int64_t)key * sk.s;
+      const KV* vg = vp + (int64_t)key * sv.s;
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        const bool ok = key + p * KPP < kv_lim;
+        cp_async16(dst + p * KPP * DH, ok ? kg + (int64_t)(p * KPP) * sk.s : kp, ok);
+        cp_async16(dst + (kWarpKeys + p * KPP) * DH, ok ? vg + (int64_t)(p * KPP) * sv.s : vp,
+                   ok);
       }
     }
   };
@@ -1344,10 +1402,7 @@ flash_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k,
     for (int p = 0; p < NP; ++p) {
       float kf[EPL];
       if constexpr (D::kInt8) {
-        lds_i8<EPL>(sK + p * KPP * DH, kf);
-        const float sc = sS[ks + p * KPP];
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) kf[e] = round_to(__fmul_rn(kf[e], sc), T());
+        dequant_i8<T, EPL>(sK + p * KPP * DH, sS[ks + p * KPP], kf);
       } else {
         lds16(sK + p * KPP * DH, kf);
       }
@@ -1396,10 +1451,7 @@ flash_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k,
     for (int p = 0; p < NP; ++p) {
       float vf[EPL];
       if constexpr (D::kInt8) {
-        lds_i8<EPL>(sV + p * KPP * DH, vf);
-        const float sc = sS[kWarpKeys + ks + p * KPP];
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) vf[e] = round_to(__fmul_rn(vf[e], sc), T());
+        dequant_i8<T, EPL>(sV + p * KPP * DH, sS[kWarpKeys + ks + p * KPP], vf);
       } else {
         lds16(sV + p * KPP * DH, vf);
       }

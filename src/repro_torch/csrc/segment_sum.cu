@@ -34,14 +34,34 @@
 // D = 2,048 in bf16, 16,384 tokens out in float32) that is 0.40 GB, about
 // 0.12 ms a layer.
 //
+// At the decode combine (32 rows into 8 tokens) the bytes are 0.2 MB and
+// the bound is the launch itself: what a call costs is the host's and the
+// device's work around the kernel, so the kernel plans its own work from
+// the ids and the wrapper launches nothing else.
+//
 // What the design does about it:
 // * Edge-balanced work.  A CTA takes a fixed chunk of kChunk sorted rows,
 //   whatever the segments' lengths (power-law in-degrees), and splits it
 //   into walkers: groups of G lanes, each lane one vector of VEC floats of
 //   the row (D=64: 16 lanes of float4, a 256-byte row per walker step),
-//   each walker a contiguous run of kChunk / walkers rows.  A grid column
-//   per G * VEC columns covers any D; VEC is the widest of 4, 2, 1 that
-//   divides D (and the data's alignment), so every D >= 1 runs here.
+//   each walker a contiguous run of ceil(len / walkers) of the chunk's len
+//   rows (kChunk / walkers in a full chunk; a short chunk, such as the
+//   decode combine's one chunk of 32 rows, spreads its rows over all the
+//   walkers).  A grid column per G * VEC columns covers any D; VEC is the
+//   widest of 4, 2, 1 that divides D (and the data's alignment), so every
+//   D >= 1 runs here.
+// * The plan from the ids, on the device.  A chunk's first segment is its
+//   first row's id clamped to [-1, n]; the next chunk's is read the same
+//   way (n after the last chunk), by walker 0's lanes into a register
+//   before the table loads, so that its latency hides behind them (read
+//   after the walk it cost GIN's layer 3 %; handed on in 16 more bytes
+//   of shared memory, 1.5x).  The carry pass reads the four ids that
+//   decide a chunk at once; a carried segment began in the chunk before
+//   when that chunk's first id is below it, else a binary search over
+//   the ids finds its first row (a search for every carried chunk cost
+//   GIN's layer 2 %).  Ids are read as int32 or int64 as they come, so
+//   the caller builds no row ranges, no plan and no int32 copy of the
+//   ids.
 // * Deep streaming.  A CTA first loads its chunk's ids, weights and (in the
 //   gather form) row indices into a table in shared memory, coalesced,
 //   once.  Then each lane copies its own vector of each of its walker's
@@ -107,17 +127,28 @@ __device__ __forceinline__ Vec<VEC> to_float(const Raw<__nv_bfloat16, VEC>& x) {
 }
 
 struct Args {
-  const int64_t* ptr;  // [n + 1] row ranges of the sorted ids
-  const int* plan;     // [n_chunks + 1] segment of each chunk's first row
-  const int* seg;      // [E] sorted ids
+  const void* seg;     // [E] int32 / int64 sorted ids
   const void* rows;    // [E] int32 / int64 row of data, or null
   const void* data;    // [n_data, d] float or bfloat16
   const float* w;      // [E] or null
   float* out;          // [n, d]
   float* carry;        // [n_chunks, d]
   int64_t n_rows, n_data;
-  int n, d, lanes, units;
+  int n, d, lanes, units, seg_bytes;
 };
+
+// seg[e] clamped to [-1, n]: -1 before every segment, n after
+__device__ __forceinline__ int seg_at(const Args& a, int64_t e) {
+  const int64_t s = a.seg_bytes == 8 ? __ldg(static_cast<const int64_t*>(a.seg) + e)
+                                     : (int64_t)__ldg(static_cast<const int*>(a.seg) + e);
+  return (int)min(max(s, (int64_t)-1), (int64_t)a.n);
+}
+
+// The first segment of the chunk after chunk c (of the chunk starting at
+// row r0 + kChunk): its first row's id, or n past the last row
+__device__ __forceinline__ int next_first(const Args& a, int64_t r0) {
+  return r0 + kChunk < a.n_rows ? seg_at(a, r0 + kChunk) : a.n;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -199,12 +230,14 @@ __device__ __forceinline__ int64_t row_of(const Args& a, int64_t e) {
 }
 
 // Places one segment of the CTA's merge: the chunk's last, when it goes on
-// into the next chunk, in carry[c]; any other in out (segment_sum_carry
-// adds to it the carries of a segment begun in an earlier chunk).
+// into the next chunk (whose first segment is next), in carry[c]; any
+// other in out (segment_sum_carry adds to it the carries of a segment begun
+// in an earlier chunk).
 template <int VEC>
-__device__ void emit(const Args& a, int s, const Vec<VEC>& v, bool last, int64_t c, int col) {
+__device__ void emit(const Args& a, int s, const Vec<VEC>& v, bool last, int next, int64_t c,
+                     int col) {
   if (s < 0 || s >= a.n) return;
-  if (last && s == __ldg(a.plan + c + 1))
+  if (last && s == next)
     put(a.carry + c * a.d + col, v);
   else
     put(a.out + (int64_t)s * a.d + col, v);
@@ -241,13 +274,18 @@ __global__ void __launch_bounds__(kThreads) segment_sum_kernel(const Args a) {
   const int64_t c = blockIdx.x;
   const int64_t r0 = c * kChunk;
   const int len = (int)min((int64_t)kChunk, a.n_rows - r0);
-  const int per = kChunk / walkers;
+  // kChunk / walkers rows a walker in a full chunk; a short one spreads its
+  // rows over all the walkers
+  const int per = (len + walkers - 1) / walkers;
   const int lo = min(walker * per, len), hi = min(lo + per, len);
 
+  // the next chunk's first segment, for walker 0's lanes (the merge): read
+  // now, its latency hidden behind the table's and the walk's
+  const int next = tid < G ? next_first(a, r0) : 0;
   // the chunk's table, loaded once: ids clamped to [-1, n], rows outside
   // [0, n_data) marked -1
   for (int i = tid; i < len; i += kThreads) {
-    t_seg[i] = min(max(__ldg(a.seg + r0 + i), -1), a.n);
+    t_seg[i] = seg_at(a, r0 + i);
     if (weighted) t_w[i] = __ldg(a.w + r0 + i);
     if constexpr (IDX != 0) {
       const int64_t r = row_of<IDX>(a, r0 + i);
@@ -340,7 +378,7 @@ __global__ void __launch_bounds__(kThreads) segment_sum_kernel(const Args a) {
         continue;
       }
       if (run != kNone) {
-        emit<VEC>(a, run, racc, false, c, col);
+        emit<VEC>(a, run, racc, false, next, c, col);
         // between two walkers (a walker filled the gaps inside its run)
         if (p == 0) zero_fill<VEC>(a, run + 1, s, col);
       } else if (c == 0) {
@@ -351,25 +389,44 @@ __global__ void __launch_bounds__(kThreads) segment_sum_kernel(const Args a) {
     }
   }
   if (run == kNone) return;
-  emit<VEC>(a, run, racc, true, c, col);
+  emit<VEC>(a, run, racc, true, next, c, col);
   // the empty segments up to the next chunk's first (all, after the last)
-  zero_fill<VEC>(a, run + 1, __ldg(a.plan + c + 1), col);
+  zero_fill<VEC>(a, run + 1, next, col);
+}
+
+// The chunk where segment s began, s being the first segment of the chunk
+// starting at row r0 and the last of the chunk before, whose first id is
+// prev_first: that chunk when prev_first is below s, else the chunk of the
+// lower bound of s among the ids up to that chunk's first row.
+__device__ int64_t begin_chunk(const Args& a, int s, int64_t r0, int prev_first) {
+  if (prev_first < s) return r0 / kChunk - 1;
+  int64_t lo = 0, hi = r0 - kChunk;  // seg[hi] is s
+  while (lo < hi) {
+    const int64_t mid = lo + (hi - lo) / 2;
+    if (seg_at(a, mid) < s)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo / kChunk;
 }
 
 // The carry pass: one walker a chunk; the chunk that owns a segment begun
-// in an earlier chunk completes it.
+// in an earlier chunk completes it.  The four ids that decide it (this
+// chunk's first, the next chunk's first, the last and the first of the
+// chunk before) are read at once.
 template <int VEC>
 __global__ void __launch_bounds__(kThreads) segment_carry_kernel(const Args a,
                                                                  int64_t n_chunks) {
   const int G = a.lanes;
   const int64_t c = (int64_t)blockIdx.x * (kThreads / G) + threadIdx.x / G;
   const int unit = blockIdx.y * G + threadIdx.x % G;
-  if (c >= n_chunks || unit >= a.units) return;
-  const int s = __ldg(a.plan + c);
-  if (s < 0 || s >= a.n || __ldg(a.plan + c + 1) == s) return;
-  const int64_t begin = __ldg(a.ptr + s);
-  if (begin >= c * kChunk) return;
-  combine<VEC>(a, s, begin / kChunk, c, unit * VEC);
+  if (c == 0 || c >= n_chunks || unit >= a.units) return;  // chunk 0 carries none
+  const int64_t r0 = c * kChunk;
+  const int s = seg_at(a, r0), next = next_first(a, r0);
+  const int prev_last = seg_at(a, r0 - 1), prev_first = seg_at(a, r0 - kChunk);
+  if (s < 0 || s >= a.n || next == s || prev_last != s) return;
+  combine<VEC>(a, s, begin_chunk(a, s, r0, prev_first), c, unit * VEC);
 }
 
 template <int VEC, int IDX, typename T>
@@ -395,17 +452,16 @@ int by_index(const Args& a, int idx_bytes, int64_t n_chunks, int tiles, cudaStre
 }
 
 // Checks what the kernels assume and fills the arguments; 0 or an error.
-int make_args(Args& a, const void* ptr, const void* plan, const void* seg, const void* rows,
-              const void* data, const void* w, void* out, void* carry, int64_t n,
-              int64_t n_rows, int64_t n_data, int d, int vec, int chunk, int lanes) {
+int make_args(Args& a, const void* seg, int seg_bytes, const void* rows, const void* data,
+              const void* w, void* out, void* carry, int64_t n, int64_t n_rows, int64_t n_data,
+              int d, int vec, int chunk, int lanes) {
   if (n <= 0 || n >= INT_MAX || d <= 0 || n_rows <= 0 || chunk != kChunk || lanes <= 0 ||
       lanes > 32 || kThreads % lanes != 0 || (vec != 1 && vec != 2 && vec != 4 && vec != 8) ||
-      d % vec != 0 || (rows != nullptr && n_data > INT_MAX))
+      d % vec != 0 || (rows != nullptr && n_data > INT_MAX) || seg == nullptr ||
+      (seg_bytes != 4 && seg_bytes != 8))
     return cudaErrorInvalidValue;
-  a = Args{(const int64_t*)ptr, (const int*)plan, (const int*)seg, rows,
-           data,                (const float*)w, (float*)out,     (float*)carry,
-           n_rows,              n_data,          (int)n,          d,
-           lanes,               d / vec};
+  a = Args{seg,    rows,   data, (const float*)w, (float*)out, (float*)carry, n_rows,
+           n_data, (int)n, d,    lanes,           d / vec,     seg_bytes};
   return cudaSuccess;
 }
 
@@ -415,25 +471,26 @@ extern "C" {
 
 const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// One launch of K5 over ceil(n_rows / kChunk) chunks.  ptr: [n + 1] int64;
-// plan: [n_chunks + 1] int32, made for chunk rows a chunk (chunk must be
-// kChunk); seg: [n_rows] int32 sorted; rows: [n_rows] of idx_bytes (4 or
-// 8) or null (idx_bytes 0); data: [n_data, d] float32, aligned to 4 * vec
-// bytes (vec 1, 2 or 4); w: [n_rows] float32 or null; out: [n, d]; carry:
-// [n_chunks, d] float32 scratch.  lanes: G, a power of two <= 32; tiles =
+// One launch of K5 over ceil(n_rows / kChunk) chunks (chunk must be
+// kChunk).  seg: [n_rows] sorted ids of seg_bytes (4 or 8); rows: [n_rows]
+// of idx_bytes (4 or 8) or null (idx_bytes 0); data: [n_data, d] float32,
+// aligned to 4 * vec bytes (vec 1, 2 or 4); w: [n_rows] float32 or null;
+// out: [n, d]; carry: [n_chunks, d] float32 scratch (unused, and may be
+// null, with one chunk).  lanes: G, a power of two <= 32; tiles =
 // ceil(d / vec / lanes).
-int segment_sum(const void* ptr, const void* plan, const void* seg, const void* rows,
-                int idx_bytes, const void* data, const void* w, void* out, void* carry,
-                int64_t n, int64_t n_rows, int64_t n_data, int d, int vec, int chunk, int lanes,
+int segment_sum(const void* seg, int seg_bytes, const void* rows, int idx_bytes,
+                const void* data, const void* w, void* out, void* carry, int64_t n,
+                int64_t n_rows, int64_t n_data, int d, int vec, int chunk, int lanes,
                 void* stream) {
   Args a;
-  int err = make_args(a, ptr, plan, seg, rows, data, w, out, carry, n, n_rows, n_data, d, vec,
+  int err = make_args(a, seg, seg_bytes, rows, data, w, out, carry, n, n_rows, n_data, d, vec,
                       chunk, lanes);
   if (err != cudaSuccess) return err;
   if (vec == 8) return cudaErrorInvalidValue;
   const int64_t n_chunks = (n_rows + kChunk - 1) / kChunk;
   const int tiles = (a.units + lanes - 1) / lanes;
-  if (n_chunks > 0x7fffffff || tiles > 65535) return cudaErrorInvalidValue;
+  if (n_chunks > 0x7fffffff || tiles > 65535 || (n_chunks > 1 && carry == nullptr))
+    return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (vec) {
     case 4: return by_index<4>(a, idx_bytes, n_chunks, tiles, st);
@@ -445,18 +502,19 @@ int segment_sum(const void* ptr, const void* plan, const void* seg, const void* 
 // The bf16-row form: as segment_sum, with data [n_data, d] bfloat16 aligned
 // to 2 * vec bytes (vec 8, 4 or 2: 16, 8 or 4 bytes a lane); w, out and
 // carry float32.
-int segment_sum_bf16(const void* ptr, const void* plan, const void* seg, const void* rows,
-                     int idx_bytes, const void* data, const void* w, void* out, void* carry,
-                     int64_t n, int64_t n_rows, int64_t n_data, int d, int vec, int chunk,
-                     int lanes, void* stream) {
+int segment_sum_bf16(const void* seg, int seg_bytes, const void* rows, int idx_bytes,
+                     const void* data, const void* w, void* out, void* carry, int64_t n,
+                     int64_t n_rows, int64_t n_data, int d, int vec, int chunk, int lanes,
+                     void* stream) {
   Args a;
-  int err = make_args(a, ptr, plan, seg, rows, data, w, out, carry, n, n_rows, n_data, d, vec,
+  int err = make_args(a, seg, seg_bytes, rows, data, w, out, carry, n, n_rows, n_data, d, vec,
                       chunk, lanes);
   if (err != cudaSuccess) return err;
   if (vec == 1) return cudaErrorInvalidValue;
   const int64_t n_chunks = (n_rows + kChunk - 1) / kChunk;
   const int tiles = (a.units + lanes - 1) / lanes;
-  if (n_chunks > 0x7fffffff || tiles > 65535) return cudaErrorInvalidValue;
+  if (n_chunks > 0x7fffffff || tiles > 65535 || (n_chunks > 1 && carry == nullptr))
+    return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (vec) {
     case 8: return by_index<8, __nv_bfloat16>(a, idx_bytes, n_chunks, tiles, st);
@@ -467,12 +525,13 @@ int segment_sum_bf16(const void* ptr, const void* plan, const void* seg, const v
 
 // The carry pass, after segment_sum (or segment_sum_bf16) when there is more
 // than one chunk, with the same arguments.
-int segment_sum_carry(const void* ptr, const void* plan, void* out, void* carry, int64_t n,
+int segment_sum_carry(const void* seg, int seg_bytes, void* out, void* carry, int64_t n,
                       int64_t n_rows, int d, int vec, int chunk, int lanes, void* stream) {
   Args a;
-  int err = make_args(a, ptr, plan, nullptr, nullptr, nullptr, nullptr, out, carry, n, n_rows,
-                      0, d, vec, chunk, lanes);
+  int err = make_args(a, seg, seg_bytes, nullptr, nullptr, nullptr, out, carry, n, n_rows, 0,
+                      d, vec, chunk, lanes);
   if (err != cudaSuccess) return err;
+  if (carry == nullptr) return cudaErrorInvalidValue;
   const int64_t n_chunks = (n_rows + kChunk - 1) / kChunk;
   const int tiles = (a.units + lanes - 1) / lanes;
   const int64_t blocks = (n_chunks + kThreads / lanes - 1) / (kThreads / lanes);

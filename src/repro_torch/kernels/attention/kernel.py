@@ -32,7 +32,12 @@ reference's int8 KV cache: K6's int8 decode form (``Sq <= 64`` only)
 streams the int8 tiles, half the bytes, and dequantises each element as
 it loads it, as the reference does before it attends (``k · k_scale`` in
 float32, rounded to q's dtype), so its result is the bits of K6's decode
-over a dequantised copy, which is never made.  Its launches count under
+over a dequantised copy, which is never made.  With the bytes halved the
+instructions bound it next, so it makes each int8 a float with integer
+and FP32 work (a byte under the exponent of ``2**23``, then ``2**23 +
+128`` taken off: exact), rounds the products to bf16 two at a time,
+never through the slow single conversions, and copies each warp's tiles
+in 16-byte pieces shared by its lanes.  Its launches count under
 ``LAUNCHES["flash_attention_int8"]`` and its splits under
 ``SPLITS["flash_attention_int8"]``, not K6's.
 """

@@ -37,20 +37,16 @@ def pad_sorted_edges(data: torch.Tensor, seg_ids: torch.Tensor, tile: int):
 def segment_sum_sorted(data: torch.Tensor, seg_ids: torch.Tensor,
                        n_segments: int, *,
                        weights: Optional[torch.Tensor] = None,
-                       ptr: Optional[torch.Tensor] = None,
-                       rows: Optional[torch.Tensor] = None,
-                       plan: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out[s] = Σ_{e: seg[e] = s} w[e]·data[r(e)]`` for ``seg_ids``
     sorted ascending; ``-> [n_segments, D]``.  ``r(e) = rows[e]`` when
     ``rows`` is given (the gather form, ``data [*, D]``), else ``e``
-    (``data [E, D]``).  ``weights`` multiply the rows first (absent: 1);
-    ``ptr`` and ``plan`` are the ids' ``row_ranges`` and ``chunk_plan`` if
-    known."""
+    (``data [E, D]``).  ``weights`` multiply the rows first (absent: 1)."""
     def c(t):
         return None if t is None else t.contiguous()
 
     return segment_sum_kernel(data.contiguous(), seg_ids.contiguous(),
-                              n_segments, c(weights), ptr, c(rows), plan)
+                              n_segments, c(weights), c(rows))
 
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
@@ -62,7 +58,6 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     b, l = ids.shape
     dev = ids.device
     seg = torch.arange(b, dtype=torch.int32, device=dev).repeat_interleave(l)
-    ptr = torch.arange(b + 1, device=dev) * l
     return segment_sum_sorted(
         table, seg, b, weights=None if weights is None else weights.reshape(-1),
-        ptr=ptr, rows=ids.reshape(-1))
+        rows=ids.reshape(-1))

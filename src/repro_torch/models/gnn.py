@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as fn
 from torch import nn
 
-from ..kernels.segment import chunk_plan, row_ranges, segment_sum_sorted
+from ..kernels.segment import segment_sum_sorted
 
 __all__ = ["GNNConfig", "GIN", "init_params", "prepare_batch", "forward",
            "graph_pool"]
@@ -112,9 +112,8 @@ def init_params(cfg: GNNConfig, *, seed: int = 0, device="cuda") -> GIN:
 def prepare_batch(batch: Dict, device="cuda") -> Dict[str, torch.Tensor]:
     """The batch as tensors on ``device`` plus its destination-sorted edge
     order: ``agg_src`` / ``agg_dst`` (int32) and ``agg_w`` (the edge mask,
-    or None) in a stable sort by destination, and K5's row ranges
-    ``agg_ptr`` and work plan ``agg_plan``.  A forward over a prepared
-    batch sorts and builds nothing."""
+    or None) in a stable sort by destination.  A forward over a prepared
+    batch sorts nothing."""
     if "src_slot" in batch:
         raise NotImplementedError(f"the halo batch {_NOT_PORTED}")
     dev = torch.device(device)
@@ -125,8 +124,6 @@ def prepare_batch(batch: Dict, device="cuda") -> Dict[str, torch.Tensor]:
     out["agg_src"] = out["src"].to(torch.int32)[order]
     out["agg_dst"] = seg
     out["agg_w"] = None if em is None else em[order].contiguous()
-    out["agg_ptr"] = row_ranges(seg, out["x"].shape[0])
-    out["agg_plan"] = chunk_plan(out["agg_ptr"], seg.shape[0])
     return out
 
 
@@ -136,17 +133,15 @@ def forward(model: GIN, batch: Dict, *,
     (numpy) or :func:`prepare_batch`'s; ``segment_sum`` is the aggregation's
     reduction, called in its gather form (``chip_smoke.py`` passes the
     plain version to check K5 in place)."""
-    if "agg_plan" not in batch:
+    if "agg_dst" not in batch:
         batch = prepare_batch(batch, model.device)
     x = batch["x"]
     n = x.shape[0]
-    src, seg, w, ptr, plan = (batch["agg_src"], batch["agg_dst"],
-                              batch["agg_w"], batch["agg_ptr"],
-                              batch["agg_plan"])
+    src, seg, w = batch["agg_src"], batch["agg_dst"], batch["agg_w"]
     h = model.embed(x, final_act=True)
     for l in range(model.cfg.n_layers):
         # sum over in-edges of w·h[src]: the messages are never built
-        agg = segment_sum(h, seg, n, weights=w, ptr=ptr, rows=src, plan=plan)
+        agg = segment_sum(h, seg, n, weights=w, rows=src)
         h = model.mlps[l]((1.0 + model.eps[l]) * h + agg, final_act=True)
     return model.readout(h)
 

@@ -188,3 +188,31 @@ def test_split_count_fills_the_card_in_decode_only(b, hq, hkv, sq, kv_len,
     from repro_torch.kernels.attention.kernel import split_count
 
     assert split_count(b, hq, hkv, sq, kv_len, 132, geometry) == want
+
+
+def _k6_int8_probe():
+    import importlib.util
+    import pathlib
+
+    path = (pathlib.Path(__file__).resolve().parents[1]
+            / "tools/k6_int8_probe.py")
+    spec = importlib.util.spec_from_file_location("k6_int8_probe", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("variant", list(_k6_int8_probe().VARIANTS))
+def test_k6_int8_probe_edits_find_their_text(variant):
+    """Every source edit of tools/k6_int8_probe.py finds its text, once, in
+    csrc/attention.cu (K6's int8 dequantisation), so the probe cannot
+    rot."""
+    probe = _k6_int8_probe()
+    edits = probe.VARIANTS[variant]
+    src = probe.edited_source(variant, [])
+    got = probe.edited_source(variant, edits)
+    assert edits
+    for old, new in edits:
+        assert src.count(old) == 1
+        assert new in got
+    assert got != src

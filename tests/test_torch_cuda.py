@@ -16,7 +16,8 @@ terms, K5 (segment_sum, contiguous and gather forms, and the bf16-row
 form of the MoE combine) to rtol/atol 1e-5, and exactly on integer-valued
 inputs, whose sums do not depend on the order.  K6's int8 decode form is
 held to its plain version (dequantise, then attend) at K6's decode
-tolerances, and in bf16 to the bits of K6 over a dequantised copy.  K7 (sim_messages and sim_push, float64) is held bit-equal to
+tolerances, in bf16 to the bits of K6 over a dequantised copy, and its
+dequantisation element for element.  K7 (sim_messages and sim_push, float64) is held bit-equal to
 its plain versions, the sum adding in message order as the reference's
 np.add.at does; the simulator on the card to its CPU run within
 |Δh|_1 <= 1e-10.  K3's lane form (edge_sum_lanes) is held bit-equal to K3
@@ -27,6 +28,8 @@ pushes, |Δx|_1 <= 2·target_error).  The threshold decay divides on the
 card as numpy's float32 division does, so card and CPU solves push the
 same edges.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -842,6 +845,19 @@ def test_segment_sum_kernel_matches_plain(cuda_device, d, weighted, gather):
                                atol=1e-5)
 
 
+@contextlib.contextmanager
+def _empty_is_nan():
+    """torch.empty fills what it hands out with NaN (PyTorch's deterministic
+    mode), so that a kernel that reads scratch or output it never wrote
+    reads NaN, which no comparison lets pass."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
 def _long_segment_case(rng, chunk):
     """One segment of about 150,000 rows (many chunks), then a run of 20
     empty segments with a chunk boundary inside it, then segments of every
@@ -863,18 +879,17 @@ def _long_segment_case(rng, chunk):
 def test_segment_sum_kernel_long_segment_across_chunks(cuda_device, gather,
                                                       weighted):
     from repro_torch.kernels.segment import (
-        CHUNK_ROWS, chunk_plan, row_ranges, segment_sum_kernel,
-        segment_sum_ref)
+        CHUNK_ROWS, segment_sum_kernel, segment_sum_ref)
 
     rng = np.random.default_rng(11)
     seg, n = _long_segment_case(rng, CHUNK_ROWS)
     e = seg.size
     seg_t = torch.from_numpy(seg).to(cuda_device)
-    ptr = row_ranges(seg_t, n)
-    plan = chunk_plan(ptr, e)
-    assert (plan == 1).sum() >= 100  # segment 1 spans many chunks
+    firsts = seg[::CHUNK_ROWS]  # each chunk's first id
+    assert (firsts == 1).sum() >= 100  # segment 1 spans many chunks
     # segments 2..21 are empty, and a chunk begins where they sit
-    assert int(ptr[2]) == int(ptr[22]) and int(ptr[2]) % CHUNK_ROWS == 0
+    ptr = np.searchsorted(seg, np.arange(n + 1))
+    assert ptr[2] == ptr[22] and ptr[2] % CHUNK_ROWS == 0
     n_data = 5000 if gather else e
     rows = (torch.from_numpy(rng.integers(0, n_data, e)).to(cuda_device)
             if gather else None)
@@ -888,14 +903,15 @@ def test_segment_sum_kernel_long_segment_across_chunks(cuda_device, gather,
                                .astype(np.float32)).to(cuda_device)
     for data in (random, integer):
         before = dict(LAUNCHES)
-        got, again = (segment_sum_kernel(data, seg_t, n, w, ptr, rows, plan)
-                      for _ in range(2))
+        with _empty_is_nan():
+            got, again = (segment_sum_kernel(data, seg_t, n, w, rows)
+                          for _ in range(2))
         torch.cuda.synchronize()
         assert LAUNCHES["segment_sum"] == before["segment_sum"] + 2
         assert LAUNCHES["segment_sum_carry"] == before["segment_sum_carry"] + 2
         assert torch.equal(got, again)
-        # the plan the wrapper builds itself is the same
-        assert torch.equal(got, segment_sum_kernel(data, seg_t, n, w, ptr,
+        # int64 ids take the same plan
+        assert torch.equal(got, segment_sum_kernel(data, seg_t.long(), n, w,
                                                    rows))
         cpu = lambda t: None if t is None else t.cpu()
         plain = segment_sum_ref(data.cpu(), seg_t.cpu(), n, cpu(w), cpu(rows))
@@ -1004,6 +1020,139 @@ def test_segment_sum_bf16_rows_match_plain(cuda_device, t, k, d):
     assert plain.dtype == torch.float32
     np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), rtol=1e-5,
                                atol=1e-5)
+
+
+def _plan_case(kind, rng, chunk):
+    """Sorted ids (numpy int32, or int64 for "int64_ids") and n for one of
+    the layouts that decide K5's plan on the card."""
+    if kind == "decode":  # A's decode combine: 8 tokens x 4 slots
+        return np.repeat(np.arange(8), 4).astype(np.int32), 8
+    if kind == "one_short_chunk":  # fewer rows than a chunk, uneven runs
+        lengths = rng.integers(0, 9, 150)
+        return np.repeat(np.arange(150), lengths).astype(np.int32), 150
+    if kind == "many_chunks":  # a segment over 9.5 chunks, others around it
+        lengths = np.concatenate([rng.integers(0, 30, 40), [9 * chunk +
+                                  chunk // 2], rng.integers(0, 30, 40)])
+        return np.repeat(np.arange(81), lengths).astype(np.int32), 81
+    if kind in ("boundary_next", "boundary_far"):
+        # whole chunks of short segments, then one of more than a chunk
+        # from a chunk's first row: it ends in the chunk after the one it
+        # starts (next), or five chunks on (far)
+        k0, length = ((1, chunk + 500) if kind == "boundary_next"
+                      else (3, 5 * chunk + 9))
+        tail = np.repeat(np.arange(11, 30), rng.integers(0, 40, 19))
+        return np.concatenate([np.sort(rng.integers(0, 10, k0 * chunk)),
+                               np.full(length, 10), tail]).astype(
+            np.int32), 30
+    if kind == "int64_ids":  # chunk-crossing runs, ids as int64
+        lengths = rng.integers(0, 1500, 12)
+        return np.repeat(np.arange(12), lengths).astype(np.int64), 12
+    if kind == "out_of_range":  # a chunk and more of -1 first, 2**30 last
+        mid = np.sort(rng.integers(0, 60, 2 * chunk + 5))
+        return np.concatenate([np.full(chunk + 9, -1), mid, np.full(
+            chunk + 40, 2**30)]).astype(np.int32), 60
+    # empty_ends: empty segments before the first row and after the last
+    lengths = rng.integers(0, 400, 30)
+    lengths[:5] = 0
+    lengths[-6:] = 0
+    return np.repeat(np.arange(30), lengths).astype(np.int32), 30
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["contiguous", "gather", "bf16_rows"])
+@pytest.mark.parametrize("kind", ["decode", "one_short_chunk", "many_chunks",
+                                  "boundary_next", "boundary_far",
+                                  "int64_ids", "out_of_range",
+                                  "empty_ends"])
+def test_segment_sum_kernel_plans_its_own_work(cuda_device, kind, form):
+    """K5 finds each chunk's first segment and a carried segment's first
+    chunk from the ids alone: at A's decode combine (8 tokens x 4 slots,
+    D 2,048, dropped slots weighted 0), in one short chunk, across a
+    segment of many chunks, across segments of more than a chunk that
+    start on a chunk's first row (their carries begin in that chunk), from
+    int64 ids, past leading -1 and trailing 2**30 ids, and with empty
+    leading and trailing segments; in the contiguous, gather and bf16-row
+    forms, a relaunch bit-identical, the carry pass launched exactly when
+    there is more than one chunk.  ``torch.empty`` hands out NaN, so a
+    carry or an output row the kernel reads without writing it fails the
+    comparisons.  Random
+    rows are held to the plain version within relative L1 1e-5 (sums of
+    thousands of float32 terms, taken in another order); integer-valued
+    rows and weights, whose sums are exact in any order, bit for bit."""
+    from repro_torch.kernels.segment import (
+        CHUNK_ROWS, segment_sum_ref, segment_sum_sorted)
+
+    rng = np.random.default_rng(len(kind) * 7 + len(form))
+    seg, n = _plan_case(kind, rng, CHUNK_ROWS)
+    e = seg.size
+    d = 2048 if kind == "decode" else 64
+    n_data = e if form == "contiguous" else 320
+    drop = rng.random(e) < 0.3
+    rows = None
+    if form != "contiguous":  # rows e·cap + pos, a dropped slot's row 0
+        rows = torch.from_numpy(np.where(drop, 0, rng.integers(0, 320, e)))
+    dt = torch.bfloat16 if form == "bf16_rows" else torch.float32
+    name = "segment_sum_bf16" if form == "bf16_rows" else "segment_sum"
+    seg_t = torch.from_numpy(seg)
+    chunks = -(-e // CHUNK_ROWS)
+    for exact in (False, True):
+        if exact:  # integers, exact in bf16 and in any sum order
+            data = rng.integers(-8, 8, (n_data, d)).astype(np.float32)
+            w = np.where(drop, 0, rng.integers(1, 3, e)).astype(np.float32)
+        else:
+            data = rng.standard_normal((n_data, d)).astype(np.float32)
+            w = np.where(drop, 0, rng.random(e)).astype(np.float32)
+        data = torch.from_numpy(data).to(dt)
+        args = [seg_t, torch.from_numpy(w), rows]
+        dev = [None if t is None else t.to(cuda_device) for t in args]
+        before = dict(LAUNCHES)
+        with _empty_is_nan():
+            got, again = (segment_sum_sorted(data.to(cuda_device), dev[0], n,
+                                             weights=dev[1], rows=dev[2])
+                          for _ in range(2))
+        torch.cuda.synchronize()
+        assert LAUNCHES[name] - before[name] == 2
+        assert (LAUNCHES["segment_sum_carry"] - before["segment_sum_carry"]
+                == (2 if chunks > 1 else 0))
+        assert got.dtype == torch.float32 and got.shape == (n, d)
+        assert torch.equal(got, again)
+        plain = segment_sum_ref(data, seg_t, n, args[1], rows)
+        if exact:
+            assert torch.equal(got.cpu(), plain)
+        else:
+            rel = float((got.cpu().double() - plain.double()).abs().sum()
+                        / plain.double().abs().sum())
+            assert rel <= 1e-5
+        empty = np.setdiff1d(np.arange(n), seg)
+        assert bool((got[torch.from_numpy(empty).to(cuda_device)] == 0)
+                    .all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bag", [2048, 1536])
+def test_embedding_bag_of_long_bags_on_the_card(cuda_device, bag):
+    """Bags of 2,048 rows start on every other chunk's first row, and each
+    bag after the first is a carried segment that began in the chunk
+    before its last: K5 must sum each bag whole, exactly on integers, with
+    ``torch.empty`` handing out NaN; bags of 1,536 rows start mid-chunk
+    too."""
+    from repro_torch.kernels.segment import embedding_bag, embedding_bag_ref
+
+    rng = np.random.default_rng(bag)
+    b = 6
+    table = torch.from_numpy(rng.integers(-8, 8, (5000, 64)).astype(
+        np.float32))
+    ids = torch.from_numpy(rng.integers(0, 5000, (b, bag)))
+    w = torch.from_numpy(rng.integers(0, 3, (b, bag)).astype(np.float32))
+    args = [t.to(cuda_device) for t in (table, ids, w)]
+    before = dict(LAUNCHES)
+    with _empty_is_nan():
+        got = [embedding_bag(*args) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert LAUNCHES["segment_sum"] - before["segment_sum"] == 2
+    assert LAUNCHES["segment_sum_carry"] - before["segment_sum_carry"] == 2
+    assert torch.equal(got[0], got[1])
+    assert torch.equal(got[0].cpu(), embedding_bag_ref(table, ids, w))
 
 
 @pytest.mark.cuda
@@ -1367,6 +1516,99 @@ def test_flash_attention_int8_refuses_prefill_and_bad_scales(cuda_device):
     with pytest.raises(ValueError, match="int8"):
         flash_attention(q[:, :, :1], k.float(), k.float(), k_scale=sc,
                         v_scale=sc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dh", [16, 128])
+def test_flash_attention_int8_dequantises_each_element_exactly(cuda_device,
+                                                               dh, dtype):
+    """One key in one tile (kv_len 1: its softmax weight is exactly 1), so
+    the output is the kernel's dequantised v itself: every int8 value from
+    -128 to 127 (±127 in every row), under scales from the smallest to the
+    largest ``quantize_kv`` gives (a zero row's and a row at the dtype's
+    largest finite value's), must come out as ``v.float() · scale``
+    rounded to q's dtype, element for element."""
+    from repro_torch.kernels.attention import flash_attention
+    from repro_torch.models.transformer import quantize_kv
+
+    dt = getattr(torch, dtype)
+    b, hkv, smax = 2, 8, 64
+    rng = np.random.default_rng(dh)
+    big = float(torch.finfo(dt).max)
+    rows = torch.zeros((b * hkv, dh), dtype=dt)
+    rows[1, 0] = big  # the largest scale; row 0 the smallest
+    rows[2:] = torch.from_numpy(rng.standard_normal((b * hkv - 2, dh)) * 10.0
+                                ** rng.uniform(-6, 4, (b * hkv - 2, 1))).to(dt)
+    _, sc = quantize_kv(rows)
+    assert float(sc[0]) < 1e-7 and float(sc[1]) > 1e36
+    v = np.arange(b * hkv * dh) % 256 - 128  # every int8 value
+    v = v.reshape(b * hkv, dh)
+    v[:, :2] = (127, -127)
+    v[1] = np.clip(v[1], -127, 127)  # 128 x the largest scale overflows
+    cache = torch.zeros((b, smax, hkv, dh), dtype=torch.int8)
+    cache[:, 0] = torch.from_numpy(v.reshape(b, hkv, dh).astype(np.int8))
+    scales = torch.full((b, smax, hkv), float("nan"))
+    scales[:, 0] = sc.reshape(b, hkv)
+    k8 = torch.zeros_like(cache).to(cuda_device).transpose(1, 2)
+    ks = torch.ones((b, smax, hkv), device=cuda_device).transpose(1, 2)
+    v8 = cache.to(cuda_device).transpose(1, 2)
+    vs = scales.to(cuda_device).transpose(1, 2)
+    q = torch.from_numpy(rng.standard_normal((b, 1, hkv, dh)).astype(
+        np.float32)).to(cuda_device, dt).transpose(1, 2)
+    got = flash_attention(q, k8, v8, causal=False, kv_len=1, k_scale=ks,
+                          v_scale=vs)
+    torch.cuda.synchronize()
+    want = (cache[:, 0].float() * scales[:, 0, :, None]).to(dt)
+    assert torch.equal(got[:, :, 0].cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spread", ["small", "wide"])
+def test_flash_attention_int8_served_geometry(cuda_device, spread):
+    """The geometry the MoE model serves: q in bf16, Dh 128, group 1, 16 kv
+    heads, one query, over 2,080 slots at ragged kv_len; the cache
+    quantised by ``quantize_kv`` from rows whose magnitudes span 1e-7 to
+    1e-3 ("small": scales down to their 1e-8 floor) or 1e-6 to 1e2 for k
+    and to 1 for v ("wide": outputs of order 1, where the 3e-2 bound
+    applies), the largest rows at ±127.  Bit-identical on relaunch and with
+    NaN scales past kv_len, the bits of K6's bf16 form over a dequantised
+    copy, and within 3e-2 of the plain version."""
+    from repro_torch.kernels.attention import (
+        attention_plain, dequantize, flash_attention)
+    from repro_torch.models.transformer import quantize_kv
+
+    b, hkv, smax, dh = 2, 16, 2080, 128
+    rng = np.random.default_rng(len(spread))
+    low, top = {"small": (-7, (-3, -3)), "wide": (-6, (2, 0))}[spread]
+    cache = torch.from_numpy(np.stack([
+        rng.standard_normal((b, smax, hkv, dh)) * 10.0 ** rng.uniform(
+            low, t, (b, smax, hkv, 1)) for t in top]).astype(
+                np.float32)).to(cuda_device, torch.bfloat16)
+    c8, scales = quantize_kv(cache)
+    assert int(c8.abs().max()) == 127
+    assert spread == "wide" or float(scales.min()) < 2e-8
+    q = torch.from_numpy(rng.standard_normal((b, 1, hkv, dh)).astype(
+        np.float32) * 0.2).to(cuda_device, torch.bfloat16).transpose(1, 2)
+    k, v = c8[0].transpose(1, 2), c8[1].transpose(1, 2)
+    ks, vs = scales[0].transpose(1, 2), scales[1].transpose(1, 2)
+    kd = dequantize(k, ks, torch.bfloat16)
+    vd = dequantize(v, vs, torch.bfloat16)
+    for kv_len in (1, 700, 2049, 2080):
+        psc = scales.clone()
+        psc[:, :, kv_len:] = float("nan")
+        kw = dict(causal=False, kv_len=kv_len)
+        got = flash_attention(q, k, v, k_scale=ks, v_scale=vs, **kw)
+        again = flash_attention(q, k, v, k_scale=ks, v_scale=vs, **kw)
+        tail = flash_attention(q, k, v, k_scale=psc[0].transpose(1, 2),
+                               v_scale=psc[1].transpose(1, 2), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again) and torch.equal(got, tail)
+        assert torch.equal(got, flash_attention(q, kd, vd, **kw))
+        np.testing.assert_allclose(
+            got.float().cpu().numpy(),
+            attention_plain(q, k, v, k_scale=ks, v_scale=vs, **kw)
+            .float().cpu().numpy(), rtol=3e-2, atol=3e-2)
 
 
 @pytest.mark.cuda

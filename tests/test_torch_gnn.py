@@ -26,7 +26,7 @@ from repro_torch.core import power_law_graph
 from repro_torch.data import make_gnn_batch, pad_gnn_batch
 from repro_torch.interop import gnn_params_from_numpy
 from repro_torch.kernels import LAUNCHES
-from repro_torch.kernels.segment import chunk_plan, segment_sum_sorted
+from repro_torch.kernels.segment import segment_sum_sorted
 from repro_torch.models import gnn
 
 # small tensors: one intra-op thread, so that parallel test workers do
@@ -97,9 +97,8 @@ def test_prepared_order_is_stable_by_destination(batch):
     assert p["agg_dst"].dtype == torch.int32
     assert np.array_equal(p["agg_dst"].numpy(), batch["dst"][order])
     assert np.array_equal(p["agg_src"].numpy(), batch["src"][order])
-    assert np.array_equal(
-        p["agg_ptr"].numpy(),
-        np.searchsorted(batch["dst"][order], np.arange(301)))
+    # the sort is all it adds: K5 plans its work from the ids on the card
+    assert set(p) == set(batch) | {"agg_src", "agg_dst", "agg_w"}
 
 
 def test_padded_batch_gives_the_same_real_rows(pair, batch):
@@ -153,15 +152,14 @@ def test_other_archs_and_halo_are_not_ported(arch):
 
 def test_prepared_forward_builds_no_message_buffer(pair, batch):
     """On a prepared batch the forward hands each layer's aggregation the
-    node states and ``rows = agg_src`` (K5's gather form) with the prepared
-    row ranges and plan, launches no kernel on the CPU, and creates no
-    ``[E, d]`` tensor outside the reduction (whose plain version gathers)."""
+    node states and ``rows = agg_src`` (K5's gather form) by the prepared
+    ids and weights, launches no kernel on the CPU, and creates no ``[E,
+    d]`` tensor outside the reduction (whose plain version gathers)."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     _, model = pair
     p = gnn.prepare_batch(batch, "cpu")
     e = p["agg_src"].shape[0]
-    assert torch.equal(p["agg_plan"], chunk_plan(p["agg_ptr"], e))
     made, calls = [], []
 
     class Shapes(TorchDispatchMode):
@@ -177,13 +175,13 @@ def test_prepared_forward_builds_no_message_buffer(pair, batch):
 
     mode = Shapes()
 
-    def reduction(data, seg, n, *, weights, ptr, rows, plan):
+    def reduction(data, seg, n, *, weights, rows):
         calls.append((tuple(data.shape), rows is p["agg_src"],
-                      ptr is p["agg_ptr"], plan is p["agg_plan"]))
+                      seg is p["agg_dst"], weights is p["agg_w"]))
         mode.active = False
         try:
-            return segment_sum_sorted(data, seg, n, weights=weights, ptr=ptr,
-                                      rows=rows, plan=plan)
+            return segment_sum_sorted(data, seg, n, weights=weights,
+                                      rows=rows)
         finally:
             mode.active = True
 

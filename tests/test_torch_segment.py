@@ -2,8 +2,10 @@
 
 The port's ``segment_sum_sorted`` / ``embedding_bag`` on CPU tensors
 (K5's plain version), contiguous and in the gather form, against the
-reference's, whose Pallas stage 1 runs in interpret mode on the CPU; and
-K5's chunk plan.  Tolerance rtol 1e-5 / atol 1e-5: float32
+reference's, whose Pallas stage 1 runs in interpret mode on the CPU, and
+against ``jax.ops.segment_sum`` on the layouts K5's chunks meet
+(empty ends, a segment longer than a chunk, ids outside ``[0, n)``, the
+MoE combine's fixed fan-in).  Tolerance rtol 1e-5 / atol 1e-5: float32
 sums taken in another order.  The CUDA kernel is held against the plain
 version in test_torch_cuda.py.
 """
@@ -16,7 +18,7 @@ import torch
 from repro.kernels import segment as ref_seg
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.segment import (
-    chunk_plan, embedding_bag, pad_sorted_edges, row_ranges, segment_sum_ref,
+    CHUNK_ROWS, embedding_bag, pad_sorted_edges, segment_sum_ref,
     segment_sum_sorted)
 
 # small tensors: one intra-op thread, so that parallel test workers do
@@ -59,9 +61,8 @@ def test_sentinel_padded_ids_contribute_nothing():
     got = segment_sum_sorted(d_pad, s_pad, 40)
     want = np.asarray(ref_seg.segment_sum_ref(d_ref, s_ref, 40))
     np.testing.assert_allclose(got.numpy(), want, **TOL)
-    # ids past n_segments (the sentinel included) fall outside the ranges
-    ptr = row_ranges(s_pad, 40)
-    assert int(ptr[0]) == 0 and int(ptr[-1]) == 300
+    # the real rows hold every id in [0, 40), the 84 sentinel rows follow
+    assert np.array_equal(np.searchsorted(s_pad.numpy(), [0, 40]), [0, 300])
 
 
 def test_weights_and_empty_segments():
@@ -76,9 +77,10 @@ def test_weights_and_empty_segments():
                              30, weights=torch.from_numpy(w))
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     assert np.all(got.numpy()[1::3] == 0)
-    ptr = row_ranges(torch.from_numpy(seg), 30)
-    assert torch.equal(ptr, torch.from_numpy(
-        np.searchsorted(seg, np.arange(31)).astype(np.int64)))
+    # the same sums row by row, in float64
+    add = np.zeros((30, 5))
+    np.add.at(add, seg, data.astype(np.float64) * w[:, None])
+    np.testing.assert_allclose(got.numpy(), add, **TOL)
 
 
 @pytest.mark.parametrize("weighted", [False, True])
@@ -159,7 +161,7 @@ def test_embedding_bag_and_graph_pool_take_the_gather_form(monkeypatch):
 
     seen = []
 
-    def spy(data, seg_ids, n, weights=None, ptr=None, rows=None, plan=None):
+    def spy(data, seg_ids, n, weights=None, rows=None):
         seen.append((tuple(data.shape), None if rows is None else rows.dtype))
         return segment_sum_ref(data, seg_ids, n, weights, rows)
 
@@ -185,48 +187,106 @@ def test_embedding_bag_and_graph_pool_take_the_gather_form(monkeypatch):
     assert seen == [((500, 16), torch.int64), ((60, 5), torch.int64)]
 
 
-def _owned(plan):
-    """The segments each chunk writes: chunk 0 from 0, chunk c from
-    ``plan[c]`` (it is where the segment ends), up to ``plan[c + 1]``."""
-    return [range(0 if c == 0 else max(int(plan[c]), 0), int(plan[c + 1]))
-            for c in range(len(plan) - 1)]
+def _layout(kind, rng):
+    """Sorted ids (and rows, weights, n, data) of one layout K5's chunks of
+    ``CHUNK_ROWS`` rows meet on the card."""
+    n, d = 90, 6
+    rows = w = None
+    if kind in ("empty_ends", "long_segment"):
+        lengths = rng.integers(0, 40, n)
+        lengths[:4] = 0  # empty segments at the start ...
+        lengths[-5:] = 0  # ... and at the end
+        lengths[20:27] = 0
+        if kind == "long_segment":  # one segment over three chunks
+            lengths[10] = 3 * CHUNK_ROWS + 17
+        seg = np.repeat(np.arange(n), lengths)
+    elif kind in ("boundary_next", "boundary_far"):
+        # whole chunks of short segments, then one of more than a chunk from
+        # a chunk's first row, ending in the chunk after (next) or five on
+        k0, length = ((1, CHUNK_ROWS + 500) if kind == "boundary_next"
+                      else (3, 5 * CHUNK_ROWS + 9))
+        seg = np.concatenate([np.sort(rng.integers(0, 10, k0 * CHUNK_ROWS)),
+                              np.full(length, 10), np.repeat(np.arange(
+                                  11, n), rng.integers(0, 40, n - 11))])
+    elif kind == "out_of_range_ids":  # -1 before, the 2**30 sentinel after
+        seg = np.concatenate([np.full(7, -1), np.sort(rng.integers(
+            0, n, 2 * CHUNK_ROWS)), np.full(CHUNK_ROWS + 30, 2**30)])
+    else:  # the MoE combine: 4 slots a token, dropped slots of weight 0
+        n, d, k = 300, 16, 4
+        seg = np.repeat(np.arange(n), k)
+        rows = rng.integers(0, 64 * 5, n * k)
+        w = rng.random(n * k).astype(np.float32)
+        w[rng.random(n * k) < 0.3] = 0.0
+        rows[w == 0] = 0  # a dropped slot reads row 0 at weight 0
+    seg = seg.astype(np.int64 if kind == "long_segment" else np.int32)
+    n_data = seg.size if rows is None else 64 * 5
+    data = rng.standard_normal((n_data, d)).astype(np.float32)
+    return seg, rows, w, n, data
 
 
-@pytest.mark.parametrize("chunk", [256, 512, 2048])
-def test_chunk_plan(chunk):
-    """Each row lies in one chunk, each chunk's first segment is that of its
-    first row (-1 / n for rows outside [0, n)), and the chunks' segments
-    partition [0, n): for chunks shorter than, as long as and longer than
-    the longest segment (512 rows), with empty segments at both ends."""
-    rng = np.random.default_rng(chunk)
-    n = 90
-    lengths = rng.integers(0, 40, n)
-    lengths[:4] = 0  # empty segments at the start ...
-    lengths[-5:] = 0  # ... and at the end
-    lengths[10] = 512  # the longest segment
-    lengths[20:27] = 0
-    seg = np.repeat(np.arange(n), lengths).astype(np.int32)
-    seg = np.concatenate([np.full(7, -1, np.int32), seg,
-                          np.full(30, 2**30, np.int32)])
-    e = seg.shape[0]
-    ptr = row_ranges(torch.from_numpy(seg), n)
-    plan = chunk_plan(ptr, e, chunk)
-    n_chunks = -(-e // chunk)
-    assert plan.dtype == torch.int32 and plan.shape == (n_chunks + 1,)
-    starts = np.arange(n_chunks) * chunk
-    ends = np.minimum(starts + chunk, e)
-    covered = np.zeros(e, np.int64)
-    for a, b in zip(starts, ends):
-        covered[a:b] += 1
-    assert np.all(covered == 1)
-    assert np.array_equal(plan[:-1].numpy(), np.clip(seg[starts], -1, n))
-    assert int(plan[-1]) == n
-    owned = np.zeros(n, np.int64)
-    for r in _owned(plan.numpy()):
-        owned[list(r)] += 1
-    assert np.all(owned == 1)
-    # a segment that spans chunks is owned by the chunk of its last row
-    for s in range(n):
-        if lengths[s]:
-            last_row = int(ptr[s + 1]) - 1
-            assert s in _owned(plan.numpy())[last_row // chunk]
+@pytest.mark.parametrize("kind", ["empty_ends", "long_segment",
+                                  "boundary_next", "boundary_far",
+                                  "out_of_range_ids", "moe_fan_in"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_chunk_layouts_match_jax_segment_sum(kind, weighted):
+    """``segment_sum_sorted`` (K5's plain version on the CPU) against the
+    reference's ``jax.ops.segment_sum`` on the layouts that decide K5's
+    work on the card: empty segments at both ends and between, one segment
+    longer than three chunks (int64 ids), segments of more than a chunk
+    that start on a chunk's first row, -1 and ``2**30`` ids around the
+    real ones, and the MoE combine (bf16 expert rows gathered by ``rows``,
+    4 slots a token, dropped slots weighted 0; unweighted, the keep mask
+    alone)."""
+    rng = np.random.default_rng(len(kind) + weighted)
+    seg, rows, w, n, data = _layout(kind, rng)
+    if w is None and weighted:
+        w = rng.choice([0.0, 0.5, 1.0, 2.0], seg.size).astype(np.float32)
+    elif w is not None and not weighted:  # the keep mask alone
+        w = (w != 0).astype(np.float32)
+    bf16 = kind == "moe_fan_in"
+    data_t = torch.from_numpy(data)
+    if bf16:  # the reference sums the same bf16 values in float32
+        data_t = data_t.to(torch.bfloat16)
+        data = data_t.float().numpy()
+    msgs = data if rows is None else data[rows]
+    if w is not None:
+        msgs = msgs * w[:, None]
+    want = np.asarray(jax.ops.segment_sum(jnp.asarray(msgs),
+                                          jnp.asarray(seg), num_segments=n))
+    before = dict(LAUNCHES)
+    got = segment_sum_sorted(
+        data_t, torch.from_numpy(seg), n,
+        weights=None if w is None else torch.from_numpy(w),
+        rows=None if rows is None else torch.from_numpy(rows))
+    assert LAUNCHES == before, "a CPU tensor launched a kernel"
+    assert got.shape == (n, data.shape[1]) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    empty = np.setdiff1d(np.arange(n), seg)
+    assert np.all(got.numpy()[empty] == 0)
+
+
+def _k5_probe():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools/k5_probe.py"
+    spec = importlib.util.spec_from_file_location("k5_probe", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("variant", list(_k5_probe().VARIANTS))
+def test_k5_probe_edits_find_their_text(variant):
+    """Every source edit of tools/k5_probe.py finds its text, once, in
+    csrc/segment_sum.cu, so the probe cannot rot."""
+    probe = _k5_probe()
+    edits, chunk = probe.VARIANTS[variant]
+    src = probe.edited_source(variant, [])
+    got = probe.edited_source(variant, edits)
+    assert edits
+    for old, new in edits:
+        assert src.count(old) == 1
+        assert new in got
+    assert got != src
+    assert chunk % 256 == 0  # a multiple of the CTA's threads
