@@ -180,7 +180,9 @@ Phases, each printed on its own lines (any failure exits non-zero):
    cast to float32 within rtol 1e-5 / atol 1e-6.  (c) granite-moe-1b-a400m
    at full width in float32: A's prefill (8 x 2,048) and 8 teacher-forced
    decode steps on the float cache and on the int8 cache, with the kernels
-   and with the plain versions (``attention=``, ``combine=``): logits
+   and with the plain versions (``attention=``, ``combine=``; the plain
+   run under torch's deterministic algorithms, so that its index_add_
+   sums in slot order and not by atomics): logits
    within relative L1 1e-4 on each; the routing decisions of the two runs
    compared dispatch by dispatch, those that differ printed with their
    top-k margin.  (d) Rows for the kernels line: ``segment_sum_bf16`` (A's
@@ -191,6 +193,43 @@ Phases, each printed on its own lines (any failure exits non-zero):
    ``scaled_dot_product_attention`` over a dequantised copy as the library
    call; each with the launches counted in this phase.  Only layer 0 of
    each request's caches is kept past its serving, for the checks.
+17. LM training, after phase 16 frees its weights: (a) qwen1.5-0.5b at
+   full width and depth in bf16 (619,570,176 parameters drawn on the
+   card, the count gated), ``launch.steps``' ``train_4k`` cell cut in
+   batch (``reduced: batch 256->8``: 8 sequences of 4,096 in 2
+   microbatches, ``ce_chunk`` 1024, remat on), 6 AdamW steps on one fixed
+   batch through ``runtime.TrainLoop`` with a checkpoint at step 3, the
+   counters zeroed just before and read just after.  Gates: finite
+   losses, the loss after the 6th step below step 0's, the checkpoints
+   written; K6's forward launched 24 x 2 a microbatch (forward and
+   recomputation) and its backward (``flash_attention_bwd``) 24.  Prints
+   the losses, the wall a step and tok/s, the device memory peak, and a
+   torch.profiler trace of one more step with its device-busy share.  (b)
+   K6's backward on layer 0's operands of a microbatch (captured from a
+   training forward; dO drawn from a seeded generator) against its plain
+   version: relative L1 <= 1e-2 on dq, dk and dv in bf16, with the inputs
+   cast to float32 within rtol 1e-5 / atol 1e-6, a bit-identical
+   relaunch; then a float32 copy of the weights through one gradient at
+   2 x 1,024 with the kernels and with the plain versions (deterministic,
+   as in phase 16 (c)): every leaf within relative L1 1e-4.  (c) granite-moe-1b-a400m at full width in
+   bf16 (1,384,963,072 parameters), 4 steps at (a)'s shape through
+   ``TrainLoop`` with ``moe_experts=32``: the expert-load monitor's
+   observations (2 a layer and microbatch: the tap fires again in the
+   recomputation, as the reference's does) and plans printed.  Gates: K5's
+   bf16-row form 24 x 2 a microbatch, the combine's backward
+   (``segment_sum_bf16_bwd``) 24, the dispatch's backward on K5's
+   bf16-row form counted apart (``moe_dispatch_bwd``) 24; the combine's
+   backward on layer 0's operands against its plain version within
+   relative L1 1e-5 and a bit-identical relaunch; a float32 copy's
+   gradient with the kernels against the plain versions within relative
+   L1 1e-4, routing flips printed with their top-k margin.  (d) Rows for
+   the kernels line: ``flash_attention_bwd`` at (b)'s operands (4 x 16
+   heads x 4,096, Dh 64, bf16; the library call the backward of
+   ``scaled_dot_product_attention``) and ``segment_sum_bf16_bwd`` at
+   (c)'s (``index_add_`` and a batched dot), each with the launches of
+   its run.  Run it alone with ``lm_training(args, torch, dev,
+   Timer(torch, dev), sync)``, ``args`` holding ``lm_reduced`` and
+   ``seed``.
 13. Simulator: the paper's K-PID simulator (``repro_torch.core.
    DistributedSimulator``) on the card, its push on K7 (sim_messages, the
    messages; sim_push, their sum), at N, K=8, the batch schedule, target
@@ -290,6 +329,7 @@ The line before the last is the card's name and power limit; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -438,6 +478,23 @@ def k1_bytes(ins) -> int:
             + block_col.numel() * 4 + row_ptr.numel() * 8
             + col_active.numel() * 4 + f3.numel() * 4 * 2 + wt.numel() * 4
             + f3.shape[0] * 4)
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """torch's deterministic algorithms (warn only) around a plain version's
+    run on the card: its ``index_add_`` then sums in slot order, as on the
+    CPU, not by atomics whose order changes from run to run.  Over a
+    whole MoE path the atomics' order alone flipped a top-k tie of 2 ulps
+    in layer 3 in some runs (relative L1 2.44e-4 against the kernels, 1e-6
+    in the others)."""
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
 
 
 def nvidia_smi() -> str:
@@ -1373,7 +1430,8 @@ def moe_serving(args, torch, dev, timer, sync):
             routes.append([])
             got = teacher_forced(flash_attention, segment_sum_sorted)
             routes.append([])
-            plain = teacher_forced(attention_plain, segment_sum_ref)
+            with deterministic(torch):
+                plain = teacher_forced(attention_plain, segment_sum_ref)
     finally:
         transformer._route = route
     sync()
@@ -1406,6 +1464,398 @@ def moe_serving(args, torch, dev, timer, sync):
     if on_card:
         torch.cuda.empty_cache()
     return rows, f"MoE ({cfg.name}): {summary}"
+
+
+class _Captured17(Exception):
+    """Stops a training forward at its first attention or MoE combine."""
+
+
+def _capture_first(torch, module, name, run):
+    """The arguments of the first call of ``module.<name>`` while ``run()``
+    runs (a training forward, which stops there)."""
+    got = {}
+    orig = getattr(module, name)
+
+    def capture(*a, **kw):
+        got.update(args=a, kw=kw)
+        raise _Captured17
+
+    setattr(module, name, capture)
+    try:
+        run()
+    except _Captured17:
+        return got
+    finally:
+        setattr(module, name, orig)
+    fail(f"the training forward never called {name}")
+
+
+def lm_training(args, torch, dev, timer, sync):
+    """Phase 17: LM training through ``launch.steps``' train kind and
+    ``runtime.TrainLoop``: qwen1.5-0.5b (a) and granite-moe-1b-a400m (c) at
+    full width in bf16, K6's backward and the MoE combine's backward held
+    to their plain versions on layer 0's operands (b, c), float32 steps
+    with the kernels against the plain versions, and the two backward
+    kernels' rows for the kernels line (d).  Returns ``(rows, summary)``."""
+    import shutil
+
+    import torch.nn.functional as fn
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.smoke import lm_shrink
+    from repro_torch.data import lm_token_batch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.attention import (
+        attention_bwd_plain, flash_attention, flash_attention_bwd)
+    from repro_torch.kernels.segment import segment_sum_bwd_ref
+    from repro_torch.kernels.segment.backward import moe_combine_bwd
+    from repro_torch.launch.steps import build_cell_step
+    from repro_torch.models import transformer
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime import TrainLoop, TrainLoopConfig
+
+    on_card = dev.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 stays float32
+    torch.backends.cudnn.allow_tf32 = False
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "chip_smoke_train")
+    shutil.rmtree(work, ignore_errors=True)
+    # the train_4k cell cut in batch: 8 sequences (reduced: 64 tokens) in 2
+    # microbatches
+    b, s, nm = 8, 64 if args.lm_reduced else 4096, 2
+    b32, s32 = 2, 64 if args.lm_reduced else 1024
+    ocfg = AdamWConfig(lr=3e-5, warmup_steps=1, total_steps=6)
+    rows, summary = [], []
+
+    def model_for(arch, dtype=None):
+        spec = get_arch(arch)
+        cfg = lm_shrink(spec.model_cfg) if args.lm_reduced else spec.model_cfg
+        if dtype is not None:
+            cfg = dataclasses.replace(cfg, dtype=dtype)
+        return spec, cfg, transformer.init_params(cfg, seed=args.seed,
+                                                  device=dev)
+
+    def cell_for(spec):
+        cell = spec.cells["train_4k"]
+        return dataclasses.replace(
+            cell, inputs={k: ((b, s), dt) for k, (_, dt)
+                          in cell.inputs.items()},
+            overrides={"n_microbatches": nm},
+            meta={**cell.meta, "tokens": b * s, "batch": b, "seq": s,
+                  "reduced": f"batch {cell.meta['batch']}->{b}"
+                  + ("" if s == 4096 else f", seq 4096->{s}")})
+
+    def train(name, arch, steps, ckpt_every, expert_monitor=False):
+        """``steps`` AdamW steps on one fixed batch through TrainLoop, the
+        counters zeroed just before and read just after."""
+        spec, cfg, model = model_for(arch)
+        n_par = sum(p.numel() for p in model.parameters())
+        m = cfg.moe
+        dead = 0 if m is None else (cfg.n_layers * (m.e_pad - m.n_experts)
+                                    * 3 * cfg.d_model * m.d_ff_expert)
+        if n_par != cfg.n_params + dead:
+            fail(f"{cfg.name}: {n_par} parameters where the config counts "
+                 f"{cfg.n_params} + {dead} padded")
+        cell = cell_for(spec)
+        step = build_cell_step(spec, cell, model, ocfg)
+        batch = lm_token_batch(0, b, s, cfg.vocab, seed=args.seed)
+        ckpt = os.path.join(work, name)
+
+        def init_state():
+            tree = model.param_tree()
+            return tree, adamw_init(tree)
+
+        loop = TrainLoop(step, lambda i: batch, init_state, TrainLoopConfig(
+            total_steps=steps, ckpt_dir=ckpt, ckpt_every=ckpt_every,
+            keep=2, log_every=1,
+            moe_experts=m.n_experts if expert_monitor else 0))
+        held = torch.cuda.memory_allocated() if on_card else 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = loop.run()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        peak = ((torch.cuda.max_memory_allocated() - held) / 1e9 if on_card
+                else 0.0)
+        with torch.no_grad():
+            after = float(transformer.train_loss(
+                model, batch, dataclasses.replace(cfg, n_microbatches=nm)))
+        losses = [r["loss"] for r in out["metrics"]] + [after]
+        secs = [r["sec"] for r in out["metrics"]]
+        saved = sorted(os.listdir(ckpt))
+        ck_bytes = sum(os.path.getsize(os.path.join(ckpt, d, f))
+                       for d in saved for f in os.listdir(os.path.join(
+                           ckpt, d)))
+        print(f"{name}: {cfg.name}, {cfg.n_layers} layers, d={cfg.d_model}, "
+              f"{model.embed.dtype}, {n_par} parameters; {cell.name} cut to "
+              f"{cell.meta['reduced']} ({b} x {s} tokens, {nm} microbatches, "
+              f"ce_chunk {cfg.ce_chunk}, remat {cfg.remat}); {steps} AdamW "
+              f"steps on one batch through TrainLoop in {wall:.1f} s: losses "
+              f"{[round(x, 4) for x in losses]} (the last after the last "
+              f"step), walls a step (s) {[round(x, 3) for x in secs]}, "
+              f"{b * s / min(secs):.0f} tok/s at the fastest step; lr "
+              f"{[float('%.3g' % r['lr']) for r in out['metrics']]}, "
+              f"grad norm {[round(r['grad_norm'], 3) for r in out['metrics']]}"
+              f"; device memory peak {peak:.3f} GB above the "
+              f"{held / 1e9:.3f} GB held; checkpoints {saved} "
+              f"({ck_bytes / 1e9:.3f} GB); launches {launches}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            fail(f"{name}: losses {losses} not finite or not falling")
+        # every ckpt_every steps and at the end, the newest two kept
+        if saved != [f"step_{i:09d}" for i in sorted(
+                {*range(ckpt_every, steps + 1, ckpt_every), steps})[-2:]]:
+            fail(f"{name}: checkpoints {saved}")
+        return spec, cfg, model, step, batch, out, loop, launches, secs, peak
+
+    def per_microbatch(launches, steps, want):
+        got = {k: launches.get(k, 0) for k in want}
+        full = {k: v * steps * nm for k, v in want.items()}
+        if on_card and got != full:
+            fail(f"launches {got}, not {full} ({want} a microbatch)")
+        return got
+
+    # ---- (a) qwen1.5-0.5b --------------------------------------------------
+    spec, cfg, model, step, batch, out, _, launches, secs, peak = train(
+        "qwen1.5-0.5b training", LM_ARCH, 6, 3)
+    L = cfg.n_layers
+    path_a = per_microbatch(launches, 6, {"flash_attention": 2 * L,
+                                          "flash_attention_bwd": L})
+    state = out["opt_state"]
+    if on_card:
+        device_share(torch, "qwen1.5-0.5b train step (one more)",
+                     lambda: step(model.param_tree(), state, batch),
+                     1e3 * float(np.median(secs)))
+    summary.append(f"qwen1.5-0.5b: {b} x {s} a step in {nm} microbatches, "
+                   f"{float(np.median(secs)):.3f} s a step (median), "
+                   f"{b * s / float(np.median(secs)):.0f} tok/s, peak "
+                   f"{peak:.3f} GB")
+    del out, state
+    shutil.rmtree(os.path.join(work, "qwen1.5-0.5b training"),
+                  ignore_errors=True)
+
+    # ---- (b) K6's backward on layer 0's operands ---------------------------
+    mb = {k: v[:b // nm] for k, v in batch.items()}
+    ins = _capture_first(torch, transformer, "flash_attention_train",
+                         lambda: transformer.train_loss(model, mb))
+    q, k, v = (t.detach() for t in ins["args"][:3])
+    causal = ins["kw"]["causal"]
+    o = flash_attention(q, k, v, causal=causal)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    do = (torch.randn(o.shape, generator=gen, device=dev) * 0.01).to(o.dtype)
+
+    def plain_bwd(q, k, v, o, do):
+        # a batch row at a time: the plain version holds [H, S, S] float32
+        parts = [attention_bwd_plain(*(t[i:i + 1].float()
+                                       for t in (q, k, v, o, do)),
+                                     causal=causal)
+                 for i in range(q.shape[0])]
+        return [torch.cat(p) for p in zip(*parts)]
+
+    got = flash_attention_bwd(q, k, v, o, do, causal=causal)
+    again = flash_attention_bwd(q, k, v, o, do, causal=causal)
+    want = plain_bwd(q, k, v, o, do)
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    errs = {n: rel_l1(x.float(), w) for n, x, w in zip("qkv", got, want)}
+    err_bwd = max(float((x.float() - w).abs().max())
+                  for x, w in zip(got, want))
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+    o32 = flash_attention(q32, k32, v32, causal=causal)
+    got32 = flash_attention_bwd(q32, k32, v32, o32, do32, causal=causal)
+    want32 = plain_bwd(q32, k32, v32, o32, do32)
+    over = sum(int(((x - w).abs() > 1e-6 + 1e-5 * w.abs()).sum())
+               for x, w in zip(got32, want32))
+    print(f"K6 backward (layer 0 of a microbatch): q {tuple(q.shape)} "
+          f"{str(q.dtype)[6:]}, causal {causal}: relative L1 dq "
+          f"{errs['q']:.3e}, dk {errs['k']:.3e}, dv {errs['v']:.3e} "
+          f"(bound 1e-2), max abs err {err_bwd:.3e}, bit-identical relaunch "
+          f"{same}; in float32: {over} of {3 * q.numel()} outside rtol 1e-5 "
+          f"/ atol 1e-6")
+    if not (max(errs.values()) <= 1e-2 and same and over == 0):
+        fail("K6's backward against its plain version")
+    del got, again, want, got32, want32, q32, k32, v32, do32, o32
+
+    def float_step(name, cfg, model, routed=None):
+        """One float32 gradient at b32 x s32 with the kernels and with the
+        plain versions; every leaf within relative L1 1e-4."""
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                    n_microbatches=1)
+        m32 = transformer.init_params(cfg32, seed=args.seed + 1, device=dev)
+        with torch.no_grad():
+            for dst, src in zip(m32.parameters(), model.parameters()):
+                dst.copy_(src)
+        m32.requires_grad_(True)
+        bt = lm_token_batch(1, b32, s32, cfg.vocab, seed=args.seed)
+        leaves = [p for _, p in sorted(m32.named_parameters())]
+        res = []
+        for kernels in (True, False):
+            if routed is not None:
+                routed.append([])
+            with (contextlib.nullcontext() if kernels
+                  else deterministic(torch)):
+                loss = transformer.train_loss(m32, bt, cfg32,
+                                              kernels=kernels)
+                res.append((float(loss.detach()),
+                            torch.autograd.grad(loss, leaves)))
+        sync()
+        worst = max(rel_l1(g, w) for g, w in zip(res[0][1], res[1][1]))
+        print(f"{name} in float32 ({sum(p.numel() for p in leaves)} "
+              f"parameters), one gradient at {b32} x {s32}, kernels against "
+              f"plain versions: losses {res[0][0]:.6f} / {res[1][0]:.6f}, "
+              f"the largest relative L1 over the {len(leaves)} leaves "
+              f"{worst:.3e} (bound 1e-4)")
+        if not worst <= 1e-4:
+            fail(f"{name}'s float32 gradients with the kernels disagree with "
+                 "the plain versions")
+
+    float_step(cfg.name, cfg, model)
+    # (d) K6 backward's row, at a microbatch's layer 0
+    bq, hq, sq, dh = q.shape
+    pairs = bq * hq * sq * (sq + 1) // 2
+    # q, o, do, k and v read once, dq, dk and dv written once; five products
+    # of 2.Dh flops over the (query, key) pairs under the causal mask
+    n_bytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
+    flops = 5 * 2.0 * dh * pairs
+    b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S)
+    lib_ms = None
+    if on_card:
+        ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
+        lo = fn.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+        lib_ms = timer(lambda: torch.autograd.grad(
+            lo, (ql, kl, vl), do, retain_graph=True), 10)
+        del ql, kl, vl, lo
+    rows.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/attention_bwd.cu",
+        "replaces": "src/repro/kernels/attention/kernel.py:75",
+        "computes": "src/repro/models/transformer.py:217 (its gradient)",
+        "kernel": "mma.sync" if q.dtype == torch.bfloat16 else "fma",
+        "launches": path_a["flash_attention_bwd"], "max_abs_err": err_bwd,
+        "ms": timer(lambda: flash_attention_bwd(q, k, v, o, do,
+                                                causal=causal), 10),
+        "plain_ms": timer(lambda: plain_bwd(q, k, v, o, do), 2, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "shape": [bq, hq, sq, dh], "dtype": str(q.dtype)[6:],
+        "gflop": flops / 1e9})
+    print(f"flash_attention_bwd: {flops / 1e9:.1f} GFLOP counted (five "
+          f"products over the causal pairs): "
+          f"{flops / rows[-1]['ms'] / 1e9:.1f} TFLOP/s, the library's backward "
+          + ("not measured" if lib_ms is None
+             else f"{flops / lib_ms / 1e9:.1f} TFLOP/s"))
+    del q, k, v, o, do, model, step, batch
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- (c) granite-moe-1b-a400m ------------------------------------------
+    spec, cfg, model, step, batch, out, loop, launches, secs, peak = train(
+        "granite-moe-1b-a400m training", MOE_CHECK_ARCH, 4, 4,
+        expert_monitor=True)
+    moe = cfg.moe
+    path_c = per_microbatch(launches, 4, {
+        "flash_attention": 2 * L, "flash_attention_bwd": L,
+        "segment_sum_bf16": 2 * L, "segment_sum_bf16_bwd": L,
+        "moe_dispatch_bwd": L})
+    mon = loop.expert_monitor
+    print(f"granite-moe-1b-a400m expert-load monitor: {mon._step} "
+          f"dispatches observed ({4 * nm} microbatches x {cfg.n_layers} "
+          f"layers x 2, forward and recomputation), {len(mon.executor.log)} "
+          f"plans: {[dataclasses.astuple(p) for p in mon.executor.log[:12]]}"
+          f"; shards {mon.shards.tolist()}")
+    if mon._step != 4 * nm * cfg.n_layers * 2:
+        fail(f"the expert-load tap fired {mon._step} times")
+    summary.append(f"granite-moe-1b-a400m: {float(np.median(secs)):.3f} s a "
+                   f"step (median), {b * s / float(np.median(secs)):.0f} "
+                   f"tok/s, peak {peak:.3f} GB, {len(mon.executor.log)} "
+                   "expert-shard plans")
+    del out, loop
+    shutil.rmtree(work, ignore_errors=True)
+    mb = {k: v[:b // nm] for k, v in batch.items()}
+    ins = _capture_first(torch, transformer, "moe_combine",
+                         lambda: transformer.train_loss(model, mb))
+    data = ins["args"][0].detach()
+    seg, n = ins["args"][1], ins["args"][2]
+    w, rows_, slot = (ins["kw"][x].detach() for x in ("weights", "rows",
+                                                      "slot"))
+    g = torch.randn((n, data.shape[1]), generator=gen, device=dev)
+    got = moe_combine_bwd(g, data, seg, w, rows_, slot)
+    again = moe_combine_bwd(g, data, seg, w, rows_, slot)
+    want = segment_sum_bwd_ref(g, data, seg, w, rows_)
+    e_w, e_d = rel_l1(got[0], want[0]), rel_l1(got[1].float(),
+                                               want[1].float())
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    err_k5 = max(float((got[0] - want[0]).abs().max()),
+                 float((got[1].float() - want[1].float()).abs().max()))
+    print(f"combine backward (layer 0 of a microbatch): eo "
+          f"{tuple(data.shape)} {str(data.dtype)[6:]}, {seg.numel()} slots "
+          f"into {n} tokens ({int((w == 0).sum())} of weight 0): relative L1 "
+          f"grad_w {e_w:.3e}, grad_eo {e_d:.3e} (bound 1e-5), max abs err "
+          f"{err_k5:.3e}, bit-identical relaunch {same}")
+    if not (e_w <= REL_L1 and e_d <= REL_L1 and same):
+        fail("the combine's backward against its plain version")
+    routes, route = [], transformer._route
+
+    def recording(router, xf, moe):
+        res = route(router, xf, moe)
+        routes[-1].append((res[0].detach(), res[2]))
+        return res
+
+    transformer._route = recording
+    try:
+        float_step(cfg.name, cfg, model, routes)
+    finally:
+        transformer._route = route
+    differ, shown = 0, []
+    for call, ((pk, ik), (pp, ip)) in enumerate(zip(*routes)):
+        bad = (ik.sort(-1).values != ip.sort(-1).values).any(-1)
+        if bool(bad.any()):
+            top = pp.topk(moe.top_k + 1, dim=-1).values
+            margin = (top[:, -2] - top[:, -1])[bad]
+            differ += int(bad.sum())
+            shown += [(call, int(t), float(mg)) for t, mg in zip(
+                bad.nonzero()[:, 0][:3].tolist(), margin[:3].tolist())]
+    print(f"routing of the float32 gradients compared over {len(routes[0])} "
+          f"dispatches (forward and recomputation): {differ} (token, "
+          f"dispatch) pairs routed otherwise"
+          + (f", e.g. (dispatch, token, top-k margin) {shown[:6]}"
+             if shown else ""))
+    # (d) the combine backward's row, at a microbatch's layer 0
+    e, d = seg.numel(), data.shape[1]
+    n_read = int(torch.unique(rows_).numel())
+    r_rows = data.shape[0]
+    # the rows the slots name, g, each slot's weight, row, token and the
+    # slot map read once; grad_w and grad_eo written once
+    size = data.element_size()
+    n_bytes = (n_read * d * size + n * d * 4 + e * (4 + 8 + 4) + r_rows * 8
+               + e * 4 + r_rows * d * size)
+    b_ms, b_by = bound_ms(n_bytes, 2.0 * e * d + 1.0 * r_rows * d)
+    lib_ms = None
+    if on_card:
+        ge = g.index_select(0, seg.long())
+        gw = ge * w[:, None]
+        eo3 = data.index_select(0, rows_).float()[:, None, :]
+        ge3 = ge[:, :, None]
+        zeros = torch.zeros(data.shape, dtype=torch.float32, device=dev)
+        lib_ms = (timer(lambda: zeros.index_add_(0, rows_, gw), 10)
+                  + timer(lambda: torch.bmm(eo3, ge3), 10))
+        del ge, gw, eo3, ge3, zeros
+    rows.append({
+        "name": "segment_sum_bf16_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/segment_bwd.cu",
+        "replaces": "src/repro/kernels/segment/kernel.py:50",
+        "computes": "src/repro/models/transformer.py:541 (its gradient)",
+        "form": "the MoE combine's backward, bf16 rows",
+        "launches": path_c["segment_sum_bf16_bwd"], "max_abs_err": err_k5,
+        "ms": timer(lambda: moe_combine_bwd(g, data, seg, w, rows_, slot),
+                    20),
+        "plain_ms": timer(lambda: segment_sum_bwd_ref(g, data, seg, w, rows_),
+                          5),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "shape": [e, d, n, r_rows], "rows_read": n_read})
+    del data, g, got, again, want, model, step, batch, routes
+    if on_card:
+        torch.cuda.empty_cache()
+    return rows, "LM training: " + "; ".join(summary)
 
 
 def simulator_phase(args, torch, dev, timer, g, problem, x_ref):
@@ -3420,6 +3870,17 @@ def main() -> int:
     show(moe_rows)
     rows += moe_rows
     print(f"phase 16 wall {time.perf_counter() - t0:.1f} s")
+
+    # ---- 17. LM training (after 16, whose MoE weights are freed) ---------
+    print("== phase 17: LM training")
+    t0 = time.perf_counter()
+    train_rows, train_summary = lm_training(args, torch, dev, timer, sync)
+    print(train_summary)
+    show(train_rows)
+    rows += train_rows
+    print(f"phase 17 wall {time.perf_counter() - t0:.1f} s")
+    if on_card:
+        torch.cuda.empty_cache()
 
     # ---- 15. resilience (before 14, which mutates phase 4's store) --------
     print("== phase 15: resilience")

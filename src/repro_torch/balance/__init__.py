@@ -1,5 +1,6 @@
 """The rebalancing control plane (DESIGN.md §5), the port's copy of
-``repro.balance`` as far as the engine and the simulator need it.
+``repro.balance`` as far as the engine, the simulator and the training
+loop need it.
 
 * :class:`~repro_torch.balance.signals.LoadSignal` — the one measurement
   container (per-PID residuals, per-PID edge-op counts, graph churn).
@@ -13,6 +14,8 @@
   node MovePlan into a node reassignment of the K-PID simulator.
 * :class:`~repro_torch.balance.executors.BucketMoveExecutor` — turns a
   bucket MovePlan into a row permutation of the K-PID engine.
+* :class:`~repro_torch.balance.executors.AdvisoryExecutor` — records
+  plans without acting (the training loop's monitors).
 """
 from .plan import MovePlan
 from .signals import LoadSignal
@@ -24,7 +27,7 @@ from .policies import (
     SlopeEMAPolicy,
     make_rebalancer,
 )
-from .executors import BucketMoveExecutor, NodeMoveExecutor
+from .executors import AdvisoryExecutor, BucketMoveExecutor, NodeMoveExecutor
 
 __all__ = [
     "LoadSignal",
@@ -37,4 +40,5 @@ __all__ = [
     "make_rebalancer",
     "NodeMoveExecutor",
     "BucketMoveExecutor",
+    "AdvisoryExecutor",
 ]

@@ -16,10 +16,14 @@ exist), so policies and consumers can account moves truthfully.
   plans a row permutation onto the destination PID's inert headroom rows
   and applies it to the engine's state.
 
-The advisory executor (the runtime's) comes with the slice that consumes
-it.
+* :class:`AdvisoryExecutor` — records plans without acting; the training
+  loop's straggler monitor and MoE expert rebalancer run in this mode on
+  one card (across cards the log would drive the bucket / expert-shard
+  movers).
 """
 from __future__ import annotations
+
+from typing import List
 
 import numpy as np
 import torch
@@ -27,7 +31,7 @@ import torch
 from ..core.partition import apply_move
 from .plan import MovePlan
 
-__all__ = ["NodeMoveExecutor", "BucketMoveExecutor"]
+__all__ = ["NodeMoveExecutor", "BucketMoveExecutor", "AdvisoryExecutor"]
 
 
 class NodeMoveExecutor:
@@ -123,3 +127,20 @@ class BucketMoveExecutor:
         self.state, (self.w, self.slot_deg), self.table = eng.repartition(
             self.state, perm, new_map, (self.w, self.slot_deg))
         return moved
+
+
+class AdvisoryExecutor:
+    """Records plans without acting: ``log`` keeps every accepted plan;
+    ``drain()`` hands them over and clears the log."""
+
+    def __init__(self, kind: str = "device"):
+        self.kind = kind
+        self.log: List[MovePlan] = []
+
+    def apply(self, plan: MovePlan) -> int:
+        self.log.append(plan)
+        return plan.units
+
+    def drain(self) -> List[MovePlan]:
+        out, self.log = self.log, []
+        return out

@@ -22,12 +22,12 @@ worker** (the paper's residual magnitude plays exactly this role in
 §2.5.2 — the PID with the largest remaining residual has the lagging
 slope and sheds load).
 
-The port produces the residual, edge-ops, graph-churn, latency (the
-supervisor's per-request pressure), queue-depth (the serving
-scheduler's) and expert-tokens (:meth:`LoadSignal.from_expert_counts`,
-fed by the MoE model's ``set_expert_load_sink`` tap) kinds; the step-time
-producer and the expert monitor that consumes expert-tokens come with the
-runtime slice.
+The port produces every kind: residual, edge-ops, graph-churn, latency
+(the supervisor's per-request pressure), queue-depth (the serving
+scheduler's), step-time (:meth:`LoadSignal.from_step_times`, the
+training loop's straggler monitor) and expert-tokens
+(:meth:`LoadSignal.from_expert_counts`, fed by the MoE model's
+``set_expert_load_sink`` tap to the training loop's expert monitor).
 """
 from __future__ import annotations
 
@@ -90,6 +90,20 @@ class LoadSignal:
         """Edge operations charged since the previous control step."""
         return cls(values=np.maximum(ops_delta, 0), sizes=sizes,
                    kind="edge-ops", step=step)
+
+    @classmethod
+    def from_step_times(cls, seconds: np.ndarray,
+                        load_units: Optional[np.ndarray] = None,
+                        step: int = 0) -> "LoadSignal":
+        """Per-host step wall-times (a straggler is a slow PID), as
+        fractions of their total (at least 1e-9 s each), so that the slope
+        policies see residual-like magnitudes in (0, 1) whatever the step's
+        duration; ``load_units`` default to 2**20 a host."""
+        seconds = np.maximum(np.asarray(seconds, np.float64), 1e-9)
+        if load_units is None:
+            load_units = np.full(seconds.shape[0], 1 << 20)
+        return cls(values=seconds / seconds.sum(), sizes=load_units,
+                   kind="step-time", step=step)
 
     @classmethod
     def from_graph_churn(cls, churn_counts: np.ndarray,

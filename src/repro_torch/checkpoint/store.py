@@ -91,12 +91,15 @@ _BF16_DESCR = "<V2"
 
 
 def _to_host(leaf: Any) -> np.ndarray:
+    """A host copy of ``leaf``: never the live tensor or array, which the
+    caller may change in place (an optimizer step) while an asynchronous
+    writer still holds the snapshot."""
     if torch.is_tensor(leaf):
-        leaf = leaf.detach().cpu()
+        leaf = leaf.detach().to("cpu", copy=True)
         if leaf.dtype == torch.bfloat16:  # its bits, as 2-byte void
             return leaf.view(torch.int16).numpy().view("V2")
         return leaf.numpy()
-    return np.asarray(leaf)
+    return np.array(leaf)
 
 
 def _save_npy(path: str, arr: np.ndarray) -> None:

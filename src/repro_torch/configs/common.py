@@ -1,8 +1,9 @@
 """Shape-cell records: what one (architecture × input shape) cell holds.
 
-A cell names its step kind, its inputs as plain ``(shape, dtype)`` pairs
-and its bookkeeping ``meta``.  :func:`lm_cells` gives an LM config its
-serving cells.
+A cell names its step kind, its inputs as plain ``(shape, dtype)`` pairs,
+its per-shape model-config knobs (``overrides``: microbatches) and its
+bookkeeping ``meta``.  :func:`lm_cells` gives an LM config its training
+and serving cells.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ class ShapeCell:
     kind: str  # train | serve | retrieval | prefill | decode
     inputs: Dict[str, Tuple[Tuple[int, ...], torch.dtype]]
     meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    overrides: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,15 +33,23 @@ class ArchSpec:
     source: str = ""  # provenance of the published config
 
 
-def lm_cells(cfg) -> Dict[str, ShapeCell]:
-    """The reference's ``prefill_32k`` (32 prompts of 32,768 tokens) and
-    ``decode_32k`` (128 sequences, one new token against a 32,768-slot
-    cache) for an LM config.  ``train_4k`` and ``long_500k`` wait with
-    training and the sequence-sharded cache (ROADMAP)."""
+def lm_cells(cfg, *,
+             train_microbatches: int = 1) -> Dict[str, ShapeCell]:
+    """The reference's ``train_4k`` (256 sequences of 4,096 tokens and
+    their labels, in ``train_microbatches`` microbatches), ``prefill_32k``
+    (32 prompts of 32,768 tokens) and ``decode_32k`` (128 sequences, one
+    new token against a 32,768-slot cache) for an LM config.
+    ``long_500k`` waits with the sequence-sharded cache (ROADMAP)."""
     tok = torch.int32
     cache = ((cfg.n_layers, 128, 32768, cfg.n_kv_heads, cfg.head_dim),
              cfg.dtype)
     return {
+        "train_4k": ShapeCell(
+            name="train_4k", kind="train",
+            inputs={"tokens": ((256, 4096), tok),
+                    "labels": ((256, 4096), tok)},
+            overrides={"n_microbatches": train_microbatches},
+            meta={"tokens": 256 * 4096, "batch": 256, "seq": 4096}),
         "prefill_32k": ShapeCell(
             name="prefill_32k", kind="prefill",
             inputs={"tokens": ((32, 32768), tok)},

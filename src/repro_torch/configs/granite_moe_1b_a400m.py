@@ -29,5 +29,5 @@ def model_cfg() -> TransformerConfig:
 def spec() -> ArchSpec:
     cfg = model_cfg()
     return ArchSpec(arch_id=ARCH_ID, family="lm", model_cfg=cfg,
-                    cells=lm_cells(cfg),
+                    cells=lm_cells(cfg, train_microbatches=1),
                     source="hf:ibm-granite/granite-3.0-1b-a400m-base; hf")

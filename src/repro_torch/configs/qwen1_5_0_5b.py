@@ -27,4 +27,5 @@ def model_cfg() -> TransformerConfig:
 def spec() -> ArchSpec:
     cfg = model_cfg()
     return ArchSpec(arch_id=ARCH_ID, family="lm", model_cfg=cfg,
-                    cells=lm_cells(cfg), source="hf:Qwen/Qwen1.5-0.5B; hf")
+                    cells=lm_cells(cfg, train_microbatches=1),
+                    source="hf:Qwen/Qwen1.5-0.5B; hf")

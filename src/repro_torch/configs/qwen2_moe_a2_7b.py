@@ -30,5 +30,5 @@ def model_cfg() -> TransformerConfig:
 def spec() -> ArchSpec:
     cfg = model_cfg()
     return ArchSpec(arch_id=ARCH_ID, family="lm", model_cfg=cfg,
-                    cells=lm_cells(cfg),
+                    cells=lm_cells(cfg, train_microbatches=2),
                     source="hf:Qwen/Qwen1.5-MoE-A2.7B; hf")

@@ -22,10 +22,13 @@ thing from the same state.
   modules holding a reference parameter pytree (``recsys.init_params`` /
   ``gnn.init_params`` / ``transformer.init_params``) given as numpy
   arrays.
+* :func:`adamw_state_from_numpy` turns a reference ``adamw_init`` /
+  ``adamw_update`` state (``master``, ``m``, ``v`` pytrees and ``step``)
+  given as numpy arrays into the port's optimizer state.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,7 +45,7 @@ from .models.transformer import init_params as init_lm
 
 __all__ = ["problem_from_arrays", "seed_session", "engine_from_arrays",
            "fm_params_from_numpy", "gnn_params_from_numpy",
-           "lm_params_from_numpy"]
+           "lm_params_from_numpy", "adamw_state_from_numpy"]
 
 
 def problem_from_arrays(indptr, indices, edge_weights, n: int, b, eps: float,
@@ -184,3 +187,20 @@ def lm_params_from_numpy(params: Mapping, cfg: TransformerConfig,
     for name, p in model.layers.items():
         _fill(p, layers[name])
     return model
+
+
+def adamw_state_from_numpy(state: Mapping, device="cuda") -> Dict[str, Any]:
+    """The port's AdamW state (:func:`repro_torch.optim.adamw_init`'s
+    layout) holding a reference state's ``master``, ``m`` and ``v`` (float32
+    pytrees of dicts) and ``step``, given as numpy arrays."""
+    dev = torch.device(device)
+
+    def tree(node):
+        if isinstance(node, Mapping):
+            return {k: tree(node[k]) for k in sorted(node)}
+        return torch.tensor(np.asarray(node, dtype=np.float32), device=dev)
+
+    out = {name: tree(state[name]) for name in ("master", "m", "v")}
+    out["step"] = torch.tensor(int(np.asarray(state["step"])),
+                               dtype=torch.int32, device=dev)
+    return out

@@ -43,8 +43,12 @@ LAUNCHES: Dict[str, int] = {
     "segment_sum": 0,
     "segment_sum_bf16": 0,
     "segment_sum_carry": 0,
+    "segment_sum_bwd": 0,
+    "segment_sum_bf16_bwd": 0,
+    "moe_dispatch_bwd": 0,
     "flash_attention": 0,
     "flash_attention_int8": 0,
+    "flash_attention_bwd": 0,
     "sim_messages": 0,
     "sim_push": 0,
 }

@@ -1,13 +1,24 @@
-"""Public attention op: K6 on the card, its plain version on the CPU."""
+"""Public attention ops: K6 on the card, its plain version on the CPU.
+
+:func:`flash_attention` is the forward (serving).
+:func:`flash_attention_train` is the same forward with a gradient: a
+``torch.autograd.Function`` whose backward is K6's backward kernel
+(:func:`~repro_torch.kernels.attention.backward.flash_attention_bwd`; its
+plain version on the CPU), and :func:`attention_train_plain` its plain
+twin, the plain forward and the plain backward on any device, for
+comparisons on the card.
+"""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
+from .backward import flash_attention_bwd
 from .kernel import flash_attention_kernel
+from .ref import attention_bwd_plain, attention_plain
 
-__all__ = ["flash_attention"]
+__all__ = ["flash_attention", "flash_attention_train", "attention_train_plain"]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -35,3 +46,45 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       device=q.device).transpose(1, 2)
     return flash_attention_kernel(q, k, v, causal=causal, kv_len=kv_len,
                                   out=out, k_scale=k_scale, v_scale=v_scale)
+
+
+class _Attention(torch.autograd.Function):
+    """Causal / bidirectional GQA attention whose backward is K6's backward
+    (``plain``: the plain versions of both)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, plain: bool):
+        o = (attention_plain(q, k, v, causal=causal) if plain
+             else flash_attention(q, k, v, causal=causal))
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.plain = causal, plain
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        bwd = attention_bwd_plain if ctx.plain else flash_attention_bwd
+        dq, dk, dv = bwd(q, k, v, o, do, causal=ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def _train(q, k, v, causal, kv_len, plain):
+    if kv_len is not None:
+        raise ValueError("training attends over whole sequences (no kv_len)")
+    return _Attention.apply(q, k, v, causal, plain)
+
+
+def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          kv_len: Optional[int] = None) -> torch.Tensor:
+    """:func:`flash_attention` (no ``kv_len``, no int8 cache) with K6's
+    backward as its gradient."""
+    return _train(q, k, v, causal, kv_len, False)
+
+
+def attention_train_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          kv_len: Optional[int] = None) -> torch.Tensor:
+    """:func:`flash_attention_train` on the plain versions of K6's forward
+    and backward, on any device."""
+    return _train(q, k, v, causal, kv_len, True)

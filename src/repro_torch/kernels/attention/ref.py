@@ -19,7 +19,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["attention_plain", "dequantize"]
+__all__ = ["attention_plain", "attention_bwd_plain", "dequantize"]
 
 NEG_INF = -1.0e30
 
@@ -56,3 +56,38 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = s.masked_fill(~keep, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *, causal: bool):
+    """The gradients ``(dq, dk, dv)`` of ``o = attention_plain(q, k, v,
+    causal=causal)`` for ``do = dL/do`` (q, o, do ``[B, Hq, Sq, Dh]``, k,
+    v ``[B, Hkv, Sk, Dh]``), in float32 and cast to the inputs' dtypes:
+    ``L = logsumexp(s)``, ``P = exp(s - L)``, ``D = rowsum(do · o)``,
+    ``dv = Pᵀ do``, ``dS = P · (do vᵀ - D)``, ``dq = dS k · scale``,
+    ``dk = dSᵀ q · scale``, dk and dv of a kv head summed over its group's
+    q heads.  ``o`` is the forward's output as it was returned."""
+    b, hq, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = 1.0 / math.sqrt(dh)
+    qf, of, dof = q.float(), o.float(), do.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if causal:
+        keep = (torch.arange(sq, device=q.device)[:, None]
+                >= torch.arange(sk, device=q.device)[None, :])
+        s = s.masked_fill(~keep, NEG_INF)
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2))
+              - (dof * of).sum(-1, keepdim=True))
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+
+    def per_kv_head(t):
+        return t.reshape(b, hkv, group, sk, dh).sum(2)
+
+    return (dq.to(q.dtype), per_kv_head(dk).to(k.dtype),
+            per_kv_head(dv).to(v.dtype))

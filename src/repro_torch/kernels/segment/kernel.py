@@ -76,10 +76,13 @@ def _check(name, t, dtypes, shape, device):
 def segment_sum_kernel(data: torch.Tensor, seg_ids: torch.Tensor,
                        n_segments: int,
                        weights: Optional[torch.Tensor] = None,
-                       rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       rows: Optional[torch.Tensor] = None,
+                       count: Optional[str] = None) -> torch.Tensor:
     """K5 over ``data`` by sorted ``seg_ids [E]`` (rows ``rows [E]`` of
     ``data`` if given, else ``data [E, D]`` itself); returns
-    ``[n_segments, D]``."""
+    ``[n_segments, D]``.  ``count`` names the ``LAUNCHES`` entry the
+    launch adds to in place of its form's (the MoE dispatch's backward
+    counts its launches apart)."""
     dev = data.device
     if dev.type == "cpu":
         return segment_sum_ref(data, seg_ids, n_segments, weights, rows)
@@ -128,7 +131,7 @@ def segment_sum_kernel(data: torch.Tensor, seg_ids: torch.Tensor,
         None if carry is None else carry.data_ptr(), n_segments, e, n_data,
         d, vec, chunk, lanes, stream)
     check(lib, err, name)
-    LAUNCHES[name] += 1
+    LAUNCHES[count or name] += 1
     FORMS["contiguous" if rows is None else "gather"] += 1
     if carry is not None:
         err = lib.segment_sum_carry(seg_p, seg_b, out.data_ptr(),

@@ -5,6 +5,26 @@ version on the CPU.  ``embedding_bag`` reduces each bag with the same
 segment sum in its gather form, the table rows read through the ids and
 the bag weights folded into K5 (mode ``"sum"``); modes ``"mean"`` and
 ``"max"`` take the plain version, as in the reference.
+
+The MoE FFN's two gathers with their gradients, for training (each a
+``torch.autograd.Function`` only where a gradient is wanted; plain ops
+otherwise, as in serving):
+
+* :func:`moe_combine` is the combine ``out[t] = Σ w·eo[row]`` through a
+  given forward (K5, or its plain version) whose backward is
+  :func:`~repro_torch.kernels.segment.backward.moe_combine_bwd`;
+* :func:`moe_dispatch` is the dispatch gather ``buf = x[src]`` (row ``t``
+  of ``x`` padded with a zero row), whose backward ``grad_x[t] = Σ_{kept
+  slots of t} grad_buf[dest]`` is K5's gather form (the bf16-row form for
+  a bf16 model) with ``rows = dest``, ``seg = token`` and weight 1 for a
+  kept slot, 0 for a dropped one: deterministic, where autograd through
+  ``index_select`` would sum by atomics.  Its launches count under
+  ``LAUNCHES["moe_dispatch_bwd"]``, apart from the combine's.
+
+Both take the combine's forward op (``combine``), which carries their
+backwards: the plain forward :func:`segment_sum_ref` brings the plain
+backwards (:func:`segment_sum_bwd_ref`, ``segment_sum_ref``), any other
+the kernels (which on the CPU run those same plain versions).
 """
 from __future__ import annotations
 
@@ -12,10 +32,14 @@ from typing import Optional
 
 import torch
 
-from .kernel import segment_sum_kernel
-from .ref import embedding_bag_ref
+import torch.nn.functional as fn
 
-__all__ = ["segment_sum_sorted", "embedding_bag", "pad_sorted_edges"]
+from .backward import moe_combine_bwd
+from .kernel import segment_sum_kernel
+from .ref import embedding_bag_ref, segment_sum_bwd_ref, segment_sum_ref
+
+__all__ = ["segment_sum_sorted", "embedding_bag", "pad_sorted_edges",
+           "moe_combine", "moe_dispatch"]
 
 SENTINEL = 2**30  # id of padding rows: outside every segment
 
@@ -61,3 +85,84 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     return segment_sum_sorted(
         table, seg, b, weights=None if weights is None else weights.reshape(-1),
         rows=ids.reshape(-1))
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _plain(combine) -> bool:
+    """The plain forward brings the plain backwards."""
+    return combine is segment_sum_ref
+
+
+class _Combine(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, weights, seg_ids, n, rows, slot, combine, plain):
+        ctx.save_for_backward(data, weights, seg_ids, rows, slot)
+        ctx.plain = plain
+        return combine(data, seg_ids, n, weights=weights, rows=rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        data, weights, seg_ids, rows, slot = ctx.saved_tensors
+        g = g.float()
+        if ctx.plain:
+            grad_w, grad_data = segment_sum_bwd_ref(g, data, seg_ids, weights,
+                                                    rows)
+        else:
+            grad_w, grad_data = moe_combine_bwd(g, data, seg_ids, weights,
+                                                rows, slot)
+        return grad_data, grad_w, None, None, None, None, None, None
+
+
+def moe_combine(data: torch.Tensor, seg_ids: torch.Tensor, n_segments: int,
+                *, weights: torch.Tensor, rows: torch.Tensor,
+                slot: torch.Tensor,
+                combine=segment_sum_sorted) -> torch.Tensor:
+    """``combine(data, seg_ids, n_segments, weights=, rows=)`` (K5's
+    contract, float32 out) with the gradient of ``data`` and ``weights``:
+    ``slot [R]`` maps each row of ``data`` to the slot that names it with
+    a weight (``E`` or more where none); the kernel backward on the card,
+    the plain one with the plain ``combine`` or on the CPU."""
+    if not _wants_grad(data, weights):
+        return combine(data, seg_ids, n_segments, weights=weights, rows=rows)
+    return _Combine.apply(data, weights, seg_ids, n_segments, rows, slot,
+                          combine, _plain(combine))
+
+
+class _Dispatch(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, src, seg_ids, rows, weights, plain):
+        ctx.save_for_backward(seg_ids, rows, weights)
+        ctx.n, ctx.plain = x.shape[0], plain
+        return fn.pad(x, (0, 0, 0, 1)).index_select(0, src)
+
+    @staticmethod
+    def backward(ctx, g):
+        seg_ids, rows, weights = ctx.saved_tensors
+        g = g.contiguous()
+        if ctx.plain:
+            gx = segment_sum_ref(g, seg_ids, ctx.n, weights, rows)
+        else:
+            gx = segment_sum_kernel(g, seg_ids, ctx.n, weights, rows,
+                                    count="moe_dispatch_bwd")
+        return gx.to(g.dtype), None, None, None, None, None
+
+
+def moe_dispatch(x: torch.Tensor, src: torch.Tensor, *,
+                 seg_ids: Optional[torch.Tensor] = None,
+                 dest: Optional[torch.Tensor] = None,
+                 keep: Optional[torch.Tensor] = None,
+                 combine=segment_sum_sorted) -> torch.Tensor:
+    """``buf[i] = x[src[i]]`` with ``x [T, D]`` padded by a zero row at
+    ``T`` (``src[i] = T`` for an empty buffer row).  With a gradient
+    wanted, ``seg_ids`` (each slot's token, sorted), ``dest`` (each slot's
+    buffer row) and ``keep`` (the kept slots) give its backward, K5's
+    gather form over rows ``dest`` (0 for a dropped slot) with weight 1
+    for a kept slot and 0 for a dropped one (its plain version with the
+    plain ``combine`` or on the CPU)."""
+    if not _wants_grad(x):
+        return fn.pad(x, (0, 0, 0, 1)).index_select(0, src)
+    return _Dispatch.apply(x, src, seg_ids, torch.where(keep, dest, 0),
+                           keep.float(), _plain(combine))

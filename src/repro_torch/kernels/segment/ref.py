@@ -1,11 +1,12 @@
-"""Plain torch versions of the segment ops (K5's contract, embedding-bag)."""
+"""Plain torch versions of the segment ops (K5's contract, its backward
+in the MoE combine, embedding-bag)."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
-__all__ = ["segment_sum_ref", "embedding_bag_ref"]
+__all__ = ["segment_sum_ref", "segment_sum_bwd_ref", "embedding_bag_ref"]
 
 
 def segment_sum_ref(data: torch.Tensor, seg_ids: torch.Tensor,
@@ -31,6 +32,22 @@ def segment_sum_ref(data: torch.Tensor, seg_ids: torch.Tensor,
     out = torch.zeros((n_segments + 1,) + tuple(data.shape[1:]),
                       dtype=data.dtype, device=data.device)
     return out.index_add_(0, idx, data)[:n_segments]
+
+
+def segment_sum_bwd_ref(g: torch.Tensor, data: torch.Tensor,
+                        seg_ids: torch.Tensor, weights: torch.Tensor,
+                        rows: torch.Tensor):
+    """The gradients of ``out = segment_sum_ref(data, seg_ids, n, weights,
+    rows)`` for ``g = dL/dout`` (``[n, D]`` float32): ``grad_w[e] =
+    <data[rows[e]], g[seg[e]]>`` (float32) and ``grad_data[r] = Σ_{e:
+    rows[e] = r} w[e]·g[seg[e]]`` (an ``index_add_`` in float32, cast to
+    data's dtype; 0 where no row names r)."""
+    ge = g.index_select(0, seg_ids.long())
+    grad_w = (data.index_select(0, rows).float() * ge).sum(-1)
+    grad_data = torch.zeros(data.shape, dtype=torch.float32,
+                            device=data.device)
+    grad_data.index_add_(0, rows.long(), ge * weights[:, None])
+    return grad_w, grad_data.to(data.dtype)
 
 
 def embedding_bag_ref(table: torch.Tensor, ids: torch.Tensor,

@@ -1,7 +1,9 @@
-"""Step callables per (family × cell kind): recsys and LM serving steps.
+"""Step callables per (family × cell kind): LM training, recsys and LM
+serving steps.
 
-:func:`build_cell_step` returns ``step(batch)`` for a cell of
-:mod:`repro_torch.configs`:
+:func:`build_cell_step` returns, for an LM ``train`` cell, ``step(params,
+opt_state, batch) -> (params, opt_state, metrics)`` (:func:`lm_train_step`
+with the cell's overrides), and for a serving cell ``step(batch)``:
 
 * recsys ``serve`` runs ``forward_logits`` on ``batch["ids"]``;
   ``retrieval`` runs ``retrieval_score`` on ``batch["user_ids"]`` /
@@ -15,23 +17,97 @@
   ``batch["cache_v_scale"]`` (the reference's int8 cell keys) the cache is
   the int8 KV cache.
 
-Steps run under ``torch.inference_mode`` on the model's device.  The
-train kinds wait (ROADMAP).
+Serving steps run under ``torch.inference_mode`` on the model's device;
+the train step outside it.  The recsys and GNN train kinds wait (ROADMAP
+§1, item 7 (b)).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+import dataclasses
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from ..configs.common import ArchSpec, ShapeCell
 from ..models import recsys, transformer
+from ..optim import AdamWConfig, adamw_update
+from ..optim.adamw import tree_leaves, tree_map
 
-__all__ = ["build_cell_step"]
+__all__ = ["build_cell_step", "lm_train_step"]
+
+
+def lm_train_step(model: transformer.Transformer, ocfg: AdamWConfig,
+                  cfg: Optional[transformer.TransformerConfig] = None
+                  ) -> Callable:
+    """The reference's LM train step on ``model`` (``cfg``: the model's
+    config, or one with other training knobs): ``step(params, opt_state,
+    batch)`` with ``params`` the model's :meth:`param_tree` (or a restored
+    copy of it, loaded into the model first) and ``opt_state``
+    :func:`~repro_torch.optim.adamw_init`'s.  It takes the gradient of
+    :func:`~repro_torch.models.transformer.train_loss` (the parameters'
+    dtype: bf16 for a bf16 model), or with ``n_microbatches > 1`` that of
+    each microbatch in turn (its own forward and backward), accumulated in
+    float32 and divided by their number; then :func:`adamw_update`, whose
+    new parameters are copied into the model.  Returns ``(params,
+    opt_state, {"loss", "lr", "grad_norm"})``, the metrics 0-dim tensors.
+    Sets the parameters' ``requires_grad``."""
+    cfg = cfg or model.cfg
+    nm = cfg.n_microbatches
+    cfg_mb = dataclasses.replace(cfg, n_microbatches=1)
+    model.requires_grad_(True)
+
+    def loss_and_grads(tokens, labels, leaves):
+        loss = transformer.train_loss(model, {"tokens": tokens,
+                                              "labels": labels}, cfg_mb)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    def step(params: Dict[str, Any], opt_state: Dict[str, Any], batch):
+        model.load_param_tree(params)
+        tree = model.param_tree()
+        leaves = tree_leaves(tree)
+        tokens = transformer._tokens(model, batch["tokens"])
+        labels = transformer._tokens(model, batch["labels"])
+        if nm <= 1:
+            loss, grads = loss_and_grads(tokens, labels, leaves)
+        else:
+            b = tokens.shape[0]
+            if b % nm:
+                raise ValueError(f"batch {b} is not a multiple of "
+                                 f"n_microbatches {nm}")
+            mb = b // nm
+            loss = torch.zeros((), dtype=torch.float32, device=model.device)
+            grads = [torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device) for p in leaves]
+            for i in range(nm):
+                sl = slice(i * mb, (i + 1) * mb)
+                mb_loss, mb_grads = loss_and_grads(tokens[sl], labels[sl],
+                                                   leaves)
+                loss = loss + mb_loss
+                for acc, g in zip(grads, mb_grads):
+                    acc.add_(g.float())
+                del mb_grads
+            loss = loss / nm
+            grads = [g.div_(nm) for g in grads]
+        it = iter(grads)
+        new_params, opt_state, metrics = adamw_update(
+            tree_map(lambda _: next(it), tree), opt_state, ocfg,
+            param_dtype=cfg.dtype)
+        with torch.no_grad():
+            for dst, src in zip(leaves, tree_leaves(new_params)):
+                dst.copy_(src)
+        return tree, opt_state, {"loss": loss, **metrics}
+
+    return step
 
 
 def build_cell_step(spec: ArchSpec, cell: ShapeCell,
-                    model: torch.nn.Module) -> Callable[[Dict], object]:
+                    model: torch.nn.Module,
+                    ocfg: Optional[AdamWConfig] = None) -> Callable:
+    """The step of ``cell`` on ``model``; ``ocfg`` (default
+    ``AdamWConfig()``) for a train cell."""
+    if spec.family == "lm" and cell.kind == "train":
+        cfg = dataclasses.replace(model.cfg, **cell.overrides)
+        return lm_train_step(model, ocfg or AdamWConfig(), cfg)
     if spec.family == "recsys" and cell.kind == "serve":
 
         @torch.inference_mode()
@@ -69,4 +145,4 @@ def build_cell_step(spec: ArchSpec, cell: ShapeCell,
         return step
     raise NotImplementedError(
         f"{spec.family} {cell.kind} steps are not ported yet (ROADMAP §1, "
-        "item 7)")
+        "item 7 (b))")

@@ -1,7 +1,7 @@
-"""Decoder-only transformer LM (dense and MoE) for serving: prefill and
+"""Decoder-only transformer LM (dense and MoE): training, prefill and
 decode.
 
-The port of ``repro.models.transformer``'s serving path: GQA attention
+The port of ``repro.models.transformer``: GQA attention
 (with optional QKV bias, Qwen-style), RMSNorm, RoPE, SwiGLU FFN or a MoE
 FFN (shared + routed experts, top-k routing with capacity-based
 dispatch), untied LM head, parameters stacked ``[L, ...]`` under the
@@ -36,12 +36,30 @@ dropped; the padded experts receive no token but run through the expert
 ``bmm`` all the same.  :func:`set_expert_load_sink` taps each dispatch's
 per-expert routed counts (a host read, only while a sink is registered).
 
+Training, on one device, eagerly (:func:`train_loss`, the reference's
+mean token cross-entropy plus the MoE auxiliary loss summed over the
+layers): the layers run in a Python loop over the stacked parameters
+(``unbind``, so that a parameter's gradient is stacked once), each under
+``torch.utils.checkpoint`` (non-reentrant) with ``remat``; the cross
+entropy runs ``ce_chunk`` tokens of a row at a time and recomputes each
+chunk's logits in its backward (:class:`_ChunkedCE`), so that no
+``[B, S, V]`` logits are kept; ``n_microbatches`` splits the batch, each
+microbatch its own forward.  Attention's gradient is K6's backward
+(:func:`repro_torch.kernels.attention.flash_attention_train`), the MoE
+combine's the combine backward of K5's gather form and the dispatch
+gather's K5's gather form itself (:func:`repro_torch.kernels.segment.
+moe_combine` / ``moe_dispatch``); ``kernels=False`` runs the plain
+versions of all of them.  The recomputation under ``remat`` routes as the
+first forward did (the same ops on the same inputs) and, as the
+reference's ``jax.debug.callback`` under ``jax.checkpoint`` does, hands
+the expert-load sink its counts again.  Serving runs under
+``torch.inference_mode``; training outside it, with the parameters'
+``requires_grad`` set (``launch.steps``).
+
 ``attn_q_chunk`` stays in :class:`TransformerConfig` so that configs match
 the reference's, but it is ignored: K6 never materialises ``[Sq, Sk]``.
-The expert-parallel MoE (``_moe_ffn_ep``), the distributed decode
-attention and training (``train_loss``, with its ``ce_chunk`` /
-``n_microbatches`` / ``remat`` knobs) wait for more than one card and for
-the training slice (ROADMAP §1, item 7 (a)).
+The expert-parallel MoE (``_moe_ffn_ep``) and the distributed decode
+attention wait for more than one card (ROADMAP §1).
 """
 from __future__ import annotations
 
@@ -53,17 +71,23 @@ import numpy as np
 import torch
 import torch.nn.functional as fn
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from ..kernels.attention import flash_attention
-from ..kernels.segment import segment_sum_sorted
+from ..kernels.attention import (attention_train_plain, flash_attention,
+                                 flash_attention_train)
+from ..kernels.segment import (moe_combine, moe_dispatch, segment_sum_ref,
+                               segment_sum_sorted)
 
 __all__ = ["MoEConfig", "TransformerConfig", "Transformer", "init_params",
            "init_cache", "quantize_kv", "quantize_cache", "prefill_step",
-           "decode_step", "set_expert_load_sink", "rmsnorm", "rope"]
+           "decode_step", "train_loss", "set_expert_load_sink", "rmsnorm",
+           "rope"]
 
 Attention = Callable[..., torch.Tensor]
 # the MoE combine: ``combine(data, seg_ids, n, weights=, rows=)`` with K5's
-# contract (segment_sum_sorted, or its plain version segment_sum_ref)
+# contract (segment_sum_sorted, or its plain version segment_sum_ref, which
+# under autograd also brings the plain backwards of the combine and the
+# dispatch gather)
 Combine = Callable[..., torch.Tensor]
 
 
@@ -97,6 +121,11 @@ class TransformerConfig:
     norm_eps: float = 1e-5
     moe: Optional[MoEConfig] = None
     dtype: torch.dtype = torch.bfloat16
+    # per-shape training knobs (overridden by launch configs): tokens of a
+    # cross-entropy chunk, microbatches of a step, checkpointed layers
+    ce_chunk: int = 1024
+    n_microbatches: int = 1
+    remat: bool = True
     # the reference's q-chunked XLA attention; kept so that the configs
     # match, read by nothing here (K6 never materialises [Sq, Sk])
     attn_q_chunk: Optional[int] = None
@@ -212,6 +241,27 @@ class Transformer(nn.Module):
     def layer(self, i: int) -> Dict[str, torch.Tensor]:
         """Layer ``i``'s parameters (views of the stacked tensors)."""
         return {name: p[i] for name, p in self.layers.items()}
+
+    def param_tree(self) -> Dict[str, Any]:
+        """The parameters as the reference's pytree, ``{"embed",
+        "final_norm", "layers": {...}, "lm_head"}``: the module's own
+        tensors (the training state, and what a checkpoint holds)."""
+        return {"embed": self.embed, "final_norm": self.final_norm,
+                "layers": dict(self.layers), "lm_head": self.lm_head}
+
+    @torch.no_grad()
+    def load_param_tree(self, tree: Dict[str, Any]) -> None:
+        """Copy a :meth:`param_tree`-shaped tree of tensors (a restored
+        checkpoint's) into the parameters; the module's own tensors are
+        left as they are."""
+        own = self.param_tree()
+        pairs = [(own[k], tree[k]) for k in ("embed", "final_norm",
+                                             "lm_head")]
+        pairs += [(own["layers"][k], tree["layers"][k])
+                  for k in own["layers"]]
+        for dst, src in pairs:
+            if src is not dst:
+                dst.copy_(src)
 
 
 def init_params(cfg: TransformerConfig, *, seed: int = 0,
@@ -329,25 +379,35 @@ def _slots(gate_i: torch.Tensor, m: MoEConfig):
     return flat_e, pos, csum[:, -1]
 
 
-def _dispatch(xf: torch.Tensor, gate_i: torch.Tensor, m: MoEConfig):
+def _dispatch(xf: torch.Tensor, gate_i: torch.Tensor, m: MoEConfig,
+              tok_idx: Optional[torch.Tensor] = None,
+              combine: Combine = segment_sum_sorted):
     """The dispatch of tokens ``xf [T, D]`` routed to ``gate_i [T, k]``:
-    ``(buf [E_pad, cap, D], dest [T·k], keep [T·k], counts [E])``, where
-    slot ``(t, j)`` goes to row ``dest = e·cap + pos`` of the buffer when
-    ``keep`` (``pos < cap``).  The buffer is filled by a gather: a kept
-    slot's destination is unique, an empty slot reads a zero row."""
+    ``(buf [E_pad, cap, D], dest [T·k], keep [T·k], counts [E], slot
+    [E_pad·cap])``, where slot ``(t, j)`` (index ``t·k + j``) goes to row
+    ``dest = e·cap + pos`` of the buffer when ``keep`` (``pos < cap``) and
+    ``slot`` maps each buffer row back to its slot index (``T·k`` where
+    none).  The buffer is filled by a gather: a kept slot's destination is
+    unique, an empty slot reads a zero row.  With a gradient wanted the
+    gather is :func:`moe_dispatch`'s (``tok_idx``, each slot's token, and
+    ``combine``, whose kind its backward takes)."""
     t, d = xf.shape
+    k = m.top_k
     cap = _capacity(t, m)
     flat_e, pos, counts = _slots(gate_i, m)
     keep = pos < cap
     n_slots = m.e_pad * cap
     dest = flat_e * cap + pos
-    tok_idx = torch.arange(t, device=xf.device).repeat_interleave(m.top_k)
-    # the token of each buffer slot; t (the zero row) where none, and the
-    # dropped slots all land in a spare last entry
-    src = torch.full((n_slots + 1,), t, dtype=torch.int64, device=xf.device)
-    src.scatter_(0, torch.where(keep, dest, n_slots), tok_idx)
-    buf = fn.pad(xf, (0, 0, 0, 1)).index_select(0, src[:n_slots])
-    return buf.view(m.e_pad, cap, d), dest, keep, counts
+    # the dropped slots all land in a spare last entry
+    slot = torch.full((n_slots + 1,), t * k, dtype=torch.int64,
+                      device=xf.device)
+    slot.scatter_(0, torch.where(keep, dest, n_slots),
+                  torch.arange(t * k, device=xf.device))
+    slot = slot[:n_slots]
+    # each buffer row's token: t (the zero row) where none
+    buf = moe_dispatch(xf, slot // k, seg_ids=tok_idx, dest=dest, keep=keep,
+                       combine=combine)
+    return buf.view(m.e_pad, cap, d), dest, keep, counts, slot
 
 
 def _moe_ffn(lp: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -357,22 +417,28 @@ def _moe_ffn(lp: Dict[str, torch.Tensor], x: torch.Tensor,
     the experts' SwiGLU, three ``bmm`` over every expert, padded ones
     included, and the combine ``out[t] = Σ_slots w·eo[e, pos]`` is
     ``combine`` over the expert outputs' rows in float32 (K5's bf16-row
-    form on the card for a bf16 model; dropped slots carry weight 0)."""
+    form on the card for a bf16 model; dropped slots carry weight 0).
+    Under autograd the dispatch's and the combine's gradients are the
+    kernels' (with the plain ``combine``, ``segment_sum_ref``, their plain
+    versions)."""
     m = cfg.moe
     b, s, d = x.shape
     t, k = b * s, m.top_k
     xf = x.reshape(t, d)
     probs, gate_w, gate_i = _route(lp["router"], xf, m)
-    buf, dest, keep, counts = _dispatch(xf, gate_i, m)
-    n_slots = buf.shape[0] * buf.shape[1]
     tok_idx = torch.arange(t, dtype=torch.int32,
                            device=x.device).repeat_interleave(k)
+    buf, dest, keep, counts, slot = _dispatch(xf, gate_i, m, tok_idx,
+                                              combine)
+    n_slots = buf.shape[0] * buf.shape[1]
     h = fn.silu(torch.bmm(buf, lp["ew1"])) * torch.bmm(buf, lp["ew3"])
     eo = torch.bmm(h, lp["ew2"])
     # the gate weights rounded to the model's dtype, as the reference's
+    # (the gradient passes the rounding, as through JAX's astype)
     w = torch.where(keep, gate_w.reshape(-1).to(x.dtype).float(), 0.0)
-    out = combine(eo.view(n_slots, d), tok_idx, t, weights=w,
-                  rows=torch.where(keep, dest, 0)).to(x.dtype)
+    out = moe_combine(eo.view(n_slots, d), tok_idx, t, weights=w,
+                      rows=torch.where(keep, dest, 0), slot=slot,
+                      combine=combine).to(x.dtype)
     if _expert_load_sink is not None:
         _expert_load_sink(counts.cpu().numpy())
     # auxiliary load-balance loss (Switch-style)
@@ -401,8 +467,9 @@ def _layer(lp: Dict[str, torch.Tensor], x: torch.Tensor, cos: torch.Tensor,
            cache: Optional[Tuple[torch.Tensor, ...]] = None,
            pos: int = 0, attention: Attention = flash_attention,
            combine: Combine = segment_sum_sorted):
-    """One decoder layer over ``x [B, S, D]``; returns ``(x, k, v)`` with
-    this layer's new ``k`` / ``v`` ``[B, S, Hkv, Dh]``.  Without ``cache``
+    """One decoder layer over ``x [B, S, D]``; returns ``(x, k, v, aux)``
+    with this layer's new ``k`` / ``v`` ``[B, S, Hkv, Dh]`` and its MoE
+    auxiliary loss (0 for a dense layer).  Without ``cache``
     the layer attends causally over its own k / v (prefill); with
     ``cache=(ck, cv)`` (``[B, Smax, Hkv, Dh]``) it writes k / v at ``pos``
     in place and attends over slots ``[0, pos + S)``; with ``cache=(ck,
@@ -436,9 +503,11 @@ def _layer(lp: Dict[str, torch.Tensor], x: torch.Tensor, cos: torch.Tensor,
     y = rmsnorm(x, lp["ln2"], cfg.norm_eps)
     if cfg.moe is None:
         x = x + _dense_ffn(lp, y)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     else:
-        x = x + _moe(lp, y, cfg, combine)[0]
-    return x, kk, vv
+        ffn, aux = _moe(lp, y, cfg, combine)
+        x = x + ffn
+    return x, kk, vv, aux
 
 
 # --------------------------------------------------------------------------- #
@@ -538,8 +607,8 @@ def prefill_step(model: Transformer, tokens, max_seq: Optional[int] = None,
     cos, sin = _rope_tables(positions, cfg.rope_theta, cfg.head_dim, x.dtype)
     cache = init_cache(cfg, b, max_seq, x.dtype, model.device)
     for i in range(cfg.n_layers):
-        x, kk, vv = _layer(model.layer(i), x, cos, sin, cfg,
-                           attention=attention, combine=combine)
+        x, kk, vv, _ = _layer(model.layer(i), x, cos, sin, cfg,
+                              attention=attention, combine=combine)
         cache["k"][i, :, :s] = kk
         cache["v"][i, :, :s] = vv
     cache["pos"] = s
@@ -567,8 +636,121 @@ def decode_step(model: Transformer, cache: Dict[str, Any], tokens, *,
     positions = torch.full((1,), pos, device=model.device)
     cos, sin = _rope_tables(positions, cfg.rope_theta, cfg.head_dim, x.dtype)
     for i in range(cfg.n_layers):
-        x, _, _ = _layer(model.layer(i), x, cos, sin, cfg,
-                         cache=tuple(t[i] for t in tensors), pos=pos,
-                         attention=attention, combine=combine)
+        x = _layer(model.layer(i), x, cos, sin, cfg,
+                   cache=tuple(t[i] for t in tensors), pos=pos,
+                   attention=attention, combine=combine)[0]
     return _logits(model, x[:, 0]), {**dict(zip(names, tensors)),
                                      "pos": pos + 1}
+
+
+# --------------------------------------------------------------------------- #
+# training loss (chunked CE + microbatching)
+# --------------------------------------------------------------------------- #
+def _stack_scan(model: Transformer, x: torch.Tensor, cos: torch.Tensor,
+                sin: torch.Tensor, cfg: TransformerConfig, kernels: bool):
+    """The layers over ``x`` (each checkpointed with ``cfg.remat``);
+    returns ``(x, aux summed over the layers)``."""
+    attention = flash_attention_train if kernels else attention_train_plain
+    combine = segment_sum_sorted if kernels else segment_sum_ref
+    names = list(model.layers)
+    stacked = [p.unbind(0) for p in model.layers.values()]
+
+    def body(x, *lp):
+        y, _, _, aux = _layer(dict(zip(names, lp)), x, cos, sin, cfg,
+                              attention=attention, combine=combine)
+        return y, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.n_layers):
+        lp = [t[i] for t in stacked]
+        if cfg.remat:
+            x, a = checkpoint(body, x, *lp, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            x, a = body(x, *lp)
+        aux = aux + a
+    return x, aux
+
+
+class _ChunkedCE(torch.autograd.Function):
+    """The summed token cross-entropy of ``x [B, S, D] @ w [D, V]`` over
+    ``labels [B, S]``, ``chunk`` tokens of each row at a time; the backward
+    recomputes each chunk's logits, so that none are kept."""
+
+    @staticmethod
+    def forward(ctx, x, w, labels, chunk):
+        tot = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c in range(0, x.shape[1], chunk):
+            logits = (x[:, c:c + chunk] @ w).float()
+            gold = logits.gather(-1, labels[:, c:c + chunk, None])[..., 0]
+            tot = tot + (torch.logsumexp(logits, dim=-1) - gold).sum()
+        ctx.save_for_backward(x, w, labels)
+        ctx.chunk = chunk
+        return tot
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, labels = ctx.saved_tensors
+        gx = torch.empty_like(x)
+        gw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+        for c in range(0, x.shape[1], ctx.chunk):
+            xc = x[:, c:c + ctx.chunk]
+            # d(logsumexp - gold)/dlogits = softmax - onehot
+            dl = torch.softmax((xc @ w).float(), dim=-1)
+            dl.scatter_add_(-1, labels[:, c:c + ctx.chunk, None],
+                            torch.full(dl.shape[:-1] + (1,), -1.0,
+                                       device=dl.device))
+            dl = dl.mul_(g).to(x.dtype)
+            gx[:, c:c + ctx.chunk] = dl @ w.t()
+            gw += (xc.reshape(-1, xc.shape[-1]).t()
+                   @ dl.reshape(-1, dl.shape[-1])).float()
+        return gx, gw.to(w.dtype), None, None
+
+
+def _chunked_ce(x: torch.Tensor, lm_head: torch.Tensor, labels: torch.Tensor,
+                chunk: int) -> torch.Tensor:
+    """Mean token CE without materialising ``[B, S, V]``."""
+    b, s, _ = x.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of ce_chunk "
+                         f"{chunk}")
+    return _ChunkedCE.apply(x, lm_head, labels, chunk) / (b * s)
+
+
+def _forward_loss(model: Transformer, tokens: torch.Tensor,
+                  labels: torch.Tensor, cfg: TransformerConfig,
+                  kernels: bool) -> torch.Tensor:
+    x = fn.embedding(tokens, model.embed)
+    positions = torch.arange(tokens.shape[1], device=model.device)
+    cos, sin = _rope_tables(positions, cfg.rope_theta, cfg.head_dim, x.dtype)
+    x, aux = _stack_scan(model, x, cos, sin, cfg, kernels)
+    x = rmsnorm(x, model.final_norm, cfg.norm_eps)
+    return _chunked_ce(x, model.lm_head, labels, cfg.ce_chunk) + aux
+
+
+def train_loss(model: Transformer, batch, cfg: Optional[TransformerConfig]
+               = None, *, kernels: bool = True) -> torch.Tensor:
+    """Mean CE (plus the MoE auxiliary loss) over the batch ``{"tokens",
+    "labels"}`` (``[B, S]``), split into ``cfg.n_microbatches`` (``cfg``:
+    the model's, or one with other training knobs), as the reference's
+    ``train_loss``; a float32 scalar with its autograd graph.
+    ``kernels=False`` runs the plain versions of K6, K5 and their
+    backwards."""
+    cfg = cfg or model.cfg
+    tokens = _tokens(model, batch["tokens"])
+    labels = _tokens(model, batch["labels"])
+    nm = cfg.n_microbatches
+    if nm <= 1:
+        return _forward_loss(model, tokens, labels, cfg, kernels)
+    b = tokens.shape[0]
+    if b % nm:
+        raise ValueError(f"batch {b} is not a multiple of n_microbatches "
+                         f"{nm}")
+    mb = b // nm
+    tot = torch.zeros((), dtype=torch.float32, device=model.device)
+    for i in range(nm):
+        sl = slice(i * mb, (i + 1) * mb)
+        tot = tot + _forward_loss(model, tokens[sl], labels[sl], cfg,
+                                  kernels)
+    return tot / nm

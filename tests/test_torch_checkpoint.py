@@ -8,6 +8,7 @@ import builtins
 import json
 import os
 import shutil
+import threading
 
 import numpy as np
 import pytest
@@ -204,6 +205,43 @@ def test_manager_retention_matches_reference(tmp_path, async_write):
     assert CheckpointManager(str(tmp_path / "void"),
                              async_write=False).restore_or_none(
         trees[0]) is None
+
+
+def test_manager_snapshot_is_a_copy(tmp_path, monkeypatch):
+    """``save`` snapshots the leaves: CPU tensors (float32 and bf16) and
+    numpy arrays changed in place after ``save``, while the asynchronous
+    writer still waits, are read back as they were at ``save``."""
+    from repro_torch.checkpoint import store
+
+    release = threading.Event()
+    write = store.save_checkpoint
+
+    def held(*a, **kw):
+        assert release.wait(30)
+        return write(*a, **kw)
+
+    monkeypatch.setattr(store, "save_checkpoint", held)
+    rng = np.random.default_rng(4)
+    tree = {"m": torch.from_numpy(rng.standard_normal(6).astype(np.float32)),
+            "p": torch.from_numpy(rng.standard_normal(5).astype(
+                np.float32)).to(torch.bfloat16),
+            "a": rng.standard_normal(3)}
+    before = {k: v.clone() if torch.is_tensor(v) else v.copy()
+              for k, v in tree.items()}
+    mgr = CheckpointManager(str(tmp_path), keep=2)
+    mgr.save(1, tree)
+    tree["m"].add_(1.0)
+    tree["p"].mul_(3.0)
+    tree["a"] += 1.0
+    release.set()
+    mgr.wait()
+    mgr.close()
+    got, step, _ = load_checkpoint(str(tmp_path), before)
+    assert step == 1
+    for k in ("m", "p"):
+        assert got[k].dtype == before[k].dtype
+        assert torch.equal(got[k], before[k]), k
+    np.testing.assert_array_equal(got["a"], before["a"])
 
 
 def test_manager_surfaces_writer_errors(tmp_path):

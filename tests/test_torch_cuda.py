@@ -2234,3 +2234,231 @@ def test_supervised_kill_retry_on_the_card_is_exact(cuda_device, tmp_path):
     counts = sup.log.counts()
     assert counts["fault"] == counts["restore"] == 1
     assert sup.wasted_ops > 0
+
+
+# --------------------------------------------------------------------------- #
+# training: K6's backward, the MoE combine's backward and the dispatch's
+# --------------------------------------------------------------------------- #
+ATTN_BWD_SHAPES = [(2, 4, 2, 1, 16, True), (2, 4, 2, 17, 16, True),
+                   (2, 4, 4, 64, 64, True), (2, 4, 2, 100, 32, True),
+                   (1, 8, 2, 130, 128, True), (2, 4, 4, 64, 64, False),
+                   (1, 4, 1, 200, 64, False), (1, 16, 16, 300, 64, True)]
+
+
+def _bwd_case(b, hq, hkv, s, dh, seed, dtype, device):
+    """q, k, v, do in the model's layout (``[B, S, H, Dh]`` transposed)."""
+    rng = np.random.default_rng(seed)
+
+    def t(h, scale):
+        a = rng.standard_normal((b, s, h, dh)) * scale
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=dtype).transpose(1, 2)
+
+    return t(hq, 0.5), t(hkv, 0.5), t(hkv, 1.0), t(hq, 1.0)
+
+
+def _rel_l1(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).abs().sum() / b.abs().sum().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,s,dh,causal", ATTN_BWD_SHAPES)
+def test_flash_attention_bwd_matches_plain(cuda_device, b, hq, hkv, s, dh,
+                                           causal, dtype):
+    """K6's backward against its plain version (float32 from the same
+    inputs): float32 within rtol 1e-5 / atol 1e-6, bf16 within relative
+    L1 1e-2 (P and dS rounded to bf16 for the products) plus 1e-6 an
+    element (at S = 1 dq is 0 in exact arithmetic, and the kernel's dP and
+    D round apart); every S, ragged tails included; a relaunch
+    bit-identical; one count a call."""
+    from repro_torch.kernels.attention import (attention_bwd_plain,
+                                               flash_attention,
+                                               flash_attention_bwd)
+
+    dt = getattr(torch, dtype)
+    q, k, v, do = _bwd_case(b, hq, hkv, s, dh, s + dh, dt, cuda_device)
+    o = flash_attention(q, k, v, causal=causal)
+    before = LAUNCHES["flash_attention_bwd"]
+    got = flash_attention_bwd(q, k, v, o, do, causal=causal)
+    again = flash_attention_bwd(q, k, v, o, do, causal=causal)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_bwd"] == before + 2
+    plain = attention_bwd_plain(*(t.float() for t in (q, k, v, o, do)),
+                                causal=causal)
+    for g, g2, p, t, name in zip(got, again, plain, (q, k, v), "qkv"):
+        assert g.shape == t.shape and g.dtype == dt, name
+        assert torch.equal(g, g2), name
+        assert bool(torch.isfinite(g).all()), name
+        if dt == torch.float32:
+            np.testing.assert_allclose(g.cpu().numpy(), p.cpu().numpy(),
+                                       rtol=1e-5, atol=1e-6, err_msg=name)
+        else:  # an absolute floor for S = 1, where dq is 0 exactly
+            err = float((g.float() - p).abs().sum())
+            assert err <= 1e-2 * float(p.abs().sum()) + 1e-6 * p.numel(), (
+                name, err, float(p.abs().sum()))
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_block_is_the_wrappers(cuda_device):
+    from repro_torch.kernels.attention.backward import bwd_block
+
+    assert bwd_block() == 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["flash_attention_train",
+                                "attention_train_plain"])
+def test_attention_train_op_on_the_card(cuda_device, op):
+    """The autograd op on the card: K6 forward and backward (or their
+    plain versions), gradients within the float32 tolerances of the plain
+    backward, launches counted only on the kernels' op."""
+    import repro_torch.kernels.attention as ka
+
+    q, k, v, do = _bwd_case(2, 4, 2, 96, 64, 3, torch.float32, cuda_device)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    before = dict(LAUNCHES)
+    out = getattr(ka, op)(*leaves, causal=True)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    kernels = op == "flash_attention_train"
+    assert LAUNCHES["flash_attention"] - before["flash_attention"] == kernels
+    assert (LAUNCHES["flash_attention_bwd"]
+            - before["flash_attention_bwd"]) == kernels
+    want = ka.attention_bwd_plain(q, k, v, out.detach(), do, causal=True)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def _combine_bwd_case(rng, t, k, e_pad, cap, d, dtype, device):
+    """The MoE combine's operands as ``_dispatch_slots`` makes them: each
+    kept slot a buffer row of its own, every dropped slot row 0 with
+    weight 0, and ``slot`` the inverse map (``t·k`` where none)."""
+    n = e_pad * cap
+    keep = rng.random(t * k) < 0.8
+    dest = rng.permutation(n)[:t * k]
+    rows = np.where(keep, dest, 0)
+    w = np.where(keep, rng.random(t * k), 0.0).astype(np.float32)
+    slot = np.full(n + 1, t * k, np.int64)
+    slot[np.where(keep, dest, n)] = np.arange(t * k)
+    eo = rng.standard_normal((n, d)).astype(np.float32)
+    g = rng.standard_normal((t, d)).astype(np.float32)
+    seg = np.repeat(np.arange(t, dtype=np.int32), k)
+    out = [torch.from_numpy(a).to(device) for a in (g, w, rows, seg,
+                                                    slot[:n])]
+    return [torch.from_numpy(eo).to(device=device, dtype=dtype), *out]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("t,k,d", [(8, 4, 2048), (3000, 4, 64),
+                                   (700, 8, 130), (50, 2, 2), (9, 1, 12)])
+def test_moe_combine_bwd_matches_plain(cuda_device, t, k, d, dtype):
+    """The combine's backward against its plain version (index_add_ and a
+    row-wise dot in float32): grad_data bit-equal (one term a row),
+    grad_w within rtol / atol 1e-5 (float32 dots in another order), a
+    relaunch bit-identical, a launch counted under its dtype's name."""
+    from repro_torch.kernels.segment import segment_sum_bwd_ref
+    from repro_torch.kernels.segment.backward import moe_combine_bwd
+
+    dt = getattr(torch, dtype)
+    eo, g, w, rows, seg, slot = _combine_bwd_case(
+        np.random.default_rng(t + d), t, k, 64, max(1, -(-t * k // 50)), d,
+        dt, cuda_device)
+    name = "segment_sum_bf16_bwd" if dt == torch.bfloat16 else (
+        "segment_sum_bwd")
+    before = LAUNCHES[name]
+    got = moe_combine_bwd(g, eo, seg, w, rows, slot)
+    again = moe_combine_bwd(g, eo, seg, w, rows, slot)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == before + 2
+    want = segment_sum_bwd_ref(g, eo, seg, w, rows)
+    assert got[1].dtype == dt and got[0].dtype == torch.float32
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert torch.equal(got[1], want[1])
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_moe_dispatch_bwd_on_k5_counts_apart(cuda_device, dtype):
+    """The dispatch gather's backward on K5's gather form (its bf16-row
+    form in bf16): the sum of each token's kept slots, within rtol / atol
+    1e-5 of the plain version, counted under ``moe_dispatch_bwd`` and not
+    under K5's own names."""
+    from repro_torch.kernels.segment import (moe_dispatch, segment_sum_ref,
+                                             segment_sum_sorted)
+
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(1)
+    t, k, n = 700, 4, 64 * 50
+    eo, _, w, rows, seg, slot = _combine_bwd_case(rng, t, k, 64, 50, 128,
+                                                  dt, cuda_device)
+    keep = w > 0
+    x = torch.from_numpy(rng.standard_normal((t, 128)).astype(
+        np.float32)).to(device=cuda_device, dtype=dt).requires_grad_(True)
+    grads = []
+    for plain in (False, True):
+        before = dict(LAUNCHES)
+        buf = moe_dispatch(x, slot // k, seg_ids=seg, dest=rows, keep=keep,
+                           combine=segment_sum_ref if plain
+                           else segment_sum_sorted)
+        assert buf.shape == (n, 128)
+        (gx,) = torch.autograd.grad(buf, [x], eo)
+        torch.cuda.synchronize()
+        assert LAUNCHES["moe_dispatch_bwd"] - before["moe_dispatch_bwd"] == (
+            0 if plain else 1)
+        for key in ("segment_sum", "segment_sum_bf16"):
+            assert LAUNCHES[key] == before[key]
+        grads.append(gx.float())
+    np.testing.assert_allclose(grads[0].cpu().numpy(),
+                               grads[1].cpu().numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "granite-moe-1b-a400m"])
+def test_lm_training_on_the_card_matches_the_cpu(cuda_device, arch):
+    """The reduced config (float32) through ``train_loss`` and its
+    gradients on the card, with remat: every gradient leaf within
+    relative L1 1e-4 of the CPU's (plain versions); K6 launched twice a
+    layer (forward and recomputation), its backward once, and, for the
+    MoE, the combine's backward and the dispatch's once a layer; remat
+    off gives the card's gradients again."""
+    import dataclasses
+
+    from repro_torch.configs.smoke import smoke_setup
+    from repro_torch.models import transformer as lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, batch, _ = smoke_setup(arch)
+    card = lm.init_params(cfg, device=cuda_device)
+    cpu = lm.init_params(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+
+    def grads(model, c=None):
+        model.requires_grad_(True)
+        loss = lm.train_loss(model, batch, c)
+        leaves = [p for _, p in sorted(model.named_parameters())]
+        return loss, torch.autograd.grad(loss, leaves)
+
+    before = dict(LAUNCHES)
+    loss, got = grads(card)
+    torch.cuda.synchronize()
+    n = cfg.n_layers
+    assert LAUNCHES["flash_attention"] - before["flash_attention"] == 2 * n
+    assert (LAUNCHES["flash_attention_bwd"]
+            - before["flash_attention_bwd"]) == n
+    if cfg.moe is not None:
+        for key in ("segment_sum_bwd", "moe_dispatch_bwd"):
+            assert LAUNCHES[key] - before[key] == n, key
+    loss_cpu, want = grads(cpu)
+    np.testing.assert_allclose(float(loss.detach()), float(loss_cpu.detach()),
+                               rtol=1e-5)
+    for g, w in zip(got, want):
+        assert _rel_l1(g.cpu(), w) <= 1e-4
+    _, again = grads(card, dataclasses.replace(cfg, remat=False))
+    for g, w in zip(got, again):
+        assert _rel_l1(g, w) <= 1e-6

@@ -167,7 +167,7 @@ def test_moe_ffn_matches_reference(pair, capacity_factor):
     xt = torch.from_numpy(x)
     _, _, gi = lm._route(lp["router"], xt.reshape(33, 64), cfg.moe)
     flat_e, p, c = lm._slots(gi, cfg.moe)
-    _, _, kp, _ = lm._dispatch(xt.reshape(33, 64), gi, cfg.moe)
+    _, _, kp, _, _ = lm._dispatch(xt.reshape(33, 64), gi, cfg.moe)
     np.testing.assert_array_equal(gi.numpy(), gate_i)
     np.testing.assert_array_equal(p.numpy(), pos)
     np.testing.assert_array_equal(kp.numpy(), keep)
@@ -197,8 +197,8 @@ def test_moe_dispatch_does_not_depend_on_slot_order(pair):
         np.tile(np.arange(cfg.moe.top_k), (40, 1)), axis=1))
     gi2 = gi.gather(1, perm)
     assert not torch.equal(gi, gi2)
-    buf, dest, keep, counts = lm._dispatch(xf, gi, cfg.moe)
-    buf2, dest2, keep2, counts2 = lm._dispatch(xf, gi2, cfg.moe)
+    buf, dest, keep, counts, _ = lm._dispatch(xf, gi, cfg.moe)
+    buf2, dest2, keep2, counts2, _ = lm._dispatch(xf, gi2, cfg.moe)
     assert torch.equal(buf, buf2) and torch.equal(counts, counts2)
     assert not keep.all()
 

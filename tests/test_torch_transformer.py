@@ -51,8 +51,8 @@ def _port_cfg(ref_cfg):
 
 
 def _fields():
-    """The config fields both packages hold, dtype aside (the reference's
-    training knobs wait with training)."""
+    """The config fields both packages hold, dtype aside (the training
+    knobs included)."""
     return [f.name for f in dataclasses.fields(lm.TransformerConfig)
             if f.name != "dtype"]
 
