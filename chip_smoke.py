@@ -202,34 +202,43 @@ Phases, each printed on its own lines (any failure exits non-zero):
    counters zeroed just before and read just after.  Gates: finite
    losses, the loss after the 6th step below step 0's, the checkpoints
    written; K6's forward launched 24 x 2 a microbatch (forward and
-   recomputation) and its backward (``flash_attention_bwd``) 24.  Prints
-   the losses, the wall a step and tok/s, the device memory peak, and a
-   torch.profiler trace of one more step with its device-busy share.  (b)
+   recomputation, both the training forward that writes L) and its
+   backward (``flash_attention_bwd``) 24, all 24 on the wgmma route
+   (``BWD_ROUTES``).  Prints the losses, the wall a step and tok/s, the
+   device memory peak, and a torch.profiler trace of one more step with
+   its device-busy share and K6's backward kernels' device time.  (b)
    K6's backward on layer 0's operands of a microbatch (captured from a
-   training forward; dO drawn from a seeded generator) against its plain
-   version: relative L1 <= 1e-2 on dq, dk and dv in bf16, with the inputs
-   cast to float32 within rtol 1e-5 / atol 1e-6, a bit-identical
-   relaunch; then a float32 copy of the weights through one gradient at
-   2 x 1,024 with the kernels and with the plain versions (deterministic,
-   as in phase 16 (c)): every leaf within relative L1 1e-4.  (c) granite-moe-1b-a400m at full width in
+   training forward; dO drawn from a seeded generator), fed L by the
+   training forward (whose o must equal serving's to the bit and whose L
+   the plain version's within 1e-5, absolute plus relative), against its
+   plain version: relative L1 <= 1e-2 on dq, dk and dv in bf16, both
+   calls on the wgmma route, with the inputs cast to float32 within rtol
+   1e-5 / atol 1e-6, a bit-identical relaunch; then a float32 copy of the
+   weights through one gradient at 2 x 1,024 with the kernels and with
+   the plain versions (deterministic, as in phase 16 (c)): every leaf
+   within relative L1 1e-4.  (c) granite-moe-1b-a400m at full width in
    bf16 (1,384,963,072 parameters), 4 steps at (a)'s shape through
    ``TrainLoop`` with ``moe_experts=32``: the expert-load monitor's
    observations (2 a layer and microbatch: the tap fires again in the
    recomputation, as the reference's does) and plans printed.  Gates: K5's
-   bf16-row form 24 x 2 a microbatch, the combine's backward
-   (``segment_sum_bf16_bwd``) 24, the dispatch's backward on K5's
-   bf16-row form counted apart (``moe_dispatch_bwd``) 24; the combine's
-   backward on layer 0's operands against its plain version within
-   relative L1 1e-5 and a bit-identical relaunch; a float32 copy's
-   gradient with the kernels against the plain versions within relative
-   L1 1e-4, routing flips printed with their top-k margin.  (d) Rows for
-   the kernels line: ``flash_attention_bwd`` at (b)'s operands (4 x 16
-   heads x 4,096, Dh 64, bf16; the library call the backward of
-   ``scaled_dot_product_attention``) and ``segment_sum_bf16_bwd`` at
-   (c)'s (``index_add_`` and a batched dot), each with the launches of
-   its run.  Run it alone with ``lm_training(args, torch, dev,
-   Timer(torch, dev), sync)``, ``args`` holding ``lm_reduced`` and
-   ``seed``.
+   bf16-row form 24 x 2 a microbatch, K6's backward 24 on the wgmma
+   route, the combine's backward (``segment_sum_bf16_bwd``) 24, the
+   dispatch's backward on K5's bf16-row form counted apart
+   (``moe_dispatch_bwd``) 24; the combine's backward on layer 0's
+   operands against its plain version within relative L1 1e-5 and a
+   bit-identical relaunch, the dispatch's within relative L1 1e-5; a
+   float32 copy's gradient with the kernels against the plain versions
+   within relative L1 1e-4, routing flips printed with their top-k
+   margin.  (d) Rows for the kernels line: ``flash_attention_bwd`` at
+   (b)'s operands (4 x 16 heads x 4,096, Dh 64, bf16; the library call
+   the backward of ``scaled_dot_product_attention``; beside it the
+   mma.sync pair that the wgmma route replaced, through the library's
+   private entry, and the training forward beside serving's; gated at
+   1.6 ms a call), ``segment_sum_bf16_bwd`` at (c)'s (``index_add_`` and
+   a batched dot) and ``moe_dispatch_bwd`` at (c)'s layer 0 (``index_add_``
+   of the same weighted rows), each with the launches of its run.  Run it
+   alone with ``lm_training(args, torch, dev, Timer(torch, dev), sync)``,
+   ``args`` holding ``lm_reduced`` and ``seed``.
 13. Simulator: the paper's K-PID simulator (``repro_torch.core.
    DistributedSimulator``) on the card, its push on K7 (sim_messages, the
    messages; sim_push, their sum), at N, K=8, the batch schedule, target
@@ -577,7 +586,8 @@ def device_share(torch, what, fn, untraced_ms=None):
     its kernels and their share of that wall (the profiler's own host cost
     included, so the share reads low), the share of ``untraced_ms`` (the
     same work's wall without the profiler) where given, and the kernels
-    that took most."""
+    that took most.  Returns the kernels' ``(ms, count, name)`` rows, or
+    None when the trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -599,7 +609,7 @@ def device_share(torch, what, fn, untraced_ms=None):
     if busy == 0:
         print(f"{what} under torch.profiler: wall {wall:.3f} ms, device time "
               "not measured (the trace holds none)")
-        return
+        return None
     top = ", ".join(f"{key[:48]} x{n} {ms:.3f} ms" for ms, n, key in stats[:6])
     plain = ("" if untraced_ms is None else
              f", {100 * busy / untraced_ms:.1f} % of the {untraced_ms:.3f} ms "
@@ -607,6 +617,7 @@ def device_share(torch, what, fn, untraced_ms=None):
     print(f"{what} under torch.profiler: wall {wall:.3f} ms, device kernels "
           f"{busy:.3f} ms ({100 * busy / wall:.1f} % of the traced wall"
           f"{plain}); top: {top}")
+    return stats
 
 
 class _Captured(Exception):
@@ -1506,8 +1517,14 @@ def lm_training(args, torch, dev, timer, sync):
     from repro_torch.data import lm_token_batch
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels.attention import (
-        attention_bwd_plain, flash_attention, flash_attention_bwd)
-    from repro_torch.kernels.segment import segment_sum_bwd_ref
+        attention_bwd_plain, attention_plain, flash_attention,
+        flash_attention_bwd)
+    from repro_torch.kernels.attention.backward import (
+        BWD_ROUTES, _flash_attention_bwd_mma_sync)
+    from repro_torch.kernels.attention.kernel import flash_attention_lse
+    from repro_torch.kernels.segment import (segment_sum_bwd_ref,
+                                             segment_sum_kernel,
+                                             segment_sum_ref)
     from repro_torch.kernels.segment.backward import moe_combine_bwd
     from repro_torch.launch.steps import build_cell_step
     from repro_torch.models import transformer
@@ -1573,10 +1590,14 @@ def lm_training(args, torch, dev, timer, sync):
         if on_card:
             torch.cuda.reset_peak_memory_stats()
         reset_launches()
+        BWD_ROUTES.update(dict.fromkeys(BWD_ROUTES, 0))
         t0 = time.perf_counter()
         out = loop.run()
         wall = time.perf_counter() - t0
         launches = {k: v for k, v in LAUNCHES.items() if v}
+        # K6's backward launches by route
+        launches.update({f"flash_attention_bwd:{r}": n
+                         for r, n in BWD_ROUTES.items() if n})
         peak = ((torch.cuda.max_memory_allocated() - held) / 1e9 if on_card
                 else 0.0)
         with torch.no_grad():
@@ -1621,12 +1642,21 @@ def lm_training(args, torch, dev, timer, sync):
         "qwen1.5-0.5b training", LM_ARCH, 6, 3)
     L = cfg.n_layers
     path_a = per_microbatch(launches, 6, {"flash_attention": 2 * L,
-                                          "flash_attention_bwd": L})
+                                          "flash_attention_bwd": L,
+                                          "flash_attention_bwd:wgmma": L})
     state = out["opt_state"]
     if on_card:
-        device_share(torch, "qwen1.5-0.5b train step (one more)",
-                     lambda: step(model.param_tree(), state, batch),
-                     1e3 * float(np.median(secs)))
+        stats = device_share(torch, "qwen1.5-0.5b train step (one more)",
+                             lambda: step(model.param_tree(), state, batch),
+                             1e3 * float(np.median(secs)))
+        if stats:
+            parts = {part: sum(ms for ms, _, key in stats if part in key)
+                     for part in ("bwd_dq_", "bwd_dkdv_")}
+            print(f"qwen1.5-0.5b traced step: K6's backward kernels "
+                  f"{sum(parts.values()):.3f} ms of the "
+                  f"{sum(st[0] for st in stats):.3f} ms of device kernels "
+                  f"(dQ {parts['bwd_dq_']:.3f}, dK / dV "
+                  f"{parts['bwd_dkdv_']:.3f})")
     summary.append(f"qwen1.5-0.5b: {b} x {s} a step in {nm} microbatches, "
                    f"{float(np.median(secs)):.3f} s a step (median), "
                    f"{b * s / float(np.median(secs)):.0f} tok/s, peak "
@@ -1641,7 +1671,22 @@ def lm_training(args, torch, dev, timer, sync):
                          lambda: transformer.train_loss(model, mb))
     q, k, v = (t.detach() for t in ins["args"][:3])
     causal = ins["kw"]["causal"]
-    o = flash_attention(q, k, v, causal=causal)
+    # the training forward, whose logsumexp the wgmma backward reads (on the
+    # CPU the plain version's, which the plain backward does not read)
+    o, lse = flash_attention_lse(q, k, v, causal=causal)
+    served = flash_attention(q, k, v, causal=causal)
+    _, lse_want = attention_plain(*(t.float() for t in (q, k, v)),
+                                  causal=causal, lse=True)
+    lse_err = float(((lse[..., :q.shape[2]] - lse_want).abs()
+                     / (1 + lse_want.abs())).max())
+    print(f"K6 training forward (layer 0 of a microbatch): o bit-equal to "
+          f"serving's {torch.equal(o, served)}, its logsumexp max |dL| / (1 + "
+          f"|L|) {lse_err:.3e} against the plain version's (bound 1e-5)")
+    if not (torch.equal(o, served) and lse_err <= 1e-5):
+        fail("K6's training forward against serving's and the plain L")
+    del served, lse_want
+    if not on_card:
+        lse = None
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     do = (torch.randn(o.shape, generator=gen, device=dev) * 0.01).to(o.dtype)
 
@@ -1653,8 +1698,12 @@ def lm_training(args, torch, dev, timer, sync):
                  for i in range(q.shape[0])]
         return [torch.cat(p) for p in zip(*parts)]
 
-    got = flash_attention_bwd(q, k, v, o, do, causal=causal)
-    again = flash_attention_bwd(q, k, v, o, do, causal=causal)
+    routes = dict(BWD_ROUTES)
+    got = flash_attention_bwd(q, k, v, o, do, causal=causal, lse=lse)
+    again = flash_attention_bwd(q, k, v, o, do, causal=causal, lse=lse)
+    routes = {r: n - routes[r] for r, n in BWD_ROUTES.items() if n - routes[r]}
+    if on_card and routes != {"wgmma": 2}:
+        fail(f"K6's backward at layer 0 ran on routes {routes}, not wgmma")
     want = plain_bwd(q, k, v, o, do)
     same = all(torch.equal(x, y) for x, y in zip(got, again))
     errs = {n: rel_l1(x.float(), w) for n, x, w in zip("qkv", got, want)}
@@ -1670,8 +1719,8 @@ def lm_training(args, torch, dev, timer, sync):
           f"{str(q.dtype)[6:]}, causal {causal}: relative L1 dq "
           f"{errs['q']:.3e}, dk {errs['k']:.3e}, dv {errs['v']:.3e} "
           f"(bound 1e-2), max abs err {err_bwd:.3e}, bit-identical relaunch "
-          f"{same}; in float32: {over} of {3 * q.numel()} outside rtol 1e-5 "
-          f"/ atol 1e-6")
+          f"{same}, routes {routes}; in float32: {over} of {3 * q.numel()} "
+          f"outside rtol 1e-5 / atol 1e-6")
     if not (max(errs.values()) <= 1e-2 and same and over == 0):
         fail("K6's backward against its plain version")
     del got, again, want, got32, want32, q32, k32, v32, do32, o32
@@ -1718,31 +1767,50 @@ def lm_training(args, torch, dev, timer, sync):
     n_bytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
     flops = 5 * 2.0 * dh * pairs
     b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S)
-    lib_ms = None
+    lib_ms = old_ms = fwd_ms = serve_ms = None
     if on_card:
         ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
         lo = fn.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
         lib_ms = timer(lambda: torch.autograd.grad(
             lo, (ql, kl, vl), do, retain_graph=True), 10)
         del ql, kl, vl, lo
+        # the mma.sync pair that the wgmma route replaced, on the same
+        # operands (the library's private entry, counted nowhere), and the
+        # training forward beside serving's
+        old_ms = timer(lambda: _flash_attention_bwd_mma_sync(
+            q, k, v, o, do, causal=causal), 10)
+        fwd_ms = timer(lambda: flash_attention_lse(q, k, v, causal=causal),
+                       10)
+        serve_ms = timer(lambda: flash_attention(q, k, v, causal=causal), 10)
     rows.append({
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/attention_bwd.cu",
         "replaces": "src/repro/kernels/attention/kernel.py:75",
         "computes": "src/repro/models/transformer.py:217 (its gradient)",
-        "kernel": "mma.sync" if q.dtype == torch.bfloat16 else "fma",
+        "kernel": "wgmma" if q.dtype == torch.bfloat16 else "fma",
         "launches": path_a["flash_attention_bwd"], "max_abs_err": err_bwd,
         "ms": timer(lambda: flash_attention_bwd(q, k, v, o, do,
-                                                causal=causal), 10),
+                                                causal=causal, lse=lse), 10),
         "plain_ms": timer(lambda: plain_bwd(q, k, v, o, do), 2, warmup=1),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "mma_sync_ms": old_ms, "train_forward_ms": fwd_ms,
+        "serving_forward_ms": serve_ms,
         "shape": [bq, hq, sq, dh], "dtype": str(q.dtype)[6:],
         "gflop": flops / 1e9})
+
+    def rate(ms):
+        return "not measured" if ms is None else (
+            f"{ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s")
+
     print(f"flash_attention_bwd: {flops / 1e9:.1f} GFLOP counted (five "
-          f"products over the causal pairs): "
-          f"{flops / rows[-1]['ms'] / 1e9:.1f} TFLOP/s, the library's backward "
-          + ("not measured" if lib_ms is None
-             else f"{flops / lib_ms / 1e9:.1f} TFLOP/s"))
+          f"products over the causal pairs): the wgmma pair "
+          f"{rate(rows[-1]['ms'])}, the mma.sync pair {rate(old_ms)}, the "
+          f"library's backward {rate(lib_ms)}; the training forward "
+          + ("not measured" if fwd_ms is None else
+             f"{fwd_ms:.4f} ms beside serving's {serve_ms:.4f} ms"))
+    if on_card and not rows[-1]["ms"] <= 1.6:
+        fail(f"K6's backward takes {rows[-1]['ms']:.4f} ms a call, past "
+             "1.6 ms")
     del q, k, v, o, do, model, step, batch
     if on_card:
         torch.cuda.empty_cache()
@@ -1754,6 +1822,7 @@ def lm_training(args, torch, dev, timer, sync):
     moe = cfg.moe
     path_c = per_microbatch(launches, 4, {
         "flash_attention": 2 * L, "flash_attention_bwd": L,
+        "flash_attention_bwd:wgmma": L,
         "segment_sum_bf16": 2 * L, "segment_sum_bf16_bwd": L,
         "moe_dispatch_bwd": L})
     mon = loop.expert_monitor
@@ -1771,6 +1840,8 @@ def lm_training(args, torch, dev, timer, sync):
     del out, loop
     shutil.rmtree(work, ignore_errors=True)
     mb = {k: v[:b // nm] for k, v in batch.items()}
+    disp = _capture_first(torch, transformer, "moe_dispatch",
+                          lambda: transformer.train_loss(model, mb))
     ins = _capture_first(torch, transformer, "moe_combine",
                          lambda: transformer.train_loss(model, mb))
     data = ins["args"][0].detach()
@@ -1852,7 +1923,58 @@ def lm_training(args, torch, dev, timer, sync):
                           5),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
         "shape": [e, d, n, r_rows], "rows_read": n_read})
-    del data, g, got, again, want, model, step, batch, routes
+    # (d) the dispatch backward's row, at a microbatch's layer 0: the
+    # buffer's gradient summed back into the tokens, K5's bf16-row form
+    # over the kept slots' buffer rows (weight 1; a dropped slot row 0,
+    # weight 0)
+    x_d, src_d = disp["args"][0], disp["args"][1]
+    seg_d, keep_d = disp["kw"]["seg_ids"], disp["kw"]["keep"]
+    rows_d = torch.where(keep_d, disp["kw"]["dest"], 0)
+    w_d = keep_d.float()
+    n_tok, e_d, d_d = x_d.shape[0], seg_d.numel(), x_d.shape[1]
+    g_d = torch.randn((src_d.numel(), d_d), generator=gen,
+                      device=dev).to(x_d.dtype)
+    got_d = segment_sum_kernel(g_d, seg_d, n_tok, w_d, rows_d)
+    want_d = segment_sum_ref(g_d, seg_d, n_tok, w_d, rows_d)
+    err_d = float((got_d - want_d).abs().max())
+    e_rel = rel_l1(got_d, want_d)
+    print(f"dispatch backward (layer 0 of a microbatch): {e_d} slots of "
+          f"{src_d.numel()} {str(g_d.dtype)[6:]} buffer rows of {d_d} into "
+          f"{n_tok} tokens "
+          f"({int((~keep_d).sum())} dropped): relative L1 {e_rel:.3e} (bound "
+          f"1e-5), max abs err {err_d:.3e}")
+    if not e_rel <= REL_L1:
+        fail("the dispatch's backward against its plain version")
+    # the buffer rows the kept slots name read once (row 0 too where a slot
+    # is dropped), each slot's token, row and weight, the tokens' float32
+    # sums written once
+    n_read_d = int(torch.unique(rows_d).numel())
+    n_bytes = (n_read_d * d_d * g_d.element_size()
+               + e_d * (seg_d.element_size() + rows_d.element_size() + 4)
+               + n_tok * d_d * 4)
+    b_ms, b_by = bound_ms(n_bytes, 2.0 * e_d * d_d)
+    lib_ms = None
+    if on_card:
+        gw = g_d.index_select(0, rows_d).float() * w_d[:, None]
+        zeros = torch.zeros((n_tok, d_d), dtype=torch.float32, device=dev)
+        seg_long = seg_d.long()
+        lib_ms = timer(lambda: zeros.index_add_(0, seg_long, gw), 10)
+        del gw, zeros, seg_long
+    rows.append({
+        "name": "moe_dispatch_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/segment_sum.cu",
+        "replaces": "src/repro/kernels/segment/kernel.py:50",
+        "computes": "src/repro/models/transformer.py:524 (its gradient)",
+        "form": "the MoE dispatch's backward on K5's bf16-row form",
+        "launches": path_c["moe_dispatch_bwd"], "max_abs_err": err_d,
+        "ms": timer(lambda: segment_sum_kernel(g_d, seg_d, n_tok, w_d,
+                                               rows_d), 20),
+        "plain_ms": timer(lambda: segment_sum_ref(g_d, seg_d, n_tok, w_d,
+                                                  rows_d), 5),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "shape": [e_d, d_d, n_tok, src_d.numel()], "rows_read": n_read_d})
+    del data, g, got, again, want, model, step, batch, routes, disp, g_d
+    del got_d, want_d
     if on_card:
         torch.cuda.empty_cache()
     return rows, "LM training: " + "; ".join(summary)

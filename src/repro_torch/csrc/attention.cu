@@ -689,6 +689,11 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // same turns (the ring needs it), but each computes only the tiles it
 // needs: none if its rows all lie past seq_q, none wholly above its causal
 // diagonal.  Inside a tile, a warp's keys above its diagonal score -inf.
+// Training instantiates it with kLse: the epilogue also writes each row's
+// logsumexp L = m.c + log2(l) (base 2, scores times c = scale.log2(e), the
+// base and scaling of csrc/attention_bwd.cu) to a float32 [B, Hq, ld]
+// scratch, which the backward reads instead of rebuilding L.  Serving's
+// instantiation (kLse false) compiles without that store.
 constexpr int kRouteFma = 0, kRouteMma = 1, kRouteWgmma = 2;
 
 // The prefill kernel of a dtype (0 float32, 1 bfloat16) and head dim; the
@@ -937,13 +942,14 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
   }
 }
 
-template <int DH>
+template <int DH, bool kLse>
 __global__ void __launch_bounds__(Wg<DH>::kThreads, 1)
 flash_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v,
                            __nv_bfloat16* __restrict__ o, Strides so, int group, int seq_q,
-                           int kv_lim, int causal, float scale2) {
+                           int kv_lim, int causal, float scale2, float* __restrict__ lse,
+                           int ld) {
   using G = Wg<DH>;
   constexpr int NS = G::kStages;
   constexpr int KS = DH / 16;  // k steps of S = Q.K^T, 4 to a 64-column panel
@@ -1132,6 +1138,9 @@ flash_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int j = 0; j < DH / 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(op + (int64_t)qi * so.s + 8 * j + col0) =
             __floats2bfloat162_rn(acc[4 * j + 2 * r] / denom, acc[4 * j + 2 * r + 1] / denom);
+      // m is the raw maximum and l >= 1 (the maximum's own term)
+      if constexpr (kLse)
+        if (col0 == 0) lse[((int64_t)b * gridDim.y + head) * ld + qi] = fmaf(m[r], scale2, log2f(l[r]));
     }
   }
 }
@@ -1189,25 +1198,29 @@ int tensor_map(CUtensorMap* map, const void* ptr, int dh, int rows, int heads, i
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int DH>
+template <int DH, bool kLse = false>
 int launch_prefill_wgmma(const void* q, const void* k, const void* v, void* o, int batch,
                          int hq, int hkv, int seq_q, int seq_k, int kv_len, int causal,
-                         float scale, const int64_t* st, cudaStream_t stream) {
+                         float scale, const int64_t* st, cudaStream_t stream,
+                         float* lse = nullptr, int ld = 0) {
   using G = Wg<DH>;
+  // a runtime call first: it makes the primary context current in this
+  // thread (a worker thread, such as the autograd engine's under remat,
+  // may have none yet), which cuTensorMapEncodeTiled needs
+  auto kern = flash_prefill_wgmma_kernel<DH, kLse>;
+  int err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
+  if (err != cudaSuccess) return err;
   // the K / V maps end at kv_lim: TMA never reads the keys past it
   const int kv_lim = min(kv_len, seq_k);
   CUtensorMap mq, mk, mv;
-  int err = tensor_map(&mq, q, DH, seq_q, hq, batch, st, G::kRows);
+  err = tensor_map(&mq, q, DH, seq_q, hq, batch, st, G::kRows);
   if (err == cudaSuccess) err = tensor_map(&mk, k, DH, kv_lim, hkv, batch, st + 3, G::kKeys);
   if (err == cudaSuccess) err = tensor_map(&mv, v, DH, kv_lim, hkv, batch, st + 6, G::kKeys);
-  if (err != cudaSuccess) return err;
-  auto kern = flash_prefill_wgmma_kernel<DH>;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq_q + G::kRows - 1) / G::kRows, hq, batch);
   kern<<<grid, G::kThreads, G::kSmem, stream>>>(
       mq, mk, mv, (__nv_bfloat16*)o, Strides{st[9], st[10], st[11]}, hq / hkv, seq_q, kv_lim,
-      causal, scale * kLog2e);
+      causal, scale * kLog2e, lse, ld);
   return cudaGetLastError();
 }
 
@@ -1765,6 +1778,31 @@ int flash_prefill_route(int dtype, int dh, int* route) {
     return cudaErrorInvalidValue;
   *route = prefill_route(dtype, dh);
   return cudaSuccess;
+}
+
+// The training forward: flash_attention's prefill on
+// flash_prefill_wgmma_kernel (bf16 q, k, v and o, dh 64 or 128, seq_q > 64:
+// prefill_route's wgmma route; anything else is refused) that also writes
+// each query row's logsumexp to lse, float32 [batch, hq, ld] (ld >= seq_q),
+// in base 2 of the scores times scale.log2(e): the L that
+// csrc/attention_bwd.cu's wgmma backward reads.  Rows at or past seq_q are
+// not written.  strides as flash_attention's.
+int flash_attention_lse(const void* q, const void* k, const void* v, void* o, void* lse,
+                        int dtype, int dh, int batch, int hq, int hkv, int seq_q, int seq_k,
+                        int causal, float scale, const int64_t* strides, int ld,
+                        void* stream) {
+  if (batch == 0 || hq == 0) return cudaSuccess;
+  if (dtype != 1 || (dh != 64 && dh != 128) || prefill_route(dtype, dh) != kRouteWgmma ||
+      seq_q <= kDecMaxSq || hkv <= 0 || hq % hkv != 0 || seq_k < 1 || ld < seq_q ||
+      lse == nullptr)
+    return cudaErrorInvalidValue;
+  if (dh == 64)
+    return launch_prefill_wgmma<64, true>(q, k, v, o, batch, hq, hkv, seq_q, seq_k, seq_k,
+                                          causal, scale, strides, (cudaStream_t)stream,
+                                          (float*)lse, ld);
+  return launch_prefill_wgmma<128, true>(q, k, v, o, batch, hq, hkv, seq_q, seq_k, seq_k,
+                                         causal, scale, strides, (cudaStream_t)stream,
+                                         (float*)lse, ld);
 }
 
 // dtype: 0 float32, 1 bfloat16.  strides: 12 element strides, (b, h, s) of q,

@@ -21,44 +21,80 @@
 // a layer at 4 x 16 heads x 4,096 tokens, Dh 64 (qwen1.5-0.5b's training
 // microbatch), 0.35 ms at the 989 TFLOP/s of the bf16 tensor cores.
 //
-// What the design does about it.  Two kernels, no float atomics, so that a
-// relaunch gives the same bits:
+// What the design does about it.  Two kernels a route, dQ first, then dK /
+// dV, no float atomics, so that a relaunch gives the same bits; both work
+// in base 2 (exp2 of scores scaled by scale.log2(e)), and a float32 scratch
+// [B, Hq, ld] holds each query row's L in that base and D.
+//
+// Route wgmma (bf16 at Dh 64 and 128 with Sq > 64: wherever the forward ran
+// flash_prefill_wgmma_kernel, whose training instance writes L to the
+// scratch, so that nothing here rebuilds it).  Both kernels are
+// warp-specialised: warpgroup 0 is a producer that gives its registers away
+// by setmaxnreg and has one thread issue TMA loads (128-byte swizzle; a row
+// of Dh 128 is two 64-column panels) into a ring of stages guarded by
+// mbarriers; consumer warpgroups of 64 rows each run every product on
+// wgmma, the score products with both operands in shared memory, the
+// accumulating ones with the bf16 A operand from registers (the float
+// accumulator's pairs packed in place: P and dS rounded to bf16, as the
+// mma.sync route rounds them) and B read MN-major through the transpose bit.
+// * bwd_dkdv_wgmma_kernel, one CTA of two consumers per (block of 128 keys,
+//   kv head, batch row): K and V loaded once; 64-row tiles of Q and dO with
+//   their slices of L and D streamed, for each q head of the group in
+//   order, and only the tiles at or below the causal diagonal; S^T = K.Q^T
+//   and dP^T = V.dO^T, P^T = exp2(S^T.c - L) and dS^T = P^T o (dP^T - D) in
+//   registers, dV += P^T.dO and dK += dS^T.Q.  dK and dV stay in registers
+//   for the whole walk and are written once.
+// * bwd_dq_wgmma_kernel, one CTA per (block of query rows, q head, batch
+//   row), three consumers at Dh 64 and two at 128: D = <dO, o> in its
+//   prologue (written for the dK / dV kernel), then 128-key tiles of K and
+//   V streamed, each in two halves of 64 keys: S = Q.K^T, dP = dO.V^T, dS,
+//   dQ += dS.K.
+// Seven products where five are counted (S and dP in both kernels).  The
+// CTAs run in groups of blocks, heaviest first, a group's blocks of a head
+// side by side (block_order).  The masks (causal, ragged Sq and Sk) are one
+// warp-uniform branch a tile with selects inside, a masked score set to
+// -inf before its exp2: written per element as `if (...) p = 0`, they
+// compiled into a convergence block each and took a third of the pair's
+// time.
+//
+// Route mma_sync (bf16 otherwise) and fma (float32): L is computed here
+// rather than read, since those forwards (the mma.sync and FMA prefill
+// kernels, and the split-KV decode kernel at Sq <= 64, whose splits would
+// each hold a part of L) do not write it:
 // * the dQ kernel, one CTA per (block of 64 queries, q head, batch row),
 //   walks the key tiles twice: first for each row's logsumexp L (an online
-//   max and sum, as the forward's), which it writes with D to a float32
-//   scratch, then for dQ += dS k, recomputing P from L;
+//   max and sum, as the forward's), which it writes with D to the scratch,
+//   then for dQ += dS k, recomputing P from L;
 // * the dK / dV kernel, one CTA per (block of 64 keys, kv head, batch row),
 //   walks the query tiles that can see its keys, for each q head of its
 //   group in turn, and sums dV += P^T dO and dK += dS^T q in that fixed
 //   order, reading L and D from the scratch.
-// L is computed here rather than written by the forward: training reaches
-// four forward kernels (the wgmma, mma.sync and FMA prefill kernels, and the
-// split-KV decode kernel at Sq <= 64, whose splits would each hold a part of
-// L), all of which serve, the wgmma kernel with a tight register allocation;
-// so they stay as they are, and one path here covers every Sq, at the cost
-// of one more Q.K^T product (eight products where five are counted).
 // bf16 runs on mma.sync m16n8k16 (bf16 in, float32 accumulate; 4 warps of
 // 16 rows a CTA, tiles of 64 double-buffered by cp.async), as the
-// forward's mma.sync kernel: P is
-// rounded to bf16 for the dV product, dS for the dQ and dK products, as the
-// forward rounds p before its PV product.  float32 runs on FMA (256 threads
-// a CTA, each owning a 4 x 4 block of the 64 x 64 score tile and a 4-row
-// slice of its accumulators).  Any Sq and Sk: the ragged tails are zero
-// filled and masked here, so the caller pads nothing.  Both kernels work in
-// base 2 (exp2 of scores scaled by scale.log2(e)); the scratch holds L in
-// that base.
+// forward's mma.sync kernel: P is rounded to bf16 for the dV product, dS
+// for the dQ and dK products, as the forward rounds p before its PV
+// product.  float32 runs on FMA (256 threads a CTA, each owning a 4 x 4
+// block of the 64 x 64 score tile and a 4-row slice of its accumulators).
+// Every route takes any Sq and Sk: the ragged tails are zero filled and
+// masked here, so the caller pads nothing.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <limits>
 #include <type_traits>
 
 namespace {
 
 constexpr int kB = 64;  // rows of a CTA's block, and of a tile of the other side
+constexpr int kLdBlock = 128;  // the scratch holds ceil(Sq / 128) * 128 rows a (row, head)
+constexpr int kDecodeMaxSq = 64;  // attention.cu's kDecMaxSq: no wgmma forward at or below
+constexpr int kRouteFma = 0, kRouteMma = 1, kRouteWgmma = 2;
 constexpr int kThreads = 256;     // FMA kernels: 16 x 16, ty owns 4 rows
 constexpr int kMmaThreads = 128;  // mma.sync kernels: 4 warps of 16 rows
 constexpr float kNegInf = -1.0e30f;
+constexpr float kNegInfinity = -std::numeric_limits<float>::infinity();
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -769,6 +805,746 @@ __global__ void __launch_bounds__(kMmaThreads) bwd_dkdv_mma_kernel(Args a) {
   }
 }
 
+// ---- bf16 at Dh 64 and 128: wgmma, TMA, warp-specialised ------------------
+// The rule the wrapper reads (flash_attention_bwd_route): wgmma wherever
+// attention.cu's prefill ran flash_prefill_wgmma_kernel.
+constexpr int bwd_route(int dtype, int dh, int seq_q) {
+  return dtype == 0 ? kRouteFma
+         : (dh == 64 || dh == 128) && seq_q > kDecodeMaxSq ? kRouteWgmma
+                                                         : kRouteMma;
+}
+
+// Phase hooks: tools/k6_bwd_probe.py's `phases` variant defines them to
+// add each consumer warpgroup's clocks between stamps to a counter a
+// phase; here they are empty.
+#define BWD_START()
+#define BWD_STAMP(i)
+
+// Consumer warpgroups (of 64 rows each) a CTA of each kernel: three dQ
+// consumers at Dh 64 (160 registers each) keep the tensor cores busier
+// than two; a dK / dV consumer holds two accumulators beside its tile's
+// operands, which do not fit in 160 (with three it spilled).
+template <int DH>
+constexpr int kDqConsumers = DH == 64 ? 3 : 2;
+constexpr int kDkdvConsumers = 2;
+
+template <int DH, int NC>
+struct Bw {
+  static constexpr int kConsumers = NC;
+  static constexpr int kBlock = 64 * NC;  // keys (dK / dV) or query rows (dQ) a CTA
+  static constexpr int kQTile = 64;       // query rows of a dK / dV stage
+  static constexpr int kKTile = 128;      // keys of a dQ stage
+  static constexpr int kPanelBlk = kBlock * 128;  // bytes of a block's 64 columns
+  static constexpr int kPanelQt = kQTile * 128;   // ... of a dK / dV stage's
+  static constexpr int kPanelKt = kKTile * 128;   // ... of a dQ stage's
+  static constexpr int kBlk = DH / 64 * kPanelBlk;
+  static constexpr int kQt = DH / 64 * kPanelQt;
+  static constexpr int kKt = DH / 64 * kPanelKt;
+  static constexpr int kThreads = 128 * (1 + kConsumers);
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = kConsumers == 3 ? 160 : 240;
+  // dK / dV: K, V, then kStagesKV stages of (Q, dO), then their L and D
+  // (256 bytes each), then the barriers (K/V full; full and empty a stage)
+  static constexpr int kStagesKV = DH == 64 ? 4 : 3;
+  static constexpr int kSmemKV =
+      1024 + 2 * kBlk + kStagesKV * (2 * kQt + 512) + 8 * (1 + 2 * kStagesKV);
+  // dQ: Q, dO, then kStagesQ stages of (K, V), then the barriers (Q / dO
+  // full; K full, V full and empty a stage)
+  static constexpr int kStagesQ = DH == 64 ? 3 : 2;
+  static constexpr int kSmemQ = 1024 + 2 * kBlk + kStagesQ * 2 * kKt + 8 * (1 + 3 * kStagesQ);
+  static_assert(128 * (kProducerRegs + kConsumers * kConsumerRegs) <= 65536,
+                "the warpgroups' registers fit the SM's 64K");
+  static_assert(kSmemKV <= 232448 && kSmemQ <= 232448,
+                "a CTA has at most 227 KB of shared memory");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// waits until the phase of parity `parity` of the barrier has completed (no
+// __trap on a timeout: with one, ptxas ignores setmaxnreg's registers)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// the box at (c0, c1, c2, c3) of a 4-D map into shared dst; completes on bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16, both ends 16-byte aligned) from global src into
+// shared dst; completes on bar
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving reads or writes of r across a wgmma wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// wgmma descriptor of a 128-byte-swizzled operand at shared address addr
+// (1024-aligned atoms of 8 rows x 128 bytes): lbo and sbo in bytes
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | (uint64_t)1 << 62;
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d (+)= A.B^T, m64n64k16: A [64 x 16] and B [64 x 16] both K-major in
+// shared memory (descriptors da, db); scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d += A.B, m64n64k16: A [64 x 16] bf16 from registers (a: the
+// accumulator layout's pairs, packed), B [16 x 64] MN-major in shared memory
+// (descriptor db, transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+
+// d += A.B, m64n128k16: as wgmma_rs_n64 with B [16 x 128]
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+
+// acc += A.B over 64 rows of depth: A the 64 x 64 float fragment of a score
+// product packed to bf16 pairs (pk[4kk..4kk+3] its 16 columns kk), B the
+// 64-row tile at descriptor db (MN-major, 16 rows = 2048 bytes a step)
+template <int DH>
+__device__ __forceinline__ void gemm_acc(float (&acc)[DH / 2], uint32_t (&pk)[16],
+                                         uint64_t db) {
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t a[4] = {pk[4 * kk], pk[4 * kk + 1], pk[4 * kk + 2], pk[4 * kk + 3]};
+    if constexpr (DH == 64)
+      wgmma_rs_n64(acc, a, db + ((kk * 16 * 128) >> 4));
+    else
+      wgmma_rs_n128(acc, a, db + ((kk * 16 * 128) >> 4));
+  }
+  wgmma_commit();
+  fence_regs(pk);
+}
+
+// d = A.B^T over depth DH: A the 64 rows at da, B the 64 rows at db, both
+// K-major with 64-column panels pa and pb bytes apart (32 bytes a k step)
+template <int DH>
+__device__ __forceinline__ void gemm_scores(float (&d)[32], uint64_t da, int pa, uint64_t db,
+                                            int pb) {
+#pragma unroll
+  for (int ks = 0; ks < DH / 16; ++ks) {
+    const int in_panel = (ks & 3) * 32;
+    wgmma_ss_n64(d, da + (((ks >> 2) * pa + in_panel) >> 4), db + (((ks >> 2) * pb + in_panel) >> 4),
+                 ks > 0);
+  }
+}
+
+// A stage's L or D (64 floats at sl, queries q0..) for the thread's 16
+// columns 8j + col0 + e, in v[2j + e]; with `ragged`, a query at or past
+// seq_q reads 0 (the scratch holds nothing written there)
+__device__ __forceinline__ void load_ld(float (&v)[16], const float* sl, int q0, int col0,
+                                        int seq_q, bool ragged) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 x = *reinterpret_cast<const float2*>(sl + 8 * j + col0);
+    v[2 * j] = x.x;
+    v[2 * j + 1] = x.y;
+  }
+  if (ragged) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        v[2 * j + e] = q0 + 8 * j + col0 + e >= seq_q ? 0.0f : v[2 * j + e];
+  }
+}
+
+// the 32 float pairs of a 64 x 64 fragment, rounded to bf16 and packed
+__device__ __forceinline__ void pack_frag(uint32_t (&pk)[16], const float (&x)[32]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) pk[i] = pack_bf16(x[2 * i], x[2 * i + 1]);
+}
+
+// rows [row, row + 8) of a bf16 [.., DH] result from the accumulator
+// fragment, times mul; rows at or past n_rows left out
+template <int DH>
+__device__ __forceinline__ void store_acc_wg(bf16* base, int64_t s_stride, int row, int n_rows,
+                                             const float (&acc)[DH / 2], float mul, int col0) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = row + 8 * r;
+    if (i >= n_rows) continue;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(base + (int64_t)i * s_stride + 8 * j + col0) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
+  }
+}
+
+// A 1-D grid's CTA -> (block, head, batch row) for n_blocks blocks of each
+// of n_pairs = heads x batch rows: groups of kGroupBlocks consecutive
+// blocks in block order, and within a group every (head, batch row)'s
+// blocks side by side.  Block order puts the heaviest blocks under the
+// causal mask first (blocks near key 0 in the dK / dV kernel; the dQ
+// kernel reverses its blocks); a group's blocks of one head running side
+// by side read the operand they all stream (Q and dO, or K and V) from
+// device memory about once a group, then from L2.
+constexpr int kGroupBlocks = 8;
+
+__device__ __forceinline__ void block_order(int n_blocks, int n_pairs, int heads, int& blk,
+                                            int& head, int& b) {
+  const int full = n_blocks / kGroupBlocks * kGroupBlocks;  // blocks in whole groups
+  int pair, in_group;
+  if ((int)blockIdx.x < full * n_pairs) {
+    const int grp = blockIdx.x / (kGroupBlocks * n_pairs);
+    const int rest = blockIdx.x - grp * kGroupBlocks * n_pairs;
+    pair = rest / kGroupBlocks;
+    in_group = grp * kGroupBlocks + rest % kGroupBlocks;
+  } else {  // the last, partial group
+    const int g = n_blocks - full;
+    const int rest = blockIdx.x - full * n_pairs;
+    pair = rest / g;
+    in_group = full + rest % g;
+  }
+  blk = in_group;
+  head = pair % heads;
+  b = pair / heads;
+}
+
+// One CTA per (block of 128 keys, kv head, batch row) of a 1-D grid, in
+// block_order: the blocks nearest key 0 (the most query tiles under the
+// causal mask) first.
+// In a consumer's fragments, row r of a thread is key krow + 8r and column
+// 8j + col0 + e of a 64-column product is query q0 + 8j + col0 + e.
+template <int DH, int NC>
+__global__ void __launch_bounds__(Bw<DH, NC>::kThreads, 1)
+bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_do, Args a, int hq, int hkv) {
+  using G = Bw<DH, NC>;
+  constexpr int NS = G::kStagesKV;
+  extern __shared__ uint4 smem_wg[];
+  const uint32_t raw = smem_u32(smem_wg);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t s_k = base, s_v = base + G::kBlk;
+  auto q_tile = [&](int st) { return base + 2 * G::kBlk + 2 * st * G::kQt; };  // dO after it
+  const uint32_t s_ld = base + 2 * G::kBlk + 2 * NS * G::kQt;  // stage st: L, then D
+  const uint32_t bars = s_ld + NS * 512;
+  const uint32_t kv_full = bars;
+  auto full = [&](int st) { return bars + 8 * (1 + st); };
+  auto empty = [&](int st) { return bars + 8 * (1 + NS + st); };
+  const float* ld_smem = reinterpret_cast<const float*>(
+      reinterpret_cast<const char*>(smem_wg) + (s_ld - raw));
+
+  const int n_kb = (a.seq_k + G::kBlock - 1) / G::kBlock;
+  int kb, hk, b;
+  block_order(n_kb, gridDim.x / n_kb, hkv, kb, hk, b);
+  const int k0 = kb * G::kBlock;
+  const int n_qt = (a.seq_q + G::kQTile - 1) / G::kQTile;
+  const int qt0 = a.causal ? min(k0 / G::kQTile, n_qt) : 0;
+  const int nq = n_qt - qt0;
+  const int n_it = a.group * nq;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < NS; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), G::kConsumers);  // one thread of each consumer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // ---- producer: one thread issues every load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(G::kProducerRegs) : "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, 2 * G::kBlk);
+#pragma unroll
+      for (int p = 0; p < DH / 64; ++p) {
+        tma_load(s_k + p * G::kPanelBlk, &tm_k, kv_full, 64 * p, k0, hk, b);
+        tma_load(s_v + p * G::kPanelBlk, &tm_v, kv_full, 64 * p, k0, hk, b);
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int st = it % NS;
+        if (it >= NS) mbar_wait(empty(st), (it / NS - 1) & 1);  // tile it - NS is done
+        const int h = hk * a.group + it / nq;
+        const int q0 = (qt0 + it % nq) * G::kQTile;
+        const uint32_t dq = q_tile(st), ddo = dq + G::kQt;
+        mbar_expect_tx(full(st), 2 * G::kQt + 512);
+#pragma unroll
+        for (int p = 0; p < DH / 64; ++p) {
+          tma_load(dq + p * G::kPanelQt, &tm_q, full(st), 64 * p, q0, h, b);
+          tma_load(ddo + p * G::kPanelQt, &tm_do, full(st), 64 * p, q0, h, b);
+        }
+        const int64_t row = ((int64_t)b * hq + h) * a.ld + q0;
+        bulk_load(s_ld + st * 512, a.lse + row, 256, full(st));
+        bulk_load(s_ld + st * 512 + 256, a.delta + row, 256, full(st));
+      }
+    }
+  } else {  // ---- consumers: 64 keys each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(G::kConsumerRegs) : "memory");
+    const int c = wg - 1;
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int col0 = 2 * (lane & 3);
+    const int krow = k0 + 64 * c + 16 * warp + (lane >> 2);  // and krow + 8
+    const int warp_key = k0 + 64 * c + 16 * warp;            // the warp's first key
+    const uint64_t d_k = wgmma_desc(s_k + c * 64 * 128, 16, 1024);
+    const uint64_t d_v = wgmma_desc(s_v + c * 64 * 128, 16, 1024);
+    float acc_dk[DH / 2], acc_dv[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) acc_dk[i] = acc_dv[i] = 0.0f;
+    float s[32], dp[32];
+    uint32_t pk_p[16], pk_ds[16];
+    mbar_wait(kv_full, 0);
+    BWD_START();
+    for (int it = 0; it < n_it; ++it) {
+      const int st = it % NS;
+      const int q0 = (qt0 + it % nq) * G::kQTile;
+      mbar_wait(full(st), (it / NS) & 1);
+      BWD_STAMP(0);
+      const uint32_t sq = q_tile(st), sdo = sq + G::kQt;
+      // S^T = K.Q^T and dP^T = V.dO^T, two groups
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+      gemm_scores<DH>(s, d_k, G::kPanelBlk, wgmma_desc(sq, 16, 1024), G::kPanelQt);
+      wgmma_commit();
+      gemm_scores<DH>(dp, d_v, G::kPanelBlk, wgmma_desc(sdo, 16, 1024), G::kPanelQt);
+      wgmma_commit();
+      const float* sl = ld_smem + st * 128;  // L, then D at + 64
+      // a query past seq_q (zero q and dO, L and D unwritten) and, causally,
+      // a query before the key score nothing
+      const bool need_mask = q0 + G::kQTile > a.seq_q || (a.causal && q0 < warp_key + 15);
+      BWD_STAMP(1);
+      wgmma_wait<1>();  // S^T is done; dP^T runs on
+      fence_regs(s);
+      BWD_STAMP(2);
+      // L (then D) of the thread's 16 queries 8j + col0 + e, index 2j + e;
+      // a query past seq_q reads 0, not what is left in the scratch
+      float lq[16];
+      load_ld(lq, sl, q0, col0, a.seq_q, need_mask);
+      // one warp-uniform branch a tile, and inside it selects only: a masked
+      // score becomes -inf, its P exactly 0
+      if (need_mask) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int qi = q0 + 8 * j + col0 + e;
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const bool drop = (qi >= a.seq_q) | (a.causal & (qi < krow + 8 * r));
+              s[4 * j + 2 * r + e] = drop ? kNegInfinity : s[4 * j + 2 * r + e];
+            }
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        s[i] = ex2(fmaf(s[i], a.scale2, -lq[((i >> 2) << 1) + (i & 1)]));
+      pack_frag(pk_p, s);
+      BWD_STAMP(3);
+      gemm_acc<DH>(acc_dv, pk_p, wgmma_desc(sdo, G::kPanelQt, 1024));  // dV += P^T.dO
+      // dP^T is done; at Dh 64 the dV product runs on while dS is formed,
+      // at Dh 128 it is waited for too, so that P^T's registers are free
+      // for dS^T's (dK and dV take 128 a thread there)
+      if constexpr (DH == 64)
+        wgmma_wait<1>();
+      else
+        wgmma_wait<0>();
+      fence_regs(dp);
+      BWD_STAMP(4);
+      float dq[16];
+      load_ld(dq, sl + 64, q0, col0, a.seq_q, need_mask);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - dq[((i >> 2) << 1) + (i & 1)]);
+      pack_frag(pk_ds, dp);
+      gemm_acc<DH>(acc_dk, pk_ds, wgmma_desc(sq, G::kPanelQt, 1024));  // dK += dS^T.Q
+      BWD_STAMP(5);
+      wgmma_wait<0>();
+      fence_regs(acc_dv);
+      fence_regs(acc_dk);
+      if (tid == 0) mbar_arrive(empty(st));  // stage st is read
+      BWD_STAMP(6);
+    }
+    store_acc_wg<DH>(static_cast<bf16*>(a.dk) + b * a.sdk.b + hk * a.sdk.h, a.sdk.s, krow,
+                     a.seq_k, acc_dk, a.scale, col0);
+    store_acc_wg<DH>(static_cast<bf16*>(a.dv) + b * a.sdv.b + hk * a.sdv.h, a.sdv.s, krow,
+                     a.seq_k, acc_dv, 1.0f, col0);
+  }
+}
+
+// One CTA per (block of query rows, q head, batch row) of a 1-D grid, in
+// block_order, under the causal mask the blocks with the most key tiles
+// first.  In a
+// consumer's fragments, row r of a thread is query qrow + 8r and column 8j +
+// col0 + e of a 64-key half tile is key kh + 8j + col0 + e.
+template <int DH, int NC>
+__global__ void __launch_bounds__(Bw<DH, NC>::kThreads, 1)
+bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do, Args a, int hq) {
+  using G = Bw<DH, NC>;
+  constexpr int NS = G::kStagesQ;
+  extern __shared__ uint4 smem_wg[];
+  const uint32_t base = (smem_u32(smem_wg) + 1023) & ~1023u;
+  const uint32_t s_q = base, s_do = base + G::kBlk;
+  auto k_tile = [&](int st) { return base + 2 * G::kBlk + 2 * st * G::kKt; };  // V after it
+  const uint32_t bars = base + 2 * G::kBlk + 2 * NS * G::kKt;
+  const uint32_t q_full = bars;
+  auto k_full = [&](int st) { return bars + 8 * (1 + st); };
+  auto v_full = [&](int st) { return bars + 8 * (1 + NS + st); };
+  auto empty = [&](int st) { return bars + 8 * (1 + 2 * NS + st); };
+
+  const int n_qb = (a.seq_q + G::kBlock - 1) / G::kBlock;
+  int qb, h, b;
+  block_order(n_qb, gridDim.x / n_qb, hq, qb, h, b);
+  if (a.causal) qb = n_qb - 1 - qb;
+  const int q0 = qb * G::kBlock;
+  const int hk = h / a.group;
+  int n_tiles = (a.seq_k + G::kKTile - 1) / G::kKTile;
+  if (a.causal) n_tiles = min(n_tiles, (min(q0 + G::kBlock, a.seq_q) - 1) / G::kKTile + 1);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < NS; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(empty(st), G::kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // ---- producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(G::kProducerRegs) : "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, 2 * G::kBlk);
+#pragma unroll
+      for (int p = 0; p < DH / 64; ++p) {
+        tma_load(s_q + p * G::kPanelBlk, &tm_q, q_full, 64 * p, q0, h, b);
+        tma_load(s_do + p * G::kPanelBlk, &tm_do, q_full, 64 * p, q0, h, b);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % NS;
+        if (t >= NS) mbar_wait(empty(st), (t / NS - 1) & 1);
+        const uint32_t dk = k_tile(st), dv = dk + G::kKt;
+        mbar_expect_tx(k_full(st), G::kKt);
+#pragma unroll
+        for (int p = 0; p < DH / 64; ++p)
+          tma_load(dk + p * G::kPanelKt, &tm_k, k_full(st), 64 * p, t * G::kKTile, hk, b);
+        mbar_expect_tx(v_full(st), G::kKt);
+#pragma unroll
+        for (int p = 0; p < DH / 64; ++p)
+          tma_load(dv + p * G::kPanelKt, &tm_v, v_full(st), 64 * p, t * G::kKTile, hk, b);
+      }
+    }
+  } else {  // ---- consumers: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(G::kConsumerRegs) : "memory");
+    const int c = wg - 1;
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int col0 = 2 * (lane & 3);
+    const int qrow = q0 + 64 * c + 16 * warp + (lane >> 2);  // and qrow + 8
+    const int warp_row = q0 + 64 * c + 16 * warp;
+    const bf16* op = static_cast<const bf16*>(a.o) + b * a.so.b + h * a.so.h;
+    const bf16* dop = static_cast<const bf16*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
+    const int64_t row = ((int64_t)b * hq + h) * a.ld;
+    // D = <dO, o> of rows qrow and qrow + 8: the four lanes of a row each
+    // sum a quarter of Dh, then two shuffles give all four the same sum
+    float dr[2], lr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = qrow + 8 * r;
+      float d = 0.0f;
+      if (qi < a.seq_q) {
+        const int c0 = (lane & 3) * (DH / 4);
+#pragma unroll
+        for (int u = 0; u < DH / 4; u += 8) {
+          const uint4 ov = *reinterpret_cast<const uint4*>(op + (int64_t)qi * a.so.s + c0 + u);
+          const uint4 gv = *reinterpret_cast<const uint4*>(dop + (int64_t)qi * a.sdo.s + c0 + u);
+          const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+          const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+          for (int w = 0; w < 4; ++w) {
+            const float2 of = __bfloat1622float2(o2[w]);
+            const float2 gf = __bfloat1622float2(g2[w]);
+            d = fmaf(gf.x, of.x, d);
+            d = fmaf(gf.y, of.y, d);
+          }
+        }
+      }
+      d += __shfl_xor_sync(kFull, d, 1);  // commutative pairs: all 4 get one sum
+      d += __shfl_xor_sync(kFull, d, 2);
+      dr[r] = d;
+      if ((lane & 3) == 0 && qi < a.ld) a.delta[row + qi] = d;
+      lr[r] = qi < a.seq_q ? a.lse[row + qi] : 0.0f;
+    }
+    const uint64_t d_q = wgmma_desc(s_q + c * 64 * 128, 16, 1024);
+    const uint64_t d_do = wgmma_desc(s_do + c * 64 * 128, 16, 1024);
+    float acc[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) acc[i] = 0.0f;
+    float s[32], dp[32];
+    uint32_t pk[16];
+    mbar_wait(q_full, 0);
+    BWD_START();
+    for (int t = 0; t < n_tiles; ++t) {
+      const int st = t % NS;
+      mbar_wait(k_full(st), (t / NS) & 1);
+      mbar_wait(v_full(st), (t / NS) & 1);
+      BWD_STAMP(8);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int kh = t * G::kKTile + 64 * half;
+        const uint32_t sk = k_tile(st) + half * 64 * 128, sv = sk + G::kKt;
+        // S = Q.K^T and dP = dO.V^T over these 64 keys, two groups
+        fence_regs(s);
+        fence_regs(dp);
+        wgmma_fence();
+        gemm_scores<DH>(s, d_q, G::kPanelBlk, wgmma_desc(sk, 16, 1024), G::kPanelKt);
+        wgmma_commit();
+        gemm_scores<DH>(dp, d_do, G::kPanelBlk, wgmma_desc(sv, 16, 1024), G::kPanelKt);
+        wgmma_commit();
+        // keys past seq_k (zero-filled) and, causally, after the row score
+        // nothing
+        const bool need_mask = kh + 64 > a.seq_k || (a.causal && kh + 63 > warp_row);
+        BWD_STAMP(9);
+        wgmma_wait<1>();  // S is done (and the previous half's dQ product)
+        fence_regs(s);
+        BWD_STAMP(10);
+        if (need_mask) {  // a warp-uniform branch; a masked score becomes -inf
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int kj = kh + 8 * j + col0 + e;
+                const bool drop = (kj >= a.seq_k) | (a.causal & (kj > qrow + 8 * r));
+                s[4 * j + 2 * r + e] = drop ? kNegInfinity : s[4 * j + 2 * r + e];
+              }
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] = ex2(fmaf(s[i], a.scale2, -lr[(i >> 1) & 1]));
+        BWD_STAMP(11);
+        wgmma_wait<0>();  // dP is done
+        fence_regs(dp);
+        BWD_STAMP(12);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - dr[(i >> 1) & 1]);
+        pack_frag(pk, dp);
+        gemm_acc<DH>(acc, pk, wgmma_desc(sk, G::kPanelKt, 1024));  // dQ += dS.K
+        BWD_STAMP(13);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (tid == 0) mbar_arrive(empty(st));  // stage st is read
+      BWD_STAMP(14);
+    }
+    store_acc_wg<DH>(static_cast<bf16*>(a.dq) + b * a.sdq.b + h * a.sdq.h, a.sdq.s, qrow,
+                     a.seq_q, acc, a.scale, col0);
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime: the library
+// links no libcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The 4-D map (Dh, S, H, B) of a bf16 operand [B, H, S, Dh] with element
+// strides st = (b, h, s): a box of 64 columns x box_rows rows with the
+// 128-byte swizzle, zero-filled past every extent.
+int tensor_map(CUtensorMap* map, const void* ptr, int dh, int rows, int heads, int batch,
+               const Strides& st, int box_rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)rows, (cuuint64_t)heads,
+                              (cuuint64_t)batch};
+  cuuint64_t strides[3] = {(cuuint64_t)st.s * 2, (cuuint64_t)st.h * 2, (cuuint64_t)st.b * 2};
+  // a dimension of extent 1 is never stepped: where the view's stride is
+  // not one TMA takes (the wrapper checks only those it steps), pack it
+  cuuint64_t dense = (cuuint64_t)dh * 2;
+  for (int i = 0; i < 3; ++i) {
+    if (dims[i + 1] == 1 && (strides[i] == 0 || strides[i] % 16)) strides[i] = dense;
+    dense = strides[i] * dims[i + 1];
+  }
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r =
+      encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The wgmma route: the dQ kernel (which writes D), then the dK / dV kernel,
+// on `stream`; a.lse holds the forward's L.
+template <int DH>
+int launch_wgmma(const Args& a, int batch, int hq, int hkv, cudaStream_t stream) {
+  using GQ = Bw<DH, kDqConsumers<DH>>;
+  using GK = Bw<DH, kDkdvConsumers>;
+  auto dq_kern = bwd_dq_wgmma_kernel<DH, GQ::kConsumers>;
+  auto kv_kern = bwd_dkdv_wgmma_kernel<DH, GK::kConsumers>;
+  // runtime calls first: they make the primary context current in this
+  // thread (the autograd engine's worker thread may have none yet), which
+  // cuTensorMapEncodeTiled needs
+  int err = cudaFuncSetAttribute(dq_kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 GQ::kSmemQ);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kv_kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               GK::kSmemKV);
+  if (err != cudaSuccess) return err;
+  // dQ: Q and dO by blocks, K and V by stages; dK / dV: the reverse
+  CUtensorMap q_blk, do_blk, k_t, v_t, q_t, do_t, k_blk, v_blk;
+  err = tensor_map(&q_blk, a.q, DH, a.seq_q, hq, batch, a.sq, GQ::kBlock);
+  if (err == cudaSuccess) err = tensor_map(&do_blk, a.dout, DH, a.seq_q, hq, batch, a.sdo, GQ::kBlock);
+  if (err == cudaSuccess) err = tensor_map(&k_t, a.k, DH, a.seq_k, hkv, batch, a.sk, GQ::kKTile);
+  if (err == cudaSuccess) err = tensor_map(&v_t, a.v, DH, a.seq_k, hkv, batch, a.sv, GQ::kKTile);
+  if (err == cudaSuccess) err = tensor_map(&q_t, a.q, DH, a.seq_q, hq, batch, a.sq, GK::kQTile);
+  if (err == cudaSuccess) err = tensor_map(&do_t, a.dout, DH, a.seq_q, hq, batch, a.sdo, GK::kQTile);
+  if (err == cudaSuccess) err = tensor_map(&k_blk, a.k, DH, a.seq_k, hkv, batch, a.sk, GK::kBlock);
+  if (err == cudaSuccess) err = tensor_map(&v_blk, a.v, DH, a.seq_k, hkv, batch, a.sv, GK::kBlock);
+  if (err != cudaSuccess) return err;
+  const int n_qb = (a.seq_q + GQ::kBlock - 1) / GQ::kBlock;
+  dq_kern<<<n_qb * hq * batch, GQ::kThreads, GQ::kSmemQ, stream>>>(q_blk, k_t, v_t, do_blk, a, hq);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int n_kb = (a.seq_k + GK::kBlock - 1) / GK::kBlock;
+  kv_kern<<<n_kb * hkv * batch, GK::kThreads, GK::kSmemKV, stream>>>(q_t, k_blk, v_blk, do_t, a,
+                                                                      hq, hkv);
+  return cudaGetLastError();
+}
+
 template <typename Kern>
 cudaError_t run(Kern kern, dim3 grid, int threads, int smem, const Args& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -805,29 +1581,14 @@ int dispatch(int dh, const Args& a, int batch, int hq, int hkv, cudaStream_t str
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
-
-// The rows of a CTA's block: lse and delta hold ceil(seq_q / block) * block
-// entries a (batch row, q head).
-int flash_attention_bwd_block() { return kB; }
-
-// dtype: 0 float32, 1 bfloat16, for all of q, k, v, o, dout, dq, dk and dv.
-// strides: 24 element strides, (b, h, s) of q, k, v, o, dout, dq, dk and dv
-// in that order; Dh is contiguous in all eight, and every pointer and stride
-// is 16-byte aligned (the wrapper checks both).  lse and delta: float32
-// scratch of batch * hq * ceil(seq_q / 64) * 64 entries each, allocated by
-// the caller, written and read here.  Launches the dQ kernel, then the dK /
-// dV kernel, on `stream`.
-int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
-                        const void* dout, void* dq, void* dk, void* dv, void* lse, void* delta,
-                        int dtype, int dh, int batch, int hq, int hkv, int seq_q, int seq_k,
-                        int causal, float scale, const int64_t* st, void* stream) {
+// route: the route to run (bwd_route's, or kRouteMma for the private entry)
+int backward(const void* q, const void* k, const void* v, const void* o, const void* dout,
+             void* dq, void* dk, void* dv, void* lse, void* delta, int dtype, int dh, int batch,
+             int hq, int hkv, int seq_q, int seq_k, int causal, float scale, const int64_t* st,
+             void* stream, int route) {
   if (batch == 0 || hq == 0 || seq_q == 0 || seq_k == 0) return cudaSuccess;
-  if (hkv <= 0 || hq % hkv != 0 || lse == nullptr || delta == nullptr)
+  if (hkv <= 0 || hq % hkv != 0 || lse == nullptr || delta == nullptr ||
+      (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout;
@@ -840,12 +1601,68 @@ int flash_attention_bwd(const void* q, const void* k, const void* v, const void*
   a.seq_q = seq_q;
   a.seq_k = seq_k;
   a.causal = causal;
-  a.ld = (seq_q + kB - 1) / kB * kB;
+  a.ld = (seq_q + kLdBlock - 1) / kLdBlock * kLdBlock;
   a.scale = scale;
   a.scale2 = scale * kLog2e;
-  if (dtype == 0) return dispatch<float>(dh, a, batch, hq, hkv, (cudaStream_t)stream);
-  if (dtype == 1) return dispatch<bf16>(dh, a, batch, hq, hkv, (cudaStream_t)stream);
-  return cudaErrorInvalidValue;
+  const cudaStream_t sm = (cudaStream_t)stream;
+  if (route == kRouteWgmma) {
+    if (dh == 64) return launch_wgmma<64>(a, batch, hq, hkv, sm);
+    if (dh == 128) return launch_wgmma<128>(a, batch, hq, hkv, sm);
+    return cudaErrorInvalidValue;
+  }
+  if (dtype == 0) return dispatch<float>(dh, a, batch, hq, hkv, sm);
+  return dispatch<bf16>(dh, a, batch, hq, hkv, sm);
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+// The rows the scratch rounds Sq up to: lse and delta hold ceil(seq_q /
+// block) * block entries a (batch row, q head).
+int flash_attention_bwd_block() { return kLdBlock; }
+
+// The route that runs a backward of dtype (0 float32, 1 bfloat16) at head
+// dim dh and seq_q query rows, in *route: 0 the FMA pair, 1 the mma.sync
+// pair, 2 the wgmma pair (which reads the forward's L from lse).  The
+// wrapper counts launches by it.
+int flash_attention_bwd_route(int dtype, int dh, int seq_q, int* route) {
+  if ((dtype != 0 && dtype != 1) || (dh != 16 && dh != 32 && dh != 64 && dh != 128) ||
+      seq_q < 1)
+    return cudaErrorInvalidValue;
+  *route = bwd_route(dtype, dh, seq_q);
+  return cudaSuccess;
+}
+
+// dtype: 0 float32, 1 bfloat16, for all of q, k, v, o, dout, dq, dk and dv.
+// strides: 24 element strides, (b, h, s) of q, k, v, o, dout, dq, dk and dv
+// in that order; Dh is contiguous in all eight, and every pointer and stride
+// is 16-byte aligned (the wrapper checks both).  lse and delta: float32
+// scratch of batch * hq * ceil(seq_q / 128) * 128 entries each, allocated
+// by the caller.  On the wgmma route lse holds the forward's L
+// (attention.cu's flash_attention_lse) and delta is written here; on the
+// others both are written here.  Launches the route's dQ kernel, then its
+// dK / dV kernel, on `stream`.
+int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
+                        const void* dout, void* dq, void* dk, void* dv, void* lse, void* delta,
+                        int dtype, int dh, int batch, int hq, int hkv, int seq_q, int seq_k,
+                        int causal, float scale, const int64_t* st, void* stream) {
+  return backward(q, k, v, o, dout, dq, dk, dv, lse, delta, dtype, dh, batch, hq, hkv, seq_q,
+                  seq_k, causal, scale, st, stream, bwd_route(dtype, dh, seq_q));
+}
+
+// The mma.sync pair on any bf16 operands, whatever the route: to time the
+// route the wgmma pair replaced beside it.  Arguments as flash_attention_bwd's.
+int flash_attention_bwd_mma_sync(const void* q, const void* k, const void* v, const void* o,
+                                 const void* dout, void* dq, void* dk, void* dv, void* lse,
+                                 void* delta, int dtype, int dh, int batch, int hq, int hkv,
+                                 int seq_q, int seq_k, int causal, float scale,
+                                 const int64_t* st, void* stream) {
+  if (dtype != 1) return cudaErrorInvalidValue;
+  return backward(q, k, v, o, dout, dq, dk, dv, lse, delta, dtype, dh, batch, hq, hkv, seq_q,
+                  seq_k, causal, scale, st, stream, kRouteMma);
 }
 
 }  // extern "C"

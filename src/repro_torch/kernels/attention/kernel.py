@@ -26,6 +26,15 @@ at Dh 64 and 128), ``mma_sync`` (bf16 at Dh 16 and 32) or ``fma``
 2**31 (the wgmma route's TMA maps and 32-bit coordinates): the wrapper
 refuses the rest on any device.
 
+``flash_attention_lse(q, k, v, causal=...)`` is the training forward:
+the same prefill on ``flash_prefill_wgmma_kernel``, in an instance that
+also writes each query row's logsumexp, the ``L`` that K6's ``wgmma``
+backward reads instead of rebuilding it (bf16 at Dh 64 and 128, Sq > 64:
+the ``wgmma`` route of :func:`prefill_route` and of the backward's
+``bwd_route``; it refuses anything else on the card).  Its launches count
+under ``LAUNCHES["flash_attention"]`` and ``ROUTES["wgmma"]``; serving's
+instance of the kernel does not write ``L``.
+
 With ``k_scale`` / ``v_scale`` (float32 ``[B, Hkv, Sk]``, any strides) k
 and v are an int8 cache with one scale a (row, head, token), the
 reference's int8 KV cache: K6's int8 decode form (``Sq <= 64`` only)
@@ -53,8 +62,9 @@ import torch
 from .._build import LAUNCHES, check, library, stream_handle
 from .ref import attention_plain
 
-__all__ = ["flash_attention_kernel", "split_count", "decode_geometry",
-           "prefill_route", "SPLITS", "ROUTES", "HEAD_DIMS", "DTYPES"]
+__all__ = ["flash_attention_kernel", "flash_attention_lse", "split_count",
+           "decode_geometry", "prefill_route", "SPLITS", "ROUTES",
+           "HEAD_DIMS", "DTYPES"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -85,6 +95,9 @@ def _lib() -> ctypes.CDLL:
         lib.flash_decode_geometry.restype = ctypes.c_int
         lib.flash_prefill_route.argtypes = [_I, _I, _P]
         lib.flash_prefill_route.restype = ctypes.c_int
+        lib.flash_attention_lse.argtypes = [_P] * 5 + [_I] * 8 + [
+            ctypes.c_float, _P, _I, _P]
+        lib.flash_attention_lse.restype = ctypes.c_int
     return lib
 
 
@@ -261,3 +274,47 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         ROUTES[prefill_route(q.dtype, dh)] += 1
     return out
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool):
+    """The training forward: ``(o, lse)``, o as :func:`flash_attention`
+    lays it out (``[B, Hq, Sq, Dh]`` over ``[B, Sq, Hq, Dh]`` memory) and
+    each query row's logsumexp in base 2 of the scores times
+    ``scale · log2(e)``: on the card a float32 ``[B, Hq, ld]`` scratch
+    (``ld`` = Sq rounded up to the backward's block) whose first Sq
+    columns are written, on the CPU the plain version's ``[B, Hq, Sq]``."""
+    _check(q, k, v, None)
+    b, hq, sq, dh = q.shape
+    if q.device.type == "cpu":
+        o, lse = attention_plain(q, k, v, causal=causal, lse=True)
+        out = torch.empty((b, sq, hq, dh), dtype=q.dtype).transpose(1, 2)
+        return out.copy_(o), lse
+    if q.device.type != "cuda" or k.device != q.device or (
+            v.device != q.device):
+        raise ValueError(f"no kernel for devices {q.device}, {k.device}, "
+                         f"{v.device}")
+    if (prefill_route(q.dtype, dh) != "wgmma"
+            or sq <= decode_geometry(q.dtype, dh)[0]):
+        raise ValueError(f"{q.dtype} at Dh {dh}, Sq {sq}: the forward that "
+                         "writes the logsumexp is the wgmma prefill (bf16, "
+                         "Dh 64 or 128, Sq > 64)")
+    from .backward import lse_rows  # the backward imports this module
+
+    hkv, sk = k.shape[1], k.shape[2]
+    out = torch.empty((b, sq, hq, dh), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    ld = lse_rows(sq)
+    lse = torch.empty((b, hq, ld), dtype=torch.float32, device=q.device)
+    st = [*_strides(q, "q"), *_strides(k, "k"), *_strides(v, "v"),
+          *_strides(out, "out")]
+    strides = (ctypes.c_int64 * len(st))(*st)
+    lib = _lib()
+    err = lib.flash_attention_lse(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), DTYPES[q.dtype], dh, b, hq, hkv, sq, sk, int(causal),
+        1.0 / math.sqrt(dh), strides, ld, stream_handle(q.device))
+    check(lib, err, "flash_attention_lse")
+    LAUNCHES["flash_attention"] += 1
+    ROUTES["wgmma"] += 1
+    return out, lse

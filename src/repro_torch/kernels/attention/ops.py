@@ -4,7 +4,11 @@
 :func:`flash_attention_train` is the same forward with a gradient: a
 ``torch.autograd.Function`` whose backward is K6's backward kernel
 (:func:`~repro_torch.kernels.attention.backward.flash_attention_bwd`; its
-plain version on the CPU), and :func:`attention_train_plain` its plain
+plain version on the CPU); where that backward runs its ``wgmma`` route,
+the forward is the training forward
+(:func:`~repro_torch.kernels.attention.kernel.flash_attention_lse`),
+whose logsumexp is saved beside ``(q, k, v, o)`` for it (a recomputation
+under remat writes it again).  :func:`attention_train_plain` is its plain
 twin, the plain forward and the plain backward on any device, for
 comparisons on the card.
 """
@@ -14,8 +18,8 @@ from typing import Optional
 
 import torch
 
-from .backward import flash_attention_bwd
-from .kernel import flash_attention_kernel
+from .backward import bwd_route, flash_attention_bwd
+from .kernel import flash_attention_kernel, flash_attention_lse
 from .ref import attention_bwd_plain, attention_plain
 
 __all__ = ["flash_attention", "flash_attention_train", "attention_train_plain"]
@@ -54,17 +58,27 @@ class _Attention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, plain: bool):
-        o = (attention_plain(q, k, v, causal=causal) if plain
-             else flash_attention(q, k, v, causal=causal))
-        ctx.save_for_backward(q, k, v, o)
+        lse = None
+        if plain:
+            o = attention_plain(q, k, v, causal=causal)
+        elif q.device.type == "cuda" and bwd_route(
+                q.dtype, q.shape[3], q.shape[2]) == "wgmma":
+            o, lse = flash_attention_lse(q, k, v, causal=causal)
+        else:
+            o = flash_attention(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.plain = causal, plain
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        bwd = attention_bwd_plain if ctx.plain else flash_attention_bwd
-        dq, dk, dv = bwd(q, k, v, o, do, causal=ctx.causal)
+        q, k, v, o, lse = ctx.saved_tensors
+        if ctx.plain:
+            dq, dk, dv = attention_bwd_plain(q, k, v, o, do,
+                                             causal=ctx.causal)
+        else:
+            dq, dk, dv = flash_attention_bwd(q, k, v, o, do,
+                                             causal=ctx.causal, lse=lse)
         return dq, dk, dv, None, None
 
 

@@ -7,7 +7,10 @@ v's dtype before the product; the output in q's dtype) and its masks:
 keys at index ``>= kv_len`` are masked, and ``causal`` keeps the keys
 with ``q_pos >= k_pos``, positions counted from 0 on both sides
 (``q_start`` shifts the queries: ``q`` holds rows ``q_start, q_start +
-1, ...`` of the full query sequence).  Over an int8 K/V cache (with
+1, ...`` of the full query sequence).  With ``lse`` it also returns
+each query row's logsumexp in base 2 of the scores times ``scale ·
+log2(e)``, the ``L`` that K6's training forward writes for its backward.
+Over an int8 K/V cache (with
 ``k_scale`` / ``v_scale``, one float32 scale a (row, head, token)) it
 dequantises first, as the reference's int8 decode step does: ``(k ·
 k_scale)`` in float32, rounded to q's dtype.
@@ -22,6 +25,7 @@ import torch
 __all__ = ["attention_plain", "attention_bwd_plain", "dequantize"]
 
 NEG_INF = -1.0e30
+LOG2E = 1.4426950408889634
 
 
 def dequantize(x: torch.Tensor, scale: torch.Tensor,
@@ -34,10 +38,12 @@ def dequantize(x: torch.Tensor, scale: torch.Tensor,
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, kv_len: Optional[int] = None,
                     q_start: int = 0, k_scale: Optional[torch.Tensor] = None,
-                    v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    v_scale: Optional[torch.Tensor] = None, lse: bool = False):
     """q ``[B, Hq, Sq, Dh]``, k / v ``[B, Hkv, Sk, Dh]`` -> ``[B, Hq, Sq,
     Dh]``; materialises the ``[B, Hq, Sq, Sk]`` float32 scores.  k / v
-    int8 with their scales ``[B, Hkv, Sk]`` are dequantised first."""
+    int8 with their scales ``[B, Hkv, Sk]`` are dequantised first.  With
+    ``lse``, returns ``(o, L)``, L float32 ``[B, Hq, Sq]``:
+    ``log2(sum_j exp(s_ij))``, s the scaled scores over the kept keys."""
     if k_scale is not None:
         k, v = dequantize(k, k_scale, q.dtype), dequantize(v, v_scale,
                                                            q.dtype)
@@ -55,7 +61,10 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         keep = keep & (qpos[:, None] >= kpos[None, :])
     s = s.masked_fill(~keep, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+    o = torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+    if lse:
+        return o, torch.logsumexp(s, dim=-1) * LOG2E
+    return o
 
 
 def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -2276,13 +2276,18 @@ def test_flash_attention_bwd_matches_plain(cuda_device, b, hq, hkv, s, dh,
     from repro_torch.kernels.attention import (attention_bwd_plain,
                                                flash_attention,
                                                flash_attention_bwd)
+    from repro_torch.kernels.attention.backward import bwd_route
+    from repro_torch.kernels.attention.kernel import flash_attention_lse
 
     dt = getattr(torch, dtype)
     q, k, v, do = _bwd_case(b, hq, hkv, s, dh, s + dh, dt, cuda_device)
-    o = flash_attention(q, k, v, causal=causal)
+    if bwd_route(dt, dh, s) == "wgmma":  # it reads the forward's L
+        o, lse = flash_attention_lse(q, k, v, causal=causal)
+    else:
+        o, lse = flash_attention(q, k, v, causal=causal), None
     before = LAUNCHES["flash_attention_bwd"]
-    got = flash_attention_bwd(q, k, v, o, do, causal=causal)
-    again = flash_attention_bwd(q, k, v, o, do, causal=causal)
+    got = flash_attention_bwd(q, k, v, o, do, causal=causal, lse=lse)
+    again = flash_attention_bwd(q, k, v, o, do, causal=causal, lse=lse)
     torch.cuda.synchronize()
     assert LAUNCHES["flash_attention_bwd"] == before + 2
     plain = attention_bwd_plain(*(t.float() for t in (q, k, v, o, do)),
@@ -2302,9 +2307,164 @@ def test_flash_attention_bwd_matches_plain(cuda_device, b, hq, hkv, s, dh,
 
 @pytest.mark.cuda
 def test_flash_attention_bwd_block_is_the_wrappers(cuda_device):
-    from repro_torch.kernels.attention.backward import bwd_block
+    from repro_torch.kernels.attention.backward import bwd_block, lse_rows
 
-    assert bwd_block() == 64
+    assert bwd_block() == 128  # the wgmma pair's blocks: 128 rows
+    assert [lse_rows(s) for s in (1, 128, 129, 4096)] == [128, 128, 256,
+                                                          4096]
+
+
+def _bwd_wgmma_case(b, hq, hkv, sq, sk, dh, seed, device):
+    """bf16 q, do [B, Hq, Sq, Dh] and k, v [B, Hkv, Sk, Dh] views of the
+    model's layout."""
+    rng = np.random.default_rng(seed)
+
+    def t(s, h, scale):
+        a = rng.standard_normal((b, s, h, dh)) * scale
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16).transpose(1, 2)
+
+    return t(sq, hq, 0.5), t(sk, hkv, 0.5), t(sk, hkv, 1.0), t(sq, hq, 1.0)
+
+
+WGMMA_BWD_CASES = [(s, s, dh, group, causal) for s in (65, 200, 1000, 4096)
+                   for dh in (64, 128) for group in (1, 2)
+                   for causal in (True, False)] + [(300, 200, 64, 2, False),
+                                                    (200, 455, 128, 1, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,dh,group,causal", WGMMA_BWD_CASES)
+def test_flash_attention_bwd_wgmma_matches_plain(cuda_device, sq, sk, dh,
+                                                 group, causal):
+    """K6's wgmma backward (bf16, Dh 64 and 128, Sq > 64) fed the training
+    forward's logsumexp, against its plain version on the same bf16
+    inputs in float32: relative L1 <= 1e-2 on dq, dk and dv (P and dS
+    rounded to bf16 for the products); GQA group 1 and 2, causal and
+    bidirectional, Sq = Sk around the 64-row tiles and 128-row blocks up
+    to 4,096, and ragged bidirectional Sq != Sk; a relaunch
+    bit-identical; each call counted under ``BWD_ROUTES["wgmma"]``."""
+    from repro_torch.kernels.attention import (attention_bwd_plain,
+                                               flash_attention_bwd)
+    from repro_torch.kernels.attention.backward import BWD_ROUTES
+    from repro_torch.kernels.attention.kernel import flash_attention_lse
+
+    b = 1 if sq > 1000 else 2
+    hkv = 2
+    q, k, v, do = _bwd_wgmma_case(b, hkv * group, hkv, sq, sk, dh,
+                                  sq * 7 + sk + dh + group, cuda_device)
+    o, lse = flash_attention_lse(q, k, v, causal=causal)
+    before = dict(BWD_ROUTES)
+    got = flash_attention_bwd(q, k, v, o, do, causal=causal, lse=lse)
+    again = flash_attention_bwd(q, k, v, o, do, causal=causal, lse=lse)
+    torch.cuda.synchronize()
+    assert BWD_ROUTES == {r: n + 2 * (r == "wgmma")
+                          for r, n in before.items()}
+    plain = attention_bwd_plain(*(t.float() for t in (q, k, v, o, do)),
+                                causal=causal)
+    for g, g2, p, t, name in zip(got, again, plain, (q, k, v), "qkv"):
+        assert g.shape == t.shape and g.dtype == torch.bfloat16, name
+        assert torch.equal(g, g2), name
+        assert bool(torch.isfinite(g).all()), name
+        assert _rel_l1(g.float(), p) <= 1e-2, (name, _rel_l1(g.float(), p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,dh,causal", [(65, 64, True), (1000, 64, False),
+                                          (200, 128, True),
+                                          (4096, 128, False)])
+def test_flash_attention_lse_forward_is_servings_with_its_l(cuda_device, sq,
+                                                            dh, causal):
+    """The training forward (``flash_attention_lse``, the wgmma prefill
+    kernel's instance that writes L): o bit-equal to serving's forward on
+    the same inputs, L within 1e-5 (absolute plus relative) of the plain
+    log2-sum-exp; counted under ``flash_attention`` and ``ROUTES["wgmma"]``
+    as serving's launches are."""
+    from repro_torch.kernels.attention import attention_plain, flash_attention
+    from repro_torch.kernels.attention.backward import lse_rows
+    from repro_torch.kernels.attention.kernel import (ROUTES,
+                                                      flash_attention_lse)
+
+    q, k, v, _ = _bwd_wgmma_case(2, 4, 2, sq, sq, dh, sq + dh, cuda_device)
+    before, wg = LAUNCHES["flash_attention"], ROUTES["wgmma"]
+    o, lse = flash_attention_lse(q, k, v, causal=causal)
+    served = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] - before == 2
+    assert ROUTES["wgmma"] - wg == 2
+    assert torch.equal(o, served) and o.stride() == served.stride()
+    assert lse.shape == (2, 4, lse_rows(sq)) and lse.dtype == torch.float32
+    _, want = attention_plain(*(t.float() for t in (q, k, v)), causal=causal,
+                              lse=True)
+    torch.testing.assert_close(lse[..., :sq], want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_counts_each_call_under_its_route(cuda_device):
+    """``BWD_ROUTES`` counts a call under the pair that ran it: wgmma for
+    bf16 at Dh 64 / 128 past 64 query rows (given the forward's L, and
+    refused without it), mma_sync for other bf16 (refusing an L), fma for
+    float32; the training op takes the wgmma route through the training
+    forward."""
+    import repro_torch.kernels.attention as ka
+    from repro_torch.kernels.attention.backward import BWD_ROUTES, bwd_route
+    from repro_torch.kernels.attention.kernel import (ROUTES,
+                                                      flash_attention_lse)
+
+    cases = [(torch.bfloat16, 64, 200, "wgmma"),
+             (torch.bfloat16, 128, 65, "wgmma"),
+             (torch.bfloat16, 64, 64, "mma_sync"),
+             (torch.bfloat16, 32, 200, "mma_sync"),
+             (torch.float32, 64, 200, "fma")]
+    for dt, dh, s, route in cases:
+        assert bwd_route(dt, dh, s) == route
+        q, k, v, do = _bwd_case(1, 4, 2, s, dh, s, dt, cuda_device)
+        lse = None
+        if route == "wgmma":
+            o, lse = flash_attention_lse(q, k, v, causal=True)
+            with pytest.raises(ValueError, match="logsumexp"):
+                ka.flash_attention_bwd(q, k, v, o, do, causal=True)
+        else:
+            o = ka.flash_attention(q, k, v, causal=True)
+            with pytest.raises(ValueError, match="lse must be None"):
+                ka.flash_attention_bwd(q, k, v, o, do, causal=True,
+                                       lse=torch.zeros(1, device=cuda_device))
+        before = dict(BWD_ROUTES)
+        ka.flash_attention_bwd(q, k, v, o, do, causal=True, lse=lse)
+        assert BWD_ROUTES == {r: n + (r == route) for r, n in before.items()}
+    q, k, v, do = _bwd_case(1, 4, 2, 200, 64, 5, torch.bfloat16, cuda_device)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    before, fwd = dict(BWD_ROUTES), ROUTES["wgmma"]
+    out = ka.flash_attention_train(*leaves, causal=True)
+    torch.autograd.grad(out, leaves, do)
+    assert ROUTES["wgmma"] - fwd == 1
+    assert BWD_ROUTES == {r: n + (r == "wgmma") for r, n in before.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 128])
+def test_attention_train_op_wgmma_relaunch_is_bit_identical(cuda_device, dh):
+    """The training op on the wgmma route (the forward writing L, the
+    backward reading it) twice on the same bf16 inputs: the same output
+    and gradients to the bit, and gradients within relative L1 1e-2 of
+    the plain op's."""
+    import repro_torch.kernels.attention as ka
+
+    q, k, v, do = _bwd_wgmma_case(2, 8, 4, 777, 777, dh, dh, cuda_device)
+    runs = []
+    for op in (ka.flash_attention_train, ka.flash_attention_train,
+               ka.attention_train_plain):
+        leaves = [t.detach().float().requires_grad_(True)
+                  if op is ka.attention_train_plain
+                  else t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = op(*leaves, causal=True)
+        runs.append((out.detach(), torch.autograd.grad(
+            out, leaves, do.to(out.dtype))))
+    (o1, g1), (o2, g2), (_, want) = runs
+    assert torch.equal(o1, o2)
+    for a, b_, w in zip(g1, g2, want):
+        assert torch.equal(a, b_)
+        assert _rel_l1(a.float(), w) <= 1e-2
 
 
 @pytest.mark.cuda
