@@ -222,11 +222,13 @@ Phases, each printed on its own lines (any failure exits non-zero):
    observations (2 a layer and microbatch: the tap fires again in the
    recomputation, as the reference's does) and plans printed.  Gates: K5's
    bf16-row form 24 x 2 a microbatch, K6's backward 24 on the wgmma
-   route, the combine's backward (``segment_sum_bf16_bwd``) 24, the
-   dispatch's backward on K5's bf16-row form counted apart
-   (``moe_dispatch_bwd``) 24; the combine's backward on layer 0's
-   operands against its plain version within relative L1 1e-5 and a
-   bit-identical relaunch, the dispatch's within relative L1 1e-5; a
+   route, the combine's backward (``segment_sum_bf16_bwd``) 24, all on
+   its stream body (``COMBINE_BWD_ROUTES``), the dispatch's backward on
+   K5's bf16-row form counted apart (``moe_dispatch_bwd``) 24; the
+   combine's backward on layer 0's operands against its plain version
+   (grad_eo bit-equal, grad_w within relative L1 1e-5), a bit-identical
+   relaunch and the bits of the warp_row body it replaced, the
+   dispatch's within relative L1 1e-5; a
    float32 copy's gradient with the kernels against the plain versions
    within relative L1 1e-4, routing flips printed with their top-k
    margin.  (d) Rows for the kernels line: ``flash_attention_bwd`` at
@@ -235,8 +237,10 @@ Phases, each printed on its own lines (any failure exits non-zero):
    mma.sync pair that the wgmma route replaced, through the library's
    private entry, and the training forward beside serving's; gated at
    1.6 ms a call), ``segment_sum_bf16_bwd`` at (c)'s (``index_add_`` and
-   a batched dot) and ``moe_dispatch_bwd`` at (c)'s layer 0 (``index_add_``
-   of the same weighted rows), each with the launches of its run.  Run it
+   a batched dot; the stream body timed in turns with the warp_row body,
+   through the library's private entry) and ``moe_dispatch_bwd`` at (c)'s
+   layer 0 (``index_add_`` of the same weighted rows), each with the
+   launches of its run.  Run it
    alone with ``lm_training(args, torch, dev, Timer(torch, dev), sync)``,
    ``args`` holding ``lm_reduced`` and ``seed``.
 13. Simulator: the paper's K-PID simulator (``repro_torch.core.
@@ -1501,6 +1505,34 @@ def _capture_first(torch, module, name, run):
     fail(f"the training forward never called {name}")
 
 
+def combine_bwd_bound(torch, data, seg, rows, n):
+    """The MoE combine backward's bound on its operands (``data [R, D]``
+    expert outputs, ``seg`` / ``rows`` each slot's token and row, ``n``
+    tokens): the rows the slots name, g, each slot's weight, row and token
+    and the slot map read once, grad_w and grad_eo written once.  Returns
+    ``(ms, "bytes" or "operations", rows named)``."""
+    e, (r_rows, d) = seg.numel(), data.shape
+    n_read = int(torch.unique(rows).numel())
+    size = data.element_size()
+    n_bytes = (n_read * d * size + n * d * 4 + e * (4 + 8 + 4) + r_rows * 8
+               + e * 4 + r_rows * d * size)
+    return (*bound_ms(n_bytes, 2.0 * e * d + 1.0 * r_rows * d), n_read)
+
+
+def combine_bwd_library_ms(torch, timer, g, data, seg, w, rows, iters):
+    """The combine backward's library yardstick on the card: an
+    ``index_add_`` of the weighted rows of g plus a ``bmm`` of the row
+    dots, each timed apart over ``iters`` calls (their operands made
+    outside the timing)."""
+    ge = g.index_select(0, seg.long())
+    gw = ge * w[:, None]
+    eo3 = data.index_select(0, rows).float()[:, None, :]
+    ge3 = ge[:, :, None]
+    zeros = torch.zeros(data.shape, dtype=torch.float32, device=data.device)
+    return (timer(lambda: zeros.index_add_(0, rows, gw), iters)
+            + timer(lambda: torch.bmm(eo3, ge3), iters))
+
+
 def lm_training(args, torch, dev, timer, sync):
     """Phase 17: LM training through ``launch.steps``' train kind and
     ``runtime.TrainLoop``: qwen1.5-0.5b (a) and granite-moe-1b-a400m (c) at
@@ -1525,7 +1557,8 @@ def lm_training(args, torch, dev, timer, sync):
     from repro_torch.kernels.segment import (segment_sum_bwd_ref,
                                              segment_sum_kernel,
                                              segment_sum_ref)
-    from repro_torch.kernels.segment.backward import moe_combine_bwd
+    from repro_torch.kernels.segment.backward import (
+        COMBINE_BWD_ROUTES, _moe_combine_bwd_warp_row, moe_combine_bwd)
     from repro_torch.launch.steps import build_cell_step
     from repro_torch.models import transformer
     from repro_torch.optim import AdamWConfig, adamw_init
@@ -1591,6 +1624,7 @@ def lm_training(args, torch, dev, timer, sync):
             torch.cuda.reset_peak_memory_stats()
         reset_launches()
         BWD_ROUTES.update(dict.fromkeys(BWD_ROUTES, 0))
+        COMBINE_BWD_ROUTES.update(dict.fromkeys(COMBINE_BWD_ROUTES, 0))
         t0 = time.perf_counter()
         out = loop.run()
         wall = time.perf_counter() - t0
@@ -1598,6 +1632,9 @@ def lm_training(args, torch, dev, timer, sync):
         # K6's backward launches by route
         launches.update({f"flash_attention_bwd:{r}": n
                          for r, n in BWD_ROUTES.items() if n})
+        # and the combine's backward launches by body
+        launches.update({f"segment_sum_bf16_bwd:{r}": n
+                         for r, n in COMBINE_BWD_ROUTES.items() if n})
         peak = ((torch.cuda.max_memory_allocated() - held) / 1e9 if on_card
                 else 0.0)
         with torch.no_grad():
@@ -1824,7 +1861,7 @@ def lm_training(args, torch, dev, timer, sync):
         "flash_attention": 2 * L, "flash_attention_bwd": L,
         "flash_attention_bwd:wgmma": L,
         "segment_sum_bf16": 2 * L, "segment_sum_bf16_bwd": L,
-        "moe_dispatch_bwd": L})
+        "segment_sum_bf16_bwd:stream": L, "moe_dispatch_bwd": L})
     mon = loop.expert_monitor
     print(f"granite-moe-1b-a400m expert-load monitor: {mon._step} "
           f"dispatches observed ({4 * nm} microbatches x {cfg.n_layers} "
@@ -1852,17 +1889,22 @@ def lm_training(args, torch, dev, timer, sync):
     got = moe_combine_bwd(g, data, seg, w, rows_, slot)
     again = moe_combine_bwd(g, data, seg, w, rows_, slot)
     want = segment_sum_bwd_ref(g, data, seg, w, rows_)
-    e_w, e_d = rel_l1(got[0], want[0]), rel_l1(got[1].float(),
-                                               want[1].float())
+    e_w = rel_l1(got[0], want[0])
     same = all(torch.equal(x, y) for x, y in zip(got, again))
+    exact = torch.equal(got[1], want[1])
+    # the warp_row body it replaced gives the same bits (on the card)
+    old_bits = "not checked (no card)" if not on_card else all(
+        torch.equal(x, y) for x, y in zip(got, _moe_combine_bwd_warp_row(
+            g, data, seg, w, rows_, slot)))
     err_k5 = max(float((got[0] - want[0]).abs().max()),
                  float((got[1].float() - want[1].float()).abs().max()))
     print(f"combine backward (layer 0 of a microbatch): eo "
           f"{tuple(data.shape)} {str(data.dtype)[6:]}, {seg.numel()} slots "
           f"into {n} tokens ({int((w == 0).sum())} of weight 0): relative L1 "
-          f"grad_w {e_w:.3e}, grad_eo {e_d:.3e} (bound 1e-5), max abs err "
-          f"{err_k5:.3e}, bit-identical relaunch {same}")
-    if not (e_w <= REL_L1 and e_d <= REL_L1 and same):
+          f"grad_w {e_w:.3e} (bound 1e-5), grad_eo bit-equal {exact}, max "
+          f"abs err {err_k5:.3e}, bit-identical relaunch {same}, the "
+          f"warp_row body's bits {old_bits}")
+    if not (e_w <= REL_L1 and exact and same and old_bits):
         fail("the combine's backward against its plain version")
     routes, route = [], transformer._route
 
@@ -1890,38 +1932,41 @@ def lm_training(args, torch, dev, timer, sync):
           f"dispatch) pairs routed otherwise"
           + (f", e.g. (dispatch, token, top-k margin) {shown[:6]}"
              if shown else ""))
-    # (d) the combine backward's row, at a microbatch's layer 0
-    e, d = seg.numel(), data.shape[1]
-    n_read = int(torch.unique(rows_).numel())
-    r_rows = data.shape[0]
-    # the rows the slots name, g, each slot's weight, row, token and the
-    # slot map read once; grad_w and grad_eo written once
-    size = data.element_size()
-    n_bytes = (n_read * d * size + n * d * 4 + e * (4 + 8 + 4) + r_rows * 8
-               + e * 4 + r_rows * d * size)
-    b_ms, b_by = bound_ms(n_bytes, 2.0 * e * d + 1.0 * r_rows * d)
-    lib_ms = None
+    # (d) the combine backward's row, at a microbatch's layer 0: the
+    # stream body timed in turns with the warp_row body it replaced
+    e, (r_rows, d) = seg.numel(), data.shape
+    b_ms, b_by, n_read = combine_bwd_bound(torch, data, seg, rows_, n)
+    lib_ms = old_ms = None
     if on_card:
-        ge = g.index_select(0, seg.long())
-        gw = ge * w[:, None]
-        eo3 = data.index_select(0, rows_).float()[:, None, :]
-        ge3 = ge[:, :, None]
-        zeros = torch.zeros(data.shape, dtype=torch.float32, device=dev)
-        lib_ms = (timer(lambda: zeros.index_add_(0, rows_, gw), 10)
-                  + timer(lambda: torch.bmm(eo3, ge3), 10))
-        del ge, gw, eo3, ge3, zeros
+        lib_ms = combine_bwd_library_ms(torch, timer, g, data, seg, w, rows_,
+                                        10)
+        turns = least(timer, {
+            "stream": lambda: moe_combine_bwd(g, data, seg, w, rows_, slot),
+            "warp_row": lambda: _moe_combine_bwd_warp_row(g, data, seg, w,
+                                                          rows_, slot)}, 20)
+        new_ms, old_ms = turns["stream"][0], turns["warp_row"][0]
+    else:
+        new_ms = timer(lambda: moe_combine_bwd(g, data, seg, w, rows_, slot),
+                       20)
+    print(f"combine backward (d): the stream body {new_ms:.4f} ms, the "
+          "warp_row body " + ("not measured" if old_ms is None else
+                              f"{old_ms:.4f} ms")
+          + f", bound {b_ms:.4f} ms ({b_by}; {100 * b_ms / new_ms:.1f} % "
+          "of it reached), the library " + ("not measured" if lib_ms is None
+                                            else f"{lib_ms:.4f} ms"))
     rows.append({
         "name": "segment_sum_bf16_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/segment_bwd.cu",
         "replaces": "src/repro/kernels/segment/kernel.py:50",
         "computes": "src/repro/models/transformer.py:541 (its gradient)",
         "form": "the MoE combine's backward, bf16 rows",
+        "kernel": "stream",
         "launches": path_c["segment_sum_bf16_bwd"], "max_abs_err": err_k5,
-        "ms": timer(lambda: moe_combine_bwd(g, data, seg, w, rows_, slot),
-                    20),
+        "ms": new_ms,
         "plain_ms": timer(lambda: segment_sum_bwd_ref(g, data, seg, w, rows_),
                           5),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "warp_row_ms": old_ms,
         "shape": [e, d, n, r_rows], "rows_read": n_read})
     # (d) the dispatch backward's row, at a microbatch's layer 0: the
     # buffer's gradient summed back into the tokens, K5's bf16-row form

@@ -18,7 +18,13 @@ moe_combine` calls it.  For CPU tensors the wrapper runs the plain version
 :func:`~repro_torch.kernels.segment.ref.segment_sum_bwd_ref`; for CUDA
 tensors it launches the kernel or raises, and adds one to
 ``LAUNCHES["segment_sum_bf16_bwd"]`` (bfloat16 data) or
-``LAUNCHES["segment_sum_bwd"]`` (float32) per launch.
+``LAUNCHES["segment_sum_bwd"]`` (float32) per launch, and one to
+``COMBINE_BWD_ROUTES`` under the body that ran, as ``csrc/segment_bwd.cu``
+picks it: ``stream`` (one token-major pass over the slots that reads each
+token's gradient once, and the rows no slot owns zeroed in the same
+launch) where ``D`` is a multiple of ``16 / itemsize`` and data, g and
+the output are 16-byte aligned, ``warp_row`` (a warp an output row) for
+every other shape.
 """
 from __future__ import annotations
 
@@ -29,20 +35,23 @@ import torch
 from .._build import LAUNCHES, check, library, stream_handle
 from .ref import segment_sum_bwd_ref
 
-__all__ = ["moe_combine_bwd"]
+__all__ = ["moe_combine_bwd", "COMBINE_BWD_ROUTES"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# launches by the body that ran them
+COMBINE_BWD_ROUTES = {"stream": 0, "warp_row": 0}
 
 
 def _lib() -> ctypes.CDLL:
     lib = library("segment_bwd")
     if lib.moe_combine_bwd.argtypes is None:
-        lib.moe_combine_bwd.argtypes = [_P, _I, _P, _P, _P, _P, _P, _P, _P,
-                                        _I64, _I64, _I, _I, _P]
-        lib.moe_combine_bwd.restype = _I
+        for entry in (lib.moe_combine_bwd, lib.moe_combine_bwd_warp_row):
+            entry.argtypes = [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                              _I, _I, _P]
+            entry.restype = _I
     return lib
 
 
@@ -52,9 +61,30 @@ def moe_combine_bwd(g: torch.Tensor, data: torch.Tensor,
     """The combine's backward; ``data [R, D]``, ``seg_ids`` (int32) /
     ``weights`` / ``rows`` (int64) ``[E]``, ``slot [R]`` (int64), ``g [n,
     D]`` float32."""
-    dev = data.device
-    if dev.type == "cpu":
+    if data.device.type == "cpu":
         return segment_sum_bwd_ref(g, data, seg_ids, weights, rows)
+    grads, vec = _launch("moe_combine_bwd", g, data, seg_ids, weights, rows,
+                         slot)
+    LAUNCHES["segment_sum_bf16_bwd" if data.dtype == torch.bfloat16
+             else "segment_sum_bwd"] += 1
+    COMBINE_BWD_ROUTES["stream" if vec > 1 else "warp_row"] += 1
+    return grads
+
+
+def _moe_combine_bwd_warp_row(g, data, seg_ids, weights, rows, slot):
+    """The same function on the ``warp_row`` body whatever the shape,
+    counted nowhere: for timing the body that ``stream`` replaced beside
+    it, and holding the two to each other's bits."""
+    if data.device.type != "cuda":
+        raise ValueError("the warp_row body runs on the card")
+    return _launch("moe_combine_bwd_warp_row", g, data, seg_ids, weights,
+                   rows, slot)[0]
+
+
+def _launch(entry: str, g, data, seg_ids, weights, rows, slot):
+    """The library's ``entry`` on CUDA operands; returns ``((grad_w,
+    grad_data), vec)``."""
+    dev = data.device
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
     if data.dtype not in _DTYPES or data.dim() != 2:
@@ -83,12 +113,10 @@ def moe_combine_bwd(g: torch.Tensor, data: torch.Tensor,
     if d % vec or any(t.data_ptr() % 16 for t in (data, g, grad_data)):
         vec = 1
     lib = _lib()
-    err = lib.moe_combine_bwd(
+    err = getattr(lib, entry)(
         data.data_ptr(), _DTYPES[data.dtype], g.data_ptr(), weights.data_ptr(),
         rows.data_ptr(), seg_ids.data_ptr(), slot.data_ptr(),
         grad_w.data_ptr(), grad_data.data_ptr(), e, n_rows, d, vec,
         stream_handle(dev))
-    check(lib, err, "moe_combine_bwd")
-    LAUNCHES["segment_sum_bf16_bwd" if data.dtype == torch.bfloat16
-             else "segment_sum_bwd"] += 1
-    return grad_w, grad_data
+    check(lib, err, entry)
+    return (grad_w, grad_data), vec

@@ -2492,52 +2492,124 @@ def test_attention_train_op_on_the_card(cuda_device, op):
                                    rtol=1e-5, atol=1e-6)
 
 
-def _combine_bwd_case(rng, t, k, e_pad, cap, d, dtype, device):
+def _combine_bwd_case(rng, t, k, e_pad, cap, d, dtype, device, case="sorted"):
     """The MoE combine's operands as ``_dispatch_slots`` makes them: each
     kept slot a buffer row of its own, every dropped slot row 0 with
-    weight 0, and ``slot`` the inverse map (``t·k`` where none)."""
+    weight 0, and ``slot`` the inverse map (the slot count where none).
+    ``case``: ``sorted`` (a token's k slots side by side, a fifth dropped,
+    rows at random); ``routed`` (the dispatch's layout: k distinct
+    experts a token by a skewed preference, each expert's rows filled in
+    token order, the overflow past ``cap`` dropped); ``shuffled`` (the
+    slots of ``sorted`` in a random order, so that ``seg`` is unsorted);
+    ``uneven`` (tokens of 0 to 2k slots); ``zero_weight`` (a tenth of the
+    kept slots of weight 0); ``off_contract`` (up to 50 rows that no slot
+    names given a kept slot that names another row: ``rows[slot[r]] !=
+    r``)."""
     n = e_pad * cap
-    keep = rng.random(t * k) < 0.8
-    dest = rng.permutation(n)[:t * k]
+    counts = rng.integers(0, 2 * k + 1, t) if case == "uneven" else (
+        np.full(t, k))
+    seg = np.repeat(np.arange(t, dtype=np.int32), counts)
+    m = seg.size
+    if case == "routed":
+        pref = rng.random((t, e_pad)) * np.linspace(1.0, 3.0, e_pad)
+        gate = np.argsort(-pref, axis=1)[:, :k].reshape(-1)
+        order = np.argsort(gate, kind="stable")
+        first = np.cumsum(np.bincount(gate, minlength=e_pad)) - np.bincount(
+            gate, minlength=e_pad)
+        pos = np.empty(m, np.int64)
+        pos[order] = np.arange(m) - first[gate[order]]
+        keep = pos < cap
+        dest = gate * cap + pos
+    else:
+        keep = rng.random(m) < 0.8
+        dest = rng.permutation(n)[:m]
     rows = np.where(keep, dest, 0)
-    w = np.where(keep, rng.random(t * k), 0.0).astype(np.float32)
-    slot = np.full(n + 1, t * k, np.int64)
-    slot[np.where(keep, dest, n)] = np.arange(t * k)
+    w = np.where(keep, rng.random(m), 0.0).astype(np.float32)
+    if case == "zero_weight":
+        w[keep & (rng.random(m) < 0.1)] = 0.0
+    slot = np.full(n + 1, m, np.int64)
+    slot[np.where(keep, dest, n)] = np.arange(m)
+    slot = slot[:n]
+    if case == "shuffled":  # slot i is the sorted case's slot perm[i]
+        perm = rng.permutation(m)
+        seg, rows, w = seg[perm], rows[perm], w[perm]
+        inv = np.empty(m, np.int64)
+        inv[perm] = np.arange(m)
+        slot = np.where(slot < m, inv[np.minimum(slot, m - 1)], m)
+    if case == "off_contract":
+        free = np.flatnonzero(slot == m)
+        pick = rng.choice(free, size=min(free.size, 50), replace=False)
+        slot[pick] = rng.choice(np.flatnonzero(keep), size=pick.size)
     eo = rng.standard_normal((n, d)).astype(np.float32)
-    g = rng.standard_normal((t, d)).astype(np.float32)
-    seg = np.repeat(np.arange(t, dtype=np.int32), k)
-    out = [torch.from_numpy(a).to(device) for a in (g, w, rows, seg,
-                                                    slot[:n])]
+    # g at 1/sqrt(D), as a loss's gradient shrinks with the width: each dot
+    # of order 1, where rtol / atol 1e-5 holds float32 sums of D terms
+    g = (rng.standard_normal((t, d)) / np.sqrt(d)).astype(np.float32)
+    out = [torch.from_numpy(a).to(device) for a in (g, w, rows, seg, slot)]
     return [torch.from_numpy(eo).to(device=device, dtype=dtype), *out]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("t,k,d", [(8, 4, 2048), (3000, 4, 64),
-                                   (700, 8, 130), (50, 2, 2), (9, 1, 12)])
-def test_moe_combine_bwd_matches_plain(cuda_device, t, k, d, dtype):
+@pytest.mark.parametrize("t,k,d,case", [
+    pytest.param(8, 4, 2048, "sorted", id="8-4-2048"),
+    pytest.param(3000, 4, 64, "sorted", id="3000-4-64"),
+    pytest.param(700, 8, 130, "sorted", id="700-8-130"),
+    pytest.param(50, 2, 2, "sorted", id="50-2-2"),
+    pytest.param(9, 1, 12, "sorted", id="9-1-12"),
+    # granite-moe-1b-a400m's layer 0: 32 experts of 5,120 rows
+    pytest.param(16384, 8, 1024, "routed", id="granite-16384-8-1024"),
+    pytest.param(3000, 4, 64, "shuffled", id="shuffled-3000-4-64"),
+    pytest.param(700, 8, 1152, "shuffled", id="shuffled-700-8-1152"),
+    pytest.param(700, 8, 128, "uneven", id="uneven-700-8-128"),
+    pytest.param(700, 8, 128, "zero_weight", id="zero_weight-700-8-128"),
+    pytest.param(700, 8, 128, "off_contract", id="off_contract-700-8-128"),
+    pytest.param(700, 8, 130, "off_contract", id="off_contract-700-8-130"),
+])
+def test_moe_combine_bwd_matches_plain(cuda_device, t, k, d, case, dtype):
     """The combine's backward against its plain version (index_add_ and a
     row-wise dot in float32): grad_data bit-equal (one term a row),
     grad_w within rtol / atol 1e-5 (float32 dots in another order), a
-    relaunch bit-identical, a launch counted under its dtype's name."""
+    relaunch bit-identical, a launch counted under its dtype's name and
+    under the body that ran (``stream`` where D is a multiple of 16 bytes,
+    else ``warp_row``), both outputs bit-equal to the ``warp_row`` body's
+    (the stream body keeps its dot's order), and every output written:
+    ``torch.empty`` hands out NaN.  Off the dispatch's contract a row
+    whose ``slot`` names a slot of another row gets ``w[slot[r]] ·
+    g[seg[slot[r]]]``, as the ``warp_row`` body always gave it."""
     from repro_torch.kernels.segment import segment_sum_bwd_ref
-    from repro_torch.kernels.segment.backward import moe_combine_bwd
+    from repro_torch.kernels.segment.backward import (
+        COMBINE_BWD_ROUTES, _moe_combine_bwd_warp_row, moe_combine_bwd)
 
     dt = getattr(torch, dtype)
+    e_pad, cap = (32, 5120) if case == "routed" else (
+        64, max(1, -(-t * k // 50)))
     eo, g, w, rows, seg, slot = _combine_bwd_case(
-        np.random.default_rng(t + d), t, k, 64, max(1, -(-t * k // 50)), d,
-        dt, cuda_device)
+        np.random.default_rng(t + d), t, k, e_pad, cap, d, dt, cuda_device,
+        case)
     name = "segment_sum_bf16_bwd" if dt == torch.bfloat16 else (
         "segment_sum_bwd")
-    before = LAUNCHES[name]
-    got = moe_combine_bwd(g, eo, seg, w, rows, slot)
-    again = moe_combine_bwd(g, eo, seg, w, rows, slot)
+    route = "stream" if d % (16 // eo.element_size()) == 0 else "warp_row"
+    before, routes = LAUNCHES[name], dict(COMBINE_BWD_ROUTES)
+    with _empty_is_nan():
+        got = moe_combine_bwd(g, eo, seg, w, rows, slot)
+        again = moe_combine_bwd(g, eo, seg, w, rows, slot)
+        old = _moe_combine_bwd_warp_row(g, eo, seg, w, rows, slot)
     torch.cuda.synchronize()
     assert LAUNCHES[name] == before + 2
+    assert {r: c - routes[r] for r, c in COMBINE_BWD_ROUTES.items()} == {
+        **dict.fromkeys(routes, 0), route: 2}
     want = segment_sum_bwd_ref(g, eo, seg, w, rows)
+    want_eo = want[1]
+    if case == "off_contract":
+        off = (slot < seg.numel()).nonzero()[:, 0]
+        off = off[rows[slot[off]] != off]
+        assert off.numel() > 0
+        s = slot[off]
+        want_eo[off] = (w[s, None] * g[seg[s].long()]).to(dt)
     assert got[1].dtype == dt and got[0].dtype == torch.float32
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
-    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[1], want_eo)
+    assert torch.equal(got[0], old[0]) and torch.equal(got[1], old[1])
     np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
                                rtol=1e-5, atol=1e-5)
 

@@ -209,6 +209,75 @@ def test_moe_dispatch_does_not_depend_on_slot_order(pair):
     assert by_pair(gi, dest, keep) == by_pair(gi2, dest2, keep2)
 
 
+def _check_slot_inverse(gate_i, keep, pos, cap, m, dest, kp, slot):
+    """``_dispatch``'s keep and destinations are the reference's keep and
+    ``e·cap + pos``; its ``slot`` is the exact inverse of ``rows =
+    where(keep, dest, 0)`` over the kept slots (``slot[rows[s]] == s``),
+    ``T·k`` at every row no kept slot names; so a slot owns its row
+    (``slot[rows[s]] == s``) exactly when it is kept -- the ownership rule
+    of the combine backward's stream body."""
+    tk = keep.size
+    dest, slot = dest.numpy(), slot.numpy()
+    np.testing.assert_array_equal(kp.numpy(), keep)
+    np.testing.assert_array_equal(dest[keep],
+                                  (gate_i.reshape(-1) * cap + pos)[keep])
+    assert slot.shape == (m.e_pad * cap,) and slot.dtype == np.int64
+    rows = np.where(keep, dest, 0)
+    kept = np.flatnonzero(keep)
+    np.testing.assert_array_equal(slot[rows[kept]], kept)
+    named = np.zeros(slot.size, bool)
+    named[rows[kept]] = True
+    assert (slot[~named] == tk).all()
+    np.testing.assert_array_equal(slot[rows] == np.arange(tk), keep)
+
+
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.5])
+def test_dispatch_slot_inverts_the_kept_rows(pair, capacity_factor):
+    """At the model's routing, with and without capacity drops, against
+    the reference's keep and positions on the same inputs."""
+    ref_cfg, params, _, model = pair
+    ref_cfg = dataclasses.replace(ref_cfg, moe=dataclasses.replace(
+        ref_cfg.moe, capacity_factor=capacity_factor))
+    cfg = _port_cfg(ref_cfg)
+    x = np.random.default_rng(8).standard_normal((3, 11, 64)).astype(
+        np.float32)
+    gate_i, pos, keep, _ = _ref_routing(_layer0(params), jnp.asarray(x),
+                                        ref_cfg)
+    xf = torch.from_numpy(x).reshape(33, 64)
+    _, _, gi = lm._route(model.layer(0)["router"], xf, cfg.moe)
+    np.testing.assert_array_equal(gi.numpy(), gate_i)
+    _, dest, kp, _, slot = lm._dispatch(xf, gi, cfg.moe)
+    cap = int(np.ceil(33 * cfg.moe.top_k / cfg.moe.n_experts
+                      * capacity_factor))
+    _check_slot_inverse(gate_i, keep, pos, cap, cfg.moe, dest, kp, slot)
+    assert keep.all() or capacity_factor < 1
+    assert capacity_factor > 1 or not keep.all()
+
+
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.5])
+def test_dispatch_slot_inverts_the_kept_rows_at_granite_routing(
+        capacity_factor):
+    """granite-moe-1b-a400m's MoE (32 experts, top 8) at 512 tokens of a
+    skewed routing (numpy), against the reference's keep and positions
+    (its one-hot cumsum) on the same experts; capacity drops at both
+    factors."""
+    m = dataclasses.replace(port_arch("granite-moe-1b-a400m").model_cfg.moe,
+                            capacity_factor=capacity_factor)
+    t = 512
+    rng = np.random.default_rng(9)
+    pref = rng.random((t, m.n_experts)) * np.linspace(1.0, 3.0, m.n_experts)
+    gate_i = np.argsort(-pref, axis=1)[:, :m.top_k].astype(np.int32)
+    flat_e = jnp.asarray(gate_i.reshape(-1))
+    onehot = jax.nn.one_hot(flat_e, m.n_experts, dtype=jnp.int32)
+    pos = np.asarray((jnp.cumsum(onehot, axis=0) * onehot - 1).max(axis=-1))
+    cap = int(np.ceil(t * m.top_k / m.n_experts * capacity_factor))
+    keep = pos < cap
+    xf = torch.zeros((t, 16))
+    _, dest, kp, _, slot = lm._dispatch(xf, torch.from_numpy(gate_i), m)
+    _check_slot_inverse(gate_i, keep, pos, cap, m, dest, kp, slot)
+    assert 0 < keep.sum() < keep.size
+
+
 def test_moe_mesh_is_refused(pair):
     _, _, _, model = pair
     x = torch.zeros((1, 2, 64))

@@ -290,3 +290,32 @@ def test_k5_probe_edits_find_their_text(variant):
         assert new in got
     assert got != src
     assert chunk % 256 == 0  # a multiple of the CTA's threads
+
+
+def _combine_bwd_probe():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / (
+        "tools/combine_bwd_probe.py")
+    spec = importlib.util.spec_from_file_location("combine_bwd_probe", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("variant", list(_combine_bwd_probe().VARIANTS))
+def test_combine_bwd_probe_edits_find_their_text(variant):
+    """Every source edit of tools/combine_bwd_probe.py finds its text,
+    once, in csrc/segment_bwd.cu, so the probe cannot rot; its ablations
+    are variants of its own."""
+    probe = _combine_bwd_probe()
+    edits = probe.VARIANTS[variant]
+    src = probe.edited_source(variant, [])
+    got = probe.edited_source(variant, edits)
+    assert edits
+    for old, new in edits:
+        assert src.count(old) == 1
+        assert new in got
+    assert got != src
+    assert probe.ABLATIONS <= set(probe.VARIANTS)
