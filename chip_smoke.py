@@ -68,6 +68,27 @@ Phases, each printed on its own lines (any failure exits non-zero):
    bit-identical relaunch; ``retrieval_score`` equal to ``forward_logits``
    on the same 1,000 candidates within 1e-4.  Prints the wall per request
    and the gather / K4 split.
+9 (b). FM training on the same table: the ``train_batch`` cell (B=65,536,
+   ``criteo_like_batch(10 + step, ...)``), 4 AdamW steps through
+   ``launch.steps``' train kind (dense float32 master, m and v: 4.7 GB),
+   the counters zeroed just before.  Gates: per step K4 and its backward
+   (``fm_interaction_bwd``) launched once each, K5's gather form twice
+   (the table's and the linear table's gradients, counted as
+   ``embedding_gather_bwd``) with their two carries; finite losses; at
+   step 0's batch every gradient leaf within relative L1 1e-4 of the plain
+   versions' (``loss_fn(kernels=False)``: K4's and K5's plain versions
+   and their backwards), the table's and the linear table's gradients
+   bit-equal on a rerun; K4's backward against its plain version on the
+   step's gather, relative L1 <= 1e-5 and a bit-identical relaunch; K5 as
+   the table's gradient (2,555,904 rows into 39,000,000 x 10) the same.
+   Prints the losses, the step walls and samples/s, the device memory
+   peak, and a torch.profiler split of one more step (gather, K4, K4's
+   backward, K5, the sort, AdamW read from a trace of AdamW alone over one
+   step's gradients, the rest).  Rows
+   for the kernels line: ``fm_interaction_bwd`` (no library call) and
+   ``embedding_gather_bwd`` (``zeros().index_add_`` of the same rows as
+   the library call; beside it the linear table's launch and a
+   ``torch.zeros`` of the output alone).
 10. GIN forward: ``gin-tu`` at the ``ogb_products`` cell on a synthetic
    ``power_law_graph`` (2,449,029 nodes, alpha chosen to stay under the
    cell's 61,859,328 edges, padded to it with edge_mask-0 edges and to
@@ -86,6 +107,21 @@ Phases, each printed on its own lines (any failure exits non-zero):
    rows in both forms.  Prints N, E, the real E, the host build times,
    K5's chunk count and longest segment, the forward's wall and its
    device memory peak.
+10 (b). GIN training on phase 10's graph and prepared batch (whose
+   ``prepare_batch`` also sorted the edges by source, the transposed
+   view): 3 AdamW steps of the ``ogb_products`` cell through
+   ``launch.steps``, the counters zeroed just before.  Gates: per step K5
+   launched 5 times forward (``segment_sum``) and 5 times backward
+   (``gnn_agg_bwd``, K5's gather form over the transposed graph), all in
+   the gather form, each with its carry; finite losses; every leaf's
+   gradient within relative L1 1e-4 of the plain run's
+   (``loss_fn(kernels=False)``), each of the 5 K5 backwards of a
+   gradient relaunched on its operands bit for bit; K5 as one layer's
+   aggregation backward against its plain version, relative L1 <= 1e-5
+   and a bit-identical relaunch.  Prints the losses, the step walls and
+   the device memory peak above phase 10's.  Row for the kernels line:
+   ``segment_sum_gather_bwd`` (``torch.sparse.mm`` of the transposed
+   ``sparse_csr`` as the library call).
 11. Numbers: rounds, ops, wall times, launch counts of the main path
    (phases 4 and 5, and phase 7, counters zeroed just before each solve
    and read just after; K2 runs in phase 5 only in the invariant check,
@@ -342,6 +378,7 @@ The line before the last is the card's name and power limit; the last line is
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -2926,6 +2963,399 @@ def rank_serving_phase(args, torch, dev, timer, problem):
     return [row], summary
 
 
+def gin_host_batch(args):
+    """Phase 10's batch on the host: the GIN graph (``power_law_graph`` of
+    ``args.gin_nodes`` nodes, or the ``ogb_products`` cell's real count, at
+    ``GIN_ALPHA``), its features and labels, padded to the cell's N and E
+    (or by the cells' rule, nodes % 32 and edges % 512, at another size).
+    Returns ``(batch, n, e, real e, graph s, batch s)``."""
+    from repro_torch.configs import gin_tu
+    from repro_torch.configs.gnn_common import SHAPE_DIMS
+    from repro_torch.core import power_law_graph
+    from repro_torch.data import make_gnn_batch, pad_gnn_batch
+
+    dims = SHAPE_DIMS[GIN_SHAPE]
+    cfg = gin_tu.cfg_for(GIN_SHAPE)
+    n_nodes = args.gin_nodes or dims["n_real"]
+    t0 = time.perf_counter()
+    g = power_law_graph(n_nodes, alpha=GIN_ALPHA, seed=args.seed)
+    graph_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gb = make_gnn_batch(g, cfg.d_feat, n_classes=cfg.n_classes,
+                        seed=args.seed)
+    batch_s = time.perf_counter() - t0
+    if n_nodes == dims["n_real"]:
+        n, e = dims["n"], dims["e"]
+    else:
+        n, e = -(-g.n // 32) * 32, -(-g.n_edges // 512) * 512
+    if g.n_edges > e:
+        fail(f"the GIN graph has {g.n_edges} edges, over the cell's {e}")
+    return pad_gnn_batch(gb, n, e), n, e, g.n_edges, graph_s, batch_s
+
+
+def _split_by_kernel(stats, buckets):
+    """Device ms of ``stats`` (``device_share``'s rows) by the first of
+    ``buckets`` ((label, name fragments)) whose fragment a kernel's name
+    holds; the rest under ``other``.  Returns the split and the three
+    largest kernels of ``other`` ((ms, name) pairs)."""
+    split = {label: 0.0 for label, _ in buckets}
+    split["other"] = 0.0
+    rest = []
+    for ms, _, key in stats or ():
+        low = key.lower()
+        label = next((lb for lb, frags in buckets
+                      if any(fr in low for fr in frags)), "other")
+        split[label] += ms
+        if label == "other":
+            rest.append((round(ms, 4), key[:60]))
+    return {k: round(v, 4) for k, v in split.items()}, sorted(rest)[::-1][:3]
+
+
+def fm_training(args, torch, dev, timer, sync, fm_model, spec):
+    """Phase 9 (b): FM training at the ``train_batch`` cell on phase 9's
+    table, through ``launch.steps``' train kind.  Returns ``(rows,
+    summary)``."""
+    from repro_torch.data import criteo_like_batch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.fm import (fm_interaction_bwd_kernel,
+                                        fm_interaction_bwd_ref)
+    from repro_torch.kernels.segment import (
+        FORMS, segment_sum_kernel, segment_sum_ref)
+    from repro_torch.launch.steps import build_cell_step
+    from repro_torch.models import recsys
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    on_card = dev.type == "cuda"
+    cfg = fm_model.cfg
+    nf, dim, n_rows = cfg.n_fields, cfg.embed_dim, cfg.n_rows
+    cell = spec.cells["train_batch"]
+    b = cell.meta["batch"]
+    n_steps = 4
+    t0 = time.perf_counter()
+    batches = [criteo_like_batch(10 + i, b, nf, args.fm_vocab,
+                                 seed=args.seed) for i in range(n_steps)]
+    hot = np.bincount(batches[0]["ids"][:, 0]).max()
+    print(f"fm train_batch: {n_steps} host batches of {b} x {nf} made in "
+          f"{time.perf_counter() - t0:.1f} s; field 0's hottest id in "
+          f"{hot} rows ({hot / 1024:.1f} K5 chunks)")
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=n_steps)
+    step = build_cell_step(spec, cell, fm_model, ocfg)
+    tree = fm_model.param_tree()
+    state = adamw_init(tree)
+    sync()
+    held = torch.cuda.memory_allocated() / 1e9 if on_card else 0.0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    forms0 = dict(FORMS)
+    walls, losses = [], []
+    for i, batch in enumerate(batches):
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        tree, state, metrics = step(tree, state, batch)
+        sync()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        delta = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        want = {"fm_interaction": 1, "fm_interaction_bwd": 1,
+                "embedding_gather_bwd": 2, "segment_sum_carry": 2}
+        if on_card and any(delta[k] != v for k, v in want.items()):
+            fail(f"FM train step {i}: launches {delta}, want {want}")
+    launches = dict(LAUNCHES)
+    forms = {k: v - forms0[k] for k, v in FORMS.items()}
+    peak = (torch.cuda.max_memory_allocated() / 1e9 - held if on_card
+            else 0.0)
+    if not all(np.isfinite(losses)):
+        fail(f"FM training losses not finite: {losses}")
+    if on_card and forms != {"contiguous": 0, "gather": 2 * n_steps}:
+        fail(f"FM training's K5 launches by form {forms}")
+    med = float(np.median(walls))
+    print(f"FM train steps (B={b}): losses {[round(x, 6) for x in losses]}; "
+          f"walls {[round(w * 1e3, 3) for w in walls]} ms (median "
+          f"{med * 1e3:.3f} ms, {b / med:.0f} samples/s); launches "
+          f"fm_interaction {launches['fm_interaction']}, fm_interaction_bwd "
+          f"{launches['fm_interaction_bwd']}, embedding_gather_bwd "
+          f"{launches['embedding_gather_bwd']} (carry "
+          f"{launches['segment_sum_carry']}, by form {forms}); device "
+          f"memory peak {peak:.3f} GB above the {held:.3f} GB held")
+
+    # checks, off the counted steps: the gradients with the kernels against
+    # the plain versions', and bit-equal on a rerun
+    batch = batches[0]
+    leaves = tree_leaves(fm_model.param_tree())
+    names = sorted(fm_model.param_tree())
+
+    def grads(kernels):
+        loss = recsys.loss_fn(fm_model, batch, kernels=kernels)
+        return [g.detach() for g in torch.autograd.grad(loss, leaves)]
+
+    got, again = grads(True), grads(True)
+    plain = grads(False)
+    errs = {n: rel_l1(a, c) for n, a, c in zip(names, got, plain)}
+    same = {n: bool(torch.equal(a, c)) for n, a, c in zip(names, got, again)}
+    print(f"FM gradients with the kernels vs the plain versions: rel L1 "
+          f"{ {k: f'{v:.3e}' for k, v in errs.items()} }; bit-equal on a "
+          f"rerun {same}")
+    if max(errs.values()) > 1e-4:
+        fail("FM gradients disagree with the plain versions'")
+    if not (same["table"] and same["lin_table"]):
+        fail("FM table gradients differ on a rerun")
+    del got, again, plain
+
+    # K4's backward on the step's operands
+    ids = torch.as_tensor(batch["ids"], device=dev)
+    offs = torch.arange(nf, dtype=torch.int32, device=dev) * cfg.vocab_per_field
+    rows = (ids + offs).reshape(-1)
+    with torch.no_grad():
+        v = fm_model.table.index_select(0, rows).reshape(b, nf, dim)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    dy = torch.randn(b, generator=gen, device=dev) / b
+    gv, gv2, gv_plain = (fm_interaction_bwd_kernel(v, dy),
+                         fm_interaction_bwd_kernel(v, dy),
+                         fm_interaction_bwd_ref(v, dy))
+    e4, same4 = rel_l1(gv, gv_plain), torch.equal(gv, gv2)
+    print(f"K4's backward on the step's gather {tuple(v.shape)}: rel L1 "
+          f"{e4:.3e}, bit-identical relaunch {same4}")
+    if not (e4 <= REL_L1 and same4):
+        fail("K4's backward against its plain version")
+    b_ms, b_by = bound_ms(v.numel() * 4 * 2 + b * 4,
+                          2.0 * v.numel() + 1.0 * v.numel())
+    bwd_row = {
+        "name": "fm_interaction_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/fm.cu",
+        "replaces": "src/repro/kernels/fm/kernel.py:32",
+        "launches": launches["fm_interaction_bwd"],
+        "max_abs_err": float((gv - gv_plain).abs().max()),
+        "ms": timer(lambda: fm_interaction_bwd_kernel(v, dy), 20),
+        "plain_ms": timer(lambda: fm_interaction_bwd_ref(v, dy), 10),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": list(v.shape),
+    }
+    del gv2, gv_plain
+
+    # K5 as the table's gradient: grad_v's rows summed by row id
+    g = gv.reshape(-1, dim)
+    seg, order = torch.sort(rows, stable=True)
+
+    def k5(data, src):
+        return segment_sum_kernel(data, seg, n_rows, None, src,
+                                  count="embedding_gather_bwd")
+
+    e_t, e_t2, e_plain = (k5(g, order), k5(g, order),
+                          segment_sum_ref(g, seg, n_rows, None, order))
+    e5, same5 = rel_l1(e_t, e_plain), torch.equal(e_t, e_t2)
+    print(f"K5 as the table's gradient ({g.shape[0]} rows into {n_rows} x "
+          f"{dim}): rel L1 {e5:.3e}, bit-identical relaunch {same5}")
+    if not (e5 <= REL_L1 and same5):
+        fail("K5 as the embedding backward against its plain version")
+    err_t = float((e_t - e_plain).abs().max())
+    del e_t, e_t2, e_plain
+    rows_l = rows.long()
+    # grad_v's rows, the sorted ids (int32) and the order (int64) read,
+    # the dense gradient written once
+    eb_ms, eb_by = bound_ms(g.numel() * 4 + seg.numel() * 12
+                            + n_rows * dim * 4, float(g.numel()))
+    src_l = torch.div(order, nf, rounding_mode="floor")
+    lb_ms, _ = bound_ms(b * 4 + seg.numel() * 12 + n_rows * 4,
+                        float(seg.numel()))
+    emb_row = {
+        "name": "embedding_gather_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/segment_sum.cu",
+        "replaces": "src/repro/kernels/segment/kernel.py:50",
+        "launches": launches["embedding_gather_bwd"], "form": "gather",
+        "max_abs_err": err_t,
+        "ms": timer(lambda: k5(g, order), 10),
+        "plain_ms": timer(lambda: segment_sum_ref(g, seg, n_rows, None,
+                                                  order), 3),
+        "bound_ms": eb_ms, "bound_by": eb_by,
+        "library_ms": (timer(lambda: torch.zeros(
+            (n_rows, dim), device=dev).index_add_(0, rows_l, g), 10)
+            if on_card else None),
+        # the linear table's launch: dy's rows by bag, D = 1
+        "lin_ms": timer(lambda: k5(dy[:, None], src_l), 10),
+        "lin_bound_ms": lb_ms,
+        "zeros_ms": timer(lambda: torch.zeros((n_rows, dim), device=dev), 10),
+        "shape": [int(g.shape[0]), dim, n_rows],
+    }
+    print(f"K5 as the table's gradient: {emb_row['ms']:.4f} ms (bound "
+          f"{eb_ms:.4f}; a torch.zeros of the output alone "
+          f"{emb_row['zeros_ms']:.4f}); the linear table's "
+          f"{emb_row['lin_ms']:.4f} ms (bound {lb_ms:.4f})")
+    del g, gv, v, seg, order, src_l, rows_l
+
+    split = None
+    if on_card:
+        stats = device_share(torch, "FM train step", lambda: step(
+            tree, state, batches[1]), untraced_ms=med * 1e3)
+        split, rest = _split_by_kernel(stats, (
+            ("k4_bwd", ("fm_interaction_bwd",)),
+            ("k4", ("fm_interaction",)),
+            ("k5", ("segment_sum",)),
+            ("gather", ("indexselect", "index_select", "gather")),
+            ("sort", ("sort",))))
+        # AdamW's kernels are elementwise ones like the loss's: its share is
+        # read from a trace of AdamW alone over one step's gradients
+        loss = recsys.loss_fn(fm_model, batches[1])
+        it = iter(torch.autograd.grad(loss, leaves))
+        gtree = tree_map(lambda _: next(it), fm_model.param_tree())
+        adam = device_share(torch, "AdamW alone", lambda: adamw_update(
+            gtree, state, ocfg, param_dtype=cfg.dtype))
+        split["adamw"] = round(sum(ms for ms, _, _ in adam or ()), 4)
+        split["other"] = round(split["other"] - split["adamw"], 4)
+        del gtree, it, loss
+        print(f"FM train step device ms by kernel (adamw from its own trace, "
+              f"other the rest): {split}; the largest kernels outside the "
+              f"named ones (AdamW's among them): {rest}")
+    del state, tree
+    summary = (f"FM training (fm train_batch, B={b}): step walls "
+               f"{[round(w * 1e3, 3) for w in walls]} ms, {b / med:.0f} "
+               f"samples/s, peak {peak:.3f} GB above {held:.3f} GB; "
+               f"device split {split}")
+    return [bwd_row, emb_row], summary
+
+
+def gin_training(args, torch, dev, timer, sync, gin, prepared):
+    """Phase 10 (b): GIN training at ``ogb_products`` on phase 10's graph
+    and prepared batch, through ``launch.steps``' train kind.  Returns
+    ``(rows, summary)``."""
+    import repro_torch.kernels.segment.ops as seg_ops
+    from repro_torch.configs import gin_tu
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.segment import (
+        FORMS, segment_sum_kernel, segment_sum_ref)
+    from repro_torch.launch.steps import build_cell_step
+    from repro_torch.models import gnn
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import tree_leaves
+
+    on_card = dev.type == "cuda"
+    spec = gin_tu.spec()
+    n_layers = gin.cfg.n_layers
+    n_steps = 3
+    step = build_cell_step(spec, spec.cells[GIN_SHAPE], gin,
+                           AdamWConfig(lr=1e-3, warmup_steps=1,
+                                       total_steps=n_steps))
+    tree = gin.param_tree()
+    state = adamw_init(tree)
+    sync()
+    held = torch.cuda.memory_allocated() / 1e9 if on_card else 0.0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    forms0 = dict(FORMS)
+    walls, losses = [], []
+    for i in range(n_steps):
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        tree, state, metrics = step(tree, state, prepared)
+        sync()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        delta = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        want = {"segment_sum": n_layers, "gnn_agg_bwd": n_layers,
+                "segment_sum_carry": 2 * n_layers}
+        if on_card and any(delta[k] != v for k, v in want.items()):
+            fail(f"GIN train step {i}: launches {delta}, want {want}")
+    launches = dict(LAUNCHES)
+    forms = {k: v - forms0[k] for k, v in FORMS.items()}
+    peak = (torch.cuda.max_memory_allocated() / 1e9 - held if on_card
+            else 0.0)
+    if not all(np.isfinite(losses)):
+        fail(f"GIN training losses not finite: {losses}")
+    if on_card and forms != {"contiguous": 0,
+                             "gather": 2 * n_layers * n_steps}:
+        fail(f"GIN training's K5 launches by form {forms}")
+    print(f"GIN train steps: losses {[round(x, 6) for x in losses]}; walls "
+          f"{[round(w, 4) for w in walls]} s; launches segment_sum "
+          f"{launches['segment_sum']}, gnn_agg_bwd {launches['gnn_agg_bwd']}"
+          f" (carry {launches['segment_sum_carry']}, by form {forms}); "
+          f"device memory peak {peak:.3f} GB above the {held:.3f} GB held")
+
+    # checks, off the counted steps: every leaf's gradient with the
+    # kernels against the plain run's; each K5 backward relaunched on its
+    # operands, bit for bit
+    leaves = tree_leaves(gin.param_tree())
+    real = seg_ops.segment_sum_kernel
+    relaunched = []
+
+    def twice(data, seg, n, weights=None, rows=None, count=None):
+        out = real(data, seg, n, weights, rows, count=count)
+        if count == "gnn_agg_bwd":
+            relaunched.append(bool(torch.equal(
+                out, real(data, seg, n, weights, rows, count=count))))
+        return out
+
+    seg_ops.segment_sum_kernel = twice
+    try:
+        got = torch.autograd.grad(gnn.loss_fn(gin, prepared), leaves)
+    finally:
+        seg_ops.segment_sum_kernel = real
+    plain = torch.autograd.grad(gnn.loss_fn(gin, prepared, kernels=False),
+                                leaves)
+    errs = [rel_l1(a, c) for a, c in zip(got, plain)]
+    print(f"GIN gradients with the kernels vs the plain run: largest rel L1 "
+          f"of {len(errs)} leaves {max(errs):.3e}; the {len(relaunched)} K5 "
+          f"backwards bit-equal on a relaunch: {all(relaunched)}")
+    if max(errs) > 1e-4:
+        fail("GIN gradients disagree with the plain run's")
+    if on_card and (len(relaunched) != n_layers or not all(relaunched)):
+        fail(f"GIN's K5 backwards on a relaunch: {relaunched}")
+    del got, plain
+
+    # one layer's aggregation backward on its operands
+    n = prepared["x"].shape[0]
+    t_seg, t_rows, t_w = (prepared["aggT_seg"], prepared["aggT_rows"],
+                          prepared["aggT_w"])
+    n_e = t_seg.shape[0]
+    dh = gin.cfg.d_hidden
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    g = torch.randn((n, dh), generator=gen, device=dev)
+
+    def k5(data):
+        return segment_sum_kernel(data, t_seg, n, t_w, t_rows,
+                                  count="gnn_agg_bwd")
+
+    a, a2, p = k5(g), k5(g), segment_sum_ref(g, t_seg, n, t_w, t_rows)
+    eg, sameg = rel_l1(a, p), torch.equal(a, a2)
+    print(f"K5 as one layer's aggregation backward (g {tuple(g.shape)}, "
+          f"rows = the destinations by source): rel L1 {eg:.3e}, "
+          f"bit-identical relaunch {sameg}")
+    if not (eg <= REL_L1 and sameg):
+        fail("K5 as the aggregation backward against its plain version")
+    err = float((a - p).abs().max())
+    del a2, p
+    # as the forward's gather form: g read and grad_h written once; the
+    # ids, the rows and the weights
+    gb_ms, gb_by = bound_ms(g.numel() * 4 * 2 + n_e * 4 * 3, 2.0 * n_e * dh)
+    lib = None
+    if on_card:
+        ptr = torch.searchsorted(t_seg, torch.arange(
+            n + 1, dtype=t_seg.dtype, device=dev))
+        csr = torch.sparse_csr_tensor(ptr, t_rows.long(), t_w, size=(n, n))
+        lib = timer(lambda: torch.sparse.mm(csr, g), 5)
+        print(f"torch.sparse.mm (the transposed sparse_csr) vs K5: max abs "
+              f"diff {float((torch.sparse.mm(csr, g) - a).abs().max()):.3e}")
+        del csr, ptr
+    row = {
+        "name": "segment_sum_gather_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/segment_sum.cu",
+        "replaces": "src/repro/kernels/segment/kernel.py:50",
+        "launches": launches["gnn_agg_bwd"], "form": "gather",
+        "max_abs_err": err,
+        "ms": timer(lambda: k5(g), 10),
+        "plain_ms": timer(lambda: segment_sum_ref(g, t_seg, n, t_w, t_rows),
+                          3),
+        "bound_ms": gb_ms, "bound_by": gb_by, "library_ms": lib,
+        "shape": [n_e, dh, n],
+    }
+    del a, g, state, tree
+    summary = (f"GIN training (gin-tu {GIN_SHAPE}): step walls "
+               f"{[round(w, 4) for w in walls]} s, peak {peak:.3f} GB above "
+               f"{held:.3f} GB")
+    return [row], summary
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=2**21,
@@ -2969,8 +3399,7 @@ def main() -> int:
     from repro_torch.configs import fm as fm_config
     from repro_torch.configs import gin_tu
     from repro_torch.configs.gnn_common import SHAPE_DIMS
-    from repro_torch.data import (
-        criteo_like_batch, make_gnn_batch, pad_gnn_batch)
+    from repro_torch.data import criteo_like_batch
     from repro_torch.kernels.fm import fm_interaction_kernel, fm_interaction_ref
     from repro_torch.kernels.segment import (
         CHUNK_ROWS, FORMS, segment_sum_ref, segment_sum_sorted)
@@ -3006,6 +3435,11 @@ def main() -> int:
               f"{time.perf_counter() - t0:.3f} s")
     else:
         print("rehearsal: no build")
+
+    # the GIN graph of phase 10 is built on a host thread meanwhile (numpy
+    # leaves the interpreter lock in its sorts and draws)
+    gin_host_pool = concurrent.futures.ThreadPoolExecutor(1)
+    gin_host = gin_host_pool.submit(gin_host_batch, args)
 
     # ---- 3. kernels against their plain versions ---------------------------
     print("== phase 3: kernels")
@@ -3574,7 +4008,17 @@ def main() -> int:
     print(f"gather / K4 split (ms): serve_p99 {split['gather_p99_ms']:.4f} / "
           f"{split['k4_p99_ms']:.4f}; serve_bulk "
           f"{split['gather_bulk_ms']:.4f} / {k4_row['ms']:.4f}")
-    del fm_model, steps, v, v_p99, y, y2, y_plain, bulk_logits, scores
+    del steps, v, v_p99, y, y2, y_plain, bulk_logits, scores
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- 9 (b). FM training ------------------------------------------------
+    print("== phase 9 (b): FM training")
+    t0 = time.perf_counter()
+    fm_train_rows, fm_train_summary = fm_training(args, torch, dev, timer,
+                                                  sync, fm_model, spec)
+    print(f"phase 9 (b) wall {time.perf_counter() - t0:.1f} s")
+    del fm_model
     if on_card:
         torch.cuda.empty_cache()
 
@@ -3584,21 +4028,9 @@ def main() -> int:
     gin_cfg = gin_tu.cfg_for(GIN_SHAPE)
     n_nodes = args.gin_nodes or dims["n_real"]
     t0 = time.perf_counter()
-    g_gin = power_law_graph(n_nodes, alpha=GIN_ALPHA, seed=args.seed)
-    graph_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    gb = make_gnn_batch(g_gin, gin_cfg.d_feat, n_classes=gin_cfg.n_classes,
-                        seed=args.seed)
-    batch_s = time.perf_counter() - t0
-    if n_nodes == dims["n_real"]:
-        gin_n, gin_e = dims["n"], dims["e"]
-    else:  # the cells' padding rule: nodes % 32, edges % 512
-        gin_n, gin_e = -(-g_gin.n // 32) * 32, -(-g_gin.n_edges // 512) * 512
-    e_real = g_gin.n_edges
-    if e_real > gin_e:
-        fail(f"the GIN graph has {e_real} edges, over the cell's {gin_e}")
-    gb = pad_gnn_batch(gb, gin_n, gin_e)
-    del g_gin
+    gb, gin_n, gin_e, e_real, graph_s, batch_s = gin_host.result()
+    gin_host_pool.shutdown()
+    wait_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     prepared = gnn.prepare_batch(gb, dev)
     sync()
@@ -3609,7 +4041,9 @@ def main() -> int:
           f"({e_real} real, alpha {GIN_ALPHA}) d_feat={gin_cfg.d_feat} "
           f"d_hidden={gin_cfg.d_hidden} layers={gin_cfg.n_layers} classes="
           f"{gin_cfg.n_classes}; host build graph {graph_s:.1f} s, batch "
-          f"{batch_s:.1f} s; upload + destination sort {prep_s:.1f} s")
+          f"{batch_s:.1f} s (on a host thread since phase 3; waited "
+          f"{wait_s:.1f} s for it here); upload + destination and source "
+          f"sorts {prep_s:.1f} s")
     src_s, seg_s, w_s = (prepared["agg_src"], prepared["agg_dst"],
                          prepared["agg_w"])
     # the row ranges of the sorted ids, for the library calls (K5 plans its
@@ -3790,7 +4224,17 @@ def main() -> int:
                    f"({e_real} real) forward walls "
                    f"{[round(w, 4) for w in gin_walls]} s, peak {peak:.3f} GB "
                    f"above the earlier phases' {held:.3f} GB")
-    del h0, g5, prepared, gin, small, table, ptr_s
+    del h0, g5, small, table, ptr_s
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- 10 (b). GIN training ----------------------------------------------
+    print("== phase 10 (b): GIN training")
+    t0 = time.perf_counter()
+    gin_train_rows, gin_train_summary = gin_training(args, torch, dev, timer,
+                                                     sync, gin, prepared)
+    print(f"phase 10 (b) wall {time.perf_counter() - t0:.1f} s")
+    del prepared, gin
     if on_card:
         torch.cuda.empty_cache()
 
@@ -3978,11 +4422,13 @@ def main() -> int:
             n_out, dtype=torch.float32, device=dev).index_add_(
                 0, dst_e, xe[src_e] * edges_e.wgt), 20),
     })
-    rows += [k4_row, k5_row, k5g_row]
+    rows += [k4_row, k5_row, k5g_row, *fm_train_rows, *gin_train_rows]
     print(f"FM (fm, vocab {args.fm_vocab}/field): serve_p99 walls (ms) "
           f"{[round(w * 1e3, 3) for w in p99_walls]}, serve_bulk "
           f"{bulk_wall * 1e3:.3f} ms, retrieval_cand {retr_wall * 1e3:.3f} ms")
+    print(fm_train_summary)
     print(gin_summary)
+    print(gin_train_summary)
 
     def show(rows):
         for r in rows:

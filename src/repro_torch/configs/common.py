@@ -27,7 +27,7 @@ class ShapeCell:
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str  # recsys | lm
+    family: str  # recsys | lm | gnn
     model_cfg: Any
     cells: Dict[str, ShapeCell]
     source: str = ""  # provenance of the published config

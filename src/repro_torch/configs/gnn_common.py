@@ -8,10 +8,15 @@
 
 ``n``/``e`` are PADDED (nodes % 32 == 0, edges % 512 == 0; masks carry
 validity); the real sizes are kept in ``n_real``/``e_real``.
+:func:`gnn_cells` gives a GIN config its four train cells.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
+
+import torch
+
+from .common import ShapeCell
 
 # (n_nodes, n_edges, d_feat, n_classes)
 SHAPE_DIMS = {
@@ -33,3 +38,29 @@ def shape_overrides(shape: str) -> Dict[str, Any]:
     if dims.get("graphs"):
         return ov | {"n_classes": 0, "task": "graph", "d_out": 1}
     return ov | {"n_classes": dims["classes"], "task": "node"}
+
+
+def gnn_cells(base_cfg) -> Dict[str, ShapeCell]:
+    """The reference's four train cells of a GIN config (``gnn_common.
+    gnn_cells`` without EGNN's positions and DimeNet's triplets): the
+    padded full batch's inputs, the shape's overrides, its sizes in
+    ``meta``."""
+    f32, i32 = torch.float32, torch.int32
+    cells = {}
+    for name, dims in SHAPE_DIMS.items():
+        n, e, graphs = dims["n"], dims["e"], dims.get("graphs")
+        inputs = {"x": ((n, dims["d_feat"]), f32), "src": ((e,), i32),
+                  "dst": ((e,), i32), "node_mask": ((n,), f32),
+                  "edge_mask": ((e,), f32)}
+        if graphs:
+            inputs |= {"graph_ids": ((n,), i32), "labels": ((graphs,), f32)}
+        elif dims["classes"]:
+            inputs["labels"] = ((n,), i32)
+        else:
+            inputs["labels"] = ((n, base_cfg.d_out), f32)
+        cells[name] = ShapeCell(
+            name=name, kind="train", inputs=inputs,
+            overrides=shape_overrides(name),
+            meta={"n_nodes": n, "n_edges": e, "n_real": dims["n_real"],
+                  "e_real": dims["e_real"]})
+    return cells

@@ -1,4 +1,4 @@
-"""Reduced same-family configs for CPU runs of the LM entry points.
+"""Reduced same-family configs for CPU runs of the training entry points.
 
 :func:`lm_shrink` narrows an LM config the way the reference's
 ``configs.smoke._lm_shrink`` does (2 layers, d=64, heads / 8, Dh 16,
@@ -6,8 +6,8 @@ vocab 128, float32, cross-entropy chunks of 16 tokens, one microbatch):
 the GQA ratio and the QKV bias survive, and a MoE stays a MoE with its
 shared experts (at most 8 experts, top 2, ``d_ff_expert`` 16, padded to
 8), so the reduced model runs the same code paths as the published one.
-:func:`smoke_setup` is the reference's for the LM archs: the reduced
-config and a tiny batch.
+:func:`smoke_setup` is the reference's: the reduced config and a tiny
+batch of an LM, GIN or FM arch.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from ..data import lm_token_batch
+from ..data import criteo_like_batch, lm_token_batch, molecule_batch
 from . import get_arch
 
 __all__ = ["lm_shrink", "smoke_setup"]
@@ -46,13 +46,28 @@ def lm_shrink(cfg):
 
 
 def smoke_setup(arch_id: str) -> Tuple[Any, Dict[str, np.ndarray], str]:
-    """``(reduced model cfg, tiny batch, family)`` for an LM arch: the
-    batch is ``lm_token_batch(0, 2, 32, vocab)`` (numpy).  The GNN and
-    recsys families' training waits (ROADMAP §1, item 7 (b))."""
+    """``(reduced model cfg, tiny batch (numpy), family)``, the reference's:
+    an LM arch :func:`lm_shrink`'s config and ``lm_token_batch(0, 2, 32,
+    vocab)``; ``gin-tu`` 3 layers, d 16, d_feat 8, a node task of 5
+    classes on ``molecule_batch(4, 10, 20, d_feat=8, graph_labels=False)``
+    with labels from ``default_rng(0)``; ``fm`` 6 fields of 100 rows, D 8,
+    on ``criteo_like_batch(0, 32, 6, 100)``.  The archs still to port
+    raise (``configs.PENDING``)."""
     spec = get_arch(arch_id)
-    if spec.family != "lm":
-        raise NotImplementedError(
-            f"{arch_id}: {spec.family} training is not ported yet (ROADMAP "
-            "§1, item 7 (b))")
-    cfg = lm_shrink(spec.model_cfg)
-    return cfg, lm_token_batch(0, 2, 32, cfg.vocab), "lm"
+    rng = np.random.default_rng(0)
+    if spec.family == "lm":
+        cfg = lm_shrink(spec.model_cfg)
+        return cfg, lm_token_batch(0, 2, 32, cfg.vocab), "lm"
+    if spec.family == "gnn":
+        cfg = dataclasses.replace(
+            spec.model_cfg, n_layers=min(spec.model_cfg.n_layers, 3),
+            d_hidden=16, d_feat=8, task="node", n_classes=5, d_out=5)
+        raw = molecule_batch(4, nodes_per_graph=10, edges_per_graph=20,
+                             d_feat=8, graph_labels=False)
+        raw["labels"] = rng.integers(0, 5, raw["x"].shape[0]).astype(
+            np.int32)
+        return cfg, raw, "gnn"
+    cfg = dataclasses.replace(spec.model_cfg, n_fields=6,
+                              vocab_per_field=100, embed_dim=8)
+    return cfg, criteo_like_batch(0, 32, cfg.n_fields,
+                                  cfg.vocab_per_field), "recsys"

@@ -7,18 +7,20 @@ for byte, so the parity tests can feed both packages one batch.
 * LM: Zipf tokens, labels the next token.
 * RecSys: criteo-like power-law categorical ids + click labels.
 * GNN: the full-graph batch of a :class:`~repro_torch.core.CSRGraph`,
-  and its padding to a cell's static node / edge counts.
+  its padding to a cell's static node / edge counts, batched small
+  graphs (:func:`molecule_batch`) and DimeNet's triplets
+  (:func:`build_triplets`).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 
 from ..core.graph import CSRGraph
 
 __all__ = ["lm_token_batch", "criteo_like_batch", "make_gnn_batch",
-           "pad_gnn_batch"]
+           "pad_gnn_batch", "molecule_batch", "build_triplets"]
 
 
 def lm_token_batch(step: int, batch: int, seq: int, vocab: int,
@@ -41,7 +43,7 @@ def make_gnn_batch(
     """Full-graph batch with features/labels (the graph itself is the
     batch).  Edges come in the graph's source-major order.  The
     coordinates and triplets of EGNN / DimeNet wait with those archs
-    (ROADMAP)."""
+    (ROADMAP §1, item 7 (c))."""
     rng = np.random.default_rng(seed)
     src, dst, _ = g.edge_list()
     batch = {
@@ -55,6 +57,81 @@ def make_gnn_batch(
         batch["labels"] = rng.integers(0, n_classes, g.n).astype(np.int32)
     else:
         batch["labels"] = rng.standard_normal((g.n, d_out)).astype(np.float32)
+    return batch
+
+
+def build_triplets(src: np.ndarray, dst: np.ndarray, n_nodes: int,
+                   max_per_edge: int = 8, seed: int = 0
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """DimeNet triplets: for edge e=(j->i), incoming edges f=(k->j), k != i.
+
+    Capped at ``max_per_edge`` incoming edges per target edge (a random
+    choice of them past the cap).  Returns (trip_e, trip_f).
+    """
+    rng = np.random.default_rng(seed)
+    e_count = src.shape[0]
+    # incoming edge ids per node (f = (k -> j) indexed by dst == j)
+    order = np.argsort(dst, kind="stable")
+    sorted_dst = dst[order]
+    starts = np.searchsorted(sorted_dst, np.arange(n_nodes))
+    ends = np.searchsorted(sorted_dst, np.arange(n_nodes) + 1)
+    trip_e, trip_f = [], []
+    for e in range(e_count):
+        j = src[e]
+        lo, hi = starts[j], ends[j]
+        if hi <= lo:
+            continue
+        incoming = order[lo:hi]
+        incoming = incoming[src[incoming] != dst[e]]  # k != i
+        if incoming.size > max_per_edge:
+            incoming = rng.choice(incoming, max_per_edge, replace=False)
+        trip_e.extend([e] * incoming.size)
+        trip_f.extend(incoming.tolist())
+    if not trip_e:
+        trip_e, trip_f = [0], [0]
+    return (np.asarray(trip_e, np.int32), np.asarray(trip_f, np.int32))
+
+
+def molecule_batch(
+    n_graphs: int,
+    nodes_per_graph: int = 30,
+    edges_per_graph: int = 64,
+    d_feat: int = 16,
+    with_triplets: bool = False,
+    graph_labels: bool = True,
+    seed: int = 0,
+) -> Dict[str, np.ndarray]:
+    """Batched small graphs (molecule shape): block-diagonal edge list,
+    ``graph_ids`` per node, and a label per graph (``graph_labels``) or a
+    ``[N, 1]`` one per node."""
+    rng = np.random.default_rng(seed)
+    n = n_graphs * nodes_per_graph
+    e = n_graphs * edges_per_graph
+    src = np.concatenate([
+        rng.integers(0, nodes_per_graph, edges_per_graph) + i * nodes_per_graph
+        for i in range(n_graphs)
+    ]).astype(np.int32)
+    dst = np.concatenate([
+        rng.integers(0, nodes_per_graph, edges_per_graph) + i * nodes_per_graph
+        for i in range(n_graphs)
+    ]).astype(np.int32)
+    batch = {
+        "x": rng.standard_normal((n, d_feat)).astype(np.float32),
+        "pos": (rng.standard_normal((n, 3)) * 2.0).astype(np.float32),
+        "z": rng.integers(0, 10, n).astype(np.int32),
+        "src": src,
+        "dst": dst,
+        "node_mask": np.ones(n, np.float32),
+        "edge_mask": np.ones(e, np.float32),
+        "graph_ids": np.repeat(np.arange(n_graphs, dtype=np.int32),
+                               nodes_per_graph),
+        "labels": rng.standard_normal(n_graphs).astype(np.float32)
+        if graph_labels else rng.standard_normal((n, 1)).astype(np.float32),
+    }
+    if with_triplets:
+        te, tf = build_triplets(src, dst, n, 8, seed)
+        batch["trip_e"], batch["trip_f"] = te, tf
+        batch["trip_mask"] = np.ones(te.shape[0], np.float32)
     return batch
 
 

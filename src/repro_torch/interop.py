@@ -192,12 +192,14 @@ def lm_params_from_numpy(params: Mapping, cfg: TransformerConfig,
 def adamw_state_from_numpy(state: Mapping, device="cuda") -> Dict[str, Any]:
     """The port's AdamW state (:func:`repro_torch.optim.adamw_init`'s
     layout) holding a reference state's ``master``, ``m`` and ``v`` (float32
-    pytrees of dicts) and ``step``, given as numpy arrays."""
+    pytrees of dicts and lists) and ``step``, given as numpy arrays."""
     dev = torch.device(device)
 
     def tree(node):
         if isinstance(node, Mapping):
             return {k: tree(node[k]) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return [tree(x) for x in node]
         return torch.tensor(np.asarray(node, dtype=np.float32), device=dev)
 
     out = {name: tree(state[name]) for name in ("master", "m", "v")}

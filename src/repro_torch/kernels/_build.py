@@ -40,12 +40,15 @@ LAUNCHES: Dict[str, int] = {
     "edge_sum": 0,
     "edge_sum_lanes": 0,
     "fm_interaction": 0,
+    "fm_interaction_bwd": 0,
     "segment_sum": 0,
     "segment_sum_bf16": 0,
     "segment_sum_carry": 0,
     "segment_sum_bwd": 0,
     "segment_sum_bf16_bwd": 0,
     "moe_dispatch_bwd": 0,
+    "embedding_gather_bwd": 0,
+    "gnn_agg_bwd": 0,
     "flash_attention": 0,
     "flash_attention_int8": 0,
     "flash_attention_bwd": 0,

@@ -25,6 +25,26 @@ Both take the combine's forward op (``combine``), which carries their
 backwards: the plain forward :func:`segment_sum_ref` brings the plain
 backwards (:func:`segment_sum_bwd_ref`, ``segment_sum_ref``), any other
 the kernels (which on the CPU run those same plain versions).
+
+Two more gathers whose rows repeat, so that neither the combine's
+backward nor atomics (``index_add_``, autograd's backward of
+``index_select``, not deterministic on the card) may sum them; K5's
+gather form sums them over the rows sorted by the row they read:
+
+* :func:`embedding_gather` is the FM table lookup ``table[rows]`` (or its
+  sum over bags of ``bag`` consecutive rows, FM's linear term), whose
+  backward is K5 over ``g`` with ``seg = rows[order]`` and ``rows =
+  order // bag`` for the stable sort ``order`` of ``rows``: the whole
+  dense table gradient, 0 where no row was read.  Counted under
+  ``LAUNCHES["embedding_gather_bwd"]``.
+* :func:`gather_aggregate` is one GIN aggregation (K5's gather form over
+  the destination-sorted edges), whose backward is the same kernel over
+  the transposed graph (the edges sorted by source): ``grad_h[r] =
+  Σ_{e: src[e] = r} w[e]·g[dst[e]]``, no ``[E, D]`` buffer.  Counted
+  under ``LAUNCHES["gnn_agg_bwd"]``.
+
+Each takes the reduction it runs (``segment_sum``): the plain version
+:func:`segment_sum_ref` brings the plain backward, any other K5.
 """
 from __future__ import annotations
 
@@ -39,7 +59,8 @@ from .kernel import segment_sum_kernel
 from .ref import embedding_bag_ref, segment_sum_bwd_ref, segment_sum_ref
 
 __all__ = ["segment_sum_sorted", "embedding_bag", "pad_sorted_edges",
-           "moe_combine", "moe_dispatch"]
+           "moe_combine", "moe_dispatch", "embedding_gather",
+           "gather_aggregate"]
 
 SENTINEL = 2**30  # id of padding rows: outside every segment
 
@@ -166,3 +187,93 @@ def moe_dispatch(x: torch.Tensor, src: torch.Tensor, *,
         return fn.pad(x, (0, 0, 0, 1)).index_select(0, src)
     return _Dispatch.apply(x, src, seg_ids, torch.where(keep, dest, 0),
                            keep.float(), _plain(combine))
+
+
+class _EmbeddingGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, rows, order, bag, plain):
+        ctx.save_for_backward(rows, order)
+        ctx.shape, ctx.dtype, ctx.bag, ctx.plain = (table.shape, table.dtype,
+                                                    bag, plain)
+        return _gather(table, rows, bag)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, order = ctx.saved_tensors
+        if order is None:
+            seg, order = torch.sort(rows, stable=True)
+        else:
+            seg = rows.index_select(0, order)
+        g = g.float().reshape(g.shape[0], -1).contiguous()
+        src = order if ctx.bag == 1 else torch.div(order, ctx.bag,
+                                                   rounding_mode="floor")
+        n = ctx.shape[0]
+        if ctx.plain:
+            grad = segment_sum_ref(g, seg, n, None, src)
+        else:
+            grad = segment_sum_kernel(g, seg, n, None, src,
+                                      count="embedding_gather_bwd")
+        return grad.reshape(ctx.shape).to(ctx.dtype), None, None, None, None
+
+
+def _gather(table, rows, bag):
+    out = table.index_select(0, rows)
+    if bag == 1:
+        return out
+    return out.reshape((-1, bag) + tuple(table.shape[1:])).sum(1)
+
+
+def embedding_gather(table: torch.Tensor, rows: torch.Tensor,
+                     order: Optional[torch.Tensor] = None, *, bag: int = 1,
+                     segment_sum=segment_sum_sorted) -> torch.Tensor:
+    """``table[rows]`` (``[E, *]``), or with ``bag > 1`` its sums over
+    ``E / bag`` bags of consecutive rows, with the gradient of ``table``
+    where one is wanted: K5's gather form (``segment_sum``'s plain version
+    with ``segment_sum=segment_sum_ref``) over the rows in the stable
+    sort ``order`` of ``rows`` (made here when not given; one sort can
+    serve every table looked up by the same rows)."""
+    if not _wants_grad(table):
+        return _gather(table, rows, bag)
+    return _EmbeddingGather.apply(table, rows, order, bag,
+                                  _plain(segment_sum))
+
+
+class _GatherAggregate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, seg_ids, n, weights, rows, t_seg, t_rows, t_weights,
+                segment_sum, plain):
+        ctx.save_for_backward(t_seg, t_rows, t_weights)
+        ctx.n_in, ctx.dtype, ctx.plain = h.shape[0], h.dtype, plain
+        return segment_sum(h, seg_ids, n, weights=weights, rows=rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        t_seg, t_rows, t_weights = ctx.saved_tensors
+        g = g.float().contiguous()
+        if ctx.plain:
+            gh = segment_sum_ref(g, t_seg, ctx.n_in, t_weights, t_rows)
+        else:
+            gh = segment_sum_kernel(g, t_seg, ctx.n_in, t_weights, t_rows,
+                                    count="gnn_agg_bwd")
+        return (gh.to(ctx.dtype),) + (None,) * 9
+
+
+def gather_aggregate(h: torch.Tensor, seg_ids: torch.Tensor,
+                     n_segments: int, *, weights: Optional[torch.Tensor],
+                     rows: torch.Tensor, t_seg: torch.Tensor,
+                     t_rows: torch.Tensor,
+                     t_weights: Optional[torch.Tensor],
+                     segment_sum=segment_sum_sorted) -> torch.Tensor:
+    """``segment_sum(h, seg_ids, n_segments, weights=, rows=)`` (one GIN
+    aggregation over the destination-sorted edges) with the gradient of
+    ``h`` where one is wanted: K5's gather form over the same edges sorted
+    by their source (``t_seg``: the sources, sorted; ``t_rows``: the
+    destinations in that order; ``t_weights``: the weights in that order),
+    or its plain version with ``segment_sum=segment_sum_ref``.  The
+    weights (the edge mask) get no gradient."""
+    if not _wants_grad(h):
+        return segment_sum(h, seg_ids, n_segments, weights=weights,
+                           rows=rows)
+    return _GatherAggregate.apply(h, seg_ids, n_segments, weights, rows,
+                                  t_seg, t_rows, t_weights, segment_sum,
+                                  _plain(segment_sum))

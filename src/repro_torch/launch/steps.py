@@ -1,9 +1,10 @@
-"""Step callables per (family × cell kind): LM training, recsys and LM
-serving steps.
+"""Step callables per (family × cell kind): LM, FM and GNN training,
+recsys and LM serving steps.
 
-:func:`build_cell_step` returns, for an LM ``train`` cell, ``step(params,
+:func:`build_cell_step` returns, for a ``train`` cell, ``step(params,
 opt_state, batch) -> (params, opt_state, metrics)`` (:func:`lm_train_step`
-with the cell's overrides), and for a serving cell ``step(batch)``:
+with the cell's overrides, :func:`fm_train_step` or
+:func:`gnn_train_step`), and for a serving cell ``step(batch)``:
 
 * recsys ``serve`` runs ``forward_logits`` on ``batch["ids"]``;
   ``retrieval`` runs ``retrieval_score`` on ``batch["user_ids"]`` /
@@ -18,8 +19,7 @@ with the cell's overrides), and for a serving cell ``step(batch)``:
   the int8 KV cache.
 
 Serving steps run under ``torch.inference_mode`` on the model's device;
-the train step outside it.  The recsys and GNN train kinds wait (ROADMAP
-§1, item 7 (b)).
+the train steps outside it.  Every GNN cell is a train cell.
 """
 from __future__ import annotations
 
@@ -29,11 +29,40 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from ..configs.common import ArchSpec, ShapeCell
-from ..models import recsys, transformer
+from ..models import gnn, recsys, transformer
 from ..optim import AdamWConfig, adamw_update
 from ..optim.adamw import tree_leaves, tree_map
 
-__all__ = ["build_cell_step", "lm_train_step"]
+__all__ = ["build_cell_step", "lm_train_step", "fm_train_step",
+           "gnn_train_step"]
+
+
+def _adamw_step(model: torch.nn.Module, ocfg: AdamWConfig,
+                param_dtype: torch.dtype, loss_and_grads: Callable
+                ) -> Callable:
+    """``step(params, opt_state, batch)``: ``params`` (the model's
+    ``param_tree()``, or a restored copy of it) loaded into the model,
+    ``loss_and_grads(batch, leaves)`` over the tree's leaves, then
+    :func:`adamw_update`, whose new parameters are copied into the model.
+    Returns ``(params, opt_state, {"loss", "lr", "grad_norm"})``, the
+    metrics 0-dim tensors.  Sets the parameters' ``requires_grad``."""
+    model.requires_grad_(True)
+
+    def step(params: Any, opt_state: Dict[str, Any], batch):
+        model.load_param_tree(params)
+        tree = model.param_tree()
+        leaves = tree_leaves(tree)
+        loss, grads = loss_and_grads(batch, leaves)
+        it = iter(grads)
+        new_params, opt_state, metrics = adamw_update(
+            tree_map(lambda _: next(it), tree), opt_state, ocfg,
+            param_dtype=param_dtype)
+        with torch.no_grad():
+            for dst, src in zip(leaves, tree_leaves(new_params)):
+                dst.copy_(src)
+        return tree, opt_state, {"loss": loss, **metrics}
+
+    return step
 
 
 def lm_train_step(model: transformer.Transformer, ocfg: AdamWConfig,
@@ -54,50 +83,64 @@ def lm_train_step(model: transformer.Transformer, ocfg: AdamWConfig,
     cfg = cfg or model.cfg
     nm = cfg.n_microbatches
     cfg_mb = dataclasses.replace(cfg, n_microbatches=1)
-    model.requires_grad_(True)
 
     def loss_and_grads(tokens, labels, leaves):
         loss = transformer.train_loss(model, {"tokens": tokens,
                                               "labels": labels}, cfg_mb)
         return loss.detach(), torch.autograd.grad(loss, leaves)
 
-    def step(params: Dict[str, Any], opt_state: Dict[str, Any], batch):
-        model.load_param_tree(params)
-        tree = model.param_tree()
-        leaves = tree_leaves(tree)
+    def microbatched(batch, leaves):
         tokens = transformer._tokens(model, batch["tokens"])
         labels = transformer._tokens(model, batch["labels"])
         if nm <= 1:
-            loss, grads = loss_and_grads(tokens, labels, leaves)
-        else:
-            b = tokens.shape[0]
-            if b % nm:
-                raise ValueError(f"batch {b} is not a multiple of "
-                                 f"n_microbatches {nm}")
-            mb = b // nm
-            loss = torch.zeros((), dtype=torch.float32, device=model.device)
-            grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device) for p in leaves]
-            for i in range(nm):
-                sl = slice(i * mb, (i + 1) * mb)
-                mb_loss, mb_grads = loss_and_grads(tokens[sl], labels[sl],
-                                                   leaves)
-                loss = loss + mb_loss
-                for acc, g in zip(grads, mb_grads):
-                    acc.add_(g.float())
-                del mb_grads
-            loss = loss / nm
-            grads = [g.div_(nm) for g in grads]
-        it = iter(grads)
-        new_params, opt_state, metrics = adamw_update(
-            tree_map(lambda _: next(it), tree), opt_state, ocfg,
-            param_dtype=cfg.dtype)
-        with torch.no_grad():
-            for dst, src in zip(leaves, tree_leaves(new_params)):
-                dst.copy_(src)
-        return tree, opt_state, {"loss": loss, **metrics}
+            return loss_and_grads(tokens, labels, leaves)
+        b = tokens.shape[0]
+        if b % nm:
+            raise ValueError(f"batch {b} is not a multiple of "
+                             f"n_microbatches {nm}")
+        mb = b // nm
+        loss = torch.zeros((), dtype=torch.float32, device=model.device)
+        grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                 for p in leaves]
+        for i in range(nm):
+            sl = slice(i * mb, (i + 1) * mb)
+            mb_loss, mb_grads = loss_and_grads(tokens[sl], labels[sl],
+                                               leaves)
+            loss = loss + mb_loss
+            for acc, g in zip(grads, mb_grads):
+                acc.add_(g.float())
+            del mb_grads
+        return loss / nm, [g.div_(nm) for g in grads]
 
-    return step
+    return _adamw_step(model, ocfg, cfg.dtype, microbatched)
+
+
+def _loss_step(model, ocfg: AdamWConfig, loss_fn) -> Callable:
+    def loss_and_grads(batch, leaves):
+        loss = loss_fn(model, batch)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    return _adamw_step(model, ocfg, model.cfg.dtype, loss_and_grads)
+
+
+def fm_train_step(model: recsys.FM, ocfg: AdamWConfig) -> Callable:
+    """The reference's recsys train step on ``model``: the gradient of
+    :func:`~repro_torch.models.recsys.loss_fn` (K4 and its backward, the
+    table gradients on K5), then AdamW over ``model.param_tree()``
+    (``table``, ``lin_table``, ``bias``); ``batch`` holds ``ids`` and
+    ``labels``.  Returns ``step(params, opt_state, batch) -> (params,
+    opt_state, {"loss", "lr", "grad_norm"})``."""
+    return _loss_step(model, ocfg, recsys.loss_fn)
+
+
+def gnn_train_step(model: gnn.GIN, ocfg: AdamWConfig) -> Callable:
+    """The reference's GNN train step on ``model``: the gradient of
+    :func:`~repro_torch.models.gnn.loss_fn` (the aggregations' backwards
+    on K5 over the transposed graph), then AdamW over
+    ``model.param_tree()``.  ``batch`` raw or ``gnn.prepare_batch``'s (a
+    prepared batch sorts nothing).  The same signature as
+    :func:`fm_train_step`'s."""
+    return _loss_step(model, ocfg, gnn.loss_fn)
 
 
 def build_cell_step(spec: ArchSpec, cell: ShapeCell,
@@ -105,9 +148,14 @@ def build_cell_step(spec: ArchSpec, cell: ShapeCell,
                     ocfg: Optional[AdamWConfig] = None) -> Callable:
     """The step of ``cell`` on ``model``; ``ocfg`` (default
     ``AdamWConfig()``) for a train cell."""
+    ocfg = ocfg or AdamWConfig()
     if spec.family == "lm" and cell.kind == "train":
         cfg = dataclasses.replace(model.cfg, **cell.overrides)
-        return lm_train_step(model, ocfg or AdamWConfig(), cfg)
+        return lm_train_step(model, ocfg, cfg)
+    if spec.family == "recsys" and cell.kind == "train":
+        return fm_train_step(model, ocfg)
+    if spec.family == "gnn" and cell.kind == "train":
+        return gnn_train_step(model, ocfg)
     if spec.family == "recsys" and cell.kind == "serve":
 
         @torch.inference_mode()
@@ -143,6 +191,4 @@ def build_cell_step(spec: ArchSpec, cell: ShapeCell,
             return transformer.decode_step(model, cache, batch["tokens"])
 
         return step
-    raise NotImplementedError(
-        f"{spec.family} {cell.kind} steps are not ported yet (ROADMAP §1, "
-        "item 7 (b))")
+    raise ValueError((spec.family, cell.kind))

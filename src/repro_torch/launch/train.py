@@ -1,18 +1,22 @@
 """Training driver (the port of ``repro.launch.train``): ``--arch <id>``
-selects an LM architecture, whose reduced configuration
-(``configs.smoke.smoke_setup``: 2 layers, d=64, float32) trains through
-the fault-tolerant runtime (batches made from the step -> AdamW ->
-checkpoints every 25 steps -> auto-resume) on the card, or on the CPU
-with ``--device cpu``:
+selects an architecture, whose reduced configuration
+(``configs.smoke.smoke_setup``: an LM at 2 layers, d=64; GIN at 3 layers,
+d=16, on batched small graphs; FM at 6 fields of 100 rows, D=8; all
+float32) trains through the fault-tolerant runtime (batches made from the
+step -> AdamW -> checkpoints every 25 steps -> auto-resume) on the card,
+or on the CPU with ``--device cpu``:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b --steps 50 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch fm --device cpu
 
 It prints the reduced config's parameter count, the loss every 10 steps
-and the first and last loss, as the reference's driver does.  The
-checkpoints go to ``--ckpt`` (default ``build/train_ckpt/<arch>`` in the
-checkout); a directory that holds one resumes from its newest step, a
-reference checkpoint of the same model included.  The GNN and recsys
-archs' training waits (ROADMAP §1, item 7 (b)).
+and the first and last loss, as the reference's CLI does.  The batch
+of a step is the reference's: ``lm_token_batch(step, 2, 32, vocab)``,
+``criteo_like_batch(step, 32, ...)``, or GIN's one fixed graph batch.
+The checkpoints go to ``--ckpt`` (default ``build/train_ckpt/<arch>`` in
+the checkout); a directory that holds one resumes from its newest step,
+a reference checkpoint of the same model included.  The reference's
+archs still to port are accepted and raise, naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -25,16 +29,19 @@ _ROOT = pathlib.Path(__file__).resolve().parents[3]
 
 
 def main(argv=None) -> None:
-    from repro_torch.configs import ARCH_IDS
+    from repro_torch.configs import ARCH_IDS, PENDING
     from repro_torch.configs.smoke import smoke_setup
-    from repro_torch.data import lm_token_batch
-    from repro_torch.launch.steps import lm_train_step
+    from repro_torch.data import criteo_like_batch, lm_token_batch
+    from repro_torch.launch.steps import (fm_train_step, gnn_train_step,
+                                          lm_train_step)
+    from repro_torch.models import gnn, recsys
     from repro_torch.models import transformer as lm
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.runtime import TrainLoop, TrainLoopConfig
 
     ap = argparse.ArgumentParser(prog="train")
-    ap.add_argument("--arch", required=True, choices=ARCH_IDS)
+    ap.add_argument("--arch", required=True,
+                    choices=ARCH_IDS + list(PENDING))
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--lr", type=float, default=1e-3)
@@ -46,10 +53,28 @@ def main(argv=None) -> None:
             not torch.cuda.is_available()):
         raise RuntimeError("no CUDA device: pass --device cpu to train on "
                            "the CPU")
-    cfg, _, family = smoke_setup(args.arch)
+    cfg, batch0, family = smoke_setup(args.arch)
     ocfg = AdamWConfig(lr=args.lr, warmup_steps=10, total_steps=args.steps)
-    model = lm.init_params(cfg, seed=0, device=args.device)
-    step_fn = lm_train_step(model, ocfg)
+    if family == "lm":
+        model = lm.init_params(cfg, seed=0, device=args.device)
+        step_fn = lm_train_step(model, ocfg)
+
+        def make_batch(step):
+            return lm_token_batch(step, 2, 32, cfg.vocab)
+    elif family == "recsys":
+        model = recsys.FM(cfg, seed=0, device=args.device)
+        step_fn = fm_train_step(model, ocfg)
+
+        def make_batch(step):
+            return criteo_like_batch(step, 32, cfg.n_fields,
+                                     cfg.vocab_per_field)
+    else:
+        model = gnn.init_params(cfg, seed=0, device=args.device)
+        step_fn = gnn_train_step(model, ocfg)
+        fixed = gnn.prepare_batch(batch0, args.device)
+
+        def make_batch(step):  # GNN: the fixed full-batch graph
+            return fixed
 
     def init_state():
         params = model.param_tree()
@@ -57,9 +82,6 @@ def main(argv=None) -> None:
         print(f"[{args.arch}] reduced config: {n/1e6:.2f}M params "
               f"(family={family})")
         return params, adamw_init(params)
-
-    def make_batch(step):
-        return lm_token_batch(step, 2, 32, cfg.vocab)
 
     ckpt = args.ckpt or str(_ROOT / "build" / "train_ckpt"
                             / args.arch.replace(".", "_"))

@@ -11,19 +11,31 @@ y(x) = w0 + Σ_f w[x_f] + Σ_{f<g} ⟨v[x_f], v[x_g]⟩        (x_f categorical)
   items: FM's interaction with a candidate factorises into
   ⟨u_sum, v_c⟩ + const(c), so retrieval is one ``[N, D]`` matvec.
 
-Serving only: the parameters do not require gradients, and ``loss_fn``
-waits with training (ROADMAP).
+Training: :func:`loss_fn` is the reference's binary cross-entropy.  The
+parameters are built without ``requires_grad`` (serving); the train step
+(``launch.steps.fm_train_step``) sets it, and where a gradient is wanted
+the lookups go through :func:`~repro_torch.kernels.segment.
+embedding_gather` (its backward K5's gather form over the rows sorted by
+row id, one sort a batch for both tables: the dense table gradients,
+summed in a fixed order) and the pairwise term through
+:func:`~repro_torch.kernels.fm.fm_interaction_train` (K4 and its
+backward).  :meth:`FM.param_tree` is the reference's pytree.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Dict
+
 import torch
 from torch import nn
 
-from ..kernels.fm import fm_interaction
+from ..kernels.fm import (fm_interaction, fm_interaction_ref,
+                          fm_interaction_train)
+from ..kernels.segment import (embedding_gather, segment_sum_ref,
+                               segment_sum_sorted)
 
-__all__ = ["FMConfig", "FM", "forward_logits", "retrieval_score"]
+__all__ = ["FMConfig", "FM", "forward_logits", "loss_fn", "retrieval_score"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,23 +81,59 @@ class FM(nn.Module):
     def forward(self, ids) -> torch.Tensor:
         return forward_logits(self, ids)
 
+    def param_tree(self) -> Dict[str, torch.Tensor]:
+        """The parameters as the reference's pytree, ``{"bias",
+        "lin_table", "table"}``: the module's own tensors."""
+        return {"bias": self.bias, "lin_table": self.lin_table,
+                "table": self.table}
+
+    @torch.no_grad()
+    def load_param_tree(self, tree: Dict[str, torch.Tensor]) -> None:
+        """Copy a :meth:`param_tree`-shaped tree (a restored checkpoint's)
+        into the parameters."""
+        for name, dst in self.param_tree().items():
+            if tree[name] is not dst:
+                dst.copy_(tree[name])
+
 
 def _ids(model: FM, ids) -> torch.Tensor:
     return torch.as_tensor(ids, device=model.device).to(torch.int32)
 
 
-def forward_logits(model: FM, ids) -> torch.Tensor:
-    """ids: ``[B, F]`` per-field ids -> logits ``[B]`` float32."""
+def forward_logits(model: FM, ids, *, kernels: bool = True) -> torch.Tensor:
+    """ids: ``[B, F]`` per-field ids -> logits ``[B]`` float32.  With a
+    gradient wanted, the ops with their backwards (module docstring);
+    ``kernels=False`` runs the plain versions (K4's and K5's) on any
+    device."""
     cfg = model.cfg
     ids = _ids(model, ids)
     b, f = ids.shape
     offs = torch.arange(f, dtype=torch.int32,
                         device=ids.device) * cfg.vocab_per_field
     rows = (ids + offs[None, :]).reshape(-1)
-    v = model.table.index_select(0, rows).reshape(b, f, cfg.embed_dim)
-    lin = model.lin_table.index_select(0, rows).reshape(b, f).sum(-1)
-    pair = fm_interaction(v)
+    if torch.is_grad_enabled() and model.table.requires_grad:
+        order = torch.sort(rows, stable=True).indices
+        seg_sum = segment_sum_sorted if kernels else segment_sum_ref
+        v = embedding_gather(model.table, rows, order, segment_sum=seg_sum)
+        lin = embedding_gather(model.lin_table, rows, order, bag=f,
+                               segment_sum=seg_sum)
+        pair = fm_interaction_train(v.reshape(b, f, cfg.embed_dim),
+                                    plain=not kernels)
+    else:
+        v = model.table.index_select(0, rows).reshape(b, f, cfg.embed_dim)
+        lin = model.lin_table.index_select(0, rows).reshape(b, f).sum(-1)
+        pair = (fm_interaction if kernels else fm_interaction_ref)(v)
     return (model.bias + lin + pair).to(torch.float32)
+
+
+def loss_fn(model: FM, batch, *, kernels: bool = True) -> torch.Tensor:
+    """Binary cross-entropy on click labels, the reference's formula:
+    ``mean(max(z, 0) − z·y + log1p(exp(−|z|)))`` of the logits z."""
+    logits = forward_logits(model, batch["ids"], kernels=kernels)
+    y = torch.as_tensor(batch["labels"], device=logits.device).to(
+        torch.float32)
+    return torch.mean(torch.maximum(logits, logits.new_zeros(()))
+                      - logits * y + torch.log1p(torch.exp(-logits.abs())))
 
 
 def retrieval_score(model: FM, user_ids, cand_ids) -> torch.Tensor:

@@ -3,10 +3,10 @@ tensors (the port of ``repro.optim.adamw``).
 
 Mixed-precision contract, the reference's: model parameters may be bf16;
 the optimizer keeps a float32 master copy and float32 moments, and
-returns new parameters in the model's dtype.  A tree is a tensor or a
-dict of trees (the model's :meth:`~repro_torch.models.transformer.
-Transformer.param_tree`), walked in sorted key order, the reference's
-leaf order.  The state is ``{"master", "m", "v", "step"}``, ``step`` an
+returns new parameters in the model's dtype.  A tree is a tensor, a
+dict of trees or a list of trees (the models' ``param_tree``: GIN's
+holds lists), dicts walked in sorted key order and lists in order, the
+reference's leaf order.  The state is ``{"master", "m", "v", "step"}``, ``step`` an
 int32 0-dim tensor on the parameters' device, so that a checkpoint holds
 the reference's leaves.
 
@@ -50,9 +50,12 @@ class AdamWConfig:
 
 
 def tree_leaves(tree: Any) -> List[torch.Tensor]:
-    """A tree's leaves in sorted key order (the reference's)."""
+    """A tree's leaves in the reference's order: dict keys sorted, lists
+    in order."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for node in tree for leaf in tree_leaves(node)]
     return [tree]
 
 
@@ -61,6 +64,8 @@ def tree_map(fn: Callable, *trees: Any) -> Any:
     if isinstance(trees[0], dict):
         return {k: tree_map(fn, *(t[k] for t in trees))
                 for k in sorted(trees[0])}
+    if isinstance(trees[0], (list, tuple)):
+        return [tree_map(fn, *nodes) for nodes in zip(*trees, strict=True)]
     return fn(*trees)
 
 

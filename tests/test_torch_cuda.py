@@ -11,10 +11,14 @@ Tolerances: float32 sums taken in another order than the twin's, on
 values of order 1: rtol 1e-5 with atol 1e-6 (1e-5 for the products, whose
 sums run over more terms); relaunches must be bit-identical (no atomics).
 K1's and K2's bulk routes are held bit-equal to their simt bodies.
-K4 (fm_interaction) is held to 1e-5 of the magnitude of its cancelling
-terms, K5 (segment_sum, contiguous and gather forms, and the bf16-row
-form of the MoE combine) to rtol/atol 1e-5, and exactly on integer-valued
-inputs, whose sums do not depend on the order.  K6's int8 decode form is
+K4 (fm_interaction) and its backward are held to 1e-5 of the magnitude
+of their cancelling terms, K5 (segment_sum, contiguous and gather forms,
+and the bf16-row form of the MoE combine) to rtol/atol 1e-5, and exactly
+on integer-valued inputs, whose sums do not depend on the order (so is
+K5 as the FM lookup's gradient); K5 as GIN's aggregation backward, and
+the combine's backward's gate-weight gradient, against float64 sums
+within 2⁻²⁴ times their terms' count and magnitudes (a power-law hub sums
+thousands of terms).  K6's int8 decode form is
 held to its plain version (dequantise, then attend) at K6's decode
 tolerances, in bf16 to the bits of K6 over a dequantised copy, and its
 dequantisation element for element.  K7 (sim_messages and sim_push, float64) is held bit-equal to
@@ -2541,9 +2545,7 @@ def _combine_bwd_case(rng, t, k, e_pad, cap, d, dtype, device, case="sorted"):
         pick = rng.choice(free, size=min(free.size, 50), replace=False)
         slot[pick] = rng.choice(np.flatnonzero(keep), size=pick.size)
     eo = rng.standard_normal((n, d)).astype(np.float32)
-    # g at 1/sqrt(D), as a loss's gradient shrinks with the width: each dot
-    # of order 1, where rtol / atol 1e-5 holds float32 sums of D terms
-    g = (rng.standard_normal((t, d)) / np.sqrt(d)).astype(np.float32)
+    g = rng.standard_normal((t, d)).astype(np.float32)
     out = [torch.from_numpy(a).to(device) for a in (g, w, rows, seg, slot)]
     return [torch.from_numpy(eo).to(device=device, dtype=dtype), *out]
 
@@ -2568,7 +2570,9 @@ def _combine_bwd_case(rng, t, k, e_pad, cap, d, dtype, device, case="sorted"):
 def test_moe_combine_bwd_matches_plain(cuda_device, t, k, d, case, dtype):
     """The combine's backward against its plain version (index_add_ and a
     row-wise dot in float32): grad_data bit-equal (one term a row),
-    grad_w within rtol / atol 1e-5 (float32 dots in another order), a
+    grad_w against the dots in float64, each within 4·2⁻²⁴·D·Σ_d
+    |eo[rows[e], d]·g[seg[e], d]| (a float32 sum of D terms in any order
+    errs by at most about D roundings of the terms' magnitude), a
     relaunch bit-identical, a launch counted under its dtype's name and
     under the body that ran (``stream`` where D is a multiple of 16 bytes,
     else ``warp_row``), both outputs bit-equal to the ``warp_row`` body's
@@ -2610,8 +2614,11 @@ def test_moe_combine_bwd_matches_plain(cuda_device, t, k, d, case, dtype):
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
     assert torch.equal(got[1], want_eo)
     assert torch.equal(got[0], old[0]) and torch.equal(got[1], old[1])
-    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
-                               rtol=1e-5, atol=1e-5)
+    terms = (eo.double().index_select(0, rows)
+             * g.double().index_select(0, seg.long()))
+    err = (got[0].double() - terms.sum(-1)).abs()
+    bound = 4 * 2.0**-24 * d * terms.abs().sum(-1)
+    assert bool((err <= bound).all()), float((err - bound).max())
 
 
 @pytest.mark.cuda
@@ -2694,3 +2701,273 @@ def test_lm_training_on_the_card_matches_the_cpu(cuda_device, arch):
     _, again = grads(card, dataclasses.replace(cfg, remat=False))
     for g, w in zip(got, again):
         assert _rel_l1(g, w) <= 1e-6
+
+
+# --------------------------------------------------------------------------- #
+# FM and GIN training: K4's backward, K5 as the embedding and aggregation
+# backwards
+# --------------------------------------------------------------------------- #
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 10, 40])
+@pytest.mark.parametrize("f", [6, 39])
+@pytest.mark.parametrize("b", [1, 7, 4096])
+def test_fm_interaction_bwd_matches_plain(cuda_device, b, f, d):
+    """K4's backward against its plain version: within 1e-5 of the
+    magnitude of the terms it subtracts (``|dy|·(Σ_g |v| + |v|)``), every
+    element written (``torch.empty`` hands out NaN), a relaunch
+    bit-identical, one launch counted each."""
+    from repro_torch.kernels.fm import (fm_interaction_bwd_kernel,
+                                        fm_interaction_bwd_ref)
+
+    rng = np.random.default_rng(b * 100 + f * 10 + d)
+    v = torch.from_numpy(rng.standard_normal((b, f, d)).astype(
+        np.float32)).to(cuda_device)
+    dy = torch.from_numpy(rng.standard_normal(b).astype(np.float32)).to(
+        cuda_device)
+    before = LAUNCHES["fm_interaction_bwd"]
+    with _empty_is_nan():
+        got = fm_interaction_bwd_kernel(v, dy)
+        again = fm_interaction_bwd_kernel(v, dy)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fm_interaction_bwd"] == before + 2
+    assert torch.equal(got, again)
+    want = fm_interaction_bwd_ref(v.double(), dy.double())
+    scale = dy.double().abs()[:, None, None] * (
+        v.double().abs().sum(1, keepdim=True) + v.double().abs())
+    assert bool(((got.double() - want).abs() <= 1e-5 * scale).all())
+
+
+def _hot_rows(rng, hot, at_chunk, n_rows, chunk, multiple):
+    """Row ids of a lookup, a ``multiple`` of them: ``hot`` rows of one id
+    among random others; with ``at_chunk`` the hot id's run starts on a
+    chunk's first row of the sorted order."""
+    below = 3 * chunk if at_chunk else 3 * chunk + 517
+    above = 5000 + (-(below + hot + 5000)) % multiple
+    hot_id = n_rows // 2
+    rows = np.concatenate([rng.integers(0, hot_id, below),
+                           np.full(hot, hot_id),
+                           rng.integers(hot_id + 1, n_rows, above)])
+    return rng.permutation(rows).astype(np.int32), hot_id
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hot,at_chunk,d", [
+    (2048, False, 10), (12000, False, 10), (12000, True, 10),
+    (2048, False, 1), (12000, True, 1)])
+def test_embedding_gather_bwd_on_k5_is_exact(cuda_device, hot, at_chunk, d):
+    """The FM lookup's gradient on K5's gather form (rows sorted by id),
+    on integer-valued gradients whose sums are exact in any order: the
+    table gradient (D 10) and the linear table's over bags of 6 (D 1)
+    bit-equal to the plain version, a hot id over 2 to 12 chunks, its run
+    starting on a chunk's first row or not; a relaunch bit-identical,
+    counted under ``embedding_gather_bwd`` with its carries, never under
+    K5's own name."""
+    from repro_torch.kernels.segment import (
+        CHUNK_ROWS, FORMS, embedding_gather, segment_sum_ref)
+
+    rng = np.random.default_rng(hot + d + at_chunk)
+    n_rows, bag = 40_000, (1 if d > 1 else 6)
+    rows, hot_id = _hot_rows(rng, hot, at_chunk, n_rows, CHUNK_ROWS, bag)
+    shape = (n_rows, d) if d > 1 else (n_rows,)
+    table = torch.zeros(shape, device=cuda_device, requires_grad=True)
+    rows_t = torch.from_numpy(rows).to(cuda_device)
+    g = torch.from_numpy(rng.integers(-8, 8, (rows.size // bag,)
+                                      + shape[1:]).astype(np.float32)).to(
+        cuda_device)
+    grads = []
+    for plain in (False, False, True):
+        before, forms = dict(LAUNCHES), dict(FORMS)
+        kw = dict(segment_sum=segment_sum_ref) if plain else {}
+        with _empty_is_nan():
+            out = embedding_gather(table, rows_t, bag=bag, **kw)
+            (grad,) = torch.autograd.grad(out, [table], g)
+        torch.cuda.synchronize()
+        launched = LAUNCHES["embedding_gather_bwd"] - before[
+            "embedding_gather_bwd"]
+        assert launched == (0 if plain else 1)
+        assert LAUNCHES["segment_sum"] == before["segment_sum"]
+        if not plain:
+            assert FORMS["gather"] - forms["gather"] == 1
+            assert (LAUNCHES["segment_sum_carry"]
+                    - before["segment_sum_carry"]) == 1
+        grads.append(grad)
+    assert torch.equal(grads[0], grads[1])
+    assert torch.equal(grads[0], grads[2])
+    assert float(grads[0].abs().sum()) > 0
+    assert int((rows == hot_id).sum()) == hot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_gin_aggregation_bwd_matches_plain(cuda_device, masked):
+    """One GIN aggregation's gradient on K5's gather form over the
+    transposed graph against the same sums in float64: each row within
+    2⁻²⁴·n·Σ|terms| for its n terms (a float32 sum in any order errs by
+    at most n - 1 roundings of the terms' magnitudes; a power-law hub
+    sums thousands), the plain version (index_add_) likewise; a relaunch
+    bit-identical, counted under ``gnn_agg_bwd``; the forward stays K5's
+    own launch."""
+    from repro_torch.data import make_gnn_batch
+    from repro_torch.kernels.segment import (gather_aggregate,
+                                             segment_sum_ref)
+    from repro_torch.models import gnn
+
+    b = make_gnn_batch(power_law_graph(20_000, seed=2), 4, n_classes=2)
+    rng = np.random.default_rng(masked)
+    if masked:
+        b["edge_mask"] = (rng.random(b["src"].shape[0]) > 0.3).astype(
+            np.float32)
+    p = gnn.prepare_batch(b, cuda_device)
+    h = torch.from_numpy(rng.standard_normal((20_000, 64)).astype(
+        np.float32)).to(cuda_device).requires_grad_(True)
+    g = torch.from_numpy(rng.standard_normal((20_000, 64)).astype(
+        np.float32)).to(cuda_device)
+    view = dict(weights=p["agg_w"], rows=p["agg_src"], t_seg=p["aggT_seg"],
+                t_rows=p["aggT_rows"], t_weights=p["aggT_w"])
+    got = []
+    for plain in (False, False, True):
+        before = dict(LAUNCHES)
+        kw = dict(segment_sum=segment_sum_ref) if plain else {}
+        out = gather_aggregate(h, p["agg_dst"], 20_000, **view, **kw)
+        (gh,) = torch.autograd.grad(out, [h], g)
+        torch.cuda.synchronize()
+        assert LAUNCHES["gnn_agg_bwd"] - before["gnn_agg_bwd"] == (
+            0 if plain else 1)
+        assert LAUNCHES["segment_sum"] - before["segment_sum"] == (
+            0 if plain else 1)
+        got.append(gh)
+    assert torch.equal(got[0], got[1])
+    t_w = p["aggT_w"]
+    w64 = None if t_w is None else t_w.double()
+    want = segment_sum_ref(g.double(), p["aggT_seg"], 20_000, w64,
+                           p["aggT_rows"])
+    mag = segment_sum_ref(g.double().abs(), p["aggT_seg"], 20_000,
+                          None if w64 is None else w64.abs(),
+                          p["aggT_rows"])
+    n = torch.bincount(p["aggT_seg"].long(), minlength=20_000).double()
+    bound = 2.0**-24 * n[:, None] * mag
+    for gh in (got[0], got[2]):
+        assert bool(((gh.double() - want).abs() <= bound).all())
+
+
+class _FailingLib:
+    """A kernel library whose every C entry returns a CUDA error code."""
+
+    def __init__(self, real):
+        self._real = real
+
+    def cuda_error_string(self, err):
+        return b"injected failure"
+
+    def __getattr__(self, name):
+        entry = getattr(self._real, name)
+
+        class _Entry:
+            argtypes = entry.argtypes
+            restype = entry.restype
+
+            def __call__(self, *args):
+                return 999
+
+        return _Entry()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["fm_interaction_train", "embedding_gather",
+                                "gather_aggregate"])
+def test_training_ops_raise_when_the_kernel_fails(cuda_device, op,
+                                                  monkeypatch):
+    """No fallback: with the kernel's C entry returning an error, the
+    training op's backward on a CUDA tensor raises, and hands back no
+    plain result."""
+    import repro_torch.kernels.fm.kernel as fm_kernel
+    import repro_torch.kernels.segment.kernel as seg_kernel
+    from repro_torch.kernels.fm import fm_interaction_train
+    from repro_torch.kernels.segment import (embedding_gather,
+                                             gather_aggregate)
+
+    rng = np.random.default_rng(0)
+    if op == "fm_interaction_train":
+        real = fm_kernel._lib()
+        x = torch.from_numpy(rng.standard_normal((5, 4, 3)).astype(
+            np.float32)).to(cuda_device).requires_grad_(True)
+        out = fm_interaction_train(x)
+        monkeypatch.setattr(fm_kernel, "_lib", lambda: _FailingLib(real))
+    else:
+        real = seg_kernel._lib()
+        x = torch.from_numpy(rng.standard_normal((50, 8)).astype(
+            np.float32)).to(cuda_device).requires_grad_(True)
+        ids = torch.from_numpy(rng.integers(0, 50, 200).astype(
+            np.int32)).to(cuda_device)
+        if op == "embedding_gather":
+            out = embedding_gather(x, ids)
+        else:
+            seg, order = torch.sort(ids, stable=True)
+            src = torch.from_numpy(rng.integers(0, 50, 200).astype(
+                np.int32)).to(cuda_device)[order]
+            t_seg, t_order = torch.sort(src, stable=True)
+            out = gather_aggregate(x, seg, 50, weights=None, rows=src,
+                                   t_seg=t_seg, t_rows=seg[t_order],
+                                   t_weights=None)
+        monkeypatch.setattr(seg_kernel, "_lib", lambda: _FailingLib(real))
+    with pytest.raises(RuntimeError, match="injected failure"):
+        torch.autograd.grad(out.sum(), [x])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["fm", "gin-tu"])
+def test_fm_and_gin_training_on_the_card_matches_the_cpu(cuda_device, arch):
+    """The reduced config's train step (``launch.steps``) on the card and
+    on the CPU from the same state: every gradient leaf within relative
+    L1 1e-4, the parameters after three steps too; K4, its backward and
+    K5's embedding backward launched once a step each (FM: two K5 launches,
+    the table and the linear table), or K5 forward and backward once a
+    layer (GIN)."""
+    from repro_torch.configs.smoke import smoke_setup
+    from repro_torch.data import criteo_like_batch
+    from repro_torch.launch.steps import fm_train_step, gnn_train_step
+    from repro_torch.models import gnn, recsys
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, batch0, family = smoke_setup(arch)
+    ocfg = AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=10)
+    models, steps = {}, {}
+    for dev in (cuda_device, torch.device("cpu")):
+        if family == "recsys":
+            m = recsys.FM(cfg, seed=0, device=dev)
+            steps[dev.type] = fm_train_step(m, ocfg)
+        else:
+            m = gnn.init_params(cfg, seed=0, device=dev)
+            steps[dev.type] = gnn_train_step(m, ocfg)
+        models[dev.type] = m
+    for dst, src in zip(tree_leaves(models["cpu"].param_tree()),
+                        tree_leaves(models["cuda"].param_tree())):
+        with torch.no_grad():
+            dst.copy_(src.cpu())
+    states = {k: adamw_init(m.param_tree()) for k, m in models.items()}
+    for i in range(3):
+        batch = (criteo_like_batch(i, 32, cfg.n_fields, cfg.vocab_per_field)
+                 if family == "recsys" else batch0)
+        before = dict(LAUNCHES)
+        _, states["cuda"], got = steps["cuda"](
+            models["cuda"].param_tree(), states["cuda"], batch)
+        torch.cuda.synchronize()
+        delta = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        if family == "recsys":
+            assert delta["fm_interaction"] == delta["fm_interaction_bwd"] == 1
+            assert delta["embedding_gather_bwd"] == 2
+        else:
+            assert delta["segment_sum"] == delta["gnn_agg_bwd"] == (
+                cfg.n_layers)
+        _, states["cpu"], want = steps["cpu"](
+            models["cpu"].param_tree(), states["cpu"], batch)
+        np.testing.assert_allclose(float(got["loss"]), float(want["loss"]),
+                                   rtol=1e-4)
+        for a, b in zip(tree_leaves(states["cuda"]["m"]),
+                        tree_leaves(states["cpu"]["m"])):
+            assert _rel_l1(a.cpu(), b) <= 1e-4
+    for a, b in zip(tree_leaves(models["cuda"].param_tree()),
+                    tree_leaves(models["cpu"].param_tree())):
+        assert _rel_l1(a.detach().cpu(), b.detach()) <= 1e-4

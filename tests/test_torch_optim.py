@@ -15,7 +15,10 @@ schedules at steps 0-200 and ``clip_by_global_norm`` are held to the
 reference within one float32 rounding (rtol 3e-7: ``cos`` and ``pow``
 are two libraries' float32 functions, the global norm a float32 sum in
 another order).  The reference's own optimizer tests are ported as
-they are.
+they are.  Gradient compression (``optim.compression``) is held to the
+reference exactly: int8 ``q`` and ``scale`` equal (one float32 division
+each, rounding half to even), the error-feedback top-k's sent entries
+and residual equal, and ``sent + residual == g + r`` bit for bit.
 """
 import dataclasses
 
@@ -26,10 +29,13 @@ import pytest
 import torch
 
 from repro.optim import adamw as ref_adamw
+from repro.optim import compression as ref_compression
 from repro_torch.interop import adamw_state_from_numpy
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                clip_by_global_norm, cosine_schedule,
                                linear_warmup)
+from repro_torch.optim import (compress_int8, decompress_int8,
+                               ef_topk_compress, ef_topk_init)
 from repro_torch.optim.adamw import _lr_at
 
 torch.set_num_threads(1)
@@ -161,3 +167,52 @@ def test_adamw_state_from_numpy_keeps_the_reference_layout():
     for name in ("master", "m", "v"):
         jax.tree.map(lambda a, b: torch.equal(a, b) or pytest.fail(name),
                      state[name], ours[name])
+
+
+# --------------------------------------------------------------------------- #
+# gradient compression
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("scale", [1.0, 1e-4, 0.0])
+def test_compress_int8_matches_reference(scale):
+    rng = np.random.default_rng(7)
+    x = (rng.standard_normal((33, 17)) * scale).astype(np.float32)
+    x[0, :3] = [0.5, -0.5, 1.5]  # ties of round-half-to-even
+    q_ref, s_ref = ref_compression.compress_int8(jnp.asarray(x))
+    q, s = compress_int8(torch.from_numpy(x))
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    assert np.array_equal(q.numpy(), np.asarray(q_ref))
+    assert s.numpy().tobytes() == np.asarray(s_ref).tobytes()
+    deq = decompress_int8(q, s)
+    np.testing.assert_array_equal(
+        deq.numpy(), np.asarray(ref_compression.decompress_int8(q_ref,
+                                                                s_ref)))
+    assert float((deq - torch.from_numpy(x)).abs().max()) <= float(s) + 1e-7
+
+
+@pytest.mark.parametrize("k_frac", [0.1, 0.5, 1e-4])
+def test_ef_topk_matches_reference_and_keeps_the_error(k_frac):
+    """Two rounds of error-feedback top-k over a tree of dicts and lists
+    (GIN's pytree shape), the second fed the first's residual: the sent
+    entries and the residual equal to the reference's, ``sent +
+    residual == g + r``, ties at the threshold all sent."""
+    rng = np.random.default_rng(8)
+    grads = [{"a": rng.standard_normal(256).astype(np.float32),
+              "b": [rng.standard_normal((7, 9)).astype(np.float32)]}
+             for _ in range(2)]
+    grads[0]["a"][:40] = 3.0  # a tie at the threshold
+    ref_state = ref_compression.ef_topk_init(jax.tree.map(jnp.asarray,
+                                                          grads[0]))
+    state = ef_topk_init(_torch(grads[0]))
+    for g in grads:
+        sent_ref, ref_state = ref_compression.ef_topk_compress(
+            jax.tree.map(jnp.asarray, g), ref_state, k_frac=k_frac)
+        r_before = state.residual
+        sent, state = ef_topk_compress(_torch(g), state, k_frac=k_frac)
+        for got, want in ((sent, sent_ref), (state.residual,
+                                             ref_state.residual)):
+            jax.tree.map(lambda a, b: np.testing.assert_array_equal(
+                a.numpy(), np.asarray(b)), got, want)
+        jax.tree.map(lambda s_, r, g_, r0: np.testing.assert_array_equal(
+            (s_ + r).numpy(), (torch.from_numpy(g_) + r0).numpy()),
+            sent, state.residual, g, r_before)
+    assert float((sent["a"] == 3.0).sum()) in (0.0, 40.0)

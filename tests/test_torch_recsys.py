@@ -117,8 +117,11 @@ def test_serve_and_retrieval_steps(pair):
     q = {"user_ids": batch["ids"][0, :7], "cand_ids": np.arange(50)}
     assert torch.equal(retrieval(q), recsys.retrieval_score(
         model, q["user_ids"], q["cand_ids"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_cell_step(spec, spec.cells["train_batch"], model)
+    # the train kind is a step now; a kind the family has not raises
+    assert callable(build_cell_step(spec, spec.cells["train_batch"], model))
+    with pytest.raises(ValueError, match="prefill"):
+        build_cell_step(spec, dataclasses.replace(spec.cells["serve_p99"],
+                                                  kind="prefill"), model)
 
 
 def test_fm_init_is_seeded():

@@ -148,8 +148,8 @@ def test_smoke_setup_matches_reference():
         assert cfg == _port_cfg(ref_cfg)
         for k in ("tokens", "labels"):
             assert np.array_equal(batch[k], np.asarray(ref_batch[k]))
-    with pytest.raises(NotImplementedError, match="7 \\(b\\)"):
-        smoke_setup("fm")
+    with pytest.raises(NotImplementedError, match="7 \\(c\\)"):
+        smoke_setup("meshgraphnet")
 
 
 def test_train_cells_match_reference():
@@ -545,5 +545,12 @@ def test_train_cli_wants_a_card_unless_told_otherwise(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         port_train.main(["--arch", "qwen1.5-0.5b", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="7 \\(b\\)"):
-        port_train.main(["--arch", "fm", "--steps", "1", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="7 \\(c\\)"):
+        port_train.main(["--arch", "meshgraphnet", "--steps", "1",
+                         "--device", "cpu"])
+    from repro_torch.models import gnn
+
+    with pytest.raises(NotImplementedError, match="7 \\(d\\)"):
+        gnn.loss_fn(gnn.init_params(gnn.GNNConfig(
+            name="g", arch="gin", n_layers=1, d_hidden=4, d_feat=3),
+            device="cpu"), {"src_slot": np.zeros(3, np.int32)})
