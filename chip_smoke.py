@@ -72,23 +72,25 @@ Phases, each printed on its own lines (any failure exits non-zero):
    ``criteo_like_batch(10 + step, ...)``), 4 AdamW steps through
    ``launch.steps``' train kind (dense float32 master, m and v: 4.7 GB),
    the counters zeroed just before.  Gates: per step K4 and its backward
-   (``fm_interaction_bwd``) launched once each, K5's gather form twice
-   (the table's and the linear table's gradients, counted as
-   ``embedding_gather_bwd``) with their two carries; finite losses; at
+   (``fm_interaction_bwd``) launched once each, the tables' gradient
+   (``embedding_gather_bwd``, ``csrc/embedding_bwd.cu``) twice (the table
+   and the linear table), no K5 launch and no carry; finite losses; at
    step 0's batch every gradient leaf within relative L1 1e-4 of the plain
-   versions' (``loss_fn(kernels=False)``: K4's and K5's plain versions
-   and their backwards), the table's and the linear table's gradients
+   versions' (``loss_fn(kernels=False)``: K4's plain version and the
+   plain backwards), the table's and the linear table's gradients
    bit-equal on a rerun; K4's backward against its plain version on the
-   step's gather, relative L1 <= 1e-5 and a bit-identical relaunch; K5 as
-   the table's gradient (2,555,904 rows into 39,000,000 x 10) the same.
-   Prints the losses, the step walls and samples/s, the device memory
-   peak, and a torch.profiler split of one more step (gather, K4, K4's
-   backward, K5, the sort, AdamW read from a trace of AdamW alone over one
-   step's gradients, the rest).  Rows
-   for the kernels line: ``fm_interaction_bwd`` (no library call) and
-   ``embedding_gather_bwd`` (``zeros().index_add_`` of the same rows as
-   the library call; beside it the linear table's launch and a
-   ``torch.zeros`` of the output alone).
+   step's gather, relative L1 <= 1e-5 and a bit-identical relaunch; the
+   tables' gradient (2,555,904 rows into 39,000,000 x 10, and by bags of
+   39 into 39,000,000) the same.  Prints the losses, the step walls and
+   samples/s, the device memory peak, and a torch.profiler split of one
+   more step (gather, K4, K4's backward, the tables' gradient, K5, the
+   sort, AdamW read from a trace of AdamW alone over one step's
+   gradients, the rest).  Rows for the kernels line:
+   ``fm_interaction_bwd`` (no library call) and ``embedding_gather_bwd``
+   (``zeros().index_add_`` of the same rows as the library call; beside
+   it the linear table's launch and its library call, K5's gather form
+   over the same rows at both widths, timed in turns with the kernel, and
+   a ``torch.zeros`` of the output alone).
 10. GIN forward: ``gin-tu`` at the ``ogb_products`` cell on a synthetic
    ``power_law_graph`` (2,449,029 nodes, alpha chosen to stay under the
    cell's 61,859,328 edges, padded to it with edge_mask-0 edges and to
@@ -3020,7 +3022,7 @@ def fm_training(args, torch, dev, timer, sync, fm_model, spec):
     from repro_torch.kernels.fm import (fm_interaction_bwd_kernel,
                                         fm_interaction_bwd_ref)
     from repro_torch.kernels.segment import (
-        FORMS, segment_sum_kernel, segment_sum_ref)
+        FORMS, embedding_bwd_kernel, embedding_bwd_ref, segment_sum_kernel)
     from repro_torch.launch.steps import build_cell_step
     from repro_torch.models import recsys
     from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
@@ -3038,7 +3040,7 @@ def fm_training(args, torch, dev, timer, sync, fm_model, spec):
     hot = np.bincount(batches[0]["ids"][:, 0]).max()
     print(f"fm train_batch: {n_steps} host batches of {b} x {nf} made in "
           f"{time.perf_counter() - t0:.1f} s; field 0's hottest id in "
-          f"{hot} rows ({hot / 1024:.1f} K5 chunks)")
+          f"{hot} rows")
     ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=n_steps)
     step = build_cell_step(spec, cell, fm_model, ocfg)
     tree = fm_model.param_tree()
@@ -3059,7 +3061,7 @@ def fm_training(args, torch, dev, timer, sync, fm_model, spec):
         losses.append(float(metrics["loss"]))
         delta = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
         want = {"fm_interaction": 1, "fm_interaction_bwd": 1,
-                "embedding_gather_bwd": 2, "segment_sum_carry": 2}
+                "embedding_gather_bwd": 2, "segment_sum_carry": 0}
         if on_card and any(delta[k] != v for k, v in want.items()):
             fail(f"FM train step {i}: launches {delta}, want {want}")
     launches = dict(LAUNCHES)
@@ -3068,7 +3070,7 @@ def fm_training(args, torch, dev, timer, sync, fm_model, spec):
             else 0.0)
     if not all(np.isfinite(losses)):
         fail(f"FM training losses not finite: {losses}")
-    if on_card and forms != {"contiguous": 0, "gather": 2 * n_steps}:
+    if on_card and forms != {"contiguous": 0, "gather": 0}:
         fail(f"FM training's K5 launches by form {forms}")
     med = float(np.median(walls))
     print(f"FM train steps (B={b}): losses {[round(x, 6) for x in losses]}; "
@@ -3076,8 +3078,8 @@ def fm_training(args, torch, dev, timer, sync, fm_model, spec):
           f"{med * 1e3:.3f} ms, {b / med:.0f} samples/s); launches "
           f"fm_interaction {launches['fm_interaction']}, fm_interaction_bwd "
           f"{launches['fm_interaction_bwd']}, embedding_gather_bwd "
-          f"{launches['embedding_gather_bwd']} (carry "
-          f"{launches['segment_sum_carry']}, by form {forms}); device "
+          f"{launches['embedding_gather_bwd']} (K5's carry "
+          f"{launches['segment_sum_carry']}, K5 by form {forms}); device "
           f"memory peak {peak:.3f} GB above the {held:.3f} GB held")
 
     # checks, off the counted steps: the gradients with the kernels against
@@ -3134,55 +3136,73 @@ def fm_training(args, torch, dev, timer, sync, fm_model, spec):
     }
     del gv2, gv_plain
 
-    # K5 as the table's gradient: grad_v's rows summed by row id
+    # the tables' gradient on its kernel: grad_v's rows (and dy by bags of
+    # nf, the linear table's) summed by row id
     g = gv.reshape(-1, dim)
+    g_lin = dy[:, None]
     seg, order = torch.sort(rows, stable=True)
-
-    def k5(data, src):
-        return segment_sum_kernel(data, seg, n_rows, None, src,
-                                  count="embedding_gather_bwd")
-
-    e_t, e_t2, e_plain = (k5(g, order), k5(g, order),
-                          segment_sum_ref(g, seg, n_rows, None, order))
-    e5, same5 = rel_l1(e_t, e_plain), torch.equal(e_t, e_t2)
-    print(f"K5 as the table's gradient ({g.shape[0]} rows into {n_rows} x "
-          f"{dim}): rel L1 {e5:.3e}, bit-identical relaunch {same5}")
-    if not (e5 <= REL_L1 and same5):
-        fail("K5 as the embedding backward against its plain version")
-    err_t = float((e_t - e_plain).abs().max())
-    del e_t, e_t2, e_plain
+    errs = {}
+    for what, data, bag in (("table", g, 1), ("linear table", g_lin, nf)):
+        got, again, want = (embedding_bwd_kernel(data, seg, order, n_rows, bag),
+                            embedding_bwd_kernel(data, seg, order, n_rows, bag),
+                            embedding_bwd_ref(data, seg, order, n_rows, bag))
+        err, same = rel_l1(got, want), torch.equal(got, again)
+        errs[what] = float((got - want).abs().max())
+        print(f"the {what}'s gradient ({seg.numel()} rows, bag {bag}, into "
+              f"{n_rows} x {data.shape[1]}): rel L1 {err:.3e}, bit-identical "
+              f"relaunch {same}")
+        if not (err <= REL_L1 and same):
+            fail(f"the {what}'s gradient against its plain version")
+        del got, again, want
     rows_l = rows.long()
+    src_l = torch.div(order, nf, rounding_mode="floor")
+    dy_rep = dy.repeat_interleave(nf)
     # grad_v's rows, the sorted ids (int32) and the order (int64) read,
     # the dense gradient written once
     eb_ms, eb_by = bound_ms(g.numel() * 4 + seg.numel() * 12
                             + n_rows * dim * 4, float(g.numel()))
-    src_l = torch.div(order, nf, rounding_mode="floor")
     lb_ms, _ = bound_ms(b * 4 + seg.numel() * 12 + n_rows * 4,
                         float(seg.numel()))
+    # the kernel and K5's gather form that it replaced, in turns
+    turns = least(timer, {
+        "ms": lambda: embedding_bwd_kernel(g, seg, order, n_rows, 1),
+        "k5_ms": lambda: segment_sum_kernel(g, seg, n_rows, None, order),
+        "lin_ms": lambda: embedding_bwd_kernel(g_lin, seg, order, n_rows, nf),
+        "k5_lin_ms": lambda: segment_sum_kernel(g_lin, seg, n_rows, None,
+                                                src_l)}, 10)
     emb_row = {
         "name": "embedding_gather_bwd", "route": "cuda",
-        "source": "src/repro_torch/csrc/segment_sum.cu",
-        "replaces": "src/repro/kernels/segment/kernel.py:50",
-        "launches": launches["embedding_gather_bwd"], "form": "gather",
-        "max_abs_err": err_t,
-        "ms": timer(lambda: k5(g, order), 10),
-        "plain_ms": timer(lambda: segment_sum_ref(g, seg, n_rows, None,
-                                                  order), 3),
+        "source": "src/repro_torch/csrc/embedding_bwd.cu",
+        "replaces": "src/repro/models/recsys.py:77",
+        "launches": launches["embedding_gather_bwd"],
+        "max_abs_err": errs["table"],
+        "ms": turns["ms"][0],
+        "plain_ms": timer(lambda: embedding_bwd_ref(g, seg, order, n_rows),
+                          3),
         "bound_ms": eb_ms, "bound_by": eb_by,
         "library_ms": (timer(lambda: torch.zeros(
             (n_rows, dim), device=dev).index_add_(0, rows_l, g), 10)
             if on_card else None),
         # the linear table's launch: dy's rows by bag, D = 1
-        "lin_ms": timer(lambda: k5(dy[:, None], src_l), 10),
-        "lin_bound_ms": lb_ms,
+        "lin_ms": turns["lin_ms"][0], "lin_bound_ms": lb_ms,
+        "lin_max_abs_err": errs["linear table"],
+        "lin_library_ms": (timer(lambda: torch.zeros(
+            n_rows, device=dev).index_add_(0, rows_l, dy_rep), 10)
+            if on_card else None),
+        "k5_ms": turns["k5_ms"][0], "k5_lin_ms": turns["k5_lin_ms"][0],
         "zeros_ms": timer(lambda: torch.zeros((n_rows, dim), device=dev), 10),
+        "turns_ms": {k: [round(x, 4) for x in v] for k, v in turns.items()},
         "shape": [int(g.shape[0]), dim, n_rows],
     }
-    print(f"K5 as the table's gradient: {emb_row['ms']:.4f} ms (bound "
-          f"{eb_ms:.4f}; a torch.zeros of the output alone "
-          f"{emb_row['zeros_ms']:.4f}); the linear table's "
-          f"{emb_row['lin_ms']:.4f} ms (bound {lb_ms:.4f})")
-    del g, gv, v, seg, order, src_l, rows_l
+    print(f"the tables' gradient: {emb_row['ms']:.4f} ms (bound "
+          f"{eb_ms:.4f}; K5's gather form {emb_row['k5_ms']:.4f}; "
+          f"zeros().index_add_ {emb_row['library_ms']}; a torch.zeros of "
+          f"the output alone {emb_row['zeros_ms']:.4f}); the linear "
+          f"table's {emb_row['lin_ms']:.4f} ms (bound {lb_ms:.4f}; K5 "
+          f"{emb_row['k5_lin_ms']:.4f}; library "
+          f"{emb_row['lin_library_ms']}); least / greatest of two turns "
+          f"{emb_row['turns_ms']}")
+    del g, g_lin, gv, v, seg, order, src_l, rows_l, dy_rep
 
     split = None
     if on_card:
@@ -3191,6 +3211,7 @@ def fm_training(args, torch, dev, timer, sync, fm_model, spec):
         split, rest = _split_by_kernel(stats, (
             ("k4_bwd", ("fm_interaction_bwd",)),
             ("k4", ("fm_interaction",)),
+            ("emb_bwd", ("embedding_bwd",)),
             ("k5", ("segment_sum",)),
             ("gather", ("indexselect", "index_select", "gather")),
             ("sort", ("sort",))))

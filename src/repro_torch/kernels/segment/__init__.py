@@ -4,3 +4,4 @@ from .ops import (  # noqa: F401
 from .ref import embedding_bag_ref, segment_sum_bwd_ref, segment_sum_ref  # noqa: F401
 from .kernel import (  # noqa: F401
     CHUNK_ROWS, FORMS, segment_sum_kernel)
+from .embedding_bwd import embedding_bwd_kernel, embedding_bwd_ref  # noqa: F401

@@ -28,14 +28,16 @@ the kernels (which on the CPU run those same plain versions).
 
 Two more gathers whose rows repeat, so that neither the combine's
 backward nor atomics (``index_add_``, autograd's backward of
-``index_select``, not deterministic on the card) may sum them; K5's
-gather form sums them over the rows sorted by the row they read:
+``index_select``, not deterministic on the card) may sum them; their
+backwards sum them over the rows sorted by the row they read:
 
 * :func:`embedding_gather` is the FM table lookup ``table[rows]`` (or its
   sum over bags of ``bag`` consecutive rows, FM's linear term), whose
-  backward is K5 over ``g`` with ``seg = rows[order]`` and ``rows =
-  order // bag`` for the stable sort ``order`` of ``rows``: the whole
-  dense table gradient, 0 where no row was read.  Counted under
+  backward is its own kernel (:func:`~repro_torch.kernels.segment.
+  embedding_bwd.embedding_bwd_kernel`) over ``g`` with ``seg =
+  rows[order]`` for the stable sort ``order`` of ``rows``, reading row
+  ``order // bag`` of ``g``: the whole dense table gradient, 0 where no
+  row was read, each output row written once.  Counted under
   ``LAUNCHES["embedding_gather_bwd"]``.
 * :func:`gather_aggregate` is one GIN aggregation (K5's gather form over
   the destination-sorted edges), whose backward is the same kernel over
@@ -44,7 +46,7 @@ gather form sums them over the rows sorted by the row they read:
   under ``LAUNCHES["gnn_agg_bwd"]``.
 
 Each takes the reduction it runs (``segment_sum``): the plain version
-:func:`segment_sum_ref` brings the plain backward, any other K5.
+:func:`segment_sum_ref` brings the plain backward, any other the kernel.
 """
 from __future__ import annotations
 
@@ -55,6 +57,7 @@ import torch
 import torch.nn.functional as fn
 
 from .backward import moe_combine_bwd
+from .embedding_bwd import embedding_bwd_kernel, embedding_bwd_ref
 from .kernel import segment_sum_kernel
 from .ref import embedding_bag_ref, segment_sum_bwd_ref, segment_sum_ref
 
@@ -205,14 +208,8 @@ class _EmbeddingGather(torch.autograd.Function):
         else:
             seg = rows.index_select(0, order)
         g = g.float().reshape(g.shape[0], -1).contiguous()
-        src = order if ctx.bag == 1 else torch.div(order, ctx.bag,
-                                                   rounding_mode="floor")
-        n = ctx.shape[0]
-        if ctx.plain:
-            grad = segment_sum_ref(g, seg, n, None, src)
-        else:
-            grad = segment_sum_kernel(g, seg, n, None, src,
-                                      count="embedding_gather_bwd")
+        bwd = embedding_bwd_ref if ctx.plain else embedding_bwd_kernel
+        grad = bwd(g, seg, order, ctx.shape[0], ctx.bag)
         return grad.reshape(ctx.shape).to(ctx.dtype), None, None, None, None
 
 
@@ -228,7 +225,7 @@ def embedding_gather(table: torch.Tensor, rows: torch.Tensor,
                      segment_sum=segment_sum_sorted) -> torch.Tensor:
     """``table[rows]`` (``[E, *]``), or with ``bag > 1`` its sums over
     ``E / bag`` bags of consecutive rows, with the gradient of ``table``
-    where one is wanted: K5's gather form (``segment_sum``'s plain version
+    where one is wanted: :func:`embedding_bwd_kernel` (its plain version
     with ``segment_sum=segment_sum_ref``) over the rows in the stable
     sort ``order`` of ``rows`` (made here when not given; one sort can
     serve every table looked up by the same rows)."""

@@ -126,10 +126,10 @@ def _loss_step(model, ocfg: AdamWConfig, loss_fn) -> Callable:
 def fm_train_step(model: recsys.FM, ocfg: AdamWConfig) -> Callable:
     """The reference's recsys train step on ``model``: the gradient of
     :func:`~repro_torch.models.recsys.loss_fn` (K4 and its backward, the
-    table gradients on K5), then AdamW over ``model.param_tree()``
-    (``table``, ``lin_table``, ``bias``); ``batch`` holds ``ids`` and
-    ``labels``.  Returns ``step(params, opt_state, batch) -> (params,
-    opt_state, {"loss", "lr", "grad_norm"})``."""
+    table gradients on ``embedding_bwd``), then AdamW over
+    ``model.param_tree()`` (``table``, ``lin_table``, ``bias``); ``batch``
+    holds ``ids`` and ``labels``.  Returns ``step(params, opt_state,
+    batch) -> (params, opt_state, {"loss", "lr", "grad_norm"})``."""
     return _loss_step(model, ocfg, recsys.loss_fn)
 
 

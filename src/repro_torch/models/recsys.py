@@ -15,9 +15,9 @@ Training: :func:`loss_fn` is the reference's binary cross-entropy.  The
 parameters are built without ``requires_grad`` (serving); the train step
 (``launch.steps.fm_train_step``) sets it, and where a gradient is wanted
 the lookups go through :func:`~repro_torch.kernels.segment.
-embedding_gather` (its backward K5's gather form over the rows sorted by
-row id, one sort a batch for both tables: the dense table gradients,
-summed in a fixed order) and the pairwise term through
+embedding_gather` (its backward ``csrc/embedding_bwd.cu`` over the rows
+sorted by row id, one sort a batch for both tables: the dense table
+gradients, summed in a fixed order) and the pairwise term through
 :func:`~repro_torch.kernels.fm.fm_interaction_train` (K4 and its
 backward).  :meth:`FM.param_tree` is the reference's pytree.
 """
@@ -103,8 +103,8 @@ def _ids(model: FM, ids) -> torch.Tensor:
 def forward_logits(model: FM, ids, *, kernels: bool = True) -> torch.Tensor:
     """ids: ``[B, F]`` per-field ids -> logits ``[B]`` float32.  With a
     gradient wanted, the ops with their backwards (module docstring);
-    ``kernels=False`` runs the plain versions (K4's and K5's) on any
-    device."""
+    ``kernels=False`` runs the plain versions (K4's and the lookups'
+    gradients') on any device."""
     cfg = model.cfg
     ids = _ids(model, ids)
     b, f = ids.shape

@@ -15,8 +15,9 @@ K4 (fm_interaction) and its backward are held to 1e-5 of the magnitude
 of their cancelling terms, K5 (segment_sum, contiguous and gather forms,
 and the bf16-row form of the MoE combine) to rtol/atol 1e-5, and exactly
 on integer-valued inputs, whose sums do not depend on the order (so is
-K5 as the FM lookup's gradient); K5 as GIN's aggregation backward, and
-the combine's backward's gate-weight gradient, against float64 sums
+the FM lookup's gradient, embedding_bwd); K5 as GIN's aggregation
+backward, the FM lookup's gradient on normal inputs, and the combine's
+backward's gate-weight gradient, against float64 sums
 within 2⁻²⁴ times their terms' count and magnitudes (a power-law hub sums
 thousands of terms).  K6's int8 decode form is
 held to its plain version (dequantise, then attend) at K6's decode
@@ -2737,64 +2738,133 @@ def test_fm_interaction_bwd_matches_plain(cuda_device, b, f, d):
     assert bool(((got.double() - want).abs() <= 1e-5 * scale).all())
 
 
-def _hot_rows(rng, hot, at_chunk, n_rows, chunk, multiple):
-    """Row ids of a lookup, a ``multiple`` of them: ``hot`` rows of one id
-    among random others; with ``at_chunk`` the hot id's run starts on a
-    chunk's first row of the sorted order."""
-    below = 3 * chunk if at_chunk else 3 * chunk + 517
-    above = 5000 + (-(below + hot + 5000)) % multiple
-    hot_id = n_rows // 2
-    rows = np.concatenate([rng.integers(0, hot_id, below),
-                           np.full(hot, hot_id),
-                           rng.integers(hot_id + 1, n_rows, above)])
-    return rng.permutation(rows).astype(np.int32), hot_id
+def _emb_bwd_rows(kind, r, bag, seed):
+    """Row ids of a lookup (shuffled, a multiple of ``bag`` of them) into a
+    table of n rows, for the kernel's tiles of ``r`` rows: a hot id in 12,000
+    or 40,000 rows (``hot12k`` / ``hot40k``), tiles 1, 2, 4 and 5 of six
+    empty (``empty_tiles``), tile 2's ids all one id (``one_id_tile``), an n
+    that is no multiple of r with ids in its last tile (``ragged``), ids
+    below 0 and at or past n (``outside``, int64).  Returns ``(rows, n)``."""
+    rng = np.random.default_rng(seed)
+    n = 6 * r
+    if kind in ("hot12k", "hot40k"):
+        parts = [np.full(12_000 if kind == "hot12k" else 40_000, 2 * r + 5),
+                 rng.integers(0, n, 5_000)]
+    elif kind == "empty_tiles":
+        parts = [rng.integers(0, r, 3_000), rng.integers(3 * r, 4 * r, 3_000)]
+    elif kind == "one_id_tile":
+        parts = [np.full(3_000, 2 * r + 7), rng.integers(0, 2 * r, 2_000),
+                 rng.integers(3 * r, n, 2_000)]
+    elif kind == "ragged":
+        n = 4 * r + 13
+        parts = [rng.integers(0, n, 4_000), np.full(300, n - 1),
+                 rng.integers(4 * r, n, 500)]
+    else:
+        parts = [rng.integers(-50, 0, 700), rng.integers(n, n + 50, 700),
+                 rng.integers(0, n, 4_000)]
+    rows = np.concatenate(parts)
+    rows = np.concatenate([rows, rows[: (-rows.size) % bag]])
+    dtype = np.int64 if kind == "outside" else np.int32
+    return rng.permutation(rows).astype(dtype), n
+
+
+_EMB_KINDS = ["hot12k", "hot40k", "empty_tiles", "one_id_tile", "ragged",
+              "outside"]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hot,at_chunk,d", [
-    (2048, False, 10), (12000, False, 10), (12000, True, 10),
-    (2048, False, 1), (12000, True, 1)])
-def test_embedding_gather_bwd_on_k5_is_exact(cuda_device, hot, at_chunk, d):
-    """The FM lookup's gradient on K5's gather form (rows sorted by id),
-    on integer-valued gradients whose sums are exact in any order: the
-    table gradient (D 10) and the linear table's over bags of 6 (D 1)
-    bit-equal to the plain version, a hot id over 2 to 12 chunks, its run
-    starting on a chunk's first row or not; a relaunch bit-identical,
-    counted under ``embedding_gather_bwd`` with its carries, never under
-    K5's own name."""
+@pytest.mark.parametrize("bag", [1, 39])
+@pytest.mark.parametrize("d", [1, 2, 10, 16])
+@pytest.mark.parametrize("kind", _EMB_KINDS)
+def test_embedding_gather_bwd_kernel_is_exact(cuda_device, kind, d, bag):
+    """The FM lookup's gradient on its own kernel (``embedding_bwd.cu``),
+    on integer-valued gradients whose sums are exact in any order: bit-equal
+    to the plain version, every row written (``torch.empty`` hands out NaN),
+    a relaunch bit-identical, one launch a call counted under
+    ``embedding_gather_bwd`` and nothing under K5's names, its carry or
+    its forms; through ``embedding_gather`` (ids inside the table) the same
+    bits.  Hot ids of 12,000 and 40,000 rows, empty tiles, a tile of one
+    id, a ragged last tile, ids outside ``[0, n)``; int32 and int64 ids and
+    orders."""
     from repro_torch.kernels.segment import (
-        CHUNK_ROWS, FORMS, embedding_gather, segment_sum_ref)
+        FORMS, embedding_bwd_kernel, embedding_bwd_ref, embedding_gather)
+    from repro_torch.kernels.segment.embedding_bwd import tile_rows
 
-    rng = np.random.default_rng(hot + d + at_chunk)
-    n_rows, bag = 40_000, (1 if d > 1 else 6)
-    rows, hot_id = _hot_rows(rng, hot, at_chunk, n_rows, CHUNK_ROWS, bag)
-    shape = (n_rows, d) if d > 1 else (n_rows,)
-    table = torch.zeros(shape, device=cuda_device, requires_grad=True)
+    r = tile_rows(d)
+    seed = _EMB_KINDS.index(kind) * 100 + d + bag
+    rows, n = _emb_bwd_rows(kind, r, bag, seed)
     rows_t = torch.from_numpy(rows).to(cuda_device)
-    g = torch.from_numpy(rng.integers(-8, 8, (rows.size // bag,)
-                                      + shape[1:]).astype(np.float32)).to(
+    seg, order = torch.sort(rows_t, stable=True)
+    if kind in ("one_id_tile", "ragged"):
+        order = order.int()
+    rng = np.random.default_rng(seed)
+    g = torch.from_numpy(rng.integers(-8, 8, (rows.size // bag, d)).astype(
+        np.float32)).to(cuda_device)
+    before, forms = dict(LAUNCHES), dict(FORMS)
+    with _empty_is_nan():
+        got = embedding_bwd_kernel(g, seg, order, n, bag)
+        again = embedding_bwd_kernel(g, seg, order, n, bag)
+    torch.cuda.synchronize()
+    assert LAUNCHES["embedding_gather_bwd"] - before[
+        "embedding_gather_bwd"] == 2
+    for name in ("segment_sum", "segment_sum_carry", "segment_sum_bf16"):
+        assert LAUNCHES[name] == before[name]
+    assert FORMS == forms
+    want = embedding_bwd_ref(g, seg, order, n, bag)
+    assert got.shape == (n, d)
+    assert torch.equal(got, want) and torch.equal(got, again)
+    assert float(got.abs().sum()) > 0
+    if kind == "empty_tiles":
+        assert not bool(got[r:3 * r].any()) and not bool(got[4 * r:].any())
+    if kind == "ragged":
+        assert n % r != 0 and bool(got[n - 1].any())
+    if kind == "outside":
+        return
+    shape = (n,) if d == 1 else (n, d)
+    table = torch.zeros(shape, device=cuda_device, requires_grad=True)
+    before = dict(LAUNCHES)
+    with _empty_is_nan():
+        out = embedding_gather(table, rows_t, bag=bag)
+        (grad,) = torch.autograd.grad(out, [table], g.reshape(out.shape))
+    torch.cuda.synchronize()
+    delta = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    assert delta["embedding_gather_bwd"] == 1
+    assert delta["segment_sum"] == delta["segment_sum_carry"] == 0
+    assert torch.equal(grad.reshape(n, d), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bag", [1, 39])
+@pytest.mark.parametrize("d", [1, 2, 10, 16])
+def test_embedding_gather_bwd_kernel_matches_float64(cuda_device, d, bag):
+    """On normal gradients, hot ids of 12,000 and 40,000 rows among others:
+    each row within 2⁻²⁴·n·Σ|terms| of the float64 sum of its n terms (a
+    float32 sum in any order errs by at most n - 1 roundings of the terms'
+    magnitudes), a relaunch bit-identical."""
+    from repro_torch.kernels.segment import (embedding_bwd_kernel,
+                                             embedding_bwd_ref)
+    from repro_torch.kernels.segment.embedding_bwd import tile_rows
+
+    r = tile_rows(d)
+    rng = np.random.default_rng(d * 1000 + bag)
+    n = 6 * r
+    rows = np.concatenate([np.full(40_000, r + 3), np.full(12_000, 4 * r),
+                           rng.integers(0, n, 20_000)])
+    rows = np.concatenate([rows, rng.integers(0, n, (-rows.size) % bag)])
+    rows_t = torch.from_numpy(rng.permutation(rows).astype(np.int32)).to(
         cuda_device)
-    grads = []
-    for plain in (False, False, True):
-        before, forms = dict(LAUNCHES), dict(FORMS)
-        kw = dict(segment_sum=segment_sum_ref) if plain else {}
-        with _empty_is_nan():
-            out = embedding_gather(table, rows_t, bag=bag, **kw)
-            (grad,) = torch.autograd.grad(out, [table], g)
-        torch.cuda.synchronize()
-        launched = LAUNCHES["embedding_gather_bwd"] - before[
-            "embedding_gather_bwd"]
-        assert launched == (0 if plain else 1)
-        assert LAUNCHES["segment_sum"] == before["segment_sum"]
-        if not plain:
-            assert FORMS["gather"] - forms["gather"] == 1
-            assert (LAUNCHES["segment_sum_carry"]
-                    - before["segment_sum_carry"]) == 1
-        grads.append(grad)
-    assert torch.equal(grads[0], grads[1])
-    assert torch.equal(grads[0], grads[2])
-    assert float(grads[0].abs().sum()) > 0
-    assert int((rows == hot_id).sum()) == hot
+    seg, order = torch.sort(rows_t, stable=True)
+    g = torch.from_numpy(rng.standard_normal((rows.size // bag, d)).astype(
+        np.float32)).to(cuda_device)
+    got = embedding_bwd_kernel(g, seg, order, n, bag)
+    again = embedding_bwd_kernel(g, seg, order, n, bag)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = embedding_bwd_ref(g.double(), seg, order, n, bag)
+    mag = embedding_bwd_ref(g.double().abs(), seg, order, n, bag)
+    cnt = torch.bincount(seg.long(), minlength=n).double()
+    assert bool(((got.double() - want).abs()
+                 <= 2.0**-24 * cnt[:, None] * mag).all())
 
 
 @pytest.mark.cuda
@@ -2881,6 +2951,7 @@ def test_training_ops_raise_when_the_kernel_fails(cuda_device, op,
     training op's backward on a CUDA tensor raises, and hands back no
     plain result."""
     import repro_torch.kernels.fm.kernel as fm_kernel
+    import repro_torch.kernels.segment.embedding_bwd as emb_kernel
     import repro_torch.kernels.segment.kernel as seg_kernel
     from repro_torch.kernels.fm import fm_interaction_train
     from repro_torch.kernels.segment import (embedding_gather,
@@ -2894,7 +2965,8 @@ def test_training_ops_raise_when_the_kernel_fails(cuda_device, op,
         out = fm_interaction_train(x)
         monkeypatch.setattr(fm_kernel, "_lib", lambda: _FailingLib(real))
     else:
-        real = seg_kernel._lib()
+        module = emb_kernel if op == "embedding_gather" else seg_kernel
+        real = module._lib()
         x = torch.from_numpy(rng.standard_normal((50, 8)).astype(
             np.float32)).to(cuda_device).requires_grad_(True)
         ids = torch.from_numpy(rng.integers(0, 50, 200).astype(
@@ -2909,7 +2981,7 @@ def test_training_ops_raise_when_the_kernel_fails(cuda_device, op,
             out = gather_aggregate(x, seg, 50, weights=None, rows=src,
                                    t_seg=t_seg, t_rows=seg[t_order],
                                    t_weights=None)
-        monkeypatch.setattr(seg_kernel, "_lib", lambda: _FailingLib(real))
+        monkeypatch.setattr(module, "_lib", lambda: _FailingLib(real))
     with pytest.raises(RuntimeError, match="injected failure"):
         torch.autograd.grad(out.sum(), [x])
 
@@ -2919,9 +2991,9 @@ def test_training_ops_raise_when_the_kernel_fails(cuda_device, op,
 def test_fm_and_gin_training_on_the_card_matches_the_cpu(cuda_device, arch):
     """The reduced config's train step (``launch.steps``) on the card and
     on the CPU from the same state: every gradient leaf within relative
-    L1 1e-4, the parameters after three steps too; K4, its backward and
-    K5's embedding backward launched once a step each (FM: two K5 launches,
-    the table and the linear table), or K5 forward and backward once a
+    L1 1e-4, the parameters after three steps too; K4 and its backward
+    launched once a step each and the embedding backward twice (the table
+    and the linear table; no K5 launch), or K5 forward and backward once a
     layer (GIN)."""
     from repro_torch.configs.smoke import smoke_setup
     from repro_torch.data import criteo_like_batch
@@ -2958,6 +3030,7 @@ def test_fm_and_gin_training_on_the_card_matches_the_cpu(cuda_device, arch):
         if family == "recsys":
             assert delta["fm_interaction"] == delta["fm_interaction_bwd"] == 1
             assert delta["embedding_gather_bwd"] == 2
+            assert delta["segment_sum"] == delta["segment_sum_carry"] == 0
         else:
             assert delta["segment_sum"] == delta["gnn_agg_bwd"] == (
                 cfg.n_layers)
