@@ -261,12 +261,15 @@ Phases, each printed on its own lines (any failure exits non-zero):
    recomputation, as the reference's does) and plans printed.  Gates: K5's
    bf16-row form 24 x 2 a microbatch, K6's backward 24 on the wgmma
    route, the combine's backward (``segment_sum_bf16_bwd``) 24, all on
-   its stream body (``COMBINE_BWD_ROUTES``), the dispatch's backward on
-   K5's bf16-row form counted apart (``moe_dispatch_bwd``) 24; the
-   combine's backward on layer 0's operands against its plain version
+   its stream body (``COMBINE_BWD_ROUTES``), the dispatch's backward, its
+   own kernel (``csrc/dispatch_bwd.cu``, ``moe_dispatch_bwd``), 24, and
+   K5's carry pass 2 x 24 (the combine's forward and recomputation only);
+   the combine's backward on layer 0's operands against its plain version
    (grad_eo bit-equal, grad_w within relative L1 1e-5), a bit-identical
    relaunch and the bits of the warp_row body it replaced, the
-   dispatch's within relative L1 1e-5; a
+   dispatch's within relative L1 1e-5 of its plain version, bit-equal to
+   the K5 route it replaced (K5's bf16-row form over the kept and dropped
+   slots, then the cast) and on a relaunch; a
    float32 copy's gradient with the kernels against the plain versions
    within relative L1 1e-4, routing flips printed with their top-k
    margin.  (d) Rows for the kernels line: ``flash_attention_bwd`` at
@@ -277,8 +280,10 @@ Phases, each printed on its own lines (any failure exits non-zero):
    1.6 ms a call), ``segment_sum_bf16_bwd`` at (c)'s (``index_add_`` and
    a batched dot; the stream body timed in turns with the warp_row body,
    through the library's private entry) and ``moe_dispatch_bwd`` at (c)'s
-   layer 0 (``index_add_`` of the same weighted rows), each with the
-   launches of its run.  Run it
+   layer 0 (``index_add_`` of the kept rows; timed 3 x 20 calls in turns
+   with K5's route plus the cast, which it must beat; its bound the kept
+   rows, dest and keep read once and the bf16 output written once), each
+   with the launches of its run.  Run it
    alone with ``lm_training(args, torch, dev, Timer(torch, dev), sync)``,
    ``args`` holding ``lm_reduced`` and ``seed``.
 13. Simulator: the paper's K-PID simulator (``repro_torch.core.
@@ -1344,26 +1349,29 @@ def moe_serving(args, torch, dev, timer, sync):
             data, seg, n = ins["data"], ins["seg"], ins["n"]
             kw = {"weights": ins["weights"], "rows": ins["rows"]}
             e, d = seg.numel(), data.shape[1]
-            # each row the slots name read once (every dropped slot names
-            # row 0), each slot's weight, row index and id; each token's
-            # sum written once
-            n_read = int(torch.unique(ins["rows"]).numel())
+            # each row the kept slots name read once (a dropped slot names
+            # row -1 and reads none), each slot's weight, row index and id;
+            # each token's sum written once
+            kept = ins["rows"] >= 0
+            n_read = int(torch.unique(ins["rows"][kept]).numel())
             n_bytes = n_read * d * 2 + e * (4 + 8 + 4) + n * d * 4
             b_ms, b_by = bound_ms(n_bytes, 2.0 * e * d)
             lib_ms = None
             if on_card:
-                ptr = torch.arange(n + 1, device=dev) * (e // n)
+                # the kept slots only: the library indexes no row -1
+                ptr = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+                ptr[1:] = torch.bincount(seg[kept].long(), minlength=n).cumsum(0)
+                cols, vals = ins["rows"][kept], ins["weights"][kept]
                 dense = data
                 try:  # bf16 values over the bf16 rows, where cuSPARSE has it
                     csr = torch.sparse_csr_tensor(
-                        ptr, ins["rows"], ins["weights"].to(data.dtype),
+                        ptr, cols, vals.to(data.dtype),
                         size=(n, data.shape[0]))
                     torch.sparse.mm(csr, dense)
                     how = "bf16"
                 except RuntimeError:  # else over a float32 copy of the rows
                     dense = data.float()
-                    csr = torch.sparse_csr_tensor(ptr, ins["rows"],
-                                                  ins["weights"],
+                    csr = torch.sparse_csr_tensor(ptr, cols, vals,
                                                   size=(n, data.shape[0]))
                     how = "float32 (a copy of the rows, made before timing)"
                 lib_ms = timer(lambda: torch.sparse.mm(csr, dense), 10)
@@ -1373,7 +1381,7 @@ def moe_serving(args, torch, dev, timer, sync):
                 print(f"torch.sparse.mm (sparse_csr of the gate weights over "
                       f"the expert outputs, in {how}) vs K5 at {tag}: max "
                       f"abs diff {lib_err:.3e}")
-                del csr, dense
+                del csr, dense, cols, vals
             rows.append({
                 "name": name, "route": "cuda",
                 "source": "src/repro_torch/csrc/segment_sum.cu",
@@ -1547,11 +1555,12 @@ def _capture_first(torch, module, name, run):
 def combine_bwd_bound(torch, data, seg, rows, n):
     """The MoE combine backward's bound on its operands (``data [R, D]``
     expert outputs, ``seg`` / ``rows`` each slot's token and row, ``n``
-    tokens): the rows the slots name, g, each slot's weight, row and token
-    and the slot map read once, grad_w and grad_eo written once.  Returns
-    ``(ms, "bytes" or "operations", rows named)``."""
+    tokens): the rows the kept slots name (a dropped slot names row -1 and
+    reads none), g, each slot's weight, row and token and the slot map
+    read once, grad_w and grad_eo written once.  Returns ``(ms, "bytes" or
+    "operations", rows named)``."""
     e, (r_rows, d) = seg.numel(), data.shape
-    n_read = int(torch.unique(rows).numel())
+    n_read = int(torch.unique(rows[rows >= 0]).numel())
     size = data.element_size()
     n_bytes = (n_read * d * size + n * d * 4 + e * (4 + 8 + 4) + r_rows * 8
                + e * 4 + r_rows * d * size)
@@ -1562,7 +1571,10 @@ def combine_bwd_library_ms(torch, timer, g, data, seg, w, rows, iters):
     """The combine backward's library yardstick on the card: an
     ``index_add_`` of the weighted rows of g plus a ``bmm`` of the row
     dots, each timed apart over ``iters`` calls (their operands made
-    outside the timing)."""
+    outside the timing), over the kept slots only (a dropped slot names
+    row -1, which no library call may index)."""
+    kept = rows >= 0
+    seg, w, rows = seg[kept], w[kept], rows[kept]
     ge = g.index_select(0, seg.long())
     gw = ge * w[:, None]
     eo3 = data.index_select(0, rows).float()[:, None, :]
@@ -1593,9 +1605,10 @@ def lm_training(args, torch, dev, timer, sync):
     from repro_torch.kernels.attention.backward import (
         BWD_ROUTES, _flash_attention_bwd_mma_sync)
     from repro_torch.kernels.attention.kernel import flash_attention_lse
-    from repro_torch.kernels.segment import (segment_sum_bwd_ref,
-                                             segment_sum_kernel,
-                                             segment_sum_ref)
+    from repro_torch.kernels.segment import (dispatch_bwd_kernel,
+                                             dispatch_bwd_ref,
+                                             segment_sum_bwd_ref,
+                                             segment_sum_kernel)
     from repro_torch.kernels.segment.backward import (
         COMBINE_BWD_ROUTES, _moe_combine_bwd_warp_row, moe_combine_bwd)
     from repro_torch.launch.steps import build_cell_step
@@ -1900,7 +1913,10 @@ def lm_training(args, torch, dev, timer, sync):
         "flash_attention": 2 * L, "flash_attention_bwd": L,
         "flash_attention_bwd:wgmma": L,
         "segment_sum_bf16": 2 * L, "segment_sum_bf16_bwd": L,
-        "segment_sum_bf16_bwd:stream": L, "moe_dispatch_bwd": L})
+        "segment_sum_bf16_bwd:stream": L, "moe_dispatch_bwd": L,
+        # the combine's forward and recomputation; none from the dispatch's
+        # backward
+        "segment_sum_carry": 2 * L})
     mon = loop.expert_monitor
     print(f"granite-moe-1b-a400m expert-load monitor: {mon._step} "
           f"dispatches observed ({4 * nm} microbatches x {cfg.n_layers} "
@@ -2008,57 +2024,87 @@ def lm_training(args, torch, dev, timer, sync):
         "warp_row_ms": old_ms,
         "shape": [e, d, n, r_rows], "rows_read": n_read})
     # (d) the dispatch backward's row, at a microbatch's layer 0: the
-    # buffer's gradient summed back into the tokens, K5's bf16-row form
-    # over the kept slots' buffer rows (weight 1; a dropped slot row 0,
-    # weight 0)
+    # buffer's gradient summed back into the tokens by its own kernel, in
+    # the model's dtype, timed in turns with the route it replaced (K5's
+    # bf16-row form over rows where(keep, dest, 0), weight 1 a kept slot
+    # and 0 a dropped one, then the cast)
     x_d, src_d = disp["args"][0], disp["args"][1]
-    seg_d, keep_d = disp["kw"]["seg_ids"], disp["kw"]["keep"]
-    rows_d = torch.where(keep_d, disp["kw"]["dest"], 0)
-    w_d = keep_d.float()
-    n_tok, e_d, d_d = x_d.shape[0], seg_d.numel(), x_d.shape[1]
+    dest_d, keep_d = disp["kw"]["dest"], disp["kw"]["keep"]
+    n_tok, e_d, d_d = x_d.shape[0], dest_d.numel(), x_d.shape[1]
+    seg_d = torch.arange(n_tok, dtype=torch.int32, device=dev
+                         ).repeat_interleave(e_d // n_tok)
+    rows_d, w_d = torch.where(keep_d, dest_d, 0), keep_d.float()
     g_d = torch.randn((src_d.numel(), d_d), generator=gen,
                       device=dev).to(x_d.dtype)
-    got_d = segment_sum_kernel(g_d, seg_d, n_tok, w_d, rows_d)
-    want_d = segment_sum_ref(g_d, seg_d, n_tok, w_d, rows_d)
-    err_d = float((got_d - want_d).abs().max())
+
+    def dispatch_op():
+        return dispatch_bwd_kernel(g_d, dest_d, keep_d, n_tok)
+
+    def k5_route():
+        return segment_sum_kernel(g_d, seg_d, n_tok, w_d, rows_d).to(
+            g_d.dtype)
+
+    got_d, again_d, old_d = dispatch_op(), dispatch_op(), k5_route()
+    want_d = dispatch_bwd_ref(g_d, dest_d, keep_d, n_tok)
+    err_d = float((got_d.float() - want_d.float()).abs().max())
     e_rel = rel_l1(got_d, want_d)
-    print(f"dispatch backward (layer 0 of a microbatch): {e_d} slots of "
-          f"{src_d.numel()} {str(g_d.dtype)[6:]} buffer rows of {d_d} into "
-          f"{n_tok} tokens "
-          f"({int((~keep_d).sum())} dropped): relative L1 {e_rel:.3e} (bound "
-          f"1e-5), max abs err {err_d:.3e}")
-    if not e_rel <= REL_L1:
-        fail("the dispatch's backward against its plain version")
-    # the buffer rows the kept slots name read once (row 0 too where a slot
-    # is dropped), each slot's token, row and weight, the tokens' float32
-    # sums written once
-    n_read_d = int(torch.unique(rows_d).numel())
-    n_bytes = (n_read_d * d_d * g_d.element_size()
-               + e_d * (seg_d.element_size() + rows_d.element_size() + 4)
-               + n_tok * d_d * 4)
-    b_ms, b_by = bound_ms(n_bytes, 2.0 * e_d * d_d)
+    k5_bits, same_d = torch.equal(got_d, old_d), torch.equal(got_d, again_d)
+    n_kept = int(keep_d.sum())
+    # each kept slot's buffer row read once (the new op reads no other),
+    # each slot's dest and keep, the tokens' sums written once in g's dtype
+    n_read_d = int(torch.unique(dest_d[keep_d]).numel())
+    size = g_d.element_size()
+    n_bytes = n_read_d * d_d * size + e_d * 9 + n_tok * d_d * size
+    b_ms, b_by = bound_ms(n_bytes, 1.0 * n_kept * d_d)
+    print(f"dispatch backward (layer 0 of a microbatch): {e_d} slots "
+          f"({e_d - n_kept} dropped) of {src_d.numel()} "
+          f"{str(g_d.dtype)[6:]} buffer rows of {d_d} into {n_tok} tokens, "
+          f"out in {str(got_d.dtype)[6:]}: relative L1 {e_rel:.3e} against "
+          f"the plain version (bound 1e-5), max abs err {err_d:.3e}, the "
+          f"bits of K5's route plus the cast {k5_bits}, bit-identical "
+          f"relaunch {same_d}; rows read: {n_read_d} (the new op), {e_d} "
+          f"row copies of {int(torch.unique(rows_d).numel())} rows (K5's "
+          f"route, a dropped slot's row 0 too)")
+    if not (e_rel <= REL_L1 and k5_bits and same_d):
+        fail("the dispatch's backward against its plain version and K5's "
+             "route")
+    del old_d, again_d
     lib_ms = None
+    new_ms, old_ms = [], []
+    for turn in range(3):
+        pair = [(new_ms, dispatch_op), (old_ms, k5_route)]
+        for out, fn in pair[::-1] if turn % 2 else pair:
+            out.append(timer(fn, 20))
     if on_card:
-        gw = g_d.index_select(0, rows_d).float() * w_d[:, None]
+        gw = g_d.index_select(0, dest_d[keep_d]).float()
         zeros = torch.zeros((n_tok, d_d), dtype=torch.float32, device=dev)
-        seg_long = seg_d.long()
-        lib_ms = timer(lambda: zeros.index_add_(0, seg_long, gw), 10)
-        del gw, zeros, seg_long
+        tok = seg_d.long()[keep_d]
+        lib_ms = timer(lambda: zeros.index_add_(0, tok, gw), 10)
+        del gw, zeros, tok
+    print(f"dispatch backward (d), 3 x 20 calls each in turns: the new op "
+          f"{' / '.join(f'{t:.4f}' for t in new_ms)} ms, K5's route plus "
+          f"the cast {' / '.join(f'{t:.4f}' for t in old_ms)} ms; bound "
+          f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB; "
+          f"{100 * b_ms / min(new_ms):.1f} % of it reached), the library "
+          "(index_add_ of the kept rows) " + ("not measured" if lib_ms is None
+                                             else f"{lib_ms:.4f} ms"))
+    if on_card and not min(new_ms) < min(old_ms):
+        fail(f"the dispatch's backward ({min(new_ms):.4f} ms) is not faster "
+             f"than K5's route ({min(old_ms):.4f} ms)")
     rows.append({
         "name": "moe_dispatch_bwd", "route": "cuda",
-        "source": "src/repro_torch/csrc/segment_sum.cu",
+        "source": "src/repro_torch/csrc/dispatch_bwd.cu",
         "replaces": "src/repro/kernels/segment/kernel.py:50",
         "computes": "src/repro/models/transformer.py:524 (its gradient)",
-        "form": "the MoE dispatch's backward on K5's bf16-row form",
+        "form": "the MoE dispatch's backward, bf16 rows",
         "launches": path_c["moe_dispatch_bwd"], "max_abs_err": err_d,
-        "ms": timer(lambda: segment_sum_kernel(g_d, seg_d, n_tok, w_d,
-                                               rows_d), 20),
-        "plain_ms": timer(lambda: segment_sum_ref(g_d, seg_d, n_tok, w_d,
-                                                  rows_d), 5),
+        "ms": min(new_ms), "k5_route_ms": min(old_ms),
+        "plain_ms": timer(lambda: dispatch_bwd_ref(g_d, dest_d, keep_d,
+                                                   n_tok), 5),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
         "shape": [e_d, d_d, n_tok, src_d.numel()], "rows_read": n_read_d})
     del data, g, got, again, want, model, step, batch, routes, disp, g_d
-    del got_d, want_d
+    del got_d, want_d, dest_d, keep_d, rows_d, w_d, seg_d
     if on_card:
         torch.cuda.empty_cache()
     return rows, "LM training: " + "; ".join(summary)

@@ -8,9 +8,11 @@
 //   grad_eo[r] = w[slot[r]] * g[seg[slot[r]]]  (slot[r] < n_slots; else 0)
 // with grad_eo in eo's dtype.  slot is the inverse of rows over the kept
 // slots: the MoE dispatch gives each kept (token, slot) a buffer row of
-// its own, and every other slot (a dropped one) names row 0 with weight 0,
-// so grad_eo[r] is the sum over the slots that name r of w[s] * g[seg[s]]
-// -- the plain version's index_add_ -- whenever g is finite.  The
+// its own, and every other slot (a dropped one) names row -1, outside
+// [0, n_rows): such a slot reads no row, adds to none and gets grad_w 0,
+// as the reference's where(keep, ...) gives it.  So grad_eo[r] is the sum
+// over the slots that name r of w[s] * g[seg[s]] -- the plain version's
+// index_add_ -- whatever g and eo hold.  The
 // dispatch builds slot anyway (buffer row -> (token, slot)), so no sort
 // runs here.  It replaces no TPU kernel: the JAX package differentiates
 // its segment sum with XLA (src/repro/models/transformer.py : _moe_ffn);
@@ -105,10 +107,12 @@ combine_bwd_kernel(const T* __restrict__ eo, const float* __restrict__ g,
   const int64_t row = (int64_t)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
   if (row < n_slots) {
-    const T* er = eo + rows[row] * d;
+    const int64_t r = rows[row];
+    const T* er = eo + r * d;
     const float* gr = g + (int64_t)seg[row] * d;
     float acc = 0.0f;
-    for (int c = lane * VEC; c < d; c += 32 * VEC) {
+    // a slot that names no row (a dropped one) reads nothing: grad_w 0
+    for (int c = lane * VEC; r >= 0 && r < n_rows && c < d; c += 32 * VEC) {
       float e[VEC];
       alignas(16) T raw[VEC];
       *reinterpret_cast<typename std::conditional<VEC == 1, T, uint4>::type*>(raw) =
@@ -237,23 +241,28 @@ __device__ __forceinline__ void slot_warp(int64_t wid, int lane, const T* __rest
                                           const int32_t* __restrict__ seg,
                                           const int64_t* __restrict__ slot,
                                           float* __restrict__ grad_w, T* __restrict__ grad_eo,
-                                          int64_t n_slots, int d) {
+                                          int64_t n_slots, int64_t n_rows, int d) {
   using V = Vec16<T>;
   constexpr int VEC = V::kN;
   constexpr int kTile = 32 * kSteps * VEC;
   const int64_t s0 = wid * kRun;
   const int cnt = (int)(n_slots - s0 < kRun ? n_slots - s0 : kRun);
   // lane i holds slot s0 + i's indices; whether it owns its row is read
-  // only after the first dot, so that its load waits on nothing
+  // only after the first dot, so that its load waits on nothing.  A slot
+  // that names no row (a dropped one) reads nothing, owns nothing and
+  // keeps a dot of 0.
   long long my_row = 0;
   int my_seg = 0, my_own = 0;
   float my_w = 0.0f;
+  bool my_named = false;
   if (lane < cnt) {
     my_row = rows[s0 + lane];
     my_seg = seg[s0 + lane];
     my_w = w[s0 + lane];
-    my_own = slot[my_row] == s0 + lane;
+    my_named = my_row >= 0 && my_row < n_rows;
+    my_own = my_named && slot[my_row] == s0 + lane;
   }
+  const unsigned named = __ballot_sync(kFull, my_named);
   float acc[kRun];
 #pragma unroll
   for (int i = 0; i < kRun; ++i) acc[i] = 0.0f;
@@ -263,15 +272,17 @@ __device__ __forceinline__ void slot_warp(int64_t wid, int lane, const T* __rest
     uint4 ring[kAhead + 1][kSteps];
 #pragma unroll
     for (int a = 0; a < kAhead; ++a)
-      if (a < cnt) load_tile<T>(ring[a], eo + __shfl_sync(kFull, my_row, a) * d + t0, lane, left);
+      if (a < cnt && (named >> a & 1))
+        load_tile<T>(ring[a], eo + __shfl_sync(kFull, my_row, a) * d + t0, lane, left);
     int held = 0;
     bool have = false;
 #pragma unroll
     for (int i = 0; i < kRun; ++i) {
       if (i < cnt) {
-        if (i + kAhead < cnt)
+        if (i + kAhead < cnt && (named >> (i + kAhead) & 1))
           load_tile<T>(ring[(i + kAhead) % (kAhead + 1)],
                        eo + __shfl_sync(kFull, my_row, i + kAhead) * d + t0, lane, left);
+        if (!(named >> i & 1)) continue;
         const uint4(&cur)[kSteps] = ring[i % (kAhead + 1)];
         const int sg = __shfl_sync(kFull, my_seg, i);
         if (!have || sg != held) {
@@ -389,7 +400,7 @@ combine_bwd_stream_kernel(const T* __restrict__ eo, const float* __restrict__ g,
     if (wid * kRowsPerWarp < n_rows)
       row_warp<T>(wid, lane, g, w, rows, seg, slot, grad_eo, n_slots, n_rows, d);
   } else if (wid * kRun < n_slots) {
-    slot_warp<T>(wid, lane, eo, g, w, rows, seg, slot, grad_w, grad_eo, n_slots, d);
+    slot_warp<T>(wid, lane, eo, g, w, rows, seg, slot, grad_w, grad_eo, n_slots, n_rows, d);
   }
 }
 
@@ -435,7 +446,8 @@ const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)
 // dtype: 0 float32, 1 bfloat16 (eo and grad_eo).  eo, grad_eo: [n_rows, d];
 // g: [*, d] float32; w, grad_w: [n_slots] float32; rows [n_slots] int64,
 // seg [n_slots] int32 and slot [n_rows] int64, as the MoE dispatch makes
-// them; slot[r] outside [0, n_slots) means no slot.  vec: 16 / sizeof(T)
+// them; slot[r] outside [0, n_slots) means no slot, rows[s] outside [0,
+// n_rows) no row (a dropped slot: grad_w[s] = 0).  vec: 16 / sizeof(T)
 // (d a multiple of it, eo, g and grad_eo 16-byte aligned), which runs the
 // stream body, or 1, the warp_row body.
 int moe_combine_bwd(const void* eo, int dtype, const float* g, const float* w,

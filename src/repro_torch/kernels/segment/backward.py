@@ -9,11 +9,12 @@ w[slot[r]]·g[seg[slot[r]]]`` in data's dtype (0 where ``slot[r]`` is
 outside ``[0, E)``).  It holds only under the MoE dispatch's contract:
 each row of ``data`` is named by at most one slot that carries weight,
 and ``slot`` (int64) is that inverse of ``rows`` (int64), the dispatch's
-map of buffer rows to (token, slot) pairs; ``seg_ids`` are int32.  Where
-every other slot has weight 0 (the dropped ones) and ``g`` is finite that
-is the plain version's ``index_add_`` over all slots, which no sort or
-atomic needs; a segment sum whose rows repeat (an ``embedding_bag``)
-needs another backward.  Only :func:`~repro_torch.kernels.segment.ops.
+map of buffer rows to (token, slot) pairs; ``seg_ids`` are int32.  Every
+other slot (a dropped one) names row -1: it reads no row, adds to none
+and gets ``grad_w`` 0, as in the plain version.  That is the plain
+version's ``index_add_`` over the slots, which no sort or atomic needs; a
+segment sum whose rows repeat (an ``embedding_bag``) needs another
+backward.  Only :func:`~repro_torch.kernels.segment.ops.
 moe_combine` calls it.  For CPU tensors the wrapper runs the plain version
 :func:`~repro_torch.kernels.segment.ref.segment_sum_bwd_ref`; for CUDA
 tensors it launches the kernel or raises, and adds one to

@@ -12,19 +12,23 @@ otherwise, as in serving):
 
 * :func:`moe_combine` is the combine ``out[t] = Σ w·eo[row]`` through a
   given forward (K5, or its plain version) whose backward is
-  :func:`~repro_torch.kernels.segment.backward.moe_combine_bwd`;
+  :func:`~repro_torch.kernels.segment.backward.moe_combine_bwd`; a
+  dropped slot names row -1, which no forward or backward reads, so that
+  it adds exact zeros whatever the experts' outputs hold, as the
+  reference's ``where(keep, ...)`` does;
 * :func:`moe_dispatch` is the dispatch gather ``buf = x[src]`` (row ``t``
   of ``x`` padded with a zero row), whose backward ``grad_x[t] = Σ_{kept
-  slots of t} grad_buf[dest]`` is K5's gather form (the bf16-row form for
-  a bf16 model) with ``rows = dest``, ``seg = token`` and weight 1 for a
-  kept slot, 0 for a dropped one: deterministic, where autograd through
-  ``index_select`` would sum by atomics.  Its launches count under
-  ``LAUNCHES["moe_dispatch_bwd"]``, apart from the combine's.
+  slots of t} grad_buf[dest]`` is its own kernel
+  (:func:`~repro_torch.kernels.segment.dispatch_bwd.dispatch_bwd_kernel`:
+  a token's kept slots summed in registers in slot order, written once in
+  the model's dtype; a dropped slot reads nothing): deterministic, where
+  autograd through ``index_select`` would sum by atomics.  Its launches
+  count under ``LAUNCHES["moe_dispatch_bwd"]``, apart from the combine's.
 
 Both take the combine's forward op (``combine``), which carries their
 backwards: the plain forward :func:`segment_sum_ref` brings the plain
-backwards (:func:`segment_sum_bwd_ref`, ``segment_sum_ref``), any other
-the kernels (which on the CPU run those same plain versions).
+backwards (:func:`segment_sum_bwd_ref`, :func:`dispatch_bwd_ref`), any
+other the kernels (which on the CPU run those same plain versions).
 
 Two more gathers whose rows repeat, so that neither the combine's
 backward nor atomics (``index_add_``, autograd's backward of
@@ -57,6 +61,7 @@ import torch
 import torch.nn.functional as fn
 
 from .backward import moe_combine_bwd
+from .dispatch_bwd import dispatch_bwd_kernel, dispatch_bwd_ref
 from .embedding_bwd import embedding_bwd_kernel, embedding_bwd_ref
 from .kernel import segment_sum_kernel
 from .ref import embedding_bag_ref, segment_sum_bwd_ref, segment_sum_ref
@@ -157,21 +162,16 @@ def moe_combine(data: torch.Tensor, seg_ids: torch.Tensor, n_segments: int,
 
 class _Dispatch(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, src, seg_ids, rows, weights, plain):
-        ctx.save_for_backward(seg_ids, rows, weights)
+    def forward(ctx, x, src, dest, keep, plain):
+        ctx.save_for_backward(dest, keep)
         ctx.n, ctx.plain = x.shape[0], plain
         return fn.pad(x, (0, 0, 0, 1)).index_select(0, src)
 
     @staticmethod
     def backward(ctx, g):
-        seg_ids, rows, weights = ctx.saved_tensors
-        g = g.contiguous()
-        if ctx.plain:
-            gx = segment_sum_ref(g, seg_ids, ctx.n, weights, rows)
-        else:
-            gx = segment_sum_kernel(g, seg_ids, ctx.n, weights, rows,
-                                    count="moe_dispatch_bwd")
-        return gx.to(g.dtype), None, None, None, None, None
+        dest, keep = ctx.saved_tensors
+        bwd = dispatch_bwd_ref if ctx.plain else dispatch_bwd_kernel
+        return bwd(g.contiguous(), dest, keep, ctx.n), None, None, None, None
 
 
 def moe_dispatch(x: torch.Tensor, src: torch.Tensor, *,
@@ -181,15 +181,15 @@ def moe_dispatch(x: torch.Tensor, src: torch.Tensor, *,
                  combine=segment_sum_sorted) -> torch.Tensor:
     """``buf[i] = x[src[i]]`` with ``x [T, D]`` padded by a zero row at
     ``T`` (``src[i] = T`` for an empty buffer row).  With a gradient
-    wanted, ``seg_ids`` (each slot's token, sorted), ``dest`` (each slot's
-    buffer row) and ``keep`` (the kept slots) give its backward, K5's
-    gather form over rows ``dest`` (0 for a dropped slot) with weight 1
-    for a kept slot and 0 for a dropped one (its plain version with the
-    plain ``combine`` or on the CPU)."""
+    wanted, ``dest`` (each slot's buffer row, int64) and ``keep`` (the
+    kept slots, bool), both ``[T·k]`` with token ``t``'s slots at ``t·k``
+    to ``t·k + k - 1``, give its backward, :func:`dispatch_bwd_kernel`
+    (its plain version with the plain ``combine`` or on the CPU).
+    ``seg_ids``, each slot's token, is that layout, which the backward
+    takes as given: it is not read."""
     if not _wants_grad(x):
         return fn.pad(x, (0, 0, 0, 1)).index_select(0, src)
-    return _Dispatch.apply(x, src, seg_ids, torch.where(keep, dest, 0),
-                           keep.float(), _plain(combine))
+    return _Dispatch.apply(x, src, dest, keep, _plain(combine))
 
 
 class _EmbeddingGather(torch.autograd.Function):

@@ -19,7 +19,9 @@ def segment_sum_ref(data: torch.Tensor, seg_ids: torch.Tensor,
     ``rows[e]`` when ``rows`` (``[E]``) is given: the rows are gathered
     first.  Ids outside ``[0, n_segments)`` are dropped, as
     ``jax.ops.segment_sum`` drops them.  ``weights`` (``[E]``, optional)
-    multiply the rows before the sum.  bfloat16 rows are summed in
+    multiply the rows before the sum.  A ``rows[e]`` outside ``[0, R)``
+    (``data [R, D]``; the MoE's dropped slots name -1) reads as a zero
+    row, as K5 reads it, whatever ``data`` holds.  bfloat16 rows are summed in
     float32, as K5's bf16-row form sums them."""
     # out-of-range rows land in a spare last row, dropped after the sum (no
     # masked copy of data)
@@ -37,8 +39,13 @@ def segment_sum_ref(data: torch.Tensor, seg_ids: torch.Tensor,
     step = max(1, _PIECE // max(1, data[:1].numel()))
     for lo in range(0, e, step):
         hi = min(lo + step, e)
-        piece = (data[lo:hi] if rows is None
-                 else data.index_select(0, rows[lo:hi])).to(dtype)
+        if rows is None:
+            piece = data[lo:hi].to(dtype)
+        else:
+            r = rows[lo:hi]
+            named = (r >= 0) & (r < data.shape[0])
+            piece = data.index_select(0, torch.where(named, r, 0)).to(dtype)
+            piece.masked_fill_(~named[:, None], 0)
         if weights is not None:
             piece = piece * weights[lo:hi, None]
         out.index_add_(0, idx[lo:hi], piece)
@@ -52,13 +59,20 @@ def segment_sum_bwd_ref(g: torch.Tensor, data: torch.Tensor,
     rows)`` for ``g = dL/dout`` (``[n, D]`` float32): ``grad_w[e] =
     <data[rows[e]], g[seg[e]]>`` (float32) and ``grad_data[r] = Σ_{e:
     rows[e] = r} w[e]·g[seg[e]]`` (an ``index_add_`` in float32, cast to
-    data's dtype; 0 where no row names r)."""
+    data's dtype; 0 where no row names r).  A slot whose row lies outside
+    ``[0, R)`` (a dropped MoE slot) reads no row and adds to none: its
+    ``grad_w`` is 0."""
+    n_rows = data.shape[0]
+    named = (rows >= 0) & (rows < n_rows)
     ge = g.index_select(0, seg_ids.long())
-    grad_w = (data.index_select(0, rows).float() * ge).sum(-1)
-    grad_data = torch.zeros(data.shape, dtype=torch.float32,
-                            device=data.device)
-    grad_data.index_add_(0, rows.long(), ge * weights[:, None])
-    return grad_w, grad_data.to(data.dtype)
+    grad_w = (data.index_select(0, torch.where(named, rows, 0)).float()
+              * ge).sum(-1).masked_fill_(~named, 0)
+    # slots that name no row land in a spare last row, dropped after
+    grad_data = torch.zeros((n_rows + 1,) + tuple(data.shape[1:]),
+                            dtype=torch.float32, device=data.device)
+    grad_data.index_add_(0, torch.where(named, rows.long(), n_rows),
+                         ge * weights[:, None])
+    return grad_w, grad_data[:n_rows].to(data.dtype)
 
 
 def embedding_bag_ref(table: torch.Tensor, ids: torch.Tensor,

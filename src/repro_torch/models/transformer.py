@@ -380,7 +380,6 @@ def _slots(gate_i: torch.Tensor, m: MoEConfig):
 
 
 def _dispatch(xf: torch.Tensor, gate_i: torch.Tensor, m: MoEConfig,
-              tok_idx: Optional[torch.Tensor] = None,
               combine: Combine = segment_sum_sorted):
     """The dispatch of tokens ``xf [T, D]`` routed to ``gate_i [T, k]``:
     ``(buf [E_pad, cap, D], dest [T·k], keep [T·k], counts [E], slot
@@ -389,8 +388,9 @@ def _dispatch(xf: torch.Tensor, gate_i: torch.Tensor, m: MoEConfig,
     ``slot`` maps each buffer row back to its slot index (``T·k`` where
     none).  The buffer is filled by a gather: a kept slot's destination is
     unique, an empty slot reads a zero row.  With a gradient wanted the
-    gather is :func:`moe_dispatch`'s (``tok_idx``, each slot's token, and
-    ``combine``, whose kind its backward takes)."""
+    gather is :func:`moe_dispatch`'s, whose backward sums each token's
+    kept slots' rows and reads no row for a dropped slot (``combine``
+    gives its kind)."""
     t, d = xf.shape
     k = m.top_k
     cap = _capacity(t, m)
@@ -405,8 +405,7 @@ def _dispatch(xf: torch.Tensor, gate_i: torch.Tensor, m: MoEConfig,
                   torch.arange(t * k, device=xf.device))
     slot = slot[:n_slots]
     # each buffer row's token: t (the zero row) where none
-    buf = moe_dispatch(xf, slot // k, seg_ids=tok_idx, dest=dest, keep=keep,
-                       combine=combine)
+    buf = moe_dispatch(xf, slot // k, dest=dest, keep=keep, combine=combine)
     return buf.view(m.e_pad, cap, d), dest, keep, counts, slot
 
 
@@ -417,7 +416,10 @@ def _moe_ffn(lp: Dict[str, torch.Tensor], x: torch.Tensor,
     the experts' SwiGLU, three ``bmm`` over every expert, padded ones
     included, and the combine ``out[t] = Σ_slots w·eo[e, pos]`` is
     ``combine`` over the expert outputs' rows in float32 (K5's bf16-row
-    form on the card for a bf16 model; dropped slots carry weight 0).
+    form on the card for a bf16 model).  A dropped slot names row -1 and
+    weight 0: it reads no row and adds exact zeros, forward and backward,
+    whatever the experts' outputs hold, as the reference's ``where(keep,
+    ...)`` does.
     Under autograd the dispatch's and the combine's gradients are the
     kernels' (with the plain ``combine``, ``segment_sum_ref``, their plain
     versions)."""
@@ -428,8 +430,7 @@ def _moe_ffn(lp: Dict[str, torch.Tensor], x: torch.Tensor,
     probs, gate_w, gate_i = _route(lp["router"], xf, m)
     tok_idx = torch.arange(t, dtype=torch.int32,
                            device=x.device).repeat_interleave(k)
-    buf, dest, keep, counts, slot = _dispatch(xf, gate_i, m, tok_idx,
-                                              combine)
+    buf, dest, keep, counts, slot = _dispatch(xf, gate_i, m, combine)
     n_slots = buf.shape[0] * buf.shape[1]
     h = fn.silu(torch.bmm(buf, lp["ew1"])) * torch.bmm(buf, lp["ew3"])
     eo = torch.bmm(h, lp["ew2"])
@@ -437,7 +438,7 @@ def _moe_ffn(lp: Dict[str, torch.Tensor], x: torch.Tensor,
     # (the gradient passes the rounding, as through JAX's astype)
     w = torch.where(keep, gate_w.reshape(-1).to(x.dtype).float(), 0.0)
     out = moe_combine(eo.view(n_slots, d), tok_idx, t, weights=w,
-                      rows=torch.where(keep, dest, 0), slot=slot,
+                      rows=torch.where(keep, dest, -1), slot=slot,
                       combine=combine).to(x.dtype)
     if _expert_load_sink is not None:
         _expert_load_sink(counts.cpu().numpy())

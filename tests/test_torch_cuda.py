@@ -2500,7 +2500,8 @@ def test_attention_train_op_on_the_card(cuda_device, op):
 def _combine_bwd_case(rng, t, k, e_pad, cap, d, dtype, device, case="sorted"):
     """The MoE combine's operands as ``_dispatch_slots`` makes them: each
     kept slot a buffer row of its own, every dropped slot row 0 with
-    weight 0, and ``slot`` the inverse map (the slot count where none).
+    weight 0 (row -1, as the model now names it, in the cases ending in
+    ``dropped``), and ``slot`` the inverse map (the slot count where none).
     ``case``: ``sorted`` (a token's k slots side by side, a fifth dropped,
     rows at random); ``routed`` (the dispatch's layout: k distinct
     experts a token by a skewed preference, each expert's rows filled in
@@ -2509,13 +2510,14 @@ def _combine_bwd_case(rng, t, k, e_pad, cap, d, dtype, device, case="sorted"):
     ``uneven`` (tokens of 0 to 2k slots); ``zero_weight`` (a tenth of the
     kept slots of weight 0); ``off_contract`` (up to 50 rows that no slot
     names given a kept slot that names another row: ``rows[slot[r]] !=
-    r``)."""
+    r``); ``dropped`` (``sorted`` with row -1 a dropped slot);
+    ``routed_dropped`` (``routed`` with row -1 a dropped slot)."""
     n = e_pad * cap
     counts = rng.integers(0, 2 * k + 1, t) if case == "uneven" else (
         np.full(t, k))
     seg = np.repeat(np.arange(t, dtype=np.int32), counts)
     m = seg.size
-    if case == "routed":
+    if case.startswith("routed"):
         pref = rng.random((t, e_pad)) * np.linspace(1.0, 3.0, e_pad)
         gate = np.argsort(-pref, axis=1)[:, :k].reshape(-1)
         order = np.argsort(gate, kind="stable")
@@ -2528,7 +2530,7 @@ def _combine_bwd_case(rng, t, k, e_pad, cap, d, dtype, device, case="sorted"):
     else:
         keep = rng.random(m) < 0.8
         dest = rng.permutation(n)[:m]
-    rows = np.where(keep, dest, 0)
+    rows = np.where(keep, dest, -1 if case.endswith("dropped") else 0)
     w = np.where(keep, rng.random(m), 0.0).astype(np.float32)
     if case == "zero_weight":
         w[keep & (rng.random(m) < 0.1)] = 0.0
@@ -2567,6 +2569,12 @@ def _combine_bwd_case(rng, t, k, e_pad, cap, d, dtype, device, case="sorted"):
     pytest.param(700, 8, 128, "zero_weight", id="zero_weight-700-8-128"),
     pytest.param(700, 8, 128, "off_contract", id="off_contract-700-8-128"),
     pytest.param(700, 8, 130, "off_contract", id="off_contract-700-8-130"),
+    # a dropped slot names row -1 (the model's rows since the dispatch's
+    # own backward): it reads nothing and gets grad_w 0
+    pytest.param(700, 8, 128, "dropped", id="dropped-700-8-128"),
+    pytest.param(700, 8, 130, "dropped", id="dropped-700-8-130"),
+    pytest.param(16384, 8, 1024, "routed_dropped",
+                 id="granite-dropped-16384-8-1024"),
 ])
 def test_moe_combine_bwd_matches_plain(cuda_device, t, k, d, case, dtype):
     """The combine's backward against its plain version (index_add_ and a
@@ -2580,13 +2588,15 @@ def test_moe_combine_bwd_matches_plain(cuda_device, t, k, d, case, dtype):
     (the stream body keeps its dot's order), and every output written:
     ``torch.empty`` hands out NaN.  Off the dispatch's contract a row
     whose ``slot`` names a slot of another row gets ``w[slot[r]] ·
-    g[seg[slot[r]]]``, as the ``warp_row`` body always gave it."""
+    g[seg[slot[r]]]``, as the ``warp_row`` body always gave it.  A slot
+    naming row -1 reads no row and gets ``grad_w`` 0 in every body, as in
+    the plain version."""
     from repro_torch.kernels.segment import segment_sum_bwd_ref
     from repro_torch.kernels.segment.backward import (
         COMBINE_BWD_ROUTES, _moe_combine_bwd_warp_row, moe_combine_bwd)
 
     dt = getattr(torch, dtype)
-    e_pad, cap = (32, 5120) if case == "routed" else (
+    e_pad, cap = (32, 5120) if case.startswith("routed") else (
         64, max(1, -(-t * k // 50)))
     eo, g, w, rows, seg, slot = _combine_bwd_case(
         np.random.default_rng(t + d), t, k, e_pad, cap, d, dt, cuda_device,
@@ -2615,8 +2625,10 @@ def test_moe_combine_bwd_matches_plain(cuda_device, t, k, d, case, dtype):
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
     assert torch.equal(got[1], want_eo)
     assert torch.equal(got[0], old[0]) and torch.equal(got[1], old[1])
-    terms = (eo.double().index_select(0, rows)
-             * g.double().index_select(0, seg.long()))
+    named = rows >= 0
+    terms = (eo.double().index_select(0, rows.clamp(min=0))
+             * g.double().index_select(0, seg.long())) * named[:, None]
+    assert bool((got[0][~named] == 0).all())
     err = (got[0].double() - terms.sum(-1)).abs()
     bound = 4 * 2.0**-24 * d * terms.abs().sum(-1)
     assert bool((err <= bound).all()), float((err - bound).max())
@@ -2625,10 +2637,11 @@ def test_moe_combine_bwd_matches_plain(cuda_device, t, k, d, case, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_moe_dispatch_bwd_on_k5_counts_apart(cuda_device, dtype):
-    """The dispatch gather's backward on K5's gather form (its bf16-row
-    form in bf16): the sum of each token's kept slots, within rtol / atol
-    1e-5 of the plain version, counted under ``moe_dispatch_bwd`` and not
-    under K5's own names."""
+    """The dispatch gather's backward through :func:`moe_dispatch` (its
+    own kernel, ``csrc/dispatch_bwd.cu``, since it left K5's gather form):
+    the sum of each token's kept slots, within rtol / atol 1e-5 of the
+    plain version, counted under ``moe_dispatch_bwd`` and not under K5's
+    own names."""
     from repro_torch.kernels.segment import (moe_dispatch, segment_sum_ref,
                                              segment_sum_sorted)
 
@@ -2656,6 +2669,105 @@ def test_moe_dispatch_bwd_on_k5_counts_apart(cuda_device, dtype):
         grads.append(gx.float())
     np.testing.assert_allclose(grads[0].cpu().numpy(),
                                grads[1].cpu().numpy(), rtol=1e-5, atol=1e-5)
+
+
+def _dispatch_bwd_case(rng, t, k, d, dtype, device):
+    """The dispatch's backward operands: ``t`` tokens of ``k`` slots, a
+    fifth dropped and the first 3 tokens' every slot, each kept slot a
+    buffer row of its own among ``R = 1.25·t·k``, a dropped slot's dest a
+    kept slot's row, a free row or past the buffer; ``g [R, d]`` normal.
+    Returns ``(g, dest, keep)``."""
+    m = t * k
+    n_rows = m + m // 4
+    keep = rng.random(m) < 0.8
+    keep[:3 * k] = False
+    dest = rng.permutation(n_rows)[:m].astype(np.int64)
+    drop = np.flatnonzero(~keep)
+    dest[drop] = rng.integers(0, n_rows + 100, drop.size)
+    g = torch.from_numpy(rng.standard_normal((n_rows, d)).astype(np.float32))
+    return (g.to(device=device, dtype=dtype), torch.from_numpy(dest).to(device),
+            torch.from_numpy(keep).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [64, 128, 1024, 1030])
+def test_moe_dispatch_bwd_matches_plain(cuda_device, d, k, dtype):
+    """The dispatch's backward kernel (``csrc/dispatch_bwd.cu``; D 1,030
+    in either dtype runs its elem body, the others its vec body) against
+    its plain version, which sums the same terms in the same order: the
+    same bits (so within relative L1 1e-5), in ``g``'s dtype, zeros for
+    the tokens whose every slot is dropped, every element written
+    (``torch.empty`` hands out NaN), a relaunch bit-identical, one launch
+    counted under ``moe_dispatch_bwd`` a call and none under K5's
+    names."""
+    from repro_torch.kernels.segment import (dispatch_bwd_kernel,
+                                             dispatch_bwd_ref)
+
+    dt = getattr(torch, dtype)
+    t = 700
+    g, dest, keep = _dispatch_bwd_case(np.random.default_rng(d + k), t, k,
+                                       d, dt, cuda_device)
+    before = dict(LAUNCHES)
+    with _empty_is_nan():
+        got = dispatch_bwd_kernel(g, dest, keep, t)
+        again = dispatch_bwd_kernel(g, dest, keep, t)
+        torch.cuda.synchronize()
+        want = dispatch_bwd_ref(g, dest, keep, t)
+    assert {key: n - before[key] for key, n in LAUNCHES.items()
+            if n != before[key]} == {"moe_dispatch_bwd": 2}
+    assert got.dtype == dt and got.shape == (t, d)
+    assert torch.equal(got, again) and torch.equal(got, want)
+    assert _rel_l1(got.float(), want.float()) <= 1e-5
+    assert bool((got[:3] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 1024), ("float32", 64),
+                                     ("bfloat16", 128), ("float32", 128)])
+def test_moe_dispatch_bwd_is_k5s_route_plus_the_cast(cuda_device, dtype, d,
+                                                     k):
+    """On finite g, bit for bit what the port ran before: K5's gather form
+    over rows ``where(keep, dest, 0)`` with weight 1 a kept slot and 0 a
+    dropped one, then ``.to(dtype)`` (1,024 tokens: every K5 walker holds
+    whole tokens, so K5 too sums a token's slots in slot order)."""
+    from repro_torch.kernels.segment import (dispatch_bwd_kernel,
+                                             segment_sum_kernel)
+
+    dt = getattr(torch, dtype)
+    t = 1024
+    g, dest, keep = _dispatch_bwd_case(np.random.default_rng(d * k), t, k,
+                                       d, dt, cuda_device)
+    seg = torch.arange(t, dtype=torch.int32,
+                       device=cuda_device).repeat_interleave(k)
+    old = segment_sum_kernel(g, seg, t, keep.float(),
+                             torch.where(keep, dest, 0)).to(dt)
+    assert torch.equal(dispatch_bwd_kernel(g, dest, keep, t), old)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("d", [128, 1030])
+def test_moe_dispatch_bwd_reads_no_dropped_row(cuda_device, d, dtype):
+    """NaN and inf in every row of g that no kept slot names (the rows the
+    dropped slots name among them): the kernel's output is finite and
+    bit-equal to its output with those rows zeroed."""
+    from repro_torch.kernels.segment import dispatch_bwd_kernel
+
+    dt = getattr(torch, dtype)
+    t, k = 700, 8
+    g, dest, keep = _dispatch_bwd_case(np.random.default_rng(d), t, k, d, dt,
+                                       cuda_device)
+    free = torch.ones(g.shape[0], dtype=torch.bool, device=cuda_device)
+    free[dest[keep]] = False
+    clean = dispatch_bwd_kernel(g.masked_fill(free[:, None], 0), dest, keep,
+                                t)
+    g[free] = torch.where(torch.rand(g[free].shape, device=cuda_device) < 0.5,
+                          torch.inf, torch.nan).to(dt)
+    got = dispatch_bwd_kernel(g, dest, keep, t)
+    assert bool(torch.isfinite(got).all()) and torch.equal(got, clean)
 
 
 @pytest.mark.cuda

@@ -169,8 +169,8 @@ combine_bwd_bulk_kernel(const __nv_bfloat16* __restrict__ eo, const float* __res
         }
         __syncwarp();
         if (lane / 8 == q && lane %% 8 < cnt)
-          bulk_load(smem_u32(base + (lane %% 8) * row_bytes), eo + cr * d, row_bytes,
-                    smem_u32(bars + st));
+          bulk_load(smem_u32(base + (lane %% 8) * row_bytes), eo + (cr < 0 ? 0 : cr) * d,
+                    row_bytes, smem_u32(bars + st));
       }
       cr = nr;
       ct = nt;
@@ -190,7 +190,7 @@ combine_bwd_bulk_kernel(const __nv_bfloat16* __restrict__ eo, const float* __res
       my_row = rows[s0 + lane];
       my_seg = seg[s0 + lane];
       my_w = w[s0 + lane];
-      my_own = slot[my_row] == s0 + lane;
+      my_own = my_row >= 0 && my_row < n_rows && slot[my_row] == s0 + lane;
     }
     mbar_wait(smem_u32(bars + st), (it / kBulkStages) & 1);
     const unsigned char* base = smem + (size_t)st * stage_bytes;
@@ -217,7 +217,7 @@ combine_bwd_bulk_kernel(const __nv_bfloat16* __restrict__ eo, const float* __res
     for (int i = 0; i < kRun; ++i) acc[i] = 0.0f;
 #pragma unroll
     for (int i = 0; i < kRun; ++i) {
-      if (i < cnt) {
+      if (i < cnt && __shfl_sync(kFull, my_row, i) >= 0) {  // a dropped slot: dot 0
         const int sg = __shfl_sync(kFull, my_seg, i);
         if (sg != held) {
           load_g<VEC>(gv, g + (int64_t)sg * d, lane, d);
