@@ -4,7 +4,8 @@
     python3 chip_smoke.py                 # N = 2**21, on the card
     python3 chip_smoke.py --n 65536       # a smaller graph
     python3 chip_smoke.py --device cpu --n 16384 --fm-vocab 1000 \
-        --gin-nodes 5000 --lm-reduced   # rehearsal: plain versions, no result
+        --gin-nodes 5000 --gnn-nodes 3000 --lm-reduced
+                                          # rehearsal: plain versions, no result
 
 Phases, each printed on its own lines (any failure exits non-zero):
 
@@ -124,6 +125,35 @@ Phases, each printed on its own lines (any failure exits non-zero):
    the device memory peak above phase 10's.  Row for the kernels line:
    ``segment_sum_gather_bwd`` (``torch.sparse.mm`` of the transposed
    ``sparse_csr`` as the library call).
+10 (c). MeshGraphNet (15 layers, d 128), EGNN (4 layers, d 64) and
+   DimeNet (6 blocks, d 128, 8 bilinear, 7 spherical and 6 radial
+   channels) at full width, after 10 (b) releases GIN's batch.  (a) 3
+   AdamW steps each of the ``molecule`` cell (``molecule_batch``: 128
+   graphs, N 3,840, E 8,192, its 16,850 triplets padded to the cell's
+   65,536 with ``trip_mask`` 0) through ``launch.steps``, counters zeroed
+   just before.  Gates: finite losses; per step exactly the launches the
+   code implies (``gnn_launches``: K5 and its carry once an aggregation and
+   once for the pooling, ``embedding_gather_bwd`` once a gather that wants
+   a gradient; no other kernel), DimeNet's triplet aggregations in K5's
+   contiguous form; every gradient leaf within relative L1 1e-4 of
+   ``loss_fn(kernels=False)``'s, and bit-equal on a rerun.  (b) The
+   forward of each at ``minibatch_lg``: a ``power_law_graph`` of the
+   cell's 169,984 nodes at ``GNN_ALPHA`` (166,876 edges, under the cell's
+   168,960), ``make_gnn_batch(with_pos, with_triplets)`` (d_feat 602)
+   padded to the cell's N, E and T = 1,351,680, built on the host thread
+   after phase 10's graph; one sort of it serves the three.  Gates: the
+   launches a forward implies; the ``[N, d_out]`` output finite and within
+   relative L1 1e-5 of the plain version's.  Prints each forward's wall and
+   device memory peak.  (c) Rows for the kernels line, on (b)'s operands
+   against their plain versions (relative L1 <= 1e-5, a bit-identical
+   relaunch) with ``index_add_`` as the library call:
+   ``segment_sum_mgn_agg`` (MeshGraphNet's aggregation, [E, 128], the
+   gather form over the destination sort), ``segment_sum_egnn_pos``
+   (EGNN's position update, [E, 3]), ``segment_sum_dimenet_trip``
+   (DimeNet's triplet aggregation, [T, 128], contiguous, ``trip_mask`` the
+   weight) and ``embedding_gather_bwd_d128`` (the gathers' gradient at d
+   128: ``m[trip_f]``'s, T rows into E); their launches those of (a) and
+   (b) by role (the gated counts).  Prints the phase's wall.
 11. Numbers: rounds, ops, wall times, launch counts of the main path
    (phases 4 and 5, and phase 7, counters zeroed just before each solve
    and read just after; K2 runs in phase 5 only in the invariant check,
@@ -388,6 +418,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import dataclasses
+import importlib
 import json
 import os
 import subprocess
@@ -441,6 +472,14 @@ GIN_SHAPE = "ogb_products"
 # nodes has 61,209,125 edges, under the cell's 61,859,328 (alpha 1.65
 # expects 64.1M edge stubs, over it)
 GIN_ALPHA = 1.655
+# phase 10 (c): the other GNN archs, trained at the molecule cell and run
+# forward at minibatch_lg on a power_law_graph of the cell's 169,984 nodes
+# whose seed-0 graph has 166,876 edges, under the cell's 168,960 (alpha
+# 2.46: 170,734, over it)
+GNN_ARCHS = ("meshgraphnet", "egnn", "dimenet")
+GNN_TRAIN_SHAPE = "molecule"
+GNN_FWD_SHAPE = "minibatch_lg"
+GNN_ALPHA = 2.47
 LM_ARCH = "qwen1.5-0.5b"
 # phase 16: the MoE model served in bf16, and the one whose float32 whole
 # path is held to the plain versions
@@ -3423,6 +3462,336 @@ def gin_training(args, torch, dev, timer, sync, gin, prepared):
     return [row], summary
 
 
+def gnn_archs_host_batch(args):
+    """Phase 10 (c)'s forward batch on the host: a ``power_law_graph`` of
+    ``args.gnn_nodes`` nodes (default the ``minibatch_lg`` cell's 169,984)
+    at ``GNN_ALPHA``, ``make_gnn_batch`` with coordinates, atom types and
+    triplets, padded to the cell's N, E and T = 8·E (or by the cells'
+    rule at another size).  Returns ``(batch, n, e, t, real e, real t,
+    host s)``."""
+    from repro_torch.configs.gnn_common import SHAPE_DIMS, TRIP_PER_EDGE
+    from repro_torch.core import power_law_graph
+    from repro_torch.data import make_gnn_batch, pad_gnn_batch
+
+    dims = SHAPE_DIMS[GNN_FWD_SHAPE]
+    n_nodes = args.gnn_nodes or dims["n_real"]
+    t0 = time.perf_counter()
+    g = power_law_graph(n_nodes, alpha=GNN_ALPHA, seed=args.seed)
+    gb = make_gnn_batch(g, dims["d_feat"], n_classes=dims["classes"],
+                        with_pos=True, with_triplets=True, seed=args.seed)
+    if n_nodes == dims["n_real"]:
+        n, e = dims["n"], dims["e"]
+    else:
+        n, e = -(-g.n // 32) * 32, -(-g.n_edges // 512) * 512
+    if g.n_edges > e:
+        fail(f"the {GNN_FWD_SHAPE} graph has {g.n_edges} edges, over the "
+             f"cell's {e}")
+    t_real = gb["trip_e"].shape[0]
+    t = e * TRIP_PER_EDGE
+    return (pad_gnn_batch(gb, n, e, t), n, e, t, g.n_edges, t_real,
+            time.perf_counter() - t0)
+
+
+def gnn_launches(arch: str, n_layers: int, graph: bool, train: bool):
+    """The launches one forward (and, with ``train``, its backward) of a
+    MeshGraphNet / EGNN / DimeNet implies: K5 (``segment_sum``) once an
+    aggregation (MeshGraphNet's per layer; EGNN's position update and
+    aggregation per layer; DimeNet's triplet aggregation and node output
+    per block), once more for a graph task's pooling, each with its carry
+    at these shapes (more than one 1,024-row chunk); the gathers'
+    gradients (``embedding_gather_bwd``) once a gather of a tensor that
+    wants one: ``h[src]``, ``h[dst]`` per layer (and EGNN's ``pos[src]``,
+    ``pos[dst]`` after layer 0), DimeNet's ``atom_embed[z]``,
+    ``hz[src]``, ``hz[dst]`` and ``m[trip_f]`` per block.  Also the K5
+    launches in the contiguous form (DimeNet's triplet aggregations)."""
+    k5 = (1 if arch == "meshgraphnet" else 2) * n_layers + int(graph)
+    emb = {"meshgraphnet": 2 * n_layers, "egnn": 4 * n_layers - 2,
+           "dimenet": n_layers + 3}[arch]
+    want = {"segment_sum": k5, "segment_sum_carry": k5,
+            "embedding_gather_bwd": emb if train else 0}
+    return want, (n_layers if arch == "dimenet" else 0)
+
+
+def gnn_archs_phase(args, torch, dev, timer, sync, host):
+    """Phase 10 (c): MeshGraphNet, EGNN and DimeNet at full width.  (a) 3
+    AdamW steps each of the ``molecule`` cell through ``launch.steps``
+    (``host`` supplies (b)'s batch).  Returns ``(rows, summary)``."""
+    import repro_torch.configs as configs
+    from repro_torch.configs.gnn_common import SHAPE_DIMS, TRIP_PER_EDGE
+    from repro_torch.data import molecule_batch, pad_gnn_batch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.segment import (
+        FORMS, embedding_bwd_kernel, embedding_bwd_ref, segment_sum_kernel,
+        segment_sum_ref)
+    from repro_torch.launch.steps import build_cell_step
+    from repro_torch.models import gnn
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import tree_leaves
+
+    on_card = dev.type == "cuda"
+    cfg_for = {a: importlib.import_module(f"repro_torch.configs.{a}").cfg_for
+               for a in GNN_ARCHS}
+    n_steps = 3
+    dims = SHAPE_DIMS[GNN_TRAIN_SHAPE]
+    mol = molecule_batch(dims["graphs"], dims["n"] // dims["graphs"],
+                         dims["e"] // dims["graphs"], dims["d_feat"],
+                         with_triplets=True, seed=args.seed)
+    mol_t = mol["trip_e"].shape[0]
+    mol = pad_gnn_batch(mol, dims["n"], dims["e"], dims["e"] * TRIP_PER_EDGE)
+    print(f"(a) {GNN_TRAIN_SHAPE}: {dims['graphs']} graphs, N={dims['n']} "
+          f"E={dims['e']} T={mol['trip_e'].shape[0]} ({mol_t} real)")
+    counted = {}  # arch -> (forwards, training steps) in the counted runs
+    summary = []
+
+    def grads(model, batch, leaves, **kw):
+        loss = gnn.loss_fn(model, batch, **kw)
+        got = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g
+                for p, g in zip(leaves, got)]
+
+    for arch in GNN_ARCHS:
+        spec = configs.get_arch(arch)
+        cfg = cfg_for[arch](GNN_TRAIN_SHAPE)
+        model = gnn.init_params(cfg, seed=args.seed, device=dev)
+        prepared = gnn.prepare_batch(mol, dev, arch)
+        step = build_cell_step(spec, spec.cells[GNN_TRAIN_SHAPE], model,
+                               AdamWConfig(lr=1e-3, warmup_steps=1,
+                                           total_steps=n_steps))
+        tree = model.param_tree()
+        state = adamw_init(tree)
+        want, contiguous = gnn_launches(arch, cfg.n_layers, True, True)
+        sync()
+        held = torch.cuda.memory_allocated() / 1e9 if on_card else 0.0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        forms0 = dict(FORMS)
+        walls, losses = [], []
+        for i in range(n_steps):
+            before = dict(LAUNCHES)
+            t0 = time.perf_counter()
+            tree, state, metrics = step(tree, state, prepared)
+            sync()
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+            delta = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+            if on_card and delta != {k: want.get(k, 0) for k in LAUNCHES}:
+                fail(f"{arch} train step {i}: launches "
+                     f"{ {k: v for k, v in delta.items() if v} }, want "
+                     f"{want}")
+        forms = {k: v - forms0[k] for k, v in FORMS.items()}
+        counted[arch] = (0, n_steps)
+        peak = (torch.cuda.max_memory_allocated() / 1e9 - held if on_card
+                else 0.0)
+        if not all(np.isfinite(losses)):
+            fail(f"{arch} training losses not finite: {losses}")
+        if on_card and forms["contiguous"] != contiguous * n_steps:
+            fail(f"{arch} training's K5 launches by form {forms}")
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"{arch} {GNN_TRAIN_SHAPE} ({cfg.n_layers} layers, d "
+              f"{cfg.d_hidden}, {n_params} parameters): losses "
+              f"{[round(x, 6) for x in losses]}; walls "
+              f"{[round(w, 4) for w in walls]} s; launches a step "
+              f"{json.dumps(want)} (K5 by form over the run {forms}); "
+              f"device memory peak {peak:.3f} GB above {held:.3f} GB")
+        # off the counted steps: the gradients with the kernels against
+        # the plain versions', and a rerun's bit for bit
+        leaves = tree_leaves(model.param_tree())
+        got = grads(model, prepared, leaves)
+        again = grads(model, prepared, leaves)
+        plain = grads(model, prepared, leaves, kernels=False)
+        errs = [rel_l1(a, c) for a, c in zip(got, plain)]
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        print(f"{arch} gradients with the kernels vs the plain run: largest "
+              f"rel L1 of {len(errs)} leaves {max(errs):.3e}; a rerun "
+              f"bit-equal: {same}")
+        if max(errs) > 1e-4:
+            fail(f"{arch} gradients disagree with the plain run's")
+        if not same:
+            fail(f"{arch} gradients differ on a rerun")
+        summary.append(f"{arch} step walls {[round(w, 4) for w in walls]} s")
+        del model, prepared, step, tree, state, got, again, plain
+    del mol
+
+    # (b) the forward at minibatch_lg, full width
+    t0 = time.perf_counter()
+    gb, n, e, t, e_real, t_real, host_s = host.result()
+    wait_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fwd = gnn.prepare_batch(gb, dev, "dimenet")  # every arch's keys
+    sync()
+    prep_s = time.perf_counter() - t0
+    del gb
+    print(f"(b) {GNN_FWD_SHAPE}: N={n} E={e} ({e_real} real, alpha "
+          f"{GNN_ALPHA}) T={t} ({t_real} real) d_feat="
+          f"{fwd['x'].shape[1]}; host build {host_s:.1f} s (on a host "
+          f"thread; waited {wait_s:.1f} s here); upload + sorts "
+          f"{prep_s:.1f} s")
+    for arch in GNN_ARCHS:
+        cfg = cfg_for[arch](GNN_FWD_SHAPE)
+        model = gnn.init_params(cfg, seed=args.seed, device=dev)
+        want, contiguous = gnn_launches(arch, cfg.n_layers, False, False)
+        sync()
+        held = torch.cuda.memory_allocated() / 1e9 if on_card else 0.0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        forms0 = dict(FORMS)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = gnn.forward(model, fwd)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        forms = {k: v - forms0[k] for k, v in FORMS.items()}
+        counted[arch] = (1, counted[arch][1])
+        peak = (torch.cuda.max_memory_allocated() / 1e9 - held if on_card
+                else 0.0)
+        if on_card and (launches != {k: v for k, v in want.items() if v}
+                        or forms["contiguous"] != contiguous):
+            fail(f"{arch} forward: launches {launches} ({forms} by form), "
+                 f"want {want}")
+        if out.shape != (n, cfg.d_out) or not bool(out.isfinite().all()):
+            fail(f"{arch} forward output not finite or of shape "
+                 f"{tuple(out.shape)}")
+        with torch.no_grad():
+            out_plain = gnn.forward(model, fwd, segment_sum=segment_sum_ref)
+        err = rel_l1(out, out_plain)
+        print(f"{arch} {GNN_FWD_SHAPE} ({cfg.n_layers} layers, d "
+              f"{cfg.d_hidden}): forward wall {wall:.4f} s, launches "
+              f"{json.dumps(launches)}; device memory peak {peak:.3f} GB "
+              f"above {held:.3f} GB; |out|_1 / N "
+              f"{float(out.abs().sum()) / n:.4e}; vs the plain version: "
+              f"rel L1 {err:.3e}")
+        if err > REL_L1:
+            fail(f"{arch} forward with the kernels disagrees with the plain "
+                 "version")
+        summary.append(f"{arch} {GNN_FWD_SHAPE} forward {wall:.4f} s, peak "
+                       f"{peak:.3f} GB")
+        del model, out, out_plain
+
+    # (c) the kernels at the forward's operands, against their plain
+    # versions and a library call
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    n_t = fwd["trip_e"].shape[0]
+    d = cfg_for["meshgraphnet"](GNN_FWD_SHAPE).d_hidden
+    mgn_layers = cfg_for["meshgraphnet"](GNN_FWD_SHAPE).n_layers
+    egnn_layers = cfg_for["egnn"](GNN_FWD_SHAPE).n_layers
+    dn_layers = cfg_for["dimenet"](GNN_FWD_SHAPE).n_layers
+
+    def runs(arch, per_forward, per_step):
+        f, s_ = counted[arch]
+        return per_forward * f + per_step * s_
+
+    def k5_row(name, role, data, ids, seg, n_seg, weights, rows, launches):
+        w_sorted = None if weights is None else (
+            weights if rows is None else weights.index_select(0, rows))
+        a, a2 = (segment_sum_kernel(data, seg, n_seg, w_sorted, rows)
+                 for _ in range(2))
+        p = segment_sum_ref(data, seg, n_seg, w_sorted, rows)
+        err, same = rel_l1(a, p), torch.equal(a, a2)
+        print(f"K5 as {role} ({tuple(data.shape)} into {n_seg}, "
+              f"{'gather' if rows is not None else 'contiguous'} form): rel "
+              f"L1 {err:.3e}, bit-identical relaunch {same}")
+        if not (err <= REL_L1 and same):
+            fail(f"K5 as {role} against its plain version")
+        n_e, dd = data.shape
+        # each row read once, the ids (int32), the rows (int64) and the
+        # weights, the output written once
+        n_bytes = (data.numel() * 4 + n_e * 4 + n_seg * dd * 4
+                   + (0 if rows is None else n_e * 8)
+                   + (0 if weights is None else n_e * 4))
+        b_ms, b_by = bound_ms(n_bytes, (2.0 if weights is not None else 1.0)
+                              * n_e * dd)
+        lib = None
+        if on_card:
+            idx = ids.long()
+            wd = data if weights is None else data * weights[:, None]
+            lib = timer(lambda: torch.zeros((n_seg, dd), device=dev)
+                        .index_add_(0, idx, wd), 5)
+            del idx, wd
+        row = {"name": name, "route": "cuda",
+               "source": "src/repro_torch/csrc/segment_sum.cu",
+               "replaces": "src/repro/kernels/segment/kernel.py:50",
+               "role": role, "launches": launches,
+               "form": "gather" if rows is not None else "contiguous",
+               "max_abs_err": float((a - p).abs().max()),
+               "ms": timer(lambda: segment_sum_kernel(
+                   data, seg, n_seg, w_sorted, rows), 10),
+               "plain_ms": timer(lambda: segment_sum_ref(
+                   data, seg, n_seg, w_sorted, rows), 3),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+               "shape": [n_e, dd, n_seg]}
+        del a, a2, p
+        return row
+
+    rows = []
+    he = torch.randn((e, d), generator=gen, device=dev)
+    rows.append(k5_row(
+        "segment_sum_mgn_agg", "MeshGraphNet's aggregation "
+        "(src/repro/models/gnn.py:100)", he, fwd["dst"], fwd["agg_dst"], n,
+        fwd["edge_mask"], fwd["dst_order"],
+        runs("meshgraphnet", mgn_layers, mgn_layers)))
+    del he
+    upd = torch.randn((e, 3), generator=gen, device=dev)
+    rows.append(k5_row(
+        "segment_sum_egnn_pos", "EGNN's position update "
+        "(src/repro/models/gnn.py:301)", upd, fwd["dst"], fwd["agg_dst"], n,
+        None, fwd["dst_order"], runs("egnn", egnn_layers, egnn_layers)))
+    del upd
+    inter = torch.randn((n_t, d), generator=gen, device=dev)
+    rows.append(k5_row(
+        "segment_sum_dimenet_trip", "DimeNet's triplet aggregation "
+        "(src/repro/models/gnn.py:377)", inter, fwd["trip_e"],
+        fwd["trip_e"], e, fwd["trip_mask"], None,
+        runs("dimenet", dn_layers, dn_layers)))
+    del inter
+
+    # the gathers' gradient at d 128: DimeNet's m[trip_f], T rows into E
+    g = torch.randn((n_t, d), generator=gen, device=dev)
+    order = fwd["trip_f_order"]
+    seg = fwd["trip_f"].index_select(0, order)
+    a, a2 = (embedding_bwd_kernel(g, seg, order, e) for _ in range(2))
+    p = embedding_bwd_ref(g, seg, order, e)
+    err, same = rel_l1(a, p), torch.equal(a, a2)
+    print(f"embedding_bwd as m[trip_f]'s gradient ({tuple(g.shape)} into "
+          f"{e}): rel L1 {err:.3e}, bit-identical relaunch {same}")
+    if not (err <= REL_L1 and same):
+        fail("the gathers' gradient against its plain version")
+    b_ms, b_by = bound_ms(g.numel() * 4 + n_t * 4 + n_t * 8 + e * d * 4,
+                          float(g.numel()))
+    lib = None
+    if on_card:
+        idx = fwd["trip_f"].long()
+        lib = timer(lambda: torch.zeros((e, d), device=dev)
+                    .index_add_(0, idx, g), 5)
+        del idx
+    mol_l = {a_: cfg_for[a_](GNN_TRAIN_SHAPE).n_layers for a_ in GNN_ARCHS}
+    # the counted runs' launches at d 128 (MeshGraphNet's and DimeNet's;
+    # EGNN's are at d 64 and 3)
+    d128 = (gnn_launches("meshgraphnet", mol_l["meshgraphnet"], True,
+                         True)[0]["embedding_gather_bwd"]
+            * counted["meshgraphnet"][1]
+            + gnn_launches("dimenet", mol_l["dimenet"], True,
+                           True)[0]["embedding_gather_bwd"]
+            * counted["dimenet"][1])
+    every = sum(gnn_launches(a_, mol_l[a_], True, True)[0][
+        "embedding_gather_bwd"] * counted[a_][1] for a_ in GNN_ARCHS)
+    rows.append({
+        "name": "embedding_gather_bwd_d128", "route": "cuda",
+        "source": "src/repro_torch/csrc/embedding_bwd.cu",
+        "replaces": "src/repro/models/gnn.py:372",
+        "role": "the gathers' gradient (XLA's gradient of m[trip_f])",
+        "launches": d128, "all_launches": every,
+        "max_abs_err": float((a - p).abs().max()),
+        "ms": timer(lambda: embedding_bwd_kernel(g, seg, order, e), 10),
+        "plain_ms": timer(lambda: embedding_bwd_ref(g, seg, order, e), 3),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+        "shape": [n_t, d, e]})
+    del g, a, a2, p, fwd
+    return rows, "; ".join(summary)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=2**21,
@@ -3433,6 +3802,10 @@ def main() -> int:
     ap.add_argument("--gin-nodes", type=int, default=None,
                     help="nodes of the GIN graph (default: the ogb_products "
                     "cell's 2,449,029, padded to the cell's N and E)")
+    ap.add_argument("--gnn-nodes", type=int, default=None,
+                    help="nodes of phase 10 (c)'s forward graph (default: "
+                    "the minibatch_lg cell's 169,984, padded to its N, E "
+                    "and T)")
     ap.add_argument("--lm-reduced", action="store_true",
                     help="phase 12 on the reduced LM config (2 layers, "
                     "float32) with 64- and 512-token prompts")
@@ -3507,6 +3880,7 @@ def main() -> int:
     # leaves the interpreter lock in its sorts and draws)
     gin_host_pool = concurrent.futures.ThreadPoolExecutor(1)
     gin_host = gin_host_pool.submit(gin_host_batch, args)
+    gnn_host = gin_host_pool.submit(gnn_archs_host_batch, args)
 
     # ---- 3. kernels against their plain versions ---------------------------
     print("== phase 3: kernels")
@@ -4096,7 +4470,6 @@ def main() -> int:
     n_nodes = args.gin_nodes or dims["n_real"]
     t0 = time.perf_counter()
     gb, gin_n, gin_e, e_real, graph_s, batch_s = gin_host.result()
-    gin_host_pool.shutdown()
     wait_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     prepared = gnn.prepare_batch(gb, dev)
@@ -4305,6 +4678,17 @@ def main() -> int:
     if on_card:
         torch.cuda.empty_cache()
 
+    # ---- 10 (c). MeshGraphNet, EGNN and DimeNet -------------------------
+    print("== phase 10 (c): MeshGraphNet, EGNN and DimeNet")
+    t0 = time.perf_counter()
+    gnn_rows, gnn_summary = gnn_archs_phase(args, torch, dev, timer, sync,
+                                            gnn_host)
+    gin_host_pool.shutdown()
+    print(gnn_summary)
+    print(f"phase 10 (c) wall {time.perf_counter() - t0:.1f} s")
+    if on_card:
+        torch.cuda.empty_cache()
+
     # ---- 11. numbers -------------------------------------------------------
     print("== phase 11: numbers")
     print(f"main path: N={g.n} links={g.n_edges} pallas rounds "
@@ -4489,7 +4873,8 @@ def main() -> int:
             n_out, dtype=torch.float32, device=dev).index_add_(
                 0, dst_e, xe[src_e] * edges_e.wgt), 20),
     })
-    rows += [k4_row, k5_row, k5g_row, *fm_train_rows, *gin_train_rows]
+    rows += [k4_row, k5_row, k5g_row, *fm_train_rows, *gin_train_rows,
+             *gnn_rows]
     print(f"FM (fm, vocab {args.fm_vocab}/field): serve_p99 walls (ms) "
           f"{[round(w * 1e3, 3) for w in p99_walls]}, serve_bulk "
           f"{bulk_wall * 1e3:.3f} ms, retrieval_cand {retr_wall * 1e3:.3f} ms")

@@ -1,8 +1,8 @@
 """Architecture configs and shape cells of the port's substrates.
 
 * ``fm``           — the FM recsys model and its four cells.
-* ``gin_tu``       — GIN at the shared GNN shapes (``gnn_common.SHAPE_DIMS``)
-  and their train cells.
+* ``gin_tu``, ``meshgraphnet``, ``egnn``, ``dimenet`` — the GNN archs at
+  the shared GNN shapes (``gnn_common.SHAPE_DIMS``) and their train cells.
 * ``qwen1_5_0_5b`` — the dense LM qwen1.5-0.5b and its serving cells
   (``common.lm_cells``); ``smoke.lm_shrink`` reduces it for the CPU.
 * ``qwen2_moe_a2_7b``, ``granite_moe_1b_a400m`` — the MoE LMs (60 routed
@@ -22,12 +22,12 @@ from .common import ArchSpec
 _MODULES = {"qwen1.5-0.5b": "qwen1_5_0_5b",
             "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
             "granite-moe-1b-a400m": "granite_moe_1b_a400m",
-            "gin-tu": "gin_tu", "fm": "fm"}
+            "meshgraphnet": "meshgraphnet", "egnn": "egnn",
+            "gin-tu": "gin_tu", "dimenet": "dimenet", "fm": "fm"}
 
 ARCH_IDS = list(_MODULES)
 # the reference's archs still to port, by ROADMAP §1 item
-PENDING = {"command-r-plus-104b": "7 (a)", "mistral-large-123b": "7 (a)",
-           "meshgraphnet": "7 (c)", "egnn": "7 (c)", "dimenet": "7 (c)"}
+PENDING = {"command-r-plus-104b": "7 (a)", "mistral-large-123b": "7 (a)"}
 
 
 def get_arch(arch_id: str) -> ArchSpec:

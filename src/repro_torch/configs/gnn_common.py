@@ -7,8 +7,10 @@
   molecule        128 graphs x (30 nodes, 64 edges), batched block-diagonal
 
 ``n``/``e`` are PADDED (nodes % 32 == 0, edges % 512 == 0; masks carry
-validity); the real sizes are kept in ``n_real``/``e_real``.
-:func:`gnn_cells` gives a GIN config its four train cells.
+validity); the real sizes are kept in ``n_real``/``e_real``.  DimeNet's
+triplets are capped at 8 incoming edges per directed edge, so a cell's
+``T = 8·E`` (``trip_mask`` carries validity).  :func:`gnn_cells` gives a
+GNN config its four train cells.
 """
 from __future__ import annotations
 
@@ -40,18 +42,29 @@ def shape_overrides(shape: str) -> Dict[str, Any]:
     return ov | {"n_classes": dims["classes"], "task": "node"}
 
 
-def gnn_cells(base_cfg) -> Dict[str, ShapeCell]:
-    """The reference's four train cells of a GIN config (``gnn_common.
-    gnn_cells`` without EGNN's positions and DimeNet's triplets): the
-    padded full batch's inputs, the shape's overrides, its sizes in
-    ``meta``."""
+TRIP_PER_EDGE = 8
+
+
+def gnn_cells(arch: str, base_cfg) -> Dict[str, ShapeCell]:
+    """The reference's four train cells of one GNN arch: the padded full
+    batch's inputs (``pos`` for MeshGraphNet, EGNN and DimeNet; ``z`` and
+    the triplets for DimeNet), the shape's overrides, its sizes in
+    ``meta`` (DimeNet's also ``n_triplets``)."""
     f32, i32 = torch.float32, torch.int32
+    needs_pos = arch in ("egnn", "dimenet", "meshgraphnet")
+    needs_trip = arch == "dimenet"
     cells = {}
     for name, dims in SHAPE_DIMS.items():
         n, e, graphs = dims["n"], dims["e"], dims.get("graphs")
+        t = e * TRIP_PER_EDGE
         inputs = {"x": ((n, dims["d_feat"]), f32), "src": ((e,), i32),
                   "dst": ((e,), i32), "node_mask": ((n,), f32),
                   "edge_mask": ((e,), f32)}
+        if needs_pos:
+            inputs["pos"] = ((n, 3), f32)
+        if needs_trip:
+            inputs |= {"z": ((n,), i32), "trip_e": ((t,), i32),
+                       "trip_f": ((t,), i32), "trip_mask": ((t,), f32)}
         if graphs:
             inputs |= {"graph_ids": ((n,), i32), "labels": ((graphs,), f32)}
         elif dims["classes"]:
@@ -62,5 +75,6 @@ def gnn_cells(base_cfg) -> Dict[str, ShapeCell]:
             name=name, kind="train", inputs=inputs,
             overrides=shape_overrides(name),
             meta={"n_nodes": n, "n_edges": e, "n_real": dims["n_real"],
-                  "e_real": dims["e_real"]})
+                  "e_real": dims["e_real"],
+                  **({"n_triplets": t} if needs_trip else {})})
     return cells

@@ -48,11 +48,14 @@ def lm_shrink(cfg):
 def smoke_setup(arch_id: str) -> Tuple[Any, Dict[str, np.ndarray], str]:
     """``(reduced model cfg, tiny batch (numpy), family)``, the reference's:
     an LM arch :func:`lm_shrink`'s config and ``lm_token_batch(0, 2, 32,
-    vocab)``; ``gin-tu`` 3 layers, d 16, d_feat 8, a node task of 5
-    classes on ``molecule_batch(4, 10, 20, d_feat=8, graph_labels=False)``
-    with labels from ``default_rng(0)``; ``fm`` 6 fields of 100 rows, D 8,
-    on ``criteo_like_batch(0, 32, 6, 100)``.  The archs still to port
-    raise (``configs.PENDING``)."""
+    vocab)``; a GNN arch at most 3 layers, d 16, d_feat 8, 4 bilinear,
+    spherical and radial channels, on ``molecule_batch(4, 10, 20,
+    d_feat=8, ...)``: ``gin-tu`` a node task of 5 classes (labels from
+    ``default_rng(0)``), ``meshgraphnet`` a node regression (``[N,
+    d_out]`` labels from it), ``egnn`` and ``dimenet`` (with triplets) a
+    graph regression; ``fm`` 6 fields of 100 rows, D 8, on
+    ``criteo_like_batch(0, 32, 6, 100)``.  The archs still to port raise
+    (``configs.PENDING``)."""
     spec = get_arch(arch_id)
     rng = np.random.default_rng(0)
     if spec.family == "lm":
@@ -61,11 +64,23 @@ def smoke_setup(arch_id: str) -> Tuple[Any, Dict[str, np.ndarray], str]:
     if spec.family == "gnn":
         cfg = dataclasses.replace(
             spec.model_cfg, n_layers=min(spec.model_cfg.n_layers, 3),
-            d_hidden=16, d_feat=8, task="node", n_classes=5, d_out=5)
-        raw = molecule_batch(4, nodes_per_graph=10, edges_per_graph=20,
-                             d_feat=8, graph_labels=False)
-        raw["labels"] = rng.integers(0, 5, raw["x"].shape[0]).astype(
-            np.int32)
+            d_hidden=16, d_feat=8, n_bilinear=4, n_spherical=4, n_radial=4)
+        arch = cfg.arch
+        mol = dict(nodes_per_graph=10, edges_per_graph=20, d_feat=8)
+        if arch in ("dimenet", "egnn"):
+            cfg = dataclasses.replace(cfg, task="graph", n_classes=0)
+            return cfg, molecule_batch(4, with_triplets=arch == "dimenet",
+                                       **mol), "gnn"
+        raw = molecule_batch(4, graph_labels=False, **mol)
+        n = raw["x"].shape[0]
+        if arch == "gin":
+            cfg = dataclasses.replace(cfg, task="node", n_classes=5,
+                                      d_out=5)
+            raw["labels"] = rng.integers(0, 5, n).astype(np.int32)
+        else:  # meshgraphnet: node regression
+            cfg = dataclasses.replace(cfg, task="node", n_classes=0)
+            raw["labels"] = rng.standard_normal((n, cfg.d_out)).astype(
+                np.float32)
         return cfg, raw, "gnn"
     cfg = dataclasses.replace(spec.model_cfg, n_fields=6,
                               vocab_per_field=100, embed_dim=8)

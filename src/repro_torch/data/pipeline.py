@@ -6,14 +6,14 @@ for byte, so the parity tests can feed both packages one batch.
 
 * LM: Zipf tokens, labels the next token.
 * RecSys: criteo-like power-law categorical ids + click labels.
-* GNN: the full-graph batch of a :class:`~repro_torch.core.CSRGraph`,
-  its padding to a cell's static node / edge counts, batched small
-  graphs (:func:`molecule_batch`) and DimeNet's triplets
-  (:func:`build_triplets`).
+* GNN: the full-graph batch of a :class:`~repro_torch.core.CSRGraph`
+  (with EGNN's / DimeNet's coordinates and DimeNet's triplets,
+  :func:`build_triplets`), its padding to a cell's static node / edge /
+  triplet counts, and batched small graphs (:func:`molecule_batch`).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -36,14 +36,17 @@ def make_gnn_batch(
     g: CSRGraph,
     d_feat: int,
     n_classes: int = 0,
-    *,
+    with_pos: bool = False,
+    with_triplets: bool = False,
+    max_trip_per_edge: int = 8,
     d_out: int = 1,
     seed: int = 0,
 ) -> Dict[str, np.ndarray]:
     """Full-graph batch with features/labels (the graph itself is the
-    batch).  Edges come in the graph's source-major order.  The
-    coordinates and triplets of EGNN / DimeNet wait with those archs
-    (ROADMAP §1, item 7 (c))."""
+    batch).  Edges come in the graph's source-major order; ``with_pos``
+    adds coordinates and atom types (EGNN / DimeNet), ``with_triplets``
+    DimeNet's triplets (:func:`build_triplets`, at most
+    ``max_trip_per_edge`` a directed edge)."""
     rng = np.random.default_rng(seed)
     src, dst, _ = g.edge_list()
     batch = {
@@ -57,6 +60,13 @@ def make_gnn_batch(
         batch["labels"] = rng.integers(0, n_classes, g.n).astype(np.int32)
     else:
         batch["labels"] = rng.standard_normal((g.n, d_out)).astype(np.float32)
+    if with_pos:
+        batch["pos"] = rng.standard_normal((g.n, 3)).astype(np.float32)
+        batch["z"] = rng.integers(0, 10, g.n).astype(np.int32)
+    if with_triplets:
+        te, tf = build_triplets(src, dst, g.n, max_trip_per_edge, seed)
+        batch["trip_e"], batch["trip_f"] = te, tf
+        batch["trip_mask"] = np.ones(te.shape[0], np.float32)
     return batch
 
 
@@ -135,30 +145,50 @@ def molecule_batch(
     return batch
 
 
-def pad_gnn_batch(batch: Dict[str, np.ndarray], n: int,
-                  e: int) -> Dict[str, np.ndarray]:
-    """Pad a node batch to ``n`` nodes and ``e`` edges; masks carry validity.
+def pad_gnn_batch(batch: Dict[str, np.ndarray], n: int, e: int,
+                  t: Optional[int] = None) -> Dict[str, np.ndarray]:
+    """Pad a node batch to ``n`` nodes, ``e`` edges and (with ``t``) ``t``
+    triplets; masks carry validity.
 
     Padding nodes are zero rows; padding edge ``i`` is the self loop
     ``i mod n_real`` with ``edge_mask`` 0, spread over the real nodes so
-    that no one destination collects the padding.
+    that no one destination collects the padding; padding triplet ``i``
+    pairs real edge ``i mod e_real`` with itself, ``trip_mask`` 0, spread
+    over the real edges the same way.  A graph task's per-graph labels
+    stay as they are; a mask the batch lacks starts as ones.
     """
     n_real, e_real = batch["x"].shape[0], batch["src"].shape[0]
-    if n < n_real or e < e_real:
-        raise ValueError(f"cannot pad {n_real} nodes / {e_real} edges to "
-                         f"{n} / {e}")
+    t_real = batch["trip_e"].shape[0] if "trip_e" in batch else 0
+    masks = {"node_mask": n_real, "edge_mask": e_real}
+    if "trip_e" in batch:
+        masks["trip_mask"] = t_real
+    batch = {**{k: np.ones(m, np.float32) for k, m in masks.items()},
+             **batch}
+    if n < n_real or e < e_real or (t is not None and t < t_real):
+        raise ValueError(f"cannot pad {n_real} nodes / {e_real} edges / "
+                         f"{t_real} triplets to {n} / {e} / {t}")
     loops = (np.arange(e - e_real) % n_real).astype(np.int32)
+    t_pad = 0 if t is None else t - t_real
+    pairs = (np.arange(t_pad) % max(e_real, 1)).astype(np.int32)
     out = {}
     for key, val in batch.items():
         if key in ("src", "dst"):
             out[key] = np.concatenate([val, loops])
-        elif key == "edge_mask":
-            out[key] = np.concatenate([val, np.zeros(e - e_real, val.dtype)])
+        elif key in ("edge_mask", "edge_attr"):
+            pad = np.zeros((e - e_real,) + val.shape[1:], val.dtype)
+            out[key] = np.concatenate([val, pad])
+        elif key in ("trip_e", "trip_f"):
+            out[key] = np.concatenate([val, pairs.astype(val.dtype)])
+        elif key == "trip_mask":
+            out[key] = np.concatenate([val, np.zeros(t_pad, val.dtype)])
         elif val.shape[:1] == (n_real,):
             pad = np.zeros((n - n_real,) + val.shape[1:], val.dtype)
             out[key] = np.concatenate([val, pad])
+        elif key == "labels" and "graph_ids" in batch:
+            out[key] = val
         else:
-            raise ValueError(f"{key}: neither a node nor an edge array")
+            raise ValueError(f"{key}: neither a node, an edge nor a "
+                             "triplet array")
     return out
 
 

@@ -18,10 +18,10 @@ thing from the same state.
   ``EngineState`` across (``f``, ``h``, ``t`` and the bucket → row map),
   so both packages run one layout from one state.
 * :func:`fm_params_from_numpy`, :func:`gnn_params_from_numpy` and
-  :func:`lm_params_from_numpy` build the port's FM, GIN and transformer
-  modules holding a reference parameter pytree (``recsys.init_params`` /
-  ``gnn.init_params`` / ``transformer.init_params``) given as numpy
-  arrays.
+  :func:`lm_params_from_numpy` build the port's FM, GNN (all four archs)
+  and transformer modules holding a reference parameter pytree
+  (``recsys.init_params`` / ``gnn.init_params`` /
+  ``transformer.init_params``) given as numpy arrays.
 * :func:`adamw_state_from_numpy` turns a reference ``adamw_init`` /
   ``adamw_update`` state (``master``, ``m``, ``v`` pytrees and ``step``)
   given as numpy arrays into the port's optimizer state.
@@ -38,7 +38,7 @@ from .balance.executors import BucketMoveExecutor
 from .core.distributed import DistributedEngine, EngineArrays, EngineConfig
 from .core.graph import CSRGraph
 from .graph.views import tile_groups
-from .models.gnn import GIN, GNNConfig, init_params
+from .models.gnn import GNNConfig, init_params
 from .models.recsys import FM, FMConfig
 from .models.transformer import Transformer, TransformerConfig
 from .models.transformer import init_params as init_lm
@@ -146,26 +146,37 @@ def fm_params_from_numpy(params: Mapping, cfg: FMConfig,
     return model
 
 
-def _fill_mlp(mlp, p: Mapping) -> None:
-    if len(p["w"]) != len(mlp.w):
-        raise ValueError(f"{len(p['w'])} layers where the port holds "
-                         f"{len(mlp.w)}")
-    for dst, w in zip(mlp.w, p["w"]):
-        _fill(dst, w)
-    for dst, b in zip(mlp.b, p["b"]):
-        _fill(dst, b)
+def _fill_tree(port: Any, ref: Any, where: str = "") -> None:
+    """Fill the port's pytree ``port`` (dicts, lists, parameters) from the
+    reference's ``ref`` of the same structure."""
+    if isinstance(port, dict):
+        if set(port) != set(ref):
+            raise ValueError(f"{where or 'tree'}: keys {sorted(ref)} where "
+                             f"the port holds {sorted(port)}")
+        for k in port:
+            _fill_tree(port[k], ref[k], f"{where}/{k}")
+    elif isinstance(port, (list, tuple)):
+        if len(port) != len(ref):
+            raise ValueError(f"{where}: {len(ref)} entries where the port "
+                             f"holds {len(port)}")
+        for i, (a, b) in enumerate(zip(port, ref)):
+            _fill_tree(a, b, f"{where}/{i}")
+    else:
+        _fill(port, ref)
 
 
 def gnn_params_from_numpy(params: Mapping, cfg: GNNConfig,
-                          device="cuda") -> GIN:
-    """The port's GIN holding the reference's ``embed``, ``eps``, ``mlps``
-    and ``readout`` (each MLP a ``{"w": [...], "b": [...]}``)."""
+                          device="cuda") -> torch.nn.Module:
+    """The port's GNN of ``cfg.arch`` holding the reference's parameter
+    pytree: GIN's ``embed``, ``eps``, ``mlps``, ``readout``;
+    MeshGraphNet's ``node_enc``, ``edge_enc``, ``edge_mlps``,
+    ``node_mlps``, ``decoder``; EGNN's ``embed``, ``edge_mlps``,
+    ``coord_mlps``, ``node_mlps``, ``readout``; DimeNet's ``atom_embed``,
+    ``rbf_proj``, ``edge_embed``, ``blocks`` (a list of ``sbf_proj``,
+    ``w_bil [nb, d, d]``, ``msg_mlp``, ``out_mlp``) and ``readout``; each
+    MLP a ``{"w": [...], "b": [...]}``."""
     model = init_params(cfg, device=device)
-    _fill_mlp(model.embed, params["embed"])
-    _fill(model.eps, params["eps"])
-    for mlp, p in zip(model.mlps, params["mlps"], strict=True):
-        _fill_mlp(mlp, p)
-    _fill_mlp(model.readout, params["readout"])
+    _fill_tree(model.param_tree(), params)
     return model
 
 

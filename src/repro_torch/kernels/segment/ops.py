@@ -49,6 +49,13 @@ backwards sum them over the rows sorted by the row they read:
   Σ_{e: src[e] = r} w[e]·g[dst[e]]``, no ``[E, D]`` buffer.  Counted
   under ``LAUNCHES["gnn_agg_bwd"]``.
 
+:func:`segment_aggregate` sums rows that are made, one a segment member
+(edge messages by destination, triplet messages by target edge, node
+values by graph), on K5 over the rows in the ids' stable sort: its gather
+form with ``rows`` the sort's permutation, or its contiguous form where
+the rows come sorted.  Each row lies in one segment, so its backward is a
+gather, ``grad[e] = w[e]·g[ids[e]]``: no reduction, no atomics.
+
 Each takes the reduction it runs (``segment_sum``): the plain version
 :func:`segment_sum_ref` brings the plain backward, any other the kernel.
 """
@@ -68,7 +75,7 @@ from .ref import embedding_bag_ref, segment_sum_bwd_ref, segment_sum_ref
 
 __all__ = ["segment_sum_sorted", "embedding_bag", "pad_sorted_edges",
            "moe_combine", "moe_dispatch", "embedding_gather",
-           "gather_aggregate"]
+           "gather_aggregate", "segment_aggregate"]
 
 SENTINEL = 2**30  # id of padding rows: outside every segment
 
@@ -274,3 +281,54 @@ def gather_aggregate(h: torch.Tensor, seg_ids: torch.Tensor,
     return _GatherAggregate.apply(h, seg_ids, n_segments, weights, rows,
                                   t_seg, t_rows, t_weights, segment_sum,
                                   _plain(segment_sum))
+
+
+class _SegmentAggregate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, ids, n, weights, order, sorted_ids, sorted_weights,
+                segment_sum):
+        ctx.save_for_backward(ids, weights)
+        ctx.n, ctx.dtype = n, data.dtype
+        return segment_sum(data, sorted_ids, n, weights=sorted_weights,
+                           rows=order)
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, weights = ctx.saved_tensors
+        n = ctx.n
+        # a gather: each row lies in one segment (none outside [0, n))
+        keep = ((ids >= 0) & (ids < n)).to(g.dtype)
+        if weights is not None:
+            keep = keep * weights
+        grad = g.index_select(0, ids.clamp(0, max(n - 1, 0)))
+        return ((grad * keep[:, None]).to(ctx.dtype),) + (None,) * 7
+
+
+def segment_aggregate(data: torch.Tensor, ids: torch.Tensor,
+                      n_segments: int, *,
+                      weights: Optional[torch.Tensor] = None,
+                      order: Optional[torch.Tensor] = None,
+                      sorted_ids: Optional[torch.Tensor] = None,
+                      sorted_weights: Optional[torch.Tensor] = None,
+                      segment_sum=segment_sum_sorted) -> torch.Tensor:
+    """``out[s] = Σ_{e: ids[e] = s} w[e]·data[e]`` (``data [E, D]``, ``w``
+    absent: 1) ``-> [n_segments, D]`` float32, with the gradient of
+    ``data`` where one is wanted: ``w[e]·g[ids[e]]``, 0 for ids outside
+    ``[0, n_segments)``.  With ``order`` (the stable sort of ``ids``) the
+    reduction runs in its gather form, ``rows = order``, over
+    ``sorted_ids = ids[order]`` and ``sorted_weights = w[order]`` (made
+    here when not given); without, ``ids`` must come sorted and it runs
+    the contiguous form.  ``segment_sum`` is K5 or its plain version; the
+    weights (a mask) get no gradient."""
+    if order is None:
+        sorted_ids, sorted_weights = ids, weights
+    else:
+        if sorted_ids is None:
+            sorted_ids = ids.index_select(0, order)
+        if sorted_weights is None and weights is not None:
+            sorted_weights = weights.index_select(0, order)
+    if not _wants_grad(data):
+        return segment_sum(data, sorted_ids, n_segments,
+                           weights=sorted_weights, rows=order)
+    return _SegmentAggregate.apply(data, ids, n_segments, weights, order,
+                                   sorted_ids, sorted_weights, segment_sum)

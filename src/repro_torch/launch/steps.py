@@ -118,7 +118,11 @@ def lm_train_step(model: transformer.Transformer, ocfg: AdamWConfig,
 def _loss_step(model, ocfg: AdamWConfig, loss_fn) -> Callable:
     def loss_and_grads(batch, leaves):
         loss = loss_fn(model, batch)
-        return loss.detach(), torch.autograd.grad(loss, leaves)
+        # a leaf the loss does not reach (EGNN's last coordinate MLP) gets
+        # zeros, as jax.grad gives it
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return loss.detach(), [torch.zeros_like(p) if g is None else g
+                               for p, g in zip(leaves, grads)]
 
     return _adamw_step(model, ocfg, model.cfg.dtype, loss_and_grads)
 
@@ -133,13 +137,15 @@ def fm_train_step(model: recsys.FM, ocfg: AdamWConfig) -> Callable:
     return _loss_step(model, ocfg, recsys.loss_fn)
 
 
-def gnn_train_step(model: gnn.GIN, ocfg: AdamWConfig) -> Callable:
-    """The reference's GNN train step on ``model``: the gradient of
-    :func:`~repro_torch.models.gnn.loss_fn` (the aggregations' backwards
-    on K5 over the transposed graph), then AdamW over
-    ``model.param_tree()``.  ``batch`` raw or ``gnn.prepare_batch``'s (a
-    prepared batch sorts nothing).  The same signature as
-    :func:`fm_train_step`'s."""
+def gnn_train_step(model: torch.nn.Module, ocfg: AdamWConfig) -> Callable:
+    """The reference's GNN train step on ``model`` (any arch of
+    :func:`~repro_torch.models.gnn.init_params`): the gradient of
+    :func:`~repro_torch.models.gnn.loss_fn` (GIN's aggregation backwards
+    on K5 over the transposed graph; the other archs' aggregations on K5
+    with gather backwards, their row gathers' gradients on
+    ``embedding_bwd``), then AdamW over ``model.param_tree()``.  ``batch``
+    raw or ``gnn.prepare_batch``'s for the arch (a prepared batch sorts
+    nothing).  The same signature as :func:`fm_train_step`'s."""
     return _loss_step(model, ocfg, gnn.loss_fn)
 
 

@@ -1,18 +1,21 @@
 """Training driver (the port of ``repro.launch.train``): ``--arch <id>``
 selects an architecture, whose reduced configuration
-(``configs.smoke.smoke_setup``: an LM at 2 layers, d=64; GIN at 3 layers,
-d=16, on batched small graphs; FM at 6 fields of 100 rows, D=8; all
-float32) trains through the fault-tolerant runtime (batches made from the
-step -> AdamW -> checkpoints every 25 steps -> auto-resume) on the card,
-or on the CPU with ``--device cpu``:
+(``configs.smoke.smoke_setup``: an LM at 2 layers, d=64; a GNN (GIN,
+MeshGraphNet, EGNN, DimeNet) at 3 layers, d=16, on batched small graphs;
+FM at 6 fields of 100 rows, D=8; all float32) trains through the
+fault-tolerant runtime (batches made from the step -> AdamW ->
+checkpoints every 25 steps -> auto-resume) on the card, or on the CPU
+with ``--device cpu``:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b --steps 50 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch fm --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch dimenet --device cpu
 
 It prints the reduced config's parameter count, the loss every 10 steps
 and the first and last loss, as the reference's CLI does.  The batch
 of a step is the reference's: ``lm_token_batch(step, 2, 32, vocab)``,
-``criteo_like_batch(step, 32, ...)``, or GIN's one fixed graph batch.
+``criteo_like_batch(step, 32, ...)``, or a GNN's one fixed graph batch
+(sorted once, ``gnn.prepare_batch``).
 The checkpoints go to ``--ckpt`` (default ``build/train_ckpt/<arch>`` in
 the checkout); a directory that holds one resumes from its newest step,
 a reference checkpoint of the same model included.  The reference's
@@ -71,7 +74,7 @@ def main(argv=None) -> None:
     else:
         model = gnn.init_params(cfg, seed=0, device=args.device)
         step_fn = gnn_train_step(model, ocfg)
-        fixed = gnn.prepare_batch(batch0, args.device)
+        fixed = gnn.prepare_batch(batch0, args.device, cfg.arch)
 
         def make_batch(step):  # GNN: the fixed full-batch graph
             return fixed

@@ -3156,3 +3156,187 @@ def test_fm_and_gin_training_on_the_card_matches_the_cpu(cuda_device, arch):
     for a, b in zip(tree_leaves(models["cuda"].param_tree()),
                     tree_leaves(models["cpu"].param_tree())):
         assert _rel_l1(a.detach().cpu(), b.detach()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 128])
+@pytest.mark.parametrize("masked", [False, True])
+def test_segment_aggregate_of_edge_messages_matches_plain(cuda_device, d,
+                                                          masked):
+    """The aggregation of built edge messages (MeshGraphNet's at d 128,
+    EGNN's position update at d 3): K5's gather form over the
+    destination sort's permutation, exact on integer-valued messages and
+    within rtol / atol 1e-5 on normal ones, a relaunch bit-identical,
+    one K5 launch each; its backward the gather ``w·g[dst]`` with no
+    launch."""
+    from repro_torch.data import make_gnn_batch
+    from repro_torch.kernels.segment import segment_aggregate, segment_sum_ref
+    from repro_torch.models import gnn
+
+    n = 6_000
+    b = make_gnn_batch(power_law_graph(n, seed=5), 2, n_classes=2)
+    rng = np.random.default_rng(d + masked)
+    if masked:
+        b["edge_mask"] = (rng.random(b["src"].shape[0]) > 0.3).astype(
+            np.float32)
+    p = gnn.prepare_batch(b, cuda_device, "egnn")
+    e = b["src"].shape[0]
+    em = p["edge_mask"] if masked else None
+    kw = dict(weights=em, order=p["dst_order"], sorted_ids=p["agg_dst"],
+              sorted_weights=p["agg_w"] if masked else None)
+    for exact in (True, False):
+        msgs = (rng.integers(-8, 8, (e, d)) if exact
+                else rng.standard_normal((e, d))).astype(np.float32)
+        x = torch.from_numpy(msgs).to(cuda_device).requires_grad_(True)
+        before = dict(LAUNCHES)
+        got, again = (segment_aggregate(x, p["dst"], n, **kw)
+                      for _ in range(2))
+        torch.cuda.synchronize()
+        assert LAUNCHES["segment_sum"] - before["segment_sum"] == 2
+        assert torch.equal(got, again)
+        plain = segment_sum_ref(
+            x.detach().cpu(), p["agg_dst"].cpu(), n,
+            None if em is None else p["agg_w"].cpu(), p["dst_order"].cpu())
+        if exact:
+            assert torch.equal(got.detach().cpu(), plain)
+        else:
+            np.testing.assert_allclose(got.detach().cpu().numpy(),
+                                       plain.numpy(), rtol=1e-5, atol=1e-5)
+    g = torch.randn((n, d), device=cuda_device)
+    before = dict(LAUNCHES)
+    (gx,) = torch.autograd.grad(got, [x], g)
+    assert LAUNCHES == before
+    w = 1.0 if em is None else em[:, None]
+    assert torch.equal(gx, g.index_select(0, p["dst"]) * w)
+
+
+@pytest.mark.cuda
+def test_triplet_aggregation_matches_plain(cuda_device):
+    """DimeNet's triplet aggregation: K5's contiguous form over the
+    triplets sorted by target edge, ``trip_mask`` the weight, padded to
+    8·E as the cells pad them; exact on integer-valued messages, within
+    rtol / atol 1e-5 on normal ones, a relaunch bit-identical."""
+    from repro_torch.data import make_gnn_batch, pad_gnn_batch
+    from repro_torch.kernels.segment import segment_aggregate, segment_sum_ref
+    from repro_torch.models import gnn
+
+    b = make_gnn_batch(power_law_graph(3_000, alpha=1.8, seed=2), 2,
+                       with_pos=True, with_triplets=True)
+    e = b["src"].shape[0]
+    rng = np.random.default_rng(8)
+    b["trip_mask"] = (rng.random(b["trip_e"].shape[0]) > 0.2).astype(
+        np.float32)
+    b = pad_gnn_batch(b, 3_008, -(-e // 512) * 512,
+                      -(-e // 512) * 512 * 8)
+    p = gnn.prepare_batch(b, cuda_device, "dimenet")
+    t = p["trip_e"].shape[0]
+    for exact in (True, False):
+        inter = (rng.integers(-8, 8, (t, 128)) if exact
+                 else rng.standard_normal((t, 128))).astype(np.float32)
+        x = torch.from_numpy(inter).to(cuda_device)
+        before = dict(LAUNCHES)
+        got, again = (segment_aggregate(x, p["trip_e"], e,
+                                        weights=p["trip_mask"])
+                      for _ in range(2))
+        torch.cuda.synchronize()
+        assert LAUNCHES["segment_sum"] - before["segment_sum"] == 2
+        assert torch.equal(got, again)
+        plain = segment_sum_ref(x.cpu(), p["trip_e"].cpu(), e,
+                                p["trip_mask"].cpu())
+        if exact:
+            assert torch.equal(got.cpu(), plain)
+        else:
+            np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(),
+                                       rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_gathers_gradient_at_d128_is_bit_equal_on_a_relaunch(cuda_device):
+    """``m[trip_f]``'s gradient (``embedding_gather``'s backward on
+    ``embedding_bwd.cu``) at d 128: a relaunch bit-identical, exact on
+    integer-valued g against the plain version, one launch a backward."""
+    from repro_torch.data import make_gnn_batch
+    from repro_torch.kernels.segment import embedding_gather, segment_sum_ref
+    from repro_torch.models import gnn
+
+    b = make_gnn_batch(power_law_graph(4_000, alpha=1.8, seed=3), 2,
+                       with_pos=True, with_triplets=True)
+    p = gnn.prepare_batch(b, cuda_device, "dimenet")
+    e, t = b["src"].shape[0], b["trip_e"].shape[0]
+    rng = np.random.default_rng(9)
+    m = torch.from_numpy(rng.standard_normal((e, 128)).astype(
+        np.float32)).to(cuda_device).requires_grad_(True)
+    g = torch.from_numpy(rng.integers(-8, 8, (t, 128)).astype(
+        np.float32)).to(cuda_device)
+    got = []
+    for plain in (False, False, True):
+        kw = dict(segment_sum=segment_sum_ref) if plain else {}
+        out = embedding_gather(m, p["trip_f"], p["trip_f_order"], **kw)
+        before = dict(LAUNCHES)
+        (gm,) = torch.autograd.grad(out, [m], g)
+        torch.cuda.synchronize()
+        assert LAUNCHES["embedding_gather_bwd"] - before[
+            "embedding_gather_bwd"] == (0 if plain else 1)
+        got.append(gm)
+    assert torch.equal(got[0], got[1])
+    assert torch.equal(got[0], got[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["meshgraphnet", "egnn", "dimenet"])
+def test_gnn_archs_training_on_the_card_matches_the_cpu(cuda_device, arch):
+    """The reduced config's train step (``launch.steps``) on the card and
+    on the CPU from the same state: the losses within rtol 1e-4, the
+    AdamW moments and the parameters after three steps within relative L1
+    1e-4; per step K5 and its carry once an aggregation (and once for the
+    pooling) and ``embedding_gather_bwd`` once a gathered tensor that
+    wants a gradient, no other kernel; the card's gradients bit-equal on
+    a rerun."""
+    from repro_torch.configs.smoke import smoke_setup
+    from repro_torch.launch.steps import gnn_train_step
+    from repro_torch.models import gnn
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, batch0, _ = smoke_setup(arch)
+    ocfg = AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=10)
+    models = {dev.type: gnn.init_params(cfg, seed=0, device=dev)
+              for dev in (cuda_device, torch.device("cpu"))}
+    for dst, src in zip(tree_leaves(models["cpu"].param_tree()),
+                        tree_leaves(models["cuda"].param_tree())):
+        with torch.no_grad():
+            dst.copy_(src.cpu())
+    steps = {k: gnn_train_step(m, ocfg) for k, m in models.items()}
+    states = {k: adamw_init(m.param_tree()) for k, m in models.items()}
+    batches = {k: gnn.prepare_batch(batch0, m.device, arch)
+               for k, m in models.items()}
+    layers = cfg.n_layers
+    k5 = (layers if arch == "meshgraphnet" else 2 * layers) + (
+        cfg.task == "graph")
+    emb = {"meshgraphnet": 2 * layers, "egnn": 4 * layers - 2,
+           "dimenet": layers + 3}[arch]
+    want = {"segment_sum": k5, "embedding_gather_bwd": emb}
+    for i in range(3):
+        before = dict(LAUNCHES)
+        _, states["cuda"], got = steps["cuda"](
+            models["cuda"].param_tree(), states["cuda"], batches["cuda"])
+        torch.cuda.synchronize()
+        delta = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+                 if LAUNCHES[k] != before[k] and k != "segment_sum_carry"}
+        assert delta == want
+        _, states["cpu"], ref = steps["cpu"](
+            models["cpu"].param_tree(), states["cpu"], batches["cpu"])
+        np.testing.assert_allclose(float(got["loss"]), float(ref["loss"]),
+                                   rtol=1e-4)
+        for a, b in zip(tree_leaves(states["cuda"]["m"]),
+                        tree_leaves(states["cpu"]["m"])):
+            assert _rel_l1(a.cpu(), b) <= 1e-4
+    for a, b in zip(tree_leaves(models["cuda"].param_tree()),
+                    tree_leaves(models["cpu"].param_tree())):
+        assert _rel_l1(a.detach().cpu(), b.detach()) <= 1e-4
+    leaves = tree_leaves(models["cuda"].param_tree())
+    runs = [torch.autograd.grad(gnn.loss_fn(models["cuda"], batches["cuda"]),
+                                leaves, allow_unused=True) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert (a is None and b is None) or torch.equal(a, b)

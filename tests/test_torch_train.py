@@ -148,8 +148,19 @@ def test_smoke_setup_matches_reference():
         assert cfg == _port_cfg(ref_cfg)
         for k in ("tokens", "labels"):
             assert np.array_equal(batch[k], np.asarray(ref_batch[k]))
-    with pytest.raises(NotImplementedError, match="7 \\(c\\)"):
-        smoke_setup("meshgraphnet")
+    # the other GNN archs are ported (item 7 (c)): their reduced configs
+    # and batches are the reference's
+    for arch in ("meshgraphnet", "egnn", "dimenet"):
+        cfg, batch, family = smoke_setup(arch)
+        ref_cfg, ref_batch, ref_family = ref_smoke_setup(arch)
+        assert family == ref_family == "gnn"
+        for f in dataclasses.fields(cfg):
+            if f.name != "dtype":
+                assert getattr(cfg, f.name) == getattr(ref_cfg, f.name), (
+                    arch, f.name)
+        assert batch.keys() == ref_batch.keys()
+        for k in batch:
+            assert np.array_equal(batch[k], np.asarray(ref_batch[k])), k
 
 
 def test_train_cells_match_reference():
@@ -545,8 +556,8 @@ def test_train_cli_wants_a_card_unless_told_otherwise(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         port_train.main(["--arch", "qwen1.5-0.5b", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="7 \\(c\\)"):
-        port_train.main(["--arch", "meshgraphnet", "--steps", "1",
+    with pytest.raises(NotImplementedError, match="7 \\(a\\)"):
+        port_train.main(["--arch", "command-r-plus-104b", "--steps", "1",
                          "--device", "cpu"])
     from repro_torch.models import gnn
 
