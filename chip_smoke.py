@@ -408,6 +408,47 @@ Phases, each printed on its own lines (any failure exits non-zero):
    4 -> 3 drain 6 buckets, K1 and K3 launched.  Pushes (total, undisturbed,
    wasted), each rescale's host wall and its drain, the host walls and
    K3's launches printed.  No kernel joins the kernels line here.
+18. Tuner and examples, run after phase 13 (the order of the run: 1-13,
+   18, 16, 17, 15, 14).  (a) Depths: at phase 3's pool (bs=128), K1 at
+   input (a) and at input (b), K2 over the pool and over phase 6's engine
+   visit table, each at every depth the sweep times (``SWEEP_DEPTHS``:
+   buffer_depth 1, 2 and 4: rings of 3, 2 and 4 stages), launched apart
+   (counted nowhere): within |delta|_1 <= 1e-5 |plain|_1 of the plain
+   versions, and bit-equal to depth 1 and to the simt body; the model's
+   CTAs an SM (``tune.model.ctas_per_sm``) must be what the source gives
+   each launch (``bulk_ctas_per_sm``); K1 (a) and K2 over the pool timed
+   at each depth in turns (the least of two 20-call means).  Then phase
+   3's and 6's pools are freed.  (b) The sweep: ``tune.run_sweep`` for K1
+   and K2 at ``--sweep-n`` nodes (default ``SWEEP_N`` = 2**19, at most N;
+   one ``host_block_graph(host_size=bs)`` a bs, built, swept and freed in
+   turn), bs in ``SWEEP_BS`` = 32, 64, 128, 256, depths 1,
+   2, 4, density 0.25, ``SWEEP_ITERS`` launches a config, into a
+   temporary ``REPRO_TORCH_TUNE_DIR``: every row printed (µs, GB/s, the
+   roofline fraction against the ``cuda`` spec, shared memory, CTAs an
+   SM, feasible or not) with the card's name and power limit; every
+   feasible row timed and no other.  (c) The records in use, in that
+   directory: ``resolved_config`` gives the winners; a ``frontier:pallas``
+   ``SolverSession`` (no explicit bs or depth) takes the K1 record's bs and
+   depth and solves phase 4's problem within |x - x_segment_sum|_1 <= 1e-5,
+   K1 launched once a round at that depth, its wall printed beside phase
+   4's at bs=128; an ``engine:bsr`` session on ``host_block_graph(2**16)``
+   (N at most)
+   (k=4, slope_ema) reports the K2 record's depth as its
+   ``pallas_buffer_depth`` and converges with K2 launched once a round at
+   that depth; ``_auto_select``'s choice for phase 4's problem with and
+   without the records; then the directory is removed; then, with no
+   record, phase 4's ``frontier:pallas`` solve and that ``engine:bsr``
+   solve with each of depths 2 and 4 named in the options: the rounds,
+   pushes and x bits of depth 1, each kernel launched once a round at the
+   depth.  (d) The examples:
+   ``repro_torch.examples`` quickstart, solve_web, gnn_partition,
+   serve_lm and train_lm at their defaults on the card (train_lm's
+   checkpoints in a temporary directory): every solve converged, finite
+   losses falling, tokens in the vocabulary; each wall printed.  Rows
+   ``frontier_round_bsr_depth2`` / ``_depth4`` and ``bsr_spmm_depth2`` /
+   ``_depth4`` join the kernels line (their launches: (c)'s solves at
+   that depth named in the options; bound and library call: the depth-1
+   rows').
 
 The line before the last is the card's name and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -495,6 +536,15 @@ RANK_CHURN = 0.001
 # phase 15: the supervised stream's length (16 requests: one applied
 # update, one stale one, one poison, two kills, a 4 -> 3 -> 4 rescale)
 STREAM_REQUESTS = 16
+# phase 18: the tuner's graph (2**19 nodes: at 2**21 the sweep's host
+# builds of its four graphs and tile pools take ~60 s of its ~75, which the
+# smoke's time limit cannot spare; --sweep-n 2097152 runs it there), its
+# grid (the reference's density) and launches a config
+SWEEP_N = 2**19
+SWEEP_BS = (32, 64, 128, 256)
+SWEEP_DEPTHS = (1, 2, 4)
+SWEEP_DENSITY = 0.25
+SWEEP_ITERS = 10
 
 
 def fail(msg: str) -> None:
@@ -3792,6 +3842,279 @@ def gnn_archs_phase(args, torch, dev, timer, sync, host):
     return rows, "; ".join(summary)
 
 
+def depth_phase(torch, timer, cases, on_card):
+    """Phase 18 (a): every case at each of ``SWEEP_DEPTHS`` against its
+    plain version, depth 1's bits and the simt body's.  ``cases``: {label:
+    (kernel, operands, plain outputs)} with ``kernel`` ``"k1"`` or
+    ``"k2"``.  Returns {(label, depth): max abs error of the first
+    output}; fails on a mismatch."""
+    from repro_torch.kernels.diffusion import (
+        bulk_ctas_per_sm, frontier_round_bsr_kernel, bsr_spmm_kernel,
+        launch_bsr_spmm, launch_frontier_round_bsr)
+    from repro_torch.kernels.tune import model
+
+    def launch(kernel, ins, depth, route=None):
+        if kernel == "k1":
+            if not on_card:
+                return frontier_round_bsr_kernel(*ins, buffer_depth=depth)
+            return launch_frontier_round_bsr(*ins, route=route,
+                                             buffer_depth=depth)[:2]
+        if not on_card:
+            return (bsr_spmm_kernel(*ins, buffer_depth=depth),)
+        return (launch_bsr_spmm(*ins, route=route, buffer_depth=depth)[0],)
+
+    errs_at = {}
+    for label, (kernel, ins, plain) in cases.items():
+        name = "frontier_round_bsr" if kernel == "k1" else "bsr_gather_spmm"
+        bs, c = ins[4].shape[1], ins[4].shape[2]  # f or x: [rows, bs, C]
+        base = launch(kernel, ins, 1)
+        simt = launch(kernel, ins, 1, "simt") if on_card else base
+        for depth in SWEEP_DEPTHS:
+            got = launch(kernel, ins, depth)
+            errs = [rel_l1(a, b) for a, b in zip(got, plain)]
+            same = all(torch.equal(a, b) for a, b in zip(got, base))
+            same_simt = all(torch.equal(a, b) for a, b in zip(got, simt))
+            ctas = bulk_ctas_per_sm(name, bs, c, depth) if on_card else None
+            want = model.ctas_per_sm(name, bs, c, depth)
+            print(f"{label} depth {depth} ({model.ring_stages(depth)} "
+                  f"stages, {model.smem_bytes(name, bs, c, depth)} bytes "
+                  f"of shared memory, {ctas} CTA(s)/SM, model {want}): rel "
+                  "L1 " + ", ".join(f"{e:.3e}" for e in errs) + ", depth 1's"
+                  f" bits {same}, the simt body's bits {same_simt}")
+            if not (max(errs) <= REL_L1 and same and same_simt):
+                fail(f"{label} at buffer_depth {depth}")
+            if on_card and ctas != want:
+                fail(f"{label} at buffer_depth {depth}: {ctas} CTAs an SM, "
+                     f"the model counts {want}")
+            errs_at[label, depth] = float((got[0] - plain[0]).abs().max())
+            del got
+    return errs_at
+
+
+def tuner_phase(args, torch, dev, problem, x_ss, phase4, smi):
+    """Phase 18 (b) and (c): the sweep into a temporary tune directory,
+    the records in use, and K1's and K2's solves at each depth named
+    explicitly.  ``phase4``: phase 4's ``frontier:pallas`` solve (x,
+    rounds, pushes, wall).  Returns ``({(kernel, depth): launches of the
+    explicit-depth solves}, the sweeps' records, a summary line)``."""
+    x_pallas, pallas_rounds, pallas_ops, pallas_wall = phase4
+    import shutil
+    import tempfile
+
+    import repro_torch
+    from repro_torch.api.options import SolverOptions
+    from repro_torch.api.registry import _auto_select
+    from repro_torch.core import host_block_graph
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import tune
+    from repro_torch.kernels.diffusion import DEPTHS, FRONTIER_DEPTHS
+    from repro_torch.kernels.tune import model
+
+    on_card = dev.type == "cuda"
+    platform = dev.type
+    tune_dir = tempfile.mkdtemp(prefix="tuned_torch_")
+    old_env = os.environ.get(tune.records.ENV_VAR)
+    os.environ[tune.records.ENV_VAR] = tune_dir
+    tune.clear_cache()
+    launches = {}
+    try:
+        print(f"(b) sweep at N={args.sweep_n}, bs {SWEEP_BS}, depths "
+              f"{SWEEP_DEPTHS}, density {SWEEP_DENSITY}, {SWEEP_ITERS} "
+              f"launches a config, into {tune_dir}; {smi}")
+        recs = {}
+        t0 = time.perf_counter()
+        for kernel in tune.KERNELS:
+            t1 = time.perf_counter()
+            rec = tune.run_sweep(kernel, n=args.sweep_n, bs_list=SWEEP_BS,
+                                 depths=SWEEP_DEPTHS, density=SWEEP_DENSITY,
+                                 iters=SWEEP_ITERS, seed=args.seed,
+                                 device=args.device)
+            recs[kernel] = rec
+            for r in rec["sweep"]:
+                if (r["measured_us"] is None) == r["feasible"]:
+                    fail(f"sweep {kernel} bs={r['bs']} depth "
+                         f"{r['buffer_depth']}: feasible {r['feasible']} "
+                         f"but measured {r['measured_us']}")
+                if r["feasible"] and r["route"] == "bulk" and on_card and (
+                        r["ctas_per_sm"] != model.ctas_per_sm(
+                            kernel, r["bs"], 1, r["buffer_depth"])):
+                    fail(f"sweep {kernel}: CTAs an SM off the model")
+            print(f"sweep {kernel}: {len(rec['sweep'])} rows, "
+                  f"{sum(r['feasible'] for r in rec['sweep'])} feasible, "
+                  f"winner {rec['best']} ({time.perf_counter() - t1:.1f} s)"
+                  f" on {smi}")
+        sweep_s = time.perf_counter() - t0
+
+        print("(c) the records in use")
+        k1, k2 = (tune.best_config(k, platform) for k in tune.KERNELS)
+        res1 = tune.resolved_config("frontier_round_bsr", platform=platform)
+        res2 = tune.resolved_config("bsr_gather_spmm", platform=platform)
+        print(f"resolved_config: frontier_round_bsr {res1}, bsr_gather_spmm "
+              f"{res2}")
+        if (res1[:2] != (k1.bs, k1.buffer_depth)
+                or res2[1] != k2.buffer_depth):
+            fail("resolved_config does not give the records' winners")
+        depths0 = dict(FRONTIER_DEPTHS)
+        reset_launches()
+        session = repro_torch.SolverSession(problem, "frontier:pallas",
+                                            device=args.device)
+        drv = session._driver
+        rep = session.solve()
+        k1_depth = {d: FRONTIER_DEPTHS.get(d, 0) - depths0.get(d, 0)
+                    for d in FRONTIER_DEPTHS}
+        dx = float(np.abs(rep.x - x_ss).sum())
+        print(f"frontier:pallas on the K1 record: bs {drv.m.bs} depth "
+              f"{drv.buffer_depth}: converged {rep.converged} rounds "
+              f"{rep.n_rounds} ops {rep.n_ops} wall {rep.wall_time_s:.3f} s "
+              f"(bs 128 depth 1, phase 4: {pallas_wall:.3f} s); K1 "
+              f"launches {LAUNCHES['frontier_round_bsr']} by depth "
+              f"{k1_depth}; |x - x_segment_sum|_1 {dx:.3e}")
+        if (drv.m.bs, drv.buffer_depth) != (k1.bs, k1.buffer_depth):
+            fail("frontier:pallas did not take the K1 record's config")
+        if not rep.converged or dx > 1e-5:
+            fail("frontier:pallas on the K1 record")
+        if on_card and k1_depth.get(k1.buffer_depth) != rep.n_rounds:
+            fail("K1 not launched once a round at the record's depth")
+        del session, drv
+        g_e = host_block_graph(min(2**16, args.n), seed=args.seed)
+        p_e = repro_torch.Problem.pagerank(g_e)
+        depths0 = dict(DEPTHS)
+        reset_launches()
+        s_e = repro_torch.SolverSession(p_e, "engine:bsr",
+                                        device=args.device, **ENGINE_OPTS)
+        e_depth = s_e._driver.cfg.pallas_buffer_depth
+        rep_e = s_e.solve()
+        k2_depth = {d: DEPTHS.get(d, 0) - depths0.get(d, 0) for d in DEPTHS}
+        print(f"engine:bsr on the K2 record (N={g_e.n}, k=4): "
+              f"pallas_buffer_depth {e_depth} (record {k2.buffer_depth}); "
+              f"converged {rep_e.converged} rounds {rep_e.n_rounds} wall "
+              f"{rep_e.wall_time_s:.3f} s; K2 launches "
+              f"{LAUNCHES['bsr_spmm']} by depth {k2_depth}")
+        if e_depth != k2.buffer_depth or not rep_e.converged:
+            fail("engine:bsr on the K2 record")
+        if on_card and k2_depth.get(e_depth) != rep_e.n_rounds:
+            fail("K2 not launched once a round at the record's depth")
+        x_e = rep_e.x
+        del s_e
+        picked = _auto_select(problem, SolverOptions(device=args.device))
+    finally:
+        if old_env is None:
+            os.environ.pop(tune.records.ENV_VAR, None)
+        else:
+            os.environ[tune.records.ENV_VAR] = old_env
+        tune.clear_cache()
+        shutil.rmtree(tune_dir, ignore_errors=True)
+    unpicked = _auto_select(problem, SolverOptions(device=args.device))
+    print(f"_auto_select for phase 4's problem: {picked} with the records, "
+          f"{unpicked} without; {tune_dir} removed "
+          f"({not os.path.exists(tune_dir)})")
+    if os.path.exists(tune_dir):
+        fail("the temporary tune directory is still there")
+    # each depth named in the options, no record: phase 4's solve (bs 128)
+    # and the engine's above, launch by launch the same bits
+    for d in SWEEP_DEPTHS[1:]:
+        depths0, e_depths0 = dict(FRONTIER_DEPTHS), dict(DEPTHS)
+        rep_d = repro_torch.solve(problem, method="frontier:pallas",
+                                  device=args.device, buffer_depth=d)
+        launches["frontier_round_bsr", d] = (FRONTIER_DEPTHS.get(d, 0)
+                                             - depths0.get(d, 0))
+        same = bool(np.array_equal(rep_d.x, x_pallas))
+        print(f"frontier:pallas at buffer_depth={d}: rounds {rep_d.n_rounds}"
+              f" pushes {rep_d.n_ops} (phase 4, depth 1: {pallas_rounds} / "
+              f"{pallas_ops}), x bit-equal to phase 4's {same}, wall "
+              f"{rep_d.wall_time_s:.3f} s ({pallas_wall:.3f}); K1 launches "
+              f"at depth {d}: {launches['frontier_round_bsr', d]}")
+        if (not same or (rep_d.n_rounds, rep_d.n_ops)
+                != (pallas_rounds, pallas_ops)):
+            fail(f"frontier:pallas at buffer_depth={d} moved")
+        if on_card and launches["frontier_round_bsr", d] != rep_d.n_rounds:
+            fail(f"K1 not launched once a round at depth {d}")
+        s_d = repro_torch.SolverSession(p_e, "engine:bsr",
+                                        device=args.device, buffer_depth=d,
+                                        **ENGINE_OPTS)
+        rep_d = s_d.solve()
+        launches["bsr_spmm", d] = DEPTHS.get(d, 0) - e_depths0.get(d, 0)
+        same = bool(np.array_equal(rep_d.x, x_e))
+        print(f"engine:bsr at buffer_depth={d} (pallas_buffer_depth "
+              f"{s_d._driver.cfg.pallas_buffer_depth}): rounds "
+              f"{rep_d.n_rounds} (depth 1: {rep_e.n_rounds}), x bit-equal "
+              f"to depth 1's {same}; K2 launches at depth {d}: "
+              f"{launches['bsr_spmm', d]}")
+        if not same or rep_d.n_rounds != rep_e.n_rounds:
+            fail(f"engine:bsr at buffer_depth={d} moved")
+        if on_card and launches["bsr_spmm", d] != rep_d.n_rounds:
+            fail(f"K2 not launched once a round at depth {d}")
+        del s_d
+    summary = (f"tuner: sweep {sweep_s:.1f} s; K1 record bs {k1.bs} depth "
+               f"{k1.buffer_depth} ({k1.measured_us} us), K2 record bs "
+               f"{k2.bs} depth {k2.buffer_depth} ({k2.measured_us} us); "
+               f"frontier:pallas on it {rep.wall_time_s:.3f} s against "
+               f"{pallas_wall:.3f} s at bs 128 depth 1; auto {picked} / "
+               f"{unpicked}")
+    return launches, recs, summary
+
+
+def examples_phase(args, torch, dev):
+    """Phase 18 (d): the five examples at their defaults (on the CPU, in a
+    rehearsal, at small sizes).  Returns a summary line."""
+    import shutil
+    import tempfile
+
+    from repro_torch.examples import (
+        gnn_partition, quickstart, serve_lm, solve_web, train_lm)
+
+    on_card = dev.type == "cuda"
+    d = ["--device", args.device]
+    small = {"quickstart": ["--n", "500"], "solve_web": ["--n", "2000"],
+             "serve_lm": ["--batch", "2", "--gen", "4"],
+             "train_lm": ["--steps", "4", "--width", "64", "--layers", "1"]}
+    ckpt = tempfile.mkdtemp(prefix="train_lm_")
+    walls = {}
+    try:
+        for name, mod in (("quickstart", quickstart),
+                          ("solve_web", solve_web),
+                          ("gnn_partition", gnn_partition),
+                          ("serve_lm", serve_lm), ("train_lm", train_lm)):
+            argv = d + ([] if on_card else small.get(name, []))
+            if name == "train_lm":
+                argv += ["--ckpt", ckpt]
+            print(f"-- python -m repro_torch.examples.{name} "
+                  + " ".join(argv))
+            t0 = time.perf_counter()
+            out = mod.main(argv)
+            if on_card:
+                torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            if name == "quickstart":
+                ok = (out["sequential"]["converged"]
+                      and out["simulator"]["converged"]
+                      and out["engine"]["converged"]
+                      and out["simulator"]["max_abs_dx"] < 1e-3
+                      and out["engine"]["max_abs_dx"] < 1e-3)
+            elif name == "solve_web":
+                ok = all(out[k]["converged"]
+                         for k in ("base", "static", "dynamic"))
+            elif name == "gnn_partition":
+                ok = (np.isfinite(out["losses"]).all()
+                      and out["losses"][-1] < out["losses"][0]
+                      and out["final_imbalance"] < out["imbalance"][0])
+            elif name == "serve_lm":
+                tok = out["tokens"]
+                ok = (tok.shape[1] >= 2 and tok.min() >= 0
+                      and tok.max() < out["vocab"])
+            else:
+                ok = (len(out["losses"]) > 0
+                      and np.isfinite(out["losses"]).all()
+                      and out["losses"][-1] < out["losses"][0])
+            print(f"example {name}: checks {ok}, wall {walls[name]:.1f} s")
+            if not ok:
+                fail(f"example {name}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return "examples: " + ", ".join(f"{k} {v:.1f} s"
+                                    for k, v in walls.items())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=2**21,
@@ -3806,6 +4129,9 @@ def main() -> int:
                     help="nodes of phase 10 (c)'s forward graph (default: "
                     "the minibatch_lg cell's 169,984, padded to its N, E "
                     "and T)")
+    ap.add_argument("--sweep-n", type=int, default=None,
+                    help="nodes of phase 18's sweep graph (default "
+                    "2**19, at most --n)")
     ap.add_argument("--lm-reduced", action="store_true",
                     help="phase 12 on the reduced LM config (2 layers, "
                     "float32) with 64- and 512-token prompts")
@@ -3814,6 +4140,7 @@ def main() -> int:
                     "control flow on the plain versions, which prints no "
                     "result")
     args = ap.parse_args()
+    args.sweep_n = min(args.sweep_n or SWEEP_N, args.n)
 
     import torch
 
@@ -4060,6 +4387,7 @@ def main() -> int:
         fail(f"K1 launched {k1_solve} times in {rep.n_rounds} rounds")
     recorded("frontier:pallas", rep)
     x_pallas, pallas_rounds = rep.x, rep.n_rounds
+    pallas_ops, pallas_wall = rep.n_ops, rep.wall_time_s
     reset_launches()
     rep_ss = repro_torch.solve(problem, method="frontier:segment_sum",
                                device=args.device)
@@ -4920,10 +5248,75 @@ def main() -> int:
     show(sim_rows)
     rows += sim_rows
 
+    # ---- 18. tuner and examples: (a) the ring depths at phase 3's and 6's
+    # pools, before they are freed ----------------------------------------
+    print("== phase 18: tuner and examples")
+    t18 = time.perf_counter()
+    ins_a, ins_b = timing_inputs["k1"][0], timing_inputs["k1_late"][0]
+    ins_k2 = timing_inputs["k2"][0]
+    print("(a) depths " + ", ".join(str(d) for d in SWEEP_DEPTHS))
+    depth_errs = depth_phase(torch, timer, {
+        "K1 (a)": ("k1", ins_a, frontier_round_bsr_plain(*ins_a)),
+        "K1 (b)": ("k1", ins_b, frontier_round_bsr_plain(*ins_b)),
+        "K2 pool": ("k2", ins_k2, (bsr_spmm_plain(*ins_k2),)),
+        "K2 engine visits": ("k2", (eng.pool, visits.visit_block,
+                                    visits.visit_col, visits.row_ptr, x3_e),
+                             (k2_engine_plain()[..., None],)),
+    }, on_card)
+
+    def at_depth(kernel, ins, d):
+        if kernel == "k1":
+            if on_card:
+                return lambda: launch_frontier_round_bsr(*ins, buffer_depth=d)
+            return lambda: frontier_round_bsr_plain(*ins)
+        if on_card:
+            return lambda: launch_bsr_spmm(*ins, buffer_depth=d)
+        return lambda: bsr_spmm_plain(*ins)
+
+    depth_times = least(timer, {
+        **{f"k1_d{d}": at_depth("k1", ins_a, d) for d in SWEEP_DEPTHS},
+        **{f"k2_d{d}": at_depth("k2", ins_k2, d) for d in SWEEP_DEPTHS}}, 20)
+    print("K1 (a) and K2 over the pool by depth, ms (least, greatest of "
+          "two 20-call means, in turns): " + ", ".join(
+              f"{k} {v[0]:.4f} [{v[1]:.4f}]" for k, v in depth_times.items())
+          + f" on {smi}")
+
     # the earlier phases' sessions and pools are done with
     del s_bsr, eng, visits, session, m
     if on_card:
         torch.cuda.empty_cache()
+
+    # ---- 18 (b)-(d): the sweep, the records in use, the examples ----------
+    depth_launches, _sweeps, tuner_summary = tuner_phase(
+        args, torch, dev, problem, rep_ss.x,
+        (x_pallas, pallas_rounds, pallas_ops, pallas_wall), smi)
+    print(tuner_summary)
+    if on_card:
+        torch.cuda.empty_cache()
+    print("(d) examples")
+    print(examples_phase(args, torch, dev))
+    k1_row = next(r for r in rows if r["name"] == "frontier_round_bsr")
+    k2_row = next(r for r in rows if r["name"] == "bsr_spmm")
+    depth_rows = []
+    for d in SWEEP_DEPTHS[1:]:
+        for name, row, label, key in (
+                ("frontier_round_bsr", k1_row, "K1 (a)", "k1"),
+                ("bsr_spmm", k2_row, "K2 pool", "k2")):
+            depth_rows.append({
+                "name": f"{name}_depth{d}", "route": "cuda",
+                "source": row["source"], "replaces": row["replaces"],
+                "launches": depth_launches[name, d],
+                "max_abs_err": depth_errs[label, d],
+                "ms": depth_times[f"{key}_d{d}"][0],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"],
+                "buffer_depth": d, "depth1_ms": depth_times[f"{key}_d1"][0],
+                "timing": "least of two 20-call means, in turns with the "
+                          "other depths (phase 18 (a))"})
+    show(depth_rows)
+    rows += depth_rows
+    print(f"phase 18 wall {time.perf_counter() - t18:.1f} s")
 
     # ---- 16. MoE serving (after 12, whose model is freed, and after the
     # engine's and the frontier's pools are: its 30 GB of weights need the

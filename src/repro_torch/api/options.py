@@ -83,7 +83,8 @@ class SolverOptions:
     # if one exists, else the historical default" (bs=128, depth=1, thr=0);
     # an explicit value always wins over the tuned record.
     bs: Optional[int] = None  # BSR block size for frontier:pallas
-    buffer_depth: Optional[int] = None  # validated; no effect on K1 yet
+    buffer_depth: Optional[int] = None  # K1's (and engine:bsr's K2's)
+    # tile-ring depth on the card: 1 = the 3-stage ring, d >= 2 = d stages
     occupancy_threshold: Optional[float] = None  # defer sparse block cols
     # run the kernel semantics (K1's wt-folded predicate) on the CPU,
     # through K1's plain twin — the counterpart of the reference's

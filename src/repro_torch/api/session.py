@@ -510,6 +510,10 @@ class _EngineDriver:
             dtype=engine_dtype(options.dtype),
             diffusion_backend=diffusion_backend,
             device=options.device,
+            # explicit option > platform tuned record > default depth 1
+            pallas_buffer_depth=resolved_config(
+                "bsr_gather_spmm", platform=torch.device(options.device).type,
+                buffer_depth=options.buffer_depth)[1],
         )
         # the store's cached engine-layout view
         self.arrays = build_engine_arrays(problem.graph, problem.b,

@@ -94,6 +94,8 @@ class EngineConfig:
     diffusion_backend: str = "segment_sum"  # per-edge push (K3) | "bsr":
     # bucket-tiled dense blocks (K2)
     device: str = "cuda"
+    pallas_buffer_depth: int = 1  # K2's tile-ring depth on the bsr
+    # backend (the reference's name for its tile-pool DMA pipeline depth)
 
 
 @dataclasses.dataclass
@@ -419,7 +421,9 @@ class DistributedEngine:
         space) of this round's sent fluid ``[R, S]``."""
         k = self.cfg.k
         if self.cfg.diffusion_backend == "bsr":
-            return engine_tile_push(self.pool, table, sent).reshape(k, -1)
+            return engine_tile_push(
+                self.pool, table, sent,
+                buffer_depth=self.cfg.pallas_buffer_depth).reshape(k, -1)
         return edge_sum(sent.reshape(-1), table).reshape(k, -1)
 
     def _local_round(self, st: EngineState, w, slot_deg, dang, table):

@@ -38,14 +38,20 @@
 // tiles each) pays its own start and drain, and each tile waits on a chain of
 // dependent loads between two __syncthreads.
 //
-// K1 and K2 each have two routes, chosen here (frontier_route, spmm_route)
-// and nowhere else:
+// K1 and K2 each have two routes.  The wrapper picks one per launch and
+// passes it with the ring's stages and the dynamic shared memory to take:
+// the rule and the byte count live in one place, kernels/tune/model.py
+// (route, smem_bytes), which mirrors the constants below.  This file only
+// refuses a bulk launch that cannot run (bs % 4 != 0, operands not 16-byte
+// aligned, no instance of the ring).
 //   * bulk (frontier_round_bulk_kernel, bsr_spmm_bulk_kernel), every
 //     bs % 4 == 0 with 16-byte aligned operands whose ring fits: persistent
 //     CTAs (kCtasPerSm an SM, as many as fit) walk the output rows
 //     r = blockIdx.x + i * gridDim.x.
 //     A producer streams the tiles as contiguous slabs of whole tile rows
-//     (kSlabBytes) by 1-D TMA bulk copies into a kBulkStages ring guarded by
+//     (kSlabBytes) by 1-D TMA bulk copies into a ring of kStages stages (a
+//     template argument: the wrapper's buffer_depth, 3 stages at depth 1,
+//     d at depth d >= 2, 2 .. kMaxStages) guarded by
 //     full / empty mbarriers, each tile's fluid (x; K1: f and wt of its
 //     column) into a slot of its own, and runs ahead across slab, tile, visit
 //     and row edges, so the HBM stream never drains at a tile edge and no
@@ -54,7 +60,9 @@
 //     in shared memory; rows without tiles cost no CTA.  Two CTAs an SM: at
 //     bs = 128 one CTA's eight consumer warps cannot keep up with K2's
 //     stream, and K1's sparse rounds are bound by per-row latency, which a
-//     second CTA hides (tools/k1_probe.py, tools/k2_probe.py).
+//     second CTA hides (tools/k1_probe.py, tools/k2_probe.py).  A ring too
+//     deep for two CTAs in an SM's shared memory runs one (bulk_ctas_per_sm;
+//     model.py's ctas_per_sm counts the same).
 //     K1's producer is a whole warp, so that skipping unarmed tiles costs no
 //     serial latency: it tests kScanLanes tiles at once (block_col, then
 //     col_active, a lane each; __ballot_sync gives the armed ones) and copies
@@ -83,15 +91,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowsInFlight = 4;
-constexpr int kMaxSmem = 232448;  // bytes of shared memory one CTA may use
 
-// the bulk route's ring (kernel.py mirrors these in its route rule)
-constexpr int kBulkStages = 3;
+// the bulk route's ring (kernels/tune/model.py mirrors these in its
+// shared-memory rule): the deepest ring instanced, the slab one bulk copy
+// moves, the persistent CTAs an SM
+constexpr int kMaxStages = 8;
 constexpr int kSlabBytes = 32 * 1024;
 constexpr int kCtasPerSm = 2;
 // an evict_first L2 policy on the tile copies (each tile is read once a
@@ -243,34 +254,6 @@ __host__ __device__ constexpr int slab_rows(int bs) {
   return kSlabBytes / (bs * 4) < 1 ? 1 : (kSlabBytes / (bs * 4) > bs ? bs : kSlabBytes / (bs * 4));
 }
 
-// the ring, an x slot a stage, the accumulator, then 4 barriers a stage
-__host__ __device__ constexpr size_t bulk_smem(int bs, int C) {
-  return (size_t)kBulkStages * slab_rows(bs) * bs * 4 + (kBulkStages + 1) * (size_t)bs * C * 4 +
-         4 * kBulkStages * 8;
-}
-
-// K1's: the ring, an (f, wt) slot a stage and a row slot, the accumulator,
-// block_l1's warp sums, a record a row slot, then 4 barriers a stage and 2 a
-// row slot
-__host__ __device__ constexpr size_t frontier_bulk_smem(int bs, int C) {
-  return 4 * ((size_t)kBulkStages * slab_rows(bs) * bs + (size_t)(kBulkStages + kRowSlots) * bs * (C + 1) +
-              (size_t)bs * C + kWarps + 2 * kRowSlots) +
-         8 * (4 * kBulkStages + 2 * kRowSlots);
-}
-
-// kRouteBulk, kRouteSimt, or -1 where no route fits
-int spmm_route(int bs, int C, bool aligned) {
-  if (bs < 1 || bs > 1024 || C < 1 || 2 * (size_t)bs * C * 4 > kMaxSmem) return -1;
-  if (bs % 4 == 0 && aligned && bulk_smem(bs, C) <= kMaxSmem) return kRouteBulk;
-  return kRouteSimt;
-}
-
-int frontier_route(int bs, int C, bool aligned) {
-  if (bs < 1 || bs > 1024 || C < 1 || (2 * (size_t)bs * C + kWarps) * 4 > kMaxSmem) return -1;
-  if (bs % 4 == 0 && aligned && frontier_bulk_smem(bs, C) <= kMaxSmem) return kRouteBulk;
-  return kRouteSimt;
-}
-
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -361,6 +344,7 @@ __device__ __forceinline__ void accumulate_slab(const float* __restrict__ slab,
   }
 }
 
+template <int kStages>
 __global__ void __launch_bounds__(kBulkThreads, kCtasPerSm)
 bsr_spmm_bulk_kernel(const float* __restrict__ blocks, const int32_t* __restrict__ visit_block,
                      const int32_t* __restrict__ visit_col, const int64_t* __restrict__ row_ptr,
@@ -370,18 +354,18 @@ bsr_spmm_bulk_kernel(const float* __restrict__ blocks, const int32_t* __restrict
   const int m = bs * C;
   const int sr = slab_rows(bs);
   float* ring = reinterpret_cast<float*>(smem_raw);
-  float* x_ring = ring + (size_t)kBulkStages * sr * bs;
-  float* acc_s = x_ring + (size_t)kBulkStages * m;
+  float* x_ring = ring + (size_t)kStages * sr * bs;
+  float* acc_s = x_ring + (size_t)kStages * m;
   uint64_t* bars = reinterpret_cast<uint64_t*>(acc_s + m);
   auto full = [&](int st) { return smem_u32(bars + st); };
-  auto empty = [&](int st) { return smem_u32(bars + kBulkStages + st); };
-  auto x_full = [&](int st) { return smem_u32(bars + 2 * kBulkStages + st); };
-  auto x_empty = [&](int st) { return smem_u32(bars + 3 * kBulkStages + st); };
+  auto empty = [&](int st) { return smem_u32(bars + kStages + st); };
+  auto x_full = [&](int st) { return smem_u32(bars + 2 * kStages + st); };
+  auto x_empty = [&](int st) { return smem_u32(bars + 3 * kStages + st); };
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   for (int i = tid; i < m; i += kBulkThreads) acc_s[i] = 0.0f;
   if (tid == 0) {
-    for (int st = 0; st < kBulkStages; ++st) {
+    for (int st = 0; st < kStages; ++st) {
       mbar_init(full(st), 1);
       mbar_init(empty(st), kBulkWarps);  // lane 0 of each consumer warp
       mbar_init(x_full(st), 1);
@@ -392,8 +376,8 @@ bsr_spmm_bulk_kernel(const float* __restrict__ blocks, const int32_t* __restrict
   __syncthreads();
 
   // Both sides walk the same rows, visits and slabs in the same order: slab
-  // number `it` sits in stage it % kBulkStages, visit number `vi`'s x in slot
-  // vi % kBulkStages, each in phase (count / kBulkStages) & 1.
+  // number `it` sits in stage it % kStages, visit number `vi`'s x in slot
+  // vi % kStages, each in phase (count / kStages) & 1.
   if (warp == kBulkWarps) {  // ---- producer: one thread issues every copy ----
     if (lane != 0) return;
     uint64_t policy = 0;
@@ -403,16 +387,16 @@ bsr_spmm_bulk_kernel(const float* __restrict__ blocks, const int32_t* __restrict
     for (int r = blockIdx.x; r < n_rows; r += gridDim.x) {
       const int64_t hi = row_ptr[r + 1];
       for (int64_t k = row_ptr[r]; k < hi; ++k, ++vi) {
-        const int xs = vi % kBulkStages;
-        if (vi >= kBulkStages) mbar_wait(x_empty(xs), (vi / kBulkStages - 1) & 1);
+        const int xs = vi % kStages;
+        if (vi >= kStages) mbar_wait(x_empty(xs), (vi / kStages - 1) & 1);
         mbar_expect_tx(x_full(xs), x_bytes);
         bulk_load(smem_u32(x_ring + (size_t)xs * m), x + (size_t)visit_col[k] * m, x_bytes,
                   x_full(xs));
         const float* tile = blocks + (size_t)visit_block[k] * bs * bs;
         for (int row0 = 0; row0 < bs; row0 += sr, ++it) {
-          const int st = it % kBulkStages;
+          const int st = it % kStages;
           const int bytes = min(sr, bs - row0) * bs * 4;
-          if (it >= kBulkStages) mbar_wait(empty(st), (it / kBulkStages - 1) & 1);
+          if (it >= kStages) mbar_wait(empty(st), (it / kStages - 1) & 1);
           mbar_expect_tx(full(st), bytes);
           const uint32_t dst = smem_u32(ring + (size_t)st * sr * bs);
           if (kEvictFirst)
@@ -430,12 +414,12 @@ bsr_spmm_bulk_kernel(const float* __restrict__ blocks, const int32_t* __restrict
   for (int r = blockIdx.x; r < n_rows; r += gridDim.x) {
     const int64_t hi = row_ptr[r + 1];
     for (int64_t k = row_ptr[r]; k < hi; ++k, ++vi) {
-      const int xs = vi % kBulkStages;
-      mbar_wait(x_full(xs), (vi / kBulkStages) & 1);
+      const int xs = vi % kStages;
+      mbar_wait(x_full(xs), (vi / kStages) & 1);
       const float* x_s = x_ring + (size_t)xs * m;
       for (int row0 = 0; row0 < bs; row0 += sr, ++it) {
-        const int st = it % kBulkStages;
-        mbar_wait(full(st), (it / kBulkStages) & 1);
+        const int st = it % kStages;
+        mbar_wait(full(st), (it / kStages) & 1);
         accumulate_slab(ring + (size_t)st * sr * bs, x_s, acc_s, row0, min(sr, bs - row0), bs, C,
                         warp, lane);
         __syncwarp();
@@ -473,6 +457,7 @@ __device__ __forceinline__ uint32_t armed_lanes(const int32_t* __restrict__ col_
   return __ballot_sync(0xffffffffu, col >= 0 && __ldg(col_active + col) != 0);
 }
 
+template <int kStages>
 __global__ void __launch_bounds__(kBulkThreads, kCtasPerSm)
 frontier_round_bulk_kernel(const float* __restrict__ blocks, const int32_t* __restrict__ block_col,
                            const int64_t* __restrict__ row_ptr,
@@ -485,22 +470,22 @@ frontier_round_bulk_kernel(const float* __restrict__ blocks, const int32_t* __re
   const int sr = slab_rows(bs);
   const int n_slabs = (bs + sr - 1) / sr;
   float* ring = reinterpret_cast<float*>(smem_raw);
-  float* x_ring = ring + (size_t)kBulkStages * sr * bs;    // an armed tile's column
-  float* row_ring = x_ring + (size_t)kBulkStages * slot;  // a row's own f and wt
+  float* x_ring = ring + (size_t)kStages * sr * bs;    // an armed tile's column
+  float* row_ring = x_ring + (size_t)kStages * slot;  // a row's own f and wt
   float* acc_s = row_ring + (size_t)kRowSlots * slot;
   float* red_s = acc_s + m;
   int* rec = reinterpret_cast<int*>(red_s + kWarps);  // (armed tiles, col_active[r]) a row slot
   uint64_t* bars = reinterpret_cast<uint64_t*>(rec + 2 * kRowSlots);
   auto full = [&](int st) { return smem_u32(bars + st); };
-  auto empty = [&](int st) { return smem_u32(bars + kBulkStages + st); };
-  auto x_full = [&](int st) { return smem_u32(bars + 2 * kBulkStages + st); };
-  auto x_empty = [&](int st) { return smem_u32(bars + 3 * kBulkStages + st); };
-  auto row_full = [&](int rs) { return smem_u32(bars + 4 * kBulkStages + rs); };
-  auto row_empty = [&](int rs) { return smem_u32(bars + 4 * kBulkStages + kRowSlots + rs); };
+  auto empty = [&](int st) { return smem_u32(bars + kStages + st); };
+  auto x_full = [&](int st) { return smem_u32(bars + 2 * kStages + st); };
+  auto x_empty = [&](int st) { return smem_u32(bars + 3 * kStages + st); };
+  auto row_full = [&](int rs) { return smem_u32(bars + 4 * kStages + rs); };
+  auto row_empty = [&](int rs) { return smem_u32(bars + 4 * kStages + kRowSlots + rs); };
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   if (tid == 0) {
-    for (int st = 0; st < kBulkStages; ++st) {
+    for (int st = 0; st < kStages; ++st) {
       mbar_init(full(st), 1);
       mbar_init(empty(st), kBulkWarps);  // lane 0 of each consumer warp
       mbar_init(x_full(st), 1);
@@ -516,7 +501,7 @@ frontier_round_bulk_kernel(const float* __restrict__ blocks, const int32_t* __re
 
   // Both sides walk the same rows, armed tiles and slabs in the same order:
   // row number ri sits in row slot ri % kRowSlots, armed tile number vi's
-  // column in slot vi % kBulkStages, slab number it in stage it % kBulkStages,
+  // column in slot vi % kStages, slab number it in stage it % kStages,
   // each in phase (count / slots) & 1.
   const int x_bytes = slot * 4;
   if (warp == kBulkWarps) {  // ---- producer warp: lane 0 issues every copy ----
@@ -529,17 +514,17 @@ frontier_round_bulk_kernel(const float* __restrict__ blocks, const int32_t* __re
         const int b = __ffs(armed) - 1;
         const int c = __shfl_sync(kAll, col, b);
         if (lane != 0) continue;
-        const int xs = vi % kBulkStages;
-        if (vi >= kBulkStages) mbar_wait(x_empty(xs), (vi / kBulkStages - 1) & 1);
+        const int xs = vi % kStages;
+        if (vi >= kStages) mbar_wait(x_empty(xs), (vi / kStages - 1) & 1);
         float* dst = x_ring + (size_t)xs * slot;
         mbar_expect_tx(x_full(xs), x_bytes);
         bulk_load(smem_u32(dst), f + (size_t)c * m, m * 4, x_full(xs));
         bulk_load(smem_u32(dst + m), wt + (size_t)c * bs, bs * 4, x_full(xs));
         const float* tile = blocks + (size_t)(base + b) * bs * bs;
         for (int s = 0; s < n_slabs; ++s) {
-          const int i = it + s, st = i % kBulkStages, row0 = s * sr;
+          const int i = it + s, st = i % kStages, row0 = s * sr;
           const int bytes = min(sr, bs - row0) * bs * 4;
-          if (i >= kBulkStages) mbar_wait(empty(st), (i / kBulkStages - 1) & 1);
+          if (i >= kStages) mbar_wait(empty(st), (i / kStages - 1) & 1);
           mbar_expect_tx(full(st), bytes);
           bulk_load(smem_u32(ring + (size_t)st * sr * bs), tile + (size_t)row0 * bs, bytes,
                     full(st));
@@ -633,12 +618,12 @@ frontier_round_bulk_kernel(const float* __restrict__ blocks, const int32_t* __re
     __syncwarp();
     if (lane == 0) mbar_arrive(row_empty(rs));
     for (int k = 0; k < n; ++k, ++vi) {
-      const int xs = vi % kBulkStages;
-      mbar_wait(x_full(xs), (vi / kBulkStages) & 1);
+      const int xs = vi % kStages;
+      mbar_wait(x_full(xs), (vi / kStages) & 1);
       const float* x_s = x_ring + (size_t)xs * slot;
       for (int row0 = 0; row0 < bs; row0 += sr, ++it) {
-        const int st = it % kBulkStages;
-        mbar_wait(full(st), (it / kBulkStages) & 1);
+        const int st = it % kStages;
+        mbar_wait(full(st), (it / kStages) & 1);
         accumulate_slab<true>(ring + (size_t)st * sr * bs, x_s, acc_s, row0, min(sr, bs - row0), bs,
                               C, warp, lane, x_s + m);
         __syncwarp();
@@ -658,19 +643,53 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-// persistent CTAs: kCtasPerSm an SM, or as many as the kernel's ring lets
-// stay, and no more than there are rows
+// the persistent CTAs an SM a bulk kernel gets: kCtasPerSm, or as many as
+// its shared memory lets stay (at least 1)
 template <typename Kernel>
-cudaError_t persistent_grid(Kernel kernel, size_t smem, int n_rows, int* grid) {
+cudaError_t ctas_per_sm(Kernel kernel, size_t smem, int* ctas) {
   cudaError_t err = prepare(kernel, smem);
-  int dev = 0, n_sm = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  int per_sm = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBulkThreads, smem);
-  const int ctas = (per_sm < 1 ? 1 : per_sm < kCtasPerSm ? per_sm : kCtasPerSm) * n_sm;
+  *ctas = per_sm < 1 ? 1 : per_sm < kCtasPerSm ? per_sm : kCtasPerSm;
+  return err;
+}
+
+// persistent CTAs: ctas_per_sm an SM, and no more than there are rows
+template <typename Kernel>
+cudaError_t persistent_grid(Kernel kernel, size_t smem, int n_rows, int* grid) {
+  int dev = 0, n_sm = 0, per_sm = 1;
+  cudaError_t err = ctas_per_sm(kernel, smem, &per_sm);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  const int ctas = per_sm * n_sm;
   *grid = n_rows < ctas ? n_rows : ctas;
   return err;
+}
+
+// f(std::integral_constant<int, stages>{}) for the ring depths instanced,
+// 2 .. kMaxStages; an error for any other
+template <typename F>
+cudaError_t with_stages(int stages, F&& f) {
+  static_assert(kMaxStages == 8, "with_stages lists the instances 2 .. 8");
+  switch (stages) {
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 5: return f(std::integral_constant<int, 5>{});
+    case 6: return f(std::integral_constant<int, 6>{});
+    case 7: return f(std::integral_constant<int, 7>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+  }
+  return cudaErrorInvalidValue;
+}
+
+// the launch's own checks: a known route, and a bulk one only where its
+// copies can run (bs % 4 == 0, 16-byte aligned operands)
+bool launchable(int route, int bs, int C, int smem, bool aligned) {
+  if (bs < 1 || C < 1 || smem < 0) return false;
+  if (route == kRouteSimt) return true;
+  return route == kRouteBulk && bs % 4 == 0 && aligned;
 }
 
 }  // namespace
@@ -679,33 +698,31 @@ extern "C" {
 
 const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// The route frontier_round_bsr takes by itself (route = -1) for a bs x C
-// round whose blocks, f and wt are (aligned = 1) or are not 16-byte aligned:
-// kRouteBulk, kRouteSimt, or an error where neither fits.
-int frontier_round_bsr_route(int bs, int C, int aligned, int* route) {
-  *route = frontier_route(bs, C, aligned != 0);
-  return *route < 0 ? cudaErrorInvalidValue : cudaSuccess;
+// The persistent CTAs an SM a bulk launch of K1 (kernel 0) or K2 (kernel 1)
+// with a ring of `stages` and `smem` bytes of dynamic shared memory gets.
+int bulk_ctas_per_sm(int kernel, int stages, int smem, int* ctas) {
+  if (smem < 0 || (kernel != 0 && kernel != 1)) return cudaErrorInvalidValue;
+  return with_stages(stages, [&](auto s) {
+    constexpr int S = decltype(s)::value;
+    return kernel == 0 ? ctas_per_sm(frontier_round_bulk_kernel<S>, smem, ctas)
+                       : ctas_per_sm(bsr_spmm_bulk_kernel<S>, smem, ctas);
+  });
 }
 
 // f, f_new: [n_row_blocks, bs, C]; wt: [n_row_blocks, bs]; row_l1: [n_row_blocks];
 // blocks: [n_blocks, bs, bs] sorted by block row; block_col: [n_blocks];
-// row_ptr: [n_row_blocks + 1]; col_active: [n_row_blocks].  route: -1 for
-// frontier_round_bsr_route's choice, else kRouteSimt or kRouteBulk (an error
-// where that route does not fit); *taken: the route that ran.
+// row_ptr: [n_row_blocks + 1]; col_active: [n_row_blocks].  route:
+// kRouteSimt or kRouteBulk; stages: the bulk ring's (2 .. kMaxStages);
+// smem: the dynamic shared memory to launch with (kernels/tune/model.py's
+// smem_bytes or simt_smem_bytes).
 int frontier_round_bsr(const void* blocks, const void* block_col, const void* row_ptr,
                        const void* col_active, const void* f, const void* wt, void* f_new,
-                       void* row_l1, int n_row_blocks, int bs, int C, int route, int* taken,
-                       void* stream) {
+                       void* row_l1, int n_row_blocks, int bs, int C, int route, int stages,
+                       int smem, void* stream) {
   const bool aligned = ((uintptr_t)blocks | (uintptr_t)f | (uintptr_t)wt) % 16 == 0;
-  const int fits = frontier_route(bs, C, aligned);
-  if (route < 0) route = fits;
-  if (fits < 0 || (route == kRouteBulk && fits != kRouteBulk) ||
-      (route != kRouteBulk && route != kRouteSimt))
-    return cudaErrorInvalidValue;
-  *taken = route;
+  if (!launchable(route, bs, C, smem, aligned)) return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (route == kRouteSimt) {
-    const size_t smem = (2 * (size_t)bs * C + kWarps) * sizeof(float);
     cudaError_t err = prepare(frontier_round_kernel, smem);
     if (err != cudaSuccess || n_row_blocks == 0) return err;
     frontier_round_kernel<<<n_row_blocks, kThreads, smem, st>>>(
@@ -714,42 +731,29 @@ int frontier_round_bsr(const void* blocks, const void* block_col, const void* ro
         (float*)row_l1, bs, C);
     return cudaGetLastError();
   }
-  const size_t smem = frontier_bulk_smem(bs, C);
-  int grid = 0;
-  cudaError_t err = persistent_grid(frontier_round_bulk_kernel, smem, n_row_blocks, &grid);
-  if (err != cudaSuccess || n_row_blocks == 0) return err;
-  frontier_round_bulk_kernel<<<grid, kBulkThreads, smem, st>>>(
-      (const float*)blocks, (const int32_t*)block_col, (const int64_t*)row_ptr,
-      (const int32_t*)col_active, (const float*)f, (const float*)wt, (float*)f_new,
-      (float*)row_l1, n_row_blocks, bs, C);
-  return cudaGetLastError();
-}
-
-// The route bsr_spmm takes by itself (route = -1) for a bs x C product whose
-// blocks and x are (aligned = 1) or are not 16-byte aligned: kRouteBulk,
-// kRouteSimt, or an error where neither fits.
-int bsr_spmm_route(int bs, int C, int aligned, int* route) {
-  *route = spmm_route(bs, C, aligned != 0);
-  return *route < 0 ? cudaErrorInvalidValue : cudaSuccess;
+  return with_stages(stages, [&](auto s) {
+    constexpr int S = decltype(s)::value;
+    int grid = 0;
+    cudaError_t err = persistent_grid(frontier_round_bulk_kernel<S>, smem, n_row_blocks, &grid);
+    if (err != cudaSuccess || n_row_blocks == 0) return err;
+    frontier_round_bulk_kernel<S><<<grid, kBulkThreads, smem, st>>>(
+        (const float*)blocks, (const int32_t*)block_col, (const int64_t*)row_ptr,
+        (const int32_t*)col_active, (const float*)f, (const float*)wt, (float*)f_new,
+        (float*)row_l1, n_row_blocks, bs, C);
+    return cudaGetLastError();
+  });
 }
 
 // x: [n_col_blocks, bs, C]; out: [n_row_blocks, bs, C]; visits sorted by
-// destination row, row_ptr: [n_row_blocks + 1] over the visits.  route: -1
-// for bsr_spmm_route's choice, else kRouteSimt or kRouteBulk (an error where
-// that route does not fit); *taken: the route that ran.
+// destination row, row_ptr: [n_row_blocks + 1] over the visits.  route,
+// stages and smem as frontier_round_bsr's.
 int bsr_spmm(const void* blocks, const void* visit_block, const void* visit_col,
              const void* row_ptr, const void* x, void* out, int n_row_blocks, int bs, int C,
-             int route, int* taken, void* stream) {
+             int route, int stages, int smem, void* stream) {
   const bool aligned = ((uintptr_t)blocks | (uintptr_t)x) % 16 == 0;
-  const int fits = spmm_route(bs, C, aligned);
-  if (route < 0) route = fits;
-  if (fits < 0 || (route == kRouteBulk && fits != kRouteBulk) ||
-      (route != kRouteBulk && route != kRouteSimt))
-    return cudaErrorInvalidValue;
-  *taken = route;
+  if (!launchable(route, bs, C, smem, aligned)) return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (route == kRouteSimt) {
-    const size_t smem = 2 * (size_t)bs * C * sizeof(float);
     cudaError_t err = prepare(bsr_spmm_kernel, smem);
     if (err != cudaSuccess || n_row_blocks == 0) return err;
     bsr_spmm_kernel<<<n_row_blocks, kThreads, smem, st>>>(
@@ -757,14 +761,16 @@ int bsr_spmm(const void* blocks, const void* visit_block, const void* visit_col,
         (const int64_t*)row_ptr, (const float*)x, (float*)out, bs, C);
     return cudaGetLastError();
   }
-  const size_t smem = bulk_smem(bs, C);
-  int grid = 0;
-  cudaError_t err = persistent_grid(bsr_spmm_bulk_kernel, smem, n_row_blocks, &grid);
-  if (err != cudaSuccess || n_row_blocks == 0) return err;
-  bsr_spmm_bulk_kernel<<<grid, kBulkThreads, smem, st>>>(
-      (const float*)blocks, (const int32_t*)visit_block, (const int32_t*)visit_col,
-      (const int64_t*)row_ptr, (const float*)x, (float*)out, n_row_blocks, bs, C);
-  return cudaGetLastError();
+  return with_stages(stages, [&](auto s) {
+    constexpr int S = decltype(s)::value;
+    int grid = 0;
+    cudaError_t err = persistent_grid(bsr_spmm_bulk_kernel<S>, smem, n_row_blocks, &grid);
+    if (err != cudaSuccess || n_row_blocks == 0) return err;
+    bsr_spmm_bulk_kernel<S><<<grid, kBulkThreads, smem, st>>>(
+        (const float*)blocks, (const int32_t*)visit_block, (const int32_t*)visit_col,
+        (const int64_t*)row_ptr, (const float*)x, (float*)out, n_row_blocks, bs, C);
+    return cudaGetLastError();
+  });
 }
 
 }  // extern "C"

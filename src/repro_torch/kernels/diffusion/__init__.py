@@ -17,11 +17,14 @@ from .kernel import (  # noqa: F401
     bsr_spmm_kernel,
     bsr_spmm_plain,
     bsr_spmm_route,
+    bulk_ctas_per_sm,
     launch_bsr_spmm,
     ROUTES,
+    DEPTHS,
     frontier_round_bsr_kernel,
     frontier_round_bsr_plain,
     frontier_round_bsr_route,
     launch_frontier_round_bsr,
     FRONTIER_ROUTES,
+    FRONTIER_DEPTHS,
 )

@@ -19,28 +19,35 @@ For CUDA tensors it launches the kernel or raises, and adds one to
 ``LAUNCHES[name]`` per launch.  The source's header says what bounds the
 kernels on an H100 (tile bytes) and how the design answers it.
 
-K1 and K2 each have two bodies, and ``csrc/diffusion.cu`` picks one per
-launch: ``bulk`` (``frontier_round_bulk_kernel``, ``bsr_spmm_bulk_kernel``:
-persistent CTAs streaming the tiles through a TMA bulk-copy ring; K1's
-producer warp tests 32 tiles at once and copies only the armed ones) for
-every ``bs % 4 == 0`` with 16-byte aligned operands whose ring fits in
-shared memory, ``simt`` (``frontier_round_kernel``, ``bsr_spmm_kernel``: a
-CTA per output row) for the rest.  Both bodies of a kernel take every sum
-in the same order, so they give the same bits.  The wrappers count their
-launches by route in ``FRONTIER_ROUTES`` (K1) and ``ROUTES`` (K2);
-:func:`frontier_round_bsr_route` and :func:`bsr_spmm_route` mirror the
-rules, and :func:`launch_frontier_round_bsr` and :func:`launch_bsr_spmm`
-run either body on request, counted nowhere, to hold the two against each
-other.
+K1 and K2 each have two bodies, and the wrapper picks one per launch by
+:func:`frontier_round_bsr_route` / :func:`bsr_spmm_route` (the rule of
+``kernels/tune/model.py``, the one source of it): ``bulk``
+(``frontier_round_bulk_kernel``, ``bsr_spmm_bulk_kernel``: persistent
+CTAs streaming the tiles through a TMA bulk-copy ring; K1's producer warp
+tests 32 tiles at once and copies only the armed ones) for every
+``bs % 4 == 0`` with 16-byte aligned operands whose ring fits in shared
+memory, ``simt`` (``frontier_round_kernel``, ``bsr_spmm_kernel``: a CTA
+per output row) for the rest.  ``buffer_depth`` is the ring's depth, a
+launch parameter: depth 1 runs the ring of 3 stages, depth ``d >= 2`` a
+ring of ``d`` stages (up to ``model.MAX_STAGES``), and a depth ``>= 2``
+whose ring does not fit raises ``ValueError``: it names a ring, and no
+other body runs in its place.  The launch takes the dynamic shared memory
+``model.smem_bytes`` gives.  Both bodies of a kernel, at every depth,
+take every sum in the same order, so they give the same bits.  The
+wrappers count their launches by route in ``FRONTIER_ROUTES`` (K1) and
+``ROUTES`` (K2) and by depth in ``FRONTIER_DEPTHS`` and ``DEPTHS``;
+:func:`launch_frontier_round_bsr` and :func:`launch_bsr_spmm` run either
+body on request, counted nowhere, to hold the two against each other.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from .._build import LAUNCHES, check, library, stream_handle
+from ..tune import model
 
 __all__ = [
     "frontier_round_bsr_kernel",
@@ -48,26 +55,25 @@ __all__ = [
     "frontier_round_bsr_route",
     "launch_frontier_round_bsr",
     "FRONTIER_ROUTES",
+    "FRONTIER_DEPTHS",
     "bsr_spmm_kernel",
     "bsr_spmm_plain",
     "bsr_spmm_route",
     "launch_bsr_spmm",
     "ROUTES",
+    "DEPTHS",
+    "bulk_ctas_per_sm",
 ]
 
-_MAX_BS = 1024
-_MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
-_WARPS = 8  # kThreads / 32 in diffusion.cu
 # K1 and K2 launches by the body that ran them; csrc/diffusion.cu's route
 # codes index _ROUTE_NAMES
 FRONTIER_ROUTES = {"bulk": 0, "simt": 0}
 ROUTES = {"bulk": 0, "simt": 0}
+# and by buffer_depth
+FRONTIER_DEPTHS: Dict[int, int] = {}
+DEPTHS: Dict[int, int] = {}
 _ROUTE_NAMES = ("simt", "bulk")
-# the bulk routes' rings, as csrc/diffusion.cu sets them (kBulkStages,
-# kSlabBytes, and K1's kRowSlots)
-BULK_STAGES = 3
-SLAB_BYTES = 32 * 1024
-ROW_SLOTS = 8
+_K1, _K2 = "frontier_round_bsr", "bsr_gather_spmm"
 
 
 # --------------------------------------------------------------------------- #
@@ -123,51 +129,81 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = library("diffusion")
     if lib.frontier_round_bsr.argtypes is None:
-        lib.frontier_round_bsr.argtypes = [_P] * 8 + [_I, _I, _I, _I, _P, _P]
+        lib.frontier_round_bsr.argtypes = [_P] * 8 + [_I] * 6 + [_P]
         lib.frontier_round_bsr.restype = ctypes.c_int
-        lib.frontier_round_bsr_route.argtypes = [_I, _I, _I, _P]
-        lib.frontier_round_bsr_route.restype = ctypes.c_int
-        lib.bsr_spmm.argtypes = [_P] * 6 + [_I, _I, _I, _I, _P, _P]
+        lib.bsr_spmm.argtypes = [_P] * 6 + [_I] * 6 + [_P]
         lib.bsr_spmm.restype = ctypes.c_int
-        lib.bsr_spmm_route.argtypes = [_I, _I, _I, _P]
-        lib.bsr_spmm_route.restype = ctypes.c_int
+        lib.bulk_ctas_per_sm.argtypes = [_I, _I, _I, _P]
+        lib.bulk_ctas_per_sm.restype = ctypes.c_int
     return lib
 
 
-def _slab_rows(bs: int) -> int:
-    return min(bs, max(1, SLAB_BYTES // (bs * 4)))
+def frontier_round_bsr_route(bs: int, c: int, aligned: bool = True,
+                             buffer_depth: int = 1) -> Optional[str]:
+    """The body K1 runs a ``bs x C`` round on at ``buffer_depth``, ``None``
+    where none fits (``model.route``).  ``aligned``: the tile pool, ``f``
+    and ``wt`` start on 16 bytes, as the bulk copies need."""
+    return model.route(_K1, bs, c, buffer_depth, aligned)
 
 
-def frontier_round_bsr_route(bs: int, c: int,
-                             aligned: bool = True) -> Optional[str]:
-    """The body K1 runs a ``bs x C`` round on, ``None`` where none fits:
-    ``csrc/diffusion.cu``'s ``frontier_route``, mirrored.  ``aligned``:
-    the tile pool, ``f`` and ``wt`` start on 16 bytes, as the bulk copies
-    need."""
-    if not 1 <= bs <= _MAX_BS or c < 1 or (2 * bs * c + _WARPS) * 4 > _MAX_SMEM:
-        return None
-    # the ring, an (f, wt) slot a stage and a row slot, the accumulator,
-    # the epilogue's warp sums, the row records, the barriers
-    smem = (4 * (BULK_STAGES * _slab_rows(bs) * bs
-                 + (BULK_STAGES + ROW_SLOTS) * bs * (c + 1) + bs * c
-                 + _WARPS + 2 * ROW_SLOTS)
-            + 8 * (4 * BULK_STAGES + 2 * ROW_SLOTS))
-    if bs % 4 == 0 and aligned and smem <= _MAX_SMEM:
-        return "bulk"
-    return "simt"
+def bsr_spmm_route(bs: int, c: int, aligned: bool = True,
+                   buffer_depth: int = 1) -> Optional[str]:
+    """The body K2 runs a ``bs x C`` product on at ``buffer_depth``,
+    ``None`` where none fits (``model.route``).  ``aligned``: the tile
+    pool and ``x`` start on 16 bytes, as the bulk copies need."""
+    return model.route(_K2, bs, c, buffer_depth, aligned)
 
 
-def bsr_spmm_route(bs: int, c: int, aligned: bool = True) -> Optional[str]:
-    """The body K2 runs a ``bs x C`` product on, ``None`` where none fits:
-    ``csrc/diffusion.cu``'s ``spmm_route``, mirrored.  ``aligned``: the
-    tile pool and ``x`` start on 16 bytes, as the bulk copies need."""
-    if not 1 <= bs <= _MAX_BS or c < 1 or 2 * bs * c * 4 > _MAX_SMEM:
-        return None
-    ring = (BULK_STAGES * _slab_rows(bs) * bs * 4
-            + (BULK_STAGES + 1) * bs * c * 4 + 4 * BULK_STAGES * 8)
-    if bs % 4 == 0 and aligned and ring <= _MAX_SMEM:
-        return "bulk"
-    return "simt"
+def _aligned(*ts: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+def _plan(kernel: str, bs: int, c: int, buffer_depth: int, aligned: bool,
+          route: Optional[str]) -> Tuple[str, int, int]:
+    """``(route, ring stages, dynamic shared memory)`` of one launch.
+    ``route`` ``None`` takes the rule's body; a named one runs as asked
+    (the source refuses a bulk launch it cannot run)."""
+    stages = model.ring_stages(buffer_depth)
+    fits = model.route(kernel, bs, c, buffer_depth, aligned)
+    if route is None:
+        route = fits
+    if route is None or (route == "bulk"
+                         and not model.smem_ok(kernel, bs, c, buffer_depth)):
+        need = model.smem_bytes(kernel, bs, c, buffer_depth)
+        raise ValueError(
+            f"{kernel}: no body fits bs={bs} x C={c} at buffer_depth="
+            f"{buffer_depth} (a {stages}-stage ring needs {need} bytes of "
+            f"shared memory, {'aligned' if aligned else 'unaligned'} "
+            f"operands; the budget is {model.PLATFORM_SPECS['cuda'].smem_budget}"
+            f" bytes and {model.MAX_STAGES} stages)")
+    if route not in _ROUTE_NAMES:
+        raise ValueError(f"unknown route {route!r}")
+    if route == "simt" and buffer_depth != 1:
+        raise ValueError(f"{kernel}: the simt body has no ring; "
+                         f"buffer_depth={buffer_depth} names one")
+    smem = (model.smem_bytes(kernel, bs, c, buffer_depth) if route == "bulk"
+            else model.simt_smem_bytes(kernel, bs, c))
+    return route, stages, smem
+
+
+def bulk_ctas_per_sm(kernel: str, bs: int, c: int, buffer_depth: int) -> int:
+    """The persistent CTAs an SM the source gives a bulk launch of
+    ``kernel`` at this ring (the card's occupancy answer, to hold
+    ``model.ctas_per_sm`` to)."""
+    stages = model.ring_stages(buffer_depth)
+    smem = model.smem_bytes(kernel, bs, c, buffer_depth)
+    got = ctypes.c_int(0)
+    lib = _lib()
+    err = lib.bulk_ctas_per_sm(0 if kernel == _K1 else 1, stages, smem,
+                               ctypes.byref(got))
+    check(lib, err, f"bulk_ctas_per_sm ({kernel}, {stages} stages)")
+    return got.value
+
+
+def _count(routes: Dict[str, int], depths: Dict[int, int], route: str,
+           buffer_depth: int) -> None:
+    routes[route] += 1
+    depths[buffer_depth] = depths.get(buffer_depth, 0) + 1
 
 
 def _require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -180,15 +216,6 @@ def _require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-
-
-def _check_tiling(bs: int, c: int, smem_floats: int) -> None:
-    if not 1 <= bs <= _MAX_BS:
-        raise ValueError(f"bs must be in [1, {_MAX_BS}], got {bs}")
-    if smem_floats * 4 > _MAX_SMEM:
-        raise ValueError(
-            f"bs={bs} x C={c} needs {smem_floats * 4} bytes of shared "
-            f"memory, more than the {_MAX_SMEM} a Hopper block may use")
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -210,21 +237,20 @@ def frontier_round_bsr_kernel(
     buffer_depth: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1: one fused frontier round (see :func:`frontier_round_bsr_plain`),
-    on the body ``csrc/diffusion.cu`` picks.
-
-    ``buffer_depth`` is the TPU kernel's tile-prefetch depth.  It is
-    validated (>= 1) and has no effect on this kernel: the bulk body's
-    ring depth is a compile-time constant of the source.
-    """
+    on the body :func:`frontier_round_bsr_route` picks, with a ring of
+    ``buffer_depth`` (see the module's docstring).  Every depth gives the
+    same bits.  The plain version (CPU tensors) has no ring: there the
+    depth is only validated (>= 1)."""
     if buffer_depth < 1:
         raise ValueError(f"buffer_depth must be >= 1, got {buffer_depth}")
     if not _on_card(f):
         return frontier_round_bsr_plain(blocks, block_col, row_ptr,
                                         col_active, f, wt)
     f_new, row_l1, route = launch_frontier_round_bsr(
-        blocks, block_col, row_ptr, col_active, f, wt)
+        blocks, block_col, row_ptr, col_active, f, wt,
+        buffer_depth=buffer_depth)
     LAUNCHES["frontier_round_bsr"] += 1
-    FRONTIER_ROUTES[route] += 1
+    _count(FRONTIER_ROUTES, FRONTIER_DEPTHS, route, buffer_depth)
     return f_new, row_l1
 
 
@@ -236,9 +262,11 @@ def launch_frontier_round_bsr(
     f: torch.Tensor,
     wt: torch.Tensor,
     route: Optional[str] = None,
+    *,
+    buffer_depth: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor, str]:
     """One K1 launch on the card, counted nowhere; returns ``(f_new,
-    row_l1, the route that ran)``.  ``route`` ``None`` takes the source's
+    row_l1, the route that ran)``.  ``route`` ``None`` takes the rule's
     choice; ``"bulk"`` or ``"simt"`` runs that body (raising where it does
     not fit), so that tests and the probe can hold the two against each
     other."""
@@ -248,25 +276,24 @@ def launch_frontier_round_bsr(
     nrb, bs, c = f.shape
     n_blocks = blocks.shape[0]
     dev = f.device
-    _check_tiling(bs, c, 2 * bs * c + _WARPS)
     _require(blocks, "blocks", torch.float32, (n_blocks, bs, bs), dev)
     _require(block_col, "block_col", torch.int32, (n_blocks,), dev)
     _require(row_ptr, "row_ptr", torch.int64, (nrb + 1,), dev)
     _require(col_active, "col_active", torch.int32, (nrb,), dev)
     _require(f, "f", torch.float32, (nrb, bs, c), dev)
     _require(wt, "wt", torch.float32, (nrb, bs), dev)
+    route, stages, smem = _plan(_K1, bs, c, buffer_depth,
+                                _aligned(blocks, f, wt), route)
     f_new = torch.empty_like(f)
     row_l1 = torch.empty(nrb, dtype=torch.float32, device=dev)
-    taken = ctypes.c_int(-1)
     lib = _lib()
     err = lib.frontier_round_bsr(
         blocks.data_ptr(), block_col.data_ptr(), row_ptr.data_ptr(),
         col_active.data_ptr(), f.data_ptr(), wt.data_ptr(),
         f_new.data_ptr(), row_l1.data_ptr(), nrb, bs, c,
-        -1 if route is None else _ROUTE_NAMES.index(route),
-        ctypes.byref(taken), stream_handle(dev))
-    check(lib, err, f"frontier_round_bsr (route {route or 'auto'})")
-    return f_new, row_l1, _ROUTE_NAMES[taken.value]
+        _ROUTE_NAMES.index(route), stages, smem, stream_handle(dev))
+    check(lib, err, f"frontier_round_bsr (route {route}, {stages} stages)")
+    return f_new, row_l1, route
 
 
 def bsr_spmm_kernel(
@@ -275,14 +302,21 @@ def bsr_spmm_kernel(
     visit_col: torch.Tensor,
     row_ptr: torch.Tensor,
     x: torch.Tensor,
+    *,
+    buffer_depth: int = 1,
 ) -> torch.Tensor:
     """K2: block-sparse product over a visit table (see
-    :func:`bsr_spmm_plain`), on the body ``csrc/diffusion.cu`` picks."""
+    :func:`bsr_spmm_plain`), on the body :func:`bsr_spmm_route` picks, with
+    a ring of ``buffer_depth``.  Every depth gives the same bits; on CPU
+    tensors the depth is only validated (>= 1)."""
+    if buffer_depth < 1:
+        raise ValueError(f"buffer_depth must be >= 1, got {buffer_depth}")
     if not _on_card(x):
         return bsr_spmm_plain(blocks, visit_block, visit_col, row_ptr, x)
-    out, route = launch_bsr_spmm(blocks, visit_block, visit_col, row_ptr, x)
+    out, route = launch_bsr_spmm(blocks, visit_block, visit_col, row_ptr, x,
+                                 buffer_depth=buffer_depth)
     LAUNCHES["bsr_spmm"] += 1
-    ROUTES[route] += 1
+    _count(ROUTES, DEPTHS, route, buffer_depth)
     return out
 
 
@@ -293,9 +327,11 @@ def launch_bsr_spmm(
     row_ptr: torch.Tensor,
     x: torch.Tensor,
     route: Optional[str] = None,
+    *,
+    buffer_depth: int = 1,
 ) -> Tuple[torch.Tensor, str]:
     """One K2 launch on the card, counted nowhere; returns ``(out, the
-    route that ran)``.  ``route`` ``None`` takes the source's choice;
+    route that ran)``.  ``route`` ``None`` takes the rule's choice;
     ``"bulk"`` or ``"simt"`` runs that body (raising where it does not
     fit), so that tests and the probe can hold the two against each
     other."""
@@ -306,19 +342,18 @@ def launch_bsr_spmm(
     nrb = row_ptr.numel() - 1
     n_visits = visit_block.numel()
     dev = x.device
-    _check_tiling(bs, c, 2 * bs * c)
     _require(blocks, "blocks", torch.float32, (blocks.shape[0], bs, bs), dev)
     _require(visit_block, "visit_block", torch.int32, (n_visits,), dev)
     _require(visit_col, "visit_col", torch.int32, (n_visits,), dev)
     _require(row_ptr, "row_ptr", torch.int64, (nrb + 1,), dev)
     _require(x, "x", torch.float32, (ncb, bs, c), dev)
+    route, stages, smem = _plan(_K2, bs, c, buffer_depth,
+                                _aligned(blocks, x), route)
     out = torch.empty((nrb, bs, c), dtype=torch.float32, device=dev)
-    taken = ctypes.c_int(-1)
     lib = _lib()
     err = lib.bsr_spmm(
         blocks.data_ptr(), visit_block.data_ptr(), visit_col.data_ptr(),
         row_ptr.data_ptr(), x.data_ptr(), out.data_ptr(), nrb, bs, c,
-        -1 if route is None else _ROUTE_NAMES.index(route),
-        ctypes.byref(taken), stream_handle(dev))
-    check(lib, err, f"bsr_spmm (route {route or 'auto'})")
-    return out, _ROUTE_NAMES[taken.value]
+        _ROUTE_NAMES.index(route), stages, smem, stream_handle(dev))
+    check(lib, err, f"bsr_spmm (route {route}, {stages} stages)")
+    return out, route

@@ -80,15 +80,18 @@ def prepare_bsr(indptr, indices, weights, n, bs=128,
     return BsrMatrix(blocks, br, bc, nrb, bs, device=device)
 
 
-def bsr_spmm(m: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
-    """delta = P @ x with P in BSR form (K2).  ``x`` is ``[n]`` or
-    ``[n, C]`` with ``n = n_row_blocks * bs``; returns the same shape.
-    Block rows without tiles come out exactly 0."""
+def bsr_spmm(m: BsrMatrix, x: torch.Tensor, *,
+             buffer_depth: int = 1) -> torch.Tensor:
+    """delta = P @ x with P in BSR form (K2, its tile ring
+    ``buffer_depth`` deep).  ``x`` is ``[n]`` or ``[n, C]`` with
+    ``n = n_row_blocks * bs``; returns the same shape.  Block rows without
+    tiles come out exactly 0."""
     squeeze = x.dim() == 1
     x2 = x[:, None] if squeeze else x
     c = x2.shape[1]
     out = bsr_spmm_kernel(m.blocks, m.visit_block, m.block_col, m.row_ptr,
-                          x2.reshape(-1, m.bs, c).contiguous())
+                          x2.reshape(-1, m.bs, c).contiguous(),
+                          buffer_depth=buffer_depth)
     out = out.reshape(-1, c)
     return out[:, 0] if squeeze else out
 
@@ -113,8 +116,9 @@ def frontier_round_bsr(
     whose fraction of above-threshold entries is <= the threshold keeps
     its fluid this round and diffuses later (exact — deferred fluid is
     kept, never dropped).  0.0 arms every column with at least one
-    above-threshold node.  ``buffer_depth`` is validated and passed to
-    K1, which does not use it yet.
+    above-threshold node.  ``buffer_depth`` is K1's tile-ring depth on the
+    card (every depth gives the same bits; a depth whose ring does not fit
+    raises); the CPU paths have no ring.
 
     Backends, each with its own selection predicate:
 
@@ -229,12 +233,16 @@ def engine_visit_table(
 
 
 def engine_tile_push(pool: torch.Tensor, visits: EngineVisits,
-                     sent: torch.Tensor) -> torch.Tensor:
+                     sent: torch.Tensor, *,
+                     buffer_depth: int = 1) -> torch.Tensor:
     """``out[p·R + row] = Σ tiles @ sent[src row]`` over PID ``p``'s tiles
     pushing into the bucket at ``row`` (K2 on the card, its plain twin on
     the CPU).  ``pool`` holds the real tiles ``[V, S, S]``, ``sent`` the
     current-row fluid ``[R, S]``; returns ``[K·R, S]``, rows without visits exactly 0.
+    ``buffer_depth`` is K2's tile-ring depth (``bsr_gather_spmm_pallas``'s
+    argument of that name).
     """
     out = bsr_spmm_kernel(pool, visits.visit_block, visits.visit_col,
-                          visits.row_ptr, sent[:, :, None].contiguous())
+                          visits.row_ptr, sent[:, :, None].contiguous(),
+                          buffer_depth=buffer_depth)
     return out[..., 0]

@@ -1,15 +1,17 @@
-"""Read side of the versioned tuned-config records.
+"""Versioned on-disk records of tuned kernel configs.
 
 One JSON file per (kernel, platform) pair under the tune directory
 (``$REPRO_TORCH_TUNE_DIR`` or ``results/tuned_torch/``; kept apart from
 the JAX package's records, whose ``cpu`` platform key means another
 code path).  The platform is the torch device type (``"cuda"`` /
-``"cpu"``).  The backend registry ranks a backend whose ``tune_key``
-has a record for the options' device by *measured* throughput, and the
-drivers resolve their kernel config from the same record
-(:func:`resolved_config`).  No record is committed, so the defaults
-rule: bs=128, depth=1, occupancy threshold 0.  Writing records comes
-with the tuning slice.
+``"cpu"``).  :func:`save_record` writes what :func:`.sweep.run_sweep`
+measures (``python -m repro_torch.kernels.tune``).  The backend registry
+ranks a backend whose ``tune_key`` has a record for the options' device
+by *measured* throughput, and the drivers resolve their kernel config
+from the same record (:func:`resolved_config`): ``frontier:pallas`` its
+bs, K1 depth and occupancy threshold, ``engine:bsr`` its K2 depth
+(``EngineConfig.pallas_buffer_depth``).  No record is committed, so the
+defaults rule: bs=128, depth=1, occupancy threshold 0.
 
 Records are versioned; a version mismatch is treated as "no record".
 """
@@ -33,6 +35,8 @@ __all__ = [
     "TunedConfig",
     "tune_dir",
     "record_path",
+    "validate_record",
+    "save_record",
     "load_record",
     "best_config",
     "clear_cache",
@@ -89,6 +93,16 @@ def validate_record(record: dict) -> None:
         raise ValueError(f"unknown kernel {record['kernel']!r}")
 
 
+def save_record(record: dict) -> pathlib.Path:
+    """Validate + write; returns the path.  Invalidates the read cache."""
+    validate_record(record)
+    path = record_path(record["kernel"], record["platform"])
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(record, indent=2, sort_keys=True) + "\n")
+    clear_cache()
+    return path
+
+
 def load_record(kernel: str, platform: str) -> Optional[dict]:
     """Read (cached) a record; None if absent, unreadable or stale-versioned."""
     key = (kernel, platform, str(tune_dir()))
@@ -124,7 +138,8 @@ def best_config(kernel: str, platform: str) -> Optional[TunedConfig]:
 
 
 def clear_cache() -> None:
-    """Drop the read cache (tests repoint ``$REPRO_TUNE_DIR`` mid-process)."""
+    """Drop the read cache (tests repoint ``$REPRO_TORCH_TUNE_DIR``
+    mid-process)."""
     _CACHE.clear()
 
 

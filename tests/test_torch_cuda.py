@@ -253,20 +253,38 @@ def test_frontier_round_counts_each_launch_under_its_route(cuda_device, bs):
 
 @pytest.mark.cuda
 def test_frontier_round_route_mirror_matches_the_source(cuda_device):
-    """kernel.frontier_round_bsr_route is csrc/diffusion.cu's rule, shape
-    for shape."""
-    import ctypes
+    """The route rule (kernels/tune/model.py, the one source of it) is what
+    the source runs: at the edges of the budget the bulk body launches
+    with the bytes model.smem_bytes gives and gives the simt bits, a depth
+    whose ring does not fit raises, and the CTAs an SM the launch gets
+    (bulk_ctas_per_sm) are model.ctas_per_sm's, shape for shape."""
+    from repro_torch.kernels.tune import model
 
-    lib = td.kernel._lib()
-    names = {0: "simt", 1: "bulk", -1: None}
-    for bs in list(range(1, 17)) + [96, 100, 128, 256, 500, 512, 1000, 1024]:
-        for c in (1, 2, 3, 4, 5, 8, 9, 16, 20, 21, 28, 29, 56, 57, 64):
-            for aligned in (True, False):
-                out = ctypes.c_int()
-                lib.frontier_round_bsr_route(bs, c, int(aligned),
-                                             ctypes.byref(out))
-                assert names[out.value] == td.frontier_round_bsr_route(
-                    bs, c, aligned), (bs, c, aligned)
+    for bs in (4, 8, 64, 128, 256, 512, 1024):
+        for c in (1, 2, 4, 5, 8, 20, 21):
+            for depth in (1, 2, 3, 4, 6, 8):
+                if model.route("frontier_round_bsr", bs, c, depth) != "bulk":
+                    continue
+                assert td.kernel.bulk_ctas_per_sm(
+                    "frontier_round_bsr", bs, c, depth) == model.ctas_per_sm(
+                        "frontier_round_bsr", bs, c, depth), (bs, c, depth)
+    for bs, c, depth in ((128, 20, 1), (512, 4, 1), (1024, 1, 1),
+                         (256, 1, 6), (64, 8, 8), (32, 1, 8)):
+        assert td.frontier_round_bsr_route(bs, c, buffer_depth=depth) == "bulk"
+        ins = _frontier_case(bs, c, seed=1, arming="mixed",
+                             device=cuda_device)
+        got = td.launch_frontier_round_bsr(*ins, buffer_depth=depth)
+        simt = td.launch_frontier_round_bsr(*ins, route="simt")
+        assert got[2] == "bulk"
+        assert torch.equal(got[0], simt[0]) and torch.equal(got[1], simt[1])
+    ins = _frontier_case(256, 1, seed=1, arming="mixed", device=cuda_device)
+    assert td.frontier_round_bsr_route(256, 1, buffer_depth=8) is None
+    with pytest.raises(ValueError, match="buffer_depth=8"):
+        td.launch_frontier_round_bsr(*ins, buffer_depth=8)
+    with pytest.raises(ValueError, match="buffer_depth=9"):
+        td.frontier_round_bsr_kernel(*_frontier_case(
+            8, 1, seed=1, arming="mixed", device=cuda_device),
+            buffer_depth=9)
 
 
 @pytest.mark.cuda
@@ -353,27 +371,129 @@ def test_bsr_spmm_counts_each_launch_under_its_route(cuda_device, bs):
 
 @pytest.mark.cuda
 def test_bsr_spmm_route_mirror_matches_the_source(cuda_device):
-    """kernel.bsr_spmm_route is csrc/diffusion.cu's rule, shape for shape,
-    and a misaligned x takes the simt body."""
-    import ctypes
-
+    """K2's route rule (kernels/tune/model.py) is what the source runs: at
+    the edges of the budget the bulk body launches with model.smem_bytes
+    and gives the simt bits, a ring that does not fit raises, the CTAs an
+    SM are model.ctas_per_sm's, and a misaligned x takes the simt body."""
     from repro_torch.kernels.diffusion import kernel as k2
+    from repro_torch.kernels.tune import model
 
-    lib = k2._lib()
-    names = {0: "simt", 1: "bulk", -1: None}
-    for bs in list(range(1, 17)) + [96, 100, 128, 256, 500, 512, 1000, 1024]:
-        for c in (1, 2, 3, 8, 9, 10, 16, 39, 40, 64):
-            for aligned in (True, False):
-                out = ctypes.c_int()
-                lib.bsr_spmm_route(bs, c, int(aligned), ctypes.byref(out))
-                assert names[out.value] == td.bsr_spmm_route(bs, c, aligned), (
-                    bs, c, aligned)
+    for bs in (4, 8, 64, 128, 256, 512, 1024):
+        for c in (1, 3, 8, 16, 17, 40):
+            for depth in (1, 2, 3, 4, 6, 8):
+                if model.route("bsr_gather_spmm", bs, c, depth) != "bulk":
+                    continue
+                assert k2.bulk_ctas_per_sm(
+                    "bsr_gather_spmm", bs, c, depth) == model.ctas_per_sm(
+                        "bsr_gather_spmm", bs, c, depth), (bs, c, depth)
+    for bs, c, depth in ((512, 16, 1), (512, 1, 6), (64, 8, 8),
+                         (1024, 1, 1)):
+        assert k2.bsr_spmm_route(bs, c, buffer_depth=depth) == "bulk"
+        ins = _visit_case(bs, c, seed=2, device=cuda_device)
+        got, route = k2.launch_bsr_spmm(*ins, buffer_depth=depth)
+        assert route == "bulk"
+        assert torch.equal(got, k2.launch_bsr_spmm(*ins, route="simt")[0])
+    ins = _visit_case(512, 1, seed=2, device=cuda_device)
+    assert k2.bsr_spmm_route(512, 1, buffer_depth=8) is None
+    with pytest.raises(ValueError, match="buffer_depth=8"):
+        k2.launch_bsr_spmm(*ins, buffer_depth=8)
     pool, vb, vc, ptr, x = _visit_case(128, 1, seed=1, device=cuda_device)
     x_off = torch.empty(x.numel() + 1, device=cuda_device)[1:].view(x.shape)
     x_off.copy_(x)
     got, route = k2.launch_bsr_spmm(pool, vb, vc, ptr, x_off)
     assert route == "simt"
     assert torch.equal(got, k2.launch_bsr_spmm(pool, vb, vc, ptr, x)[0])
+    with pytest.raises(ValueError, match="buffer_depth=2"):
+        k2.launch_bsr_spmm(pool, vb, vc, ptr, x_off, buffer_depth=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["frontier_round_bsr", "bsr_gather_spmm"])
+def test_sweep_on_the_card_times_every_feasible_depth(cuda_device, kernel,
+                                                      tmp_path, monkeypatch):
+    """run_sweep on the card: every feasible (bs, depth) timed by CUDA
+    events on the kernel itself, no infeasible one, each row's shared
+    memory and CTAs an SM the model's; the record reads back, and its
+    launches are counted nowhere."""
+    from repro_torch.kernels import tune
+    from repro_torch.kernels.tune import model
+
+    monkeypatch.setenv("REPRO_TORCH_TUNE_DIR", str(tmp_path))
+    tune.clear_cache()
+    before = (dict(LAUNCHES), dict(td.ROUTES), dict(td.FRONTIER_ROUTES))
+    rec = tune.run_sweep(kernel, n=8192, bs_list=(32, 64, 256),
+                         depths=(1, 2, 8), iters=2, verbose=False,
+                         device="cuda")
+    assert (dict(LAUNCHES), dict(td.ROUTES), dict(td.FRONTIER_ROUTES)) == \
+        before
+    assert rec["timing_path"] == "cuda" and rec["platform"] == "cuda"
+    assert rec["device_kind"] == torch.cuda.get_device_name()
+    for r in rec["sweep"]:
+        fits = model.route(kernel, r["bs"], 1, r["buffer_depth"])
+        assert r["feasible"] == (fits is not None) and r["route"] == fits
+        assert (r["measured_us"] is not None) == r["feasible"]
+        assert r["smem_bytes"] == model.smem_bytes(kernel, r["bs"], 1,
+                                                   r["buffer_depth"])
+        if fits:
+            assert r["measured_us"] > 0
+            assert r["ctas_per_sm"] == td.bulk_ctas_per_sm(
+                kernel, r["bs"], 1, r["buffer_depth"])
+    assert not rec["sweep"][-1]["feasible"]  # bs=256 at depth 8
+    best = tune.best_config(kernel, "cuda")
+    assert (best.bs, best.buffer_depth) == (rec["best"]["bs"],
+                                            rec["best"]["buffer_depth"])
+    tune.clear_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("c", [1, 8])
+@pytest.mark.parametrize("bs", [4, 8, 64, 128, 256])
+def test_frontier_round_depths_give_the_depth1_bits(cuda_device, bs, c,
+                                                    depth):
+    """K1's ring depth changes how far the producer runs ahead, never the
+    order of a sum: every depth whose ring fits gives the bits of depth 1
+    and of the simt body, on the 40-tile row case, counted by depth; a
+    depth whose ring does not fit raises."""
+    ins = _frontier_case(bs, c, seed=7 * bs + c, arming="mixed",
+                         device=cuda_device)
+    if td.frontier_round_bsr_route(bs, c, buffer_depth=depth) is None:
+        with pytest.raises(ValueError, match=f"buffer_depth={depth}"):
+            td.frontier_round_bsr_kernel(*ins, buffer_depth=depth)
+        return
+    base = td.launch_frontier_round_bsr(*ins)
+    simt = td.launch_frontier_round_bsr(*ins, route="simt")
+    before = (LAUNCHES["frontier_round_bsr"],
+              dict(td.FRONTIER_DEPTHS))
+    got = td.frontier_round_bsr_kernel(*ins, buffer_depth=depth)
+    torch.cuda.synchronize()
+    for a in (base, simt):
+        assert torch.equal(got[0], a[0]) and torch.equal(got[1], a[1])
+    assert LAUNCHES["frontier_round_bsr"] == before[0] + 1
+    assert td.FRONTIER_DEPTHS[depth] == before[1].get(depth, 0) + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("c", [1, 8])
+@pytest.mark.parametrize("bs", [4, 8, 64, 128, 512])
+def test_bsr_spmm_depths_give_the_depth1_bits(cuda_device, bs, c, depth):
+    """K2 likewise: every depth whose ring fits gives the bits of depth 1
+    and of the simt body on the 40-visit row case, counted by depth; a
+    depth whose ring does not fit raises."""
+    ins = _visit_case(bs, c, seed=5 * bs + c, device=cuda_device)
+    if td.bsr_spmm_route(bs, c, buffer_depth=depth) is None:
+        with pytest.raises(ValueError, match=f"buffer_depth={depth}"):
+            td.bsr_spmm_kernel(*ins, buffer_depth=depth)
+        return
+    base = td.launch_bsr_spmm(*ins)[0]
+    simt = td.launch_bsr_spmm(*ins, route="simt")[0]
+    before = (LAUNCHES["bsr_spmm"], dict(td.DEPTHS))
+    got = td.bsr_spmm_kernel(*ins, buffer_depth=depth)
+    torch.cuda.synchronize()
+    assert torch.equal(got, base) and torch.equal(got, simt)
+    assert LAUNCHES["bsr_spmm"] == before[0] + 1
+    assert td.DEPTHS[depth] == before[1].get(depth, 0) + 1
 
 
 @pytest.mark.cuda

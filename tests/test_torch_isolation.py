@@ -161,6 +161,50 @@ print("ok")
     assert out.stdout.strip().splitlines()[-1] == "ok"
 
 
+def test_tuner_and_examples_run_with_jax_and_reference_blocked(tmp_path):
+    """The tuner's sweep, record and CLI and the five examples on the CPU,
+    with jax and the reference unimportable, load no kernel library."""
+    code = f"""
+import os, sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+sys.modules["repro"] = None
+os.environ["REPRO_TORCH_TUNE_DIR"] = {str(tmp_path / "tuned")!r}
+from repro_torch.kernels import _build
+from repro_torch.kernels import tune
+from repro_torch.kernels.tune.__main__ import main as tune_main
+
+rec = tune.run_sweep("bsr_gather_spmm", n=1024, bs_list=(32,), depths=(1, 2),
+                     iters=1, verbose=False, device="cpu")
+assert tune.best_config("bsr_gather_spmm", "cpu").bs == 32
+assert tune_main(["--smoke", "--device", "cpu", "--no-save"]) == 0
+from repro_torch.examples import (gnn_partition, quickstart, serve_lm,
+                                  solve_web, train_lm)
+
+assert quickstart.main(["--n", "200", "--device", "cpu"])["engine"][
+    "converged"]
+assert solve_web.main(["--n", "500", "--k", "2", "--device", "cpu"])[
+    "dynamic"]["converged"]
+assert gnn_partition.main(["--device", "cpu"])["final_imbalance"] < 2.0
+assert serve_lm.main(["--batch", "1", "--prompt", "4", "--gen", "2",
+                      "--device", "cpu"])["tokens"].shape == (1, 2)
+assert len(train_lm.main(["--steps", "2", "--width", "64", "--layers", "1",
+                          "--seq", "16", "--batch", "2", "--vocab", "64",
+                          "--ckpt", {str(tmp_path / "ck")!r},
+                          "--device", "cpu"])["losses"]) == 2
+assert not _build._LIBS, "a kernel library was loaded for a CPU run"
+assert not any(k.split(".")[0] in ("jax", "repro", "triton")
+               and sys.modules[k] is not None for k in sys.modules)
+print("ok")
+"""
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+           "OMP_NUM_THREADS": "1"}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
 def test_default_options_ask_for_the_card():
     import repro_torch
 

@@ -32,8 +32,9 @@ in turns (base, simt, simt, base): wall and rounds.
 
 Variants (the base: the bulk body, two CTAs an SM, each with a producer
 warp that tests 32 tiles at once and eight consumer warps, a ring of 3
-stages of 32 KiB slabs): ``simt`` (a build whose route rule always picks
-the simt body, a CTA per output row); ``stages2`` (2 stages); ``cta1``
+stages of 32 KiB slabs): ``simt`` (the base build under a route rule
+that always picks the simt body, a CTA per output row); ``stages2`` (2
+stages: the launch's ``buffer_depth`` 2); ``cta1``
 (one CTA an SM); ``serial_scan`` (the producer tests one tile at a time:
 what the ballot scan saves); ``bare`` (the copies, barriers and epilogue
 with no tile arithmetic: the design's own floor).  With no argument, all
@@ -58,20 +59,20 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 _MATH = """        accumulate_slab<true>(ring + (size_t)st * sr * bs, x_s, acc_s, row0, min(sr, bs - row0), bs,
                               C, warp, lane, x_s + m);
 """
-_BULK_RULE = ("  if (bs % 4 == 0 && aligned && frontier_bulk_smem(bs, C) <= kMaxSmem) "
-              "return kRouteBulk;\n")
 
 # name: (source edits, route)
 VARIANTS = {
-    "simt": ([(_BULK_RULE, "")], "simt"),
-    "stages2": ([("constexpr int kBulkStages = 3;",
-                  "constexpr int kBulkStages = 2;")], "bulk"),
+    "simt": ([], "simt"),
+    "stages2": ([], "bulk"),
     "cta1": ([("constexpr int kCtasPerSm = 2;",
                "constexpr int kCtasPerSm = 1;")], "bulk"),
     "serial_scan": ([("constexpr int kScanLanes = 32;",
                       "constexpr int kScanLanes = 1;")], "bulk"),
     "bare": ([(_MATH, "")], "bulk"),
 }
+# the ring's stages are a launch parameter (buffer_depth d >= 2: d stages;
+# the base runs depth 1, 3 stages)
+DEPTHS = {"stages2": 2}
 OUT = ROOT / "build" / "k1_probe"
 # the census's buckets of the armed tile share: (name, upper end)
 CENSUS_BUCKETS = (("0", 0.0), ("(0, 1%]", 0.01), ("(1, 10%]", 0.1),
@@ -142,26 +143,32 @@ def main() -> int:
         return 1
 
     own_lib = k1._lib
+    own_route = k1.model.route
     real = own_lib()
     libs = {}
     for name in variants:
         lib = ctypes.CDLL(str(OUT / name / "lib.so"))
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
-        for fname in ("frontier_round_bsr", "frontier_round_bsr_route",
-                      "bsr_spmm", "bsr_spmm_route"):
+        for fname in ("frontier_round_bsr", "bsr_spmm",
+                      "bulk_ctas_per_sm"):
             getattr(lib, fname).argtypes = getattr(real, fname).argtypes
             getattr(lib, fname).restype = getattr(real, fname).restype
         libs[name] = lib
 
     @contextlib.contextmanager
     def on(name):
-        """The wrapper's kernels from the build of ``name``."""
+        """The wrapper's kernels from the build of ``name``; for ``simt``,
+        a route rule that picks the simt body wherever a body fits."""
         k1._lib = lambda: libs[name]
+        if variants[name][1] == "simt":
+            k1.model.route = (lambda *a, **kw: None if own_route(*a, **kw)
+                              is None else "simt")
         try:
             yield
         finally:
             k1._lib = own_lib
+            k1.model.route = own_route
 
     dev = torch.device("cuda")
     timer = Timer(torch, dev)
@@ -280,7 +287,8 @@ def main() -> int:
         def run(name, ins=ins):
             with on(name):
                 return k1.launch_frontier_round_bsr(
-                    *ins, route=variants[name][1])
+                    *ins, route=variants[name][1],
+                    buffer_depth=DEPTHS.get(name, 1))
 
         base = run("base")
         for name in variants:

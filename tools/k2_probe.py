@@ -29,7 +29,8 @@ ring of 3 stages of 32 KiB slabs, no L2 policy on the tile copies):
 (6 of them: the base's ring bytes); one CTA an SM with 3 (``cta1``), 4
 (``cta1_stages4``) or 6 (``cta1_stages6``) stages of 32 KiB or 3 of 64
 KiB (``cta1_slab64``), or with 16 consumer warps and 6 stages
-(``cta1_warps16``); ``evict_first`` (an evict_first L2 policy on the tile
+(``cta1_warps16``); the stages are the launch's ``buffer_depth``
+(``DEPTHS``), the rest source edits; ``evict_first`` (an evict_first L2 policy on the tile
 copies);
 ``bare`` (the copies and the barrier protocol with no arithmetic: the
 design's own floor); ``simt`` (the base build's other body, a CTA per
@@ -51,7 +52,6 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
-_STAGES = "constexpr int kBulkStages = 3;"
 _SLAB = "constexpr int kSlabBytes = 32 * 1024;"
 _CTA1 = ("constexpr int kCtasPerSm = 2;", "constexpr int kCtasPerSm = 1;")
 _WARPS16 = ("constexpr int kBulkWarps = 8;", "constexpr int kBulkWarps = 16;")
@@ -61,28 +61,31 @@ _MATH = """        accumulate_slab(ring + (size_t)st * sr * bs, x_s, acc_s, row0
 """
 
 
-def _stages(n):
-    return (_STAGES, f"constexpr int kBulkStages = {n};")
-
-
 def _slab(kib):
     return (_SLAB, f"constexpr int kSlabBytes = {kib} * 1024;")
 
 
 # name: (source edits, route)
 VARIANTS = {
-    "stages2": ([_stages(2)], "bulk"),
+    "stages2": ([], "bulk"),
     "slab16": ([_slab(16)], "bulk"),
-    "slab16_stages6": ([_slab(16), _stages(6)], "bulk"),
+    "slab16_stages6": ([_slab(16)], "bulk"),
     "cta1": ([_CTA1], "bulk"),
-    "cta1_stages4": ([_CTA1, _stages(4)], "bulk"),
-    "cta1_stages6": ([_CTA1, _stages(6)], "bulk"),
+    "cta1_stages4": ([_CTA1], "bulk"),
+    "cta1_stages6": ([_CTA1], "bulk"),
     "cta1_slab64": ([_CTA1, _slab(64)], "bulk"),
-    "cta1_warps16": ([_CTA1, _WARPS16, _stages(6)], "bulk"),
+    "cta1_warps16": ([_CTA1, _WARPS16], "bulk"),
     "evict_first": ([(_HINT, "constexpr bool kEvictFirst = true;")], "bulk"),
     "bare": ([(_MATH, "")], "bulk"),
     "simt": ([], "simt"),
 }
+# the ring's stages are a launch parameter (buffer_depth d >= 2: d stages;
+# the base runs depth 1, 3 stages)
+DEPTHS = {"stages2": 2, "slab16_stages6": 6, "cta1_stages4": 4,
+          "cta1_stages6": 6, "cta1_warps16": 6}
+# a variant's slab size, which the wrapper's shared-memory rule
+# (kernels/tune/model.py) must know to give its launch the bytes it takes
+SLABS = {"slab16": 16, "slab16_stages6": 16, "cta1_slab64": 64}
 OUT = ROOT / "build" / "k2_probe"
 
 
@@ -137,6 +140,7 @@ def main() -> int:
     import repro_torch
     from repro_torch.core import host_block_graph
     from repro_torch.kernels.diffusion import kernel as k2
+    from repro_torch.kernels.tune import model
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("variants", nargs="*", help="default: all of them")
@@ -169,13 +173,14 @@ def main() -> int:
         return 1
 
     own_lib = k2._lib
+    slab_bytes = model.SLAB_BYTES
     real = own_lib()
     libs = {}
     for name, edits in sources.items():
         lib = ctypes.CDLL(str(OUT / distinct[edits] / "lib.so"))
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
-        for fname in ("bsr_spmm", "bsr_spmm_route"):
+        for fname in ("bsr_spmm", "bulk_ctas_per_sm"):
             getattr(lib, fname).argtypes = getattr(real, fname).argtypes
             getattr(lib, fname).restype = getattr(real, fname).restype
         libs[name] = lib
@@ -215,10 +220,14 @@ def main() -> int:
 
         def run(name, ins=ins):
             k2._lib = lambda: libs[name]
+            model.SLAB_BYTES = SLABS.get(name, 32) * 1024
             try:
-                return k2.launch_bsr_spmm(*ins, route=variants[name][1])[0]
+                return k2.launch_bsr_spmm(
+                    *ins, route=variants[name][1],
+                    buffer_depth=DEPTHS.get(name, 1))[0]
             finally:
                 k2._lib = own_lib
+                model.SLAB_BYTES = slab_bytes
 
         base = run("base")
         for name in variants:
